@@ -1,0 +1,116 @@
+"""TransformerLM: the decoder-only language model of the zoo.
+
+Counterpart of ``analytics_zoo_tpu/models/textgeneration.py``.  The
+submodules carry the JAX layers' names (``tok_embed``, ``pos_embed``,
+``ln_attn_{i}``, ``attn_{i}``, ``ln_mlp_{i}``, ``mlp_up_{i}``,
+``mlp_down_{i}``, ``ln_final``, ``lm_head``) and their parameters the
+JAX shapes, so weights move between the packages by name
+(``models/jax_params.py``) and the decode path reads them by name.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..common.context import resolve_device
+from ..pipeline.api.keras.layers import (
+    Activation, Dense, Dropout, Embedding, LayerNorm, Merge,
+    MultiHeadSelfAttention, PositionalEmbedding)
+from .common import ZooModel
+
+
+class TransformerLM(ZooModel):
+    """Decoder-only transformer language model: pre-norm blocks of causal
+    multi-head self-attention and a gelu MLP, with sum residuals, a final
+    LayerNorm and a log-softmax head.
+
+    ``forward(ids)`` maps (batch, seq) token ids to (batch, seq,
+    vocab_size) log-probabilities.  Parameters are drawn from a
+    ``torch.Generator`` seeded with ``seed`` on ``device`` (``"cuda"``
+    unless asked otherwise).  ``moe_every`` (Switch-MoE MLPs) is not
+    ported yet and raises."""
+
+    def __init__(self, vocab_size=None, seq_len=128, n_layers=2,
+                 d_model=128, n_heads=4, d_ff=None, max_len=None,
+                 dropout=0.0, implementation="auto", moe_every=None,
+                 name=None, device=None, seed: int = 0):
+        if moe_every:
+            raise NotImplementedError(
+                "TransformerLM(moe_every=...) is not ported yet (see "
+                "ROADMAP.md)")
+        super().__init__(
+            name=name, vocab_size=vocab_size, seq_len=seq_len,
+            n_layers=n_layers, d_model=d_model, n_heads=n_heads,
+            d_ff=d_ff or 4 * d_model, max_len=max_len or seq_len,
+            dropout=dropout, implementation=implementation,
+            moe_every=None)
+        h = self.hyper
+        g = torch.Generator(resolve_device(device)).manual_seed(seed)
+        add = self.add_module
+        add("tok_embed", Embedding(h["vocab_size"], d_model,
+                                   name="tok_embed", generator=g))
+        add("pos_embed", PositionalEmbedding(h["max_len"], d_model,
+                                             name="pos_embed", generator=g))
+        for i in range(n_layers):
+            add(f"ln_attn_{i}", LayerNorm(d_model, name=f"ln_attn_{i}",
+                                          generator=g))
+            add(f"attn_{i}", MultiHeadSelfAttention(
+                d_model, n_heads, causal=True, implementation=implementation,
+                name=f"attn_{i}", generator=g))
+            add(f"ln_mlp_{i}", LayerNorm(d_model, name=f"ln_mlp_{i}",
+                                         generator=g))
+            add(f"mlp_up_{i}", Dense(d_model, h["d_ff"], activation="gelu",
+                                     name=f"mlp_up_{i}", generator=g))
+            add(f"mlp_down_{i}", Dense(h["d_ff"], d_model,
+                                       name=f"mlp_down_{i}", generator=g))
+        add("ln_final", LayerNorm(d_model, name="ln_final", generator=g))
+        add("lm_head", Dense(d_model, h["vocab_size"], name="lm_head",
+                             generator=g))
+        self.drop = Dropout(dropout, generator=g)
+        self.residual = Merge("sum")
+        self.head_act = Activation("log_softmax")
+
+    @property
+    def device(self) -> torch.device:
+        return self.lm_head.W.device
+
+    def forward(self, ids):
+        x = self.pos_embed(self.tok_embed(ids))
+        for i in range(self.hyper["n_layers"]):
+            a = getattr(self, f"attn_{i}")(getattr(self, f"ln_attn_{i}")(x))
+            x = self.residual([x, self.drop(a)])
+            f = getattr(self, f"ln_mlp_{i}")(x)
+            f = getattr(self, f"mlp_down_{i}")(getattr(self, f"mlp_up_{i}")(f))
+            x = self.residual([x, self.drop(f)])
+        return self.head_act(self.lm_head(self.ln_final(x)))
+
+    def predict(self, x, batch_size: int = 32) -> np.ndarray:
+        """(n, seq) token ids -> (n, seq, vocab_size) log-probabilities as
+        numpy, in batches of ``batch_size``, without dropout."""
+        ids = torch.as_tensor(np.asarray(x), device=self.device)
+        was_training = self.training
+        self.eval()
+        try:
+            with torch.no_grad():
+                out = [self(ids[i:i + batch_size]).cpu()
+                       for i in range(0, ids.shape[0], batch_size)]
+        finally:
+            self.train(was_training)
+        return torch.cat(out).numpy()
+
+    def generate(self, prompt_ids, max_new_tokens: int,
+                 temperature: float = 0.0, top_k: Optional[int] = None,
+                 top_p: Optional[float] = None, seed: int = 0,
+                 num_beams: int = 1, prompt_lengths=None) -> np.ndarray:
+        """Autoregressive continuation from a KV cache: greedy
+        (``temperature=0``) or temperature/top-k/top-p sampling; ragged
+        right-padded prompts decode from their own ``prompt_lengths``.
+        See :func:`analytics_zoo_tpu_torch.models.generation.generate`."""
+        from .generation import generate
+        return generate(self, prompt_ids, max_new_tokens,
+                        temperature=temperature, top_k=top_k, top_p=top_p,
+                        seed=seed, num_beams=num_beams,
+                        prompt_lengths=prompt_lengths)

@@ -1,0 +1,186 @@
+"""Build, load and launch the port's hand-written CUDA kernels.
+
+Each ``csrc/*.cu`` source has a plain C interface.  It is compiled by
+``nvcc`` into its own shared library at first use and bound with
+``ctypes``.  Libraries go to ``build/torch_kernels/<hash>/`` under the
+checkout, keyed by a hash of the sources and the compiler flags, so an
+edited source rebuilds and an unchanged one is reused.  Importing this
+module builds nothing and needs no ``nvcc``: the build runs on the first
+launch, or when :func:`build` is called.
+
+A wrapper checks device, dtype, shape and contiguity, allocates its
+outputs with ``torch.empty``, launches on the current CUDA stream, raises
+when the launch returns a CUDA error, and counts its launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+_CSRC = Path(__file__).resolve().parent / "csrc"
+_BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_VOID = ctypes.c_void_p
+_INT = ctypes.c_int
+# source file -> (C symbol, argtypes)
+_SIGNATURES = {
+    "flash_fwd.cu": ("flash_fwd", [_VOID, _VOID, _VOID, _VOID, _VOID, _VOID,
+                                   _INT, _INT, _INT, _INT, ctypes.c_float,
+                                   _INT, _INT, _VOID]),
+}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    candidate = Path(home) / "bin" / "nvcc"
+    if candidate.exists():
+        return str(candidate)
+    raise RuntimeError("nvcc not found on PATH or under CUDA_HOME; the CUDA "
+                       "kernels are built from csrc/ on a host with the "
+                       "CUDA toolkit")
+
+
+def _build_dir() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in sorted(_SIGNATURES):
+        h.update(name.encode())
+        h.update((_CSRC / name).read_bytes())
+    return _BUILD_ROOT / h.hexdigest()[:16]
+
+
+class KernelLibrary:
+    """The compiled kernels: built once per process (and once per source
+    hash on disk), one ``nvcc`` per source, all started together."""
+
+    def __init__(self):
+        self._fns = None
+        self.build_log = ""
+
+    def build(self) -> dict:
+        if self._fns is not None:
+            return self._fns
+        out = _build_dir()
+        out.mkdir(parents=True, exist_ok=True)
+        procs, logs = {}, []
+        for name in sorted(_SIGNATURES):
+            lib = out / (Path(name).stem + ".so")
+            if lib.exists():
+                continue
+            tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+            procs[name] = (subprocess.Popen(
+                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_CSRC / name)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+                tmp, lib)
+        failed = []
+        for name, (proc, tmp, lib) in procs.items():
+            text, _ = proc.communicate()
+            logs.append(f"== {name}\n{text}")
+            if proc.returncode != 0:
+                failed.append(name)
+            else:
+                os.replace(tmp, lib)
+        self.build_log = "\n".join(logs)
+        if failed:
+            raise RuntimeError(f"nvcc failed for {failed}:\n{self.build_log}")
+        fns = {}
+        for name, (symbol, argtypes) in _SIGNATURES.items():
+            lib = ctypes.CDLL(str(out / (Path(name).stem + ".so")))
+            fn = getattr(lib, symbol)
+            fn.argtypes = argtypes
+            fn.restype = _INT
+            fns[symbol] = fn
+        self._fns = fns
+        return fns
+
+
+LIBRARY = KernelLibrary()
+
+
+def build() -> None:
+    """Build (or load) every kernel."""
+    LIBRARY.build()
+
+
+class FlashFwd:
+    """Wrapper of ``flash_fwd`` (csrc/flash_fwd.cu).  ``launches`` counts
+    the kernel launches made through it."""
+
+    DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+    MAX_HEAD_DIM = 128
+
+    def __init__(self):
+        self.launches = 0
+
+    def __call__(self, q, k, v, lens, causal: bool, scale: float):
+        """q (bh, sq, d), k/v (bh, sk, d) CUDA tensors of one dtype;
+        ``lens`` (bh,) f32 valid key counts or None.  Returns
+        (o (bh, sq, d) at the input dtype, lse (bh, sq) f32)."""
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            if not t.is_cuda:
+                raise ValueError(f"flash_fwd kernel: {name} must be a CUDA "
+                                 f"tensor, got device {t.device}")
+            if t.dim() != 3 or not t.is_contiguous():
+                raise ValueError(f"flash_fwd kernel: {name} must be a "
+                                 "contiguous (bh, s, d) tensor")
+        if q.dtype not in self.DTYPES or not q.dtype == k.dtype == v.dtype:
+            raise ValueError("flash_fwd kernel takes float32 or bfloat16 "
+                             f"q/k/v of one dtype, got {q.dtype}, {k.dtype}, "
+                             f"{v.dtype}")
+        bh, sq, d = q.shape
+        sk = k.shape[1]
+        if k.shape != (bh, sk, d) or v.shape != k.shape:
+            raise ValueError(f"flash_fwd kernel: shapes q {tuple(q.shape)}, "
+                             f"k {tuple(k.shape)}, v {tuple(v.shape)} differ")
+        if not 1 <= d <= self.MAX_HEAD_DIM or sq < 1 or sk < 1:
+            raise ValueError(f"flash_fwd kernel: head_dim {d} must lie in "
+                             f"[1, {self.MAX_HEAD_DIM}] and sequences must "
+                             "be non-empty")
+        if causal and sq > sk:
+            raise ValueError("flash_fwd kernel: causal needs sq <= sk")
+        if lens is not None:
+            if (lens.shape != (bh,) or lens.dtype != torch.float32
+                    or lens.device != q.device or not lens.is_contiguous()):
+                raise ValueError("flash_fwd kernel: lens must be a "
+                                 "contiguous (bh,) float32 tensor on the "
+                                 "device of q")
+        fn = LIBRARY.build()["flash_fwd"]
+        o = torch.empty_like(q)
+        lse = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        with torch.cuda.device(q.device):
+            err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                     None if lens is None else lens.data_ptr(),
+                     o.data_ptr(), lse.data_ptr(), bh, sq, sk, d,
+                     float(scale), int(bool(causal)), self.DTYPES[q.dtype],
+                     stream)
+        if err != 0:
+            raise RuntimeError(f"flash_fwd: CUDA error {err} at launch")
+        self.launches += 1
+        return o, lse
+
+
+flash_fwd = FlashFwd()
+
+#: every kernel wrapper, by name (chip_smoke.py resets and reads these)
+KERNELS = {"flash_fwd": flash_fwd}
+
+
+def reset_launch_counts():
+    for kernel in KERNELS.values():
+        kernel.launches = 0
+
+
+def launch_counts() -> dict:
+    return {name: kernel.launches for name, kernel in KERNELS.items()}

@@ -26,6 +26,9 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers",
         "slow: multi-minute integration tests (deselect with -m 'not slow')")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU (skips without one; run with -m cuda)")
 
 
 # measured >20 s on the round-4 CI run (pytest --durations, -n 4); the

@@ -1,0 +1,302 @@
+"""The port's attention ops against the JAX package's.
+
+Same inputs (numpy, seeded) through both packages on the CPU.  The JAX
+flash kernel runs in the Pallas interpreter (``interpret=True``); the
+port's flash path on a CPU tensor is its plain version,
+``flash_attention_reference``, the CUDA kernel's tile algorithm in torch.
+Tolerance for f32: rtol 2e-4, atol 2e-5 (the JAX package's own attention
+tests use the same).  The CUDA kernel itself is held against the plain
+version only where a card is present (marker ``cuda``).
+"""
+
+import importlib
+import subprocess
+
+import numpy as np
+import pytest
+import torch
+import jax
+import jax.numpy as jnp
+
+from analytics_zoo_tpu.pipeline.api.keras.layers import (
+    MultiHeadSelfAttention as JMHSA, PositionalEmbedding as JPosEmb)
+from analytics_zoo_tpu_torch.ops import _kernels
+from analytics_zoo_tpu_torch.ops import attention as tattn
+from analytics_zoo_tpu_torch.pipeline.api.keras.layers import (
+    MultiHeadSelfAttention, PositionalEmbedding)
+
+# the JAX package's ops/__init__ exports a function named ``attention``
+jattn = importlib.import_module("analytics_zoo_tpu.ops.attention")
+RTOL, ATOL = 2e-4, 2e-5
+
+
+def qkv(b=2, sq=64, sk=None, h=2, d=16, seed=0):
+    rng = np.random.default_rng(seed)
+    sk = sq if sk is None else sk
+    return (rng.normal(0, 1, (b, sq, h, d)).astype(np.float32),
+            rng.normal(0, 1, (b, sk, h, d)).astype(np.float32),
+            rng.normal(0, 1, (b, sk, h, d)).astype(np.float32))
+
+
+def close(a, b, rtol=RTOL, atol=ATOL):
+    np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=rtol,
+                               atol=atol)
+
+
+def t(*arrays):
+    return [torch.from_numpy(a) for a in arrays]
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("lens", [None, [64, 37]])
+def test_naive_matches_jax(causal, lens):
+    q, k, v = qkv()
+    ref = jattn.naive_attention(q, k, v, causal=causal, kv_lengths=lens)
+    out = tattn.naive_attention(*t(q, k, v), causal=causal, kv_lengths=lens)
+    close(out, ref)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("lens", [None, [64, 5]])
+def test_blockwise_matches_jax(causal, lens):
+    q, k, v = qkv(seed=1)
+    ref = jattn.blockwise_attention(q, k, v, causal=causal, block_k=16,
+                                    kv_lengths=lens)
+    out = tattn.blockwise_attention(*t(q, k, v), causal=causal, block_k=16,
+                                    kv_lengths=lens)
+    close(out, ref)
+
+
+FLASH_CASES = [
+    # causal, sq, sk, kv_lengths, layout
+    (False, 64, 64, None, "bshd"),
+    (True, 64, 64, None, "bshd"),
+    (True, 64, 128, None, "bhsd"),        # cross: cached-kv shape
+    (False, 48, 96, None, "bhsd"),
+    (False, 64, 64, [64, 37], "bshd"),
+    (True, 64, 64, [64, 5], "bhsd"),
+    (True, 37, 37, None, "bshd"),         # prime: the JAX side pads
+    (False, 37, 53, [53, 20], "bshd"),    # prime cross with lengths
+    (True, 130, 130, [130, 70], "bhsd"),  # three ragged 64-row tiles
+]
+
+
+@pytest.mark.parametrize("causal,sq,sk,lens,layout", FLASH_CASES)
+def test_flash_plain_matches_jax_flash(causal, sq, sk, lens, layout):
+    q, k, v = qkv(sq=sq, sk=sk, seed=2)
+    if layout == "bhsd":
+        q, k, v = (a.transpose(0, 2, 1, 3).copy() for a in (q, k, v))
+    ref = jattn.flash_attention(q, k, v, causal=causal, interpret=True,
+                                layout=layout, kv_lengths=lens)
+    out = tattn.flash_attention(*t(q, k, v), causal=causal, layout=layout,
+                                kv_lengths=lens)
+    close(out, ref)
+    # and the JAX oracle, in the bshd contract
+    if layout == "bhsd":
+        q, k, v = (a.transpose(0, 2, 1, 3) for a in (q, k, v))
+        out = out.transpose(1, 2)
+    close(out, jattn.naive_attention(q, k, v, causal=causal,
+                                     kv_lengths=lens))
+
+
+@pytest.mark.parametrize("causal,sq,sk,lens", [
+    (False, 64, 64, None),
+    (True, 64, 64, None),
+    (True, 32, 64, None),
+    (True, 64, 64, [64, 11]),
+    (False, 96, 64, [40, 64]),
+])
+def test_flash_plain_lse_matches_jax_kernel(causal, sq, sk, lens):
+    """The row logsumexp, the residual of the later backward, against
+    the one the Pallas forward writes."""
+    b, h, d = 2, 2, 16
+    q, k, v = qkv(b=b, sq=sq, sk=sk, h=h, d=d, seed=3)
+    fold = lambda a: a.transpose(0, 2, 1, 3).reshape(b * h, -1, d).copy()
+    qf, kf, vf = fold(q), fold(k), fold(v)
+    masked = lens is not None
+    jl = (np.repeat(np.asarray(lens, np.float32), h)[:, None, None]
+          if masked else np.zeros((b * h, 1, 1), np.float32))
+    scale = d ** -0.5
+    o_ref, lse_ref = jattn._flash_fwd_call(
+        jnp.asarray(qf), jnp.asarray(kf), jnp.asarray(vf), jnp.asarray(jl),
+        sq, sk, causal, masked, 16, 32, scale, True)
+    tl = torch.from_numpy(jl[:, 0, 0]) if masked else None
+    o, lse = tattn.flash_attention_reference(*t(qf, kf, vf), causal, scale,
+                                             tl)
+    assert lse.shape == (b * h, sq) and lse.dtype == torch.float32
+    close(o, o_ref)
+    close(lse, np.asarray(lse_ref)[:, 0, :])
+
+
+def test_flash_plain_bf16_rounds_p_like_the_kernel():
+    """bf16 inputs: o at bf16, lse in f32, within bf16 rounding of the
+    f32 result (o atol 2e-2: one bf16 ulp near 2)."""
+    q, k, v = qkv(sq=64, seed=4)
+    fold = lambda a: torch.from_numpy(
+        a.transpose(0, 2, 1, 3).reshape(4, 64, 16).copy())
+    qf, kf, vf = fold(q), fold(k), fold(v)
+    o32, lse32 = tattn.flash_attention_reference(qf, kf, vf, True)
+    o16, lse16 = tattn.flash_attention_reference(
+        *(a.to(torch.bfloat16) for a in (qf, kf, vf)), True)
+    assert o16.dtype == torch.bfloat16 and lse16.dtype == torch.float32
+    close(o16.float(), o32, rtol=0, atol=2e-2)
+    close(lse16, lse32, rtol=0, atol=2e-2)
+
+
+@pytest.mark.parametrize("impl,causal,sq,sk,layout", [
+    ("auto", True, 64, 64, "bshd"),     # blockwise on the CPU
+    ("auto", False, 37, 37, "bshd"),    # prime: naive on the CPU
+    ("auto", True, 96, 48, "bshd"),     # causal sq > sk: never flash
+    ("blockwise", False, 64, 64, "bshd"),
+    ("naive", True, 64, 64, "bshd"),
+    ("auto", True, 64, 64, "bhsd"),
+    ("auto", False, 37, 37, "bhsd"),
+    ("auto", True, 96, 48, "bhsd"),
+    ("blockwise", False, 64, 64, "bhsd"),
+    ("naive", True, 64, 64, "bhsd"),
+    ("flash", True, 64, 64, "bhsd"),    # interpret on the JAX side
+])
+def test_dispatch_matches_jax(impl, causal, sq, sk, layout):
+    q, k, v = qkv(sq=sq, sk=sk, seed=5)
+    lens = [sk, max(1, sk // 3)]
+    if layout == "bhsd":
+        q, k, v = (a.transpose(0, 2, 1, 3).copy() for a in (q, k, v))
+        ref = jattn.attention_bhsd(q, k, v, causal=causal,
+                                   implementation=impl, kv_lengths=lens)
+        out = tattn.attention_bhsd(*t(q, k, v), causal=causal,
+                                   implementation=impl, kv_lengths=lens)
+    else:
+        ref = jattn.attention(q, k, v, causal=causal, implementation=impl,
+                              kv_lengths=lens)
+        out = tattn.attention(*t(q, k, v), causal=causal,
+                              implementation=impl, kv_lengths=lens)
+    close(out, ref)
+
+
+RAISES = [
+    # (what, call on a module, match)
+    ("causal sq > sk", lambda m, q, k, v: m.flash_attention(
+        q[:, :64], k[:, :32], v[:, :32], causal=True, **_interp(m)),
+     "sq <= sk"),
+    # sq = 257 is prime and > 256: no block divisor >= 8
+    ("causal cross without divisor", lambda m, q, k, v: m.flash_attention(
+        q, k, v, causal=True, **_interp(m)), "cross lengths"),
+    ("layout", lambda m, q, k, v: m.flash_attention(
+        q, k, v, layout="sbhd", **_interp(m)), "layout"),
+    ("kv_lengths rank", lambda m, q, k, v: m.naive_attention(
+        q, k, v, kv_lengths=np.ones((2, 2))), "kv_lengths"),
+    ("block_k", lambda m, q, k, v: m.blockwise_attention(
+        q, k, v, block_k=7), "must divide"),
+    ("implementation", lambda m, q, k, v: m.attention(
+        q, k, v, implementation="warp"), "Unknown implementation"),
+]
+
+
+def _interp(m):
+    return {"interpret": True} if m is jattn else {}
+
+
+@pytest.mark.parametrize("what,call,match", RAISES,
+                         ids=[r[0] for r in RAISES])
+def test_same_raises_as_jax(what, call, match):
+    q, k, v = qkv(sq=257, sk=300, seed=6)
+    with pytest.raises(ValueError, match=match):
+        call(jattn, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    with pytest.raises(ValueError, match=match):
+        call(tattn, *t(q, k, v))
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_mhsa_layer_matches_jax(causal):
+    """The layer with the JAX layer's params, single and [x, lengths]."""
+    b, s, e = 2, 24, 32
+    jl = JMHSA(4, causal=causal, implementation="auto", name="t_mhsa")
+    params, _ = jl.init(jax.random.PRNGKey(0), (None, s, e))
+    tl = MultiHeadSelfAttention(e, 4, causal=causal, device="cpu")
+    with torch.no_grad():
+        for key, p in tl.params().items():
+            p.copy_(torch.from_numpy(np.array(params[key])))
+    x = np.random.default_rng(7).normal(size=(b, s, e)).astype(np.float32)
+    lens = np.array([24, 9])
+    close(tl(torch.from_numpy(x)).detach(),
+          jl.call(params, {}, jnp.asarray(x)))
+    close(tl([torch.from_numpy(x), torch.from_numpy(lens[:, None])]).detach(),
+          jl.call(params, {}, [jnp.asarray(x), jnp.asarray(lens[:, None])]))
+
+
+def test_positional_embedding_matches_jax():
+    jl = JPosEmb(16, name="t_pos")
+    params, _ = jl.init(jax.random.PRNGKey(1), (None, 10, 8))
+    tl = PositionalEmbedding(16, 8, device="cpu")
+    # uniform(-0.05, 0.05) * 0.02
+    assert float(tl.table.detach().abs().max()) <= 0.02 * 0.05
+    with torch.no_grad():
+        tl.table.copy_(torch.from_numpy(np.array(params["table"])))
+    x = np.random.default_rng(8).normal(size=(3, 10, 8)).astype(np.float32)
+    close(tl(torch.from_numpy(x)).detach(),
+          jl.call(params, {}, jnp.asarray(x)), rtol=0, atol=0)
+    with pytest.raises(ValueError, match="max_len"):
+        tl(torch.zeros((1, 17, 8)))
+
+
+def test_kernel_module_import_builds_nothing(monkeypatch):
+    """Importing the kernel loader on a host without nvcc starts no
+    compiler, and the flash path on a CPU tensor takes the plain version
+    without touching the library or the launch count."""
+    def refuse(*a, **k):
+        raise AssertionError("a subprocess was started")
+
+    monkeypatch.setattr(subprocess, "Popen", refuse)
+    monkeypatch.setattr(subprocess, "run", refuse)
+    monkeypatch.setenv("PATH", "")
+    monkeypatch.setenv("CUDA_HOME", "/nonexistent")
+    mod = importlib.reload(_kernels)
+    assert mod.LIBRARY._fns is None
+    q, k, v = qkv(seed=9)
+    out = tattn.attention(*t(q, k, v), causal=True, implementation="flash")
+    assert out.shape == q.shape
+    assert mod.launch_counts() == {"flash_fwd": 0}
+    assert mod.LIBRARY._fns is None
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        mod._nvcc()
+
+
+def test_kernel_wrapper_refuses_cpu_tensors():
+    """The wrapper launches on CUDA tensors only: no quiet CPU path."""
+    q = torch.zeros((2, 8, 16))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        _kernels.flash_fwd(q, q, q, None, True, 0.25)
+    assert _kernels.flash_fwd.launches == 0
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc (the CUDA kernel has no "
+                    "CPU mode)")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,causal,sq,sk,masked", [
+    (torch.float32, True, 512, 512, False),
+    (torch.float32, False, 200, 777, True),
+    (torch.bfloat16, True, 37, 37, False),
+])
+def test_cuda_kernel_matches_plain(cuda, dtype, causal, sq, sk, masked):
+    """The CUDA kernel against its plain version on the card: o within
+    1e-4 (f32) or 2e-2 (bf16), lse within 1e-4."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v = (torch.randn((8, s, 64), generator=g, device=cuda).to(dtype)
+               for s in (sq, sk, sk))
+    lens = (torch.randint(1, sk + 1, (8,), generator=g, device=cuda).float()
+            if masked else None)
+    before = _kernels.flash_fwd.launches
+    o, lse = _kernels.flash_fwd(q, k, v, lens, causal, 0.125)
+    o_ref, lse_ref = tattn.flash_attention_reference(q, k, v, causal, 0.125,
+                                                     lens)
+    torch.cuda.synchronize()
+    assert _kernels.flash_fwd.launches == before + 1
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    close(o.float().cpu(), o_ref.float().cpu(), rtol=0, atol=tol)
+    close(lse.cpu(), lse_ref.cpu(), rtol=0, atol=1e-4)
