@@ -30,8 +30,11 @@ class TransformerLM(ZooModel):
     ``forward(ids)`` maps (batch, seq) token ids to (batch, seq,
     vocab_size) log-probabilities.  Parameters are drawn from a
     ``torch.Generator`` seeded with ``seed`` on ``device`` (``"cuda"``
-    unless asked otherwise).  ``moe_every`` (Switch-MoE MLPs) is not
-    ported yet and raises."""
+    unless asked otherwise).  It trains as a :class:`KerasNet`:
+    ``compile(optimizer, loss="class_nll")`` then ``fit(x, y)`` with
+    next-token int targets (batch, seq); dropout is active in ``fit`` only,
+    not in ``evaluate``, ``predict`` or ``generate``.  ``moe_every``
+    (Switch-MoE MLPs) is not ported yet and raises."""
 
     def __init__(self, vocab_size=None, seq_len=128, n_layers=2,
                  d_model=128, n_heads=4, d_ff=None, max_len=None,
@@ -86,20 +89,6 @@ class TransformerLM(ZooModel):
             f = getattr(self, f"mlp_down_{i}")(getattr(self, f"mlp_up_{i}")(f))
             x = self.residual([x, self.drop(f)])
         return self.head_act(self.lm_head(self.ln_final(x)))
-
-    def predict(self, x, batch_size: int = 32) -> np.ndarray:
-        """(n, seq) token ids -> (n, seq, vocab_size) log-probabilities as
-        numpy, in batches of ``batch_size``, without dropout."""
-        ids = torch.as_tensor(np.asarray(x), device=self.device)
-        was_training = self.training
-        self.eval()
-        try:
-            with torch.no_grad():
-                out = [self(ids[i:i + batch_size]).cpu()
-                       for i in range(0, ids.shape[0], batch_size)]
-        finally:
-            self.train(was_training)
-        return torch.cat(out).numpy()
 
     def generate(self, prompt_ids, max_new_tokens: int,
                  temperature: float = 0.0, top_k: Optional[int] = None,

@@ -31,11 +31,16 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _VOID = ctypes.c_void_p
 _INT = ctypes.c_int
-# source file -> (C symbol, argtypes)
+# every launch ends with bh, sq, sk, d, scale, causal, dtype, stream
+_TAIL = [_INT, _INT, _INT, _INT, ctypes.c_float, _INT, _INT, _VOID]
+# source file -> {C symbol: argtypes}
 _SIGNATURES = {
-    "flash_fwd.cu": ("flash_fwd", [_VOID, _VOID, _VOID, _VOID, _VOID, _VOID,
-                                   _INT, _INT, _INT, _INT, ctypes.c_float,
-                                   _INT, _INT, _VOID]),
+    # q, k, v, lens, o, lse | bh, sq, sk, d, scale, causal, dtype, stream
+    "flash_fwd.cu": {"flash_fwd": [_VOID] * 6 + _TAIL},
+    # q, k, v, do, lse, delta, lens, dq | ...
+    # q, k, v, do, lse, delta, lens, dk, dv | ...
+    "flash_bwd.cu": {"flash_bwd_dq": [_VOID] * 8 + _TAIL,
+                     "flash_bwd_dkv": [_VOID] * 9 + _TAIL},
 }
 
 
@@ -95,12 +100,13 @@ class KernelLibrary:
         if failed:
             raise RuntimeError(f"nvcc failed for {failed}:\n{self.build_log}")
         fns = {}
-        for name, (symbol, argtypes) in _SIGNATURES.items():
+        for name, symbols in _SIGNATURES.items():
             lib = ctypes.CDLL(str(out / (Path(name).stem + ".so")))
-            fn = getattr(lib, symbol)
-            fn.argtypes = argtypes
-            fn.restype = _INT
-            fns[symbol] = fn
+            for symbol, argtypes in symbols.items():
+                fn = getattr(lib, symbol)
+                fn.argtypes = argtypes
+                fn.restype = _INT
+                fns[symbol] = fn
         self._fns = fns
         return fns
 
@@ -113,12 +119,77 @@ def build() -> None:
     LIBRARY.build()
 
 
+
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_HEAD_DIM = 128
+
+
+def _check_attention_args(name, q, k, v, lens, causal, rows=()):
+    """The checks every flash wrapper makes: contiguous CUDA (bh, s, d)
+    q/k/v of one dtype (f32 or bf16), head_dim in [1, 128], causal only
+    for sq <= sk, ``lens`` None or a contiguous (bh,) f32 tensor on q's
+    device.  ``rows`` are extra (name, tensor, dtype) arguments shaped
+    per query row: ``(bh, sq, d)`` at q's dtype or ``(bh, sq)`` f32."""
+    for arg, t in (("q", q), ("k", k), ("v", v)):
+        if not t.is_cuda:
+            raise ValueError(f"{name} kernel: {arg} must be a CUDA "
+                             f"tensor, got device {t.device}")
+        if t.dim() != 3 or not t.is_contiguous():
+            raise ValueError(f"{name} kernel: {arg} must be a "
+                             "contiguous (bh, s, d) tensor")
+    if q.dtype not in _DTYPES or not q.dtype == k.dtype == v.dtype:
+        raise ValueError(f"{name} kernel takes float32 or bfloat16 q/k/v "
+                         f"of one dtype, got {q.dtype}, {k.dtype}, "
+                         f"{v.dtype}")
+    bh, sq, d = q.shape
+    sk = k.shape[1]
+    if k.shape != (bh, sk, d) or v.shape != k.shape:
+        raise ValueError(f"{name} kernel: shapes q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)} differ")
+    if not 1 <= d <= MAX_HEAD_DIM or sq < 1 or sk < 1:
+        raise ValueError(f"{name} kernel: head_dim {d} must lie in "
+                         f"[1, {MAX_HEAD_DIM}] and sequences must be "
+                         "non-empty")
+    if causal and sq > sk:
+        raise ValueError(f"{name} kernel: causal needs sq <= sk")
+    if lens is not None and (
+            lens.shape != (bh,) or lens.dtype != torch.float32
+            or lens.device != q.device or not lens.is_contiguous()):
+        raise ValueError(f"{name} kernel: lens must be a contiguous (bh,) "
+                         "float32 tensor on the device of q")
+    for arg, t, shape, dtype in rows:
+        if (tuple(t.shape) != shape or t.dtype != dtype
+                or t.device != q.device or not t.is_contiguous()):
+            raise ValueError(f"{name} kernel: {arg} must be a contiguous "
+                             f"{shape} {dtype} tensor on the device of q, "
+                             f"got {tuple(t.shape)} {t.dtype} on "
+                             f"{t.device}")
+    return bh, sq, sk, d
+
+
+def _bwd_rows(q, do, lse, delta):
+    rows = q.shape[:2]
+    return (("do", do, tuple(q.shape), q.dtype),
+            ("lse", lse, tuple(rows), torch.float32),
+            ("delta", delta, tuple(rows), torch.float32))
+
+
+def _launch(name, fn, q, *args):
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(q.device):
+        err = fn(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err} at launch")
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
 class FlashFwd:
     """Wrapper of ``flash_fwd`` (csrc/flash_fwd.cu).  ``launches`` counts
     the kernel launches made through it."""
-
-    DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-    MAX_HEAD_DIM = 128
 
     def __init__(self):
         self.launches = 0
@@ -127,54 +198,74 @@ class FlashFwd:
         """q (bh, sq, d), k/v (bh, sk, d) CUDA tensors of one dtype;
         ``lens`` (bh,) f32 valid key counts or None.  Returns
         (o (bh, sq, d) at the input dtype, lse (bh, sq) f32)."""
-        for name, t in (("q", q), ("k", k), ("v", v)):
-            if not t.is_cuda:
-                raise ValueError(f"flash_fwd kernel: {name} must be a CUDA "
-                                 f"tensor, got device {t.device}")
-            if t.dim() != 3 or not t.is_contiguous():
-                raise ValueError(f"flash_fwd kernel: {name} must be a "
-                                 "contiguous (bh, s, d) tensor")
-        if q.dtype not in self.DTYPES or not q.dtype == k.dtype == v.dtype:
-            raise ValueError("flash_fwd kernel takes float32 or bfloat16 "
-                             f"q/k/v of one dtype, got {q.dtype}, {k.dtype}, "
-                             f"{v.dtype}")
-        bh, sq, d = q.shape
-        sk = k.shape[1]
-        if k.shape != (bh, sk, d) or v.shape != k.shape:
-            raise ValueError(f"flash_fwd kernel: shapes q {tuple(q.shape)}, "
-                             f"k {tuple(k.shape)}, v {tuple(v.shape)} differ")
-        if not 1 <= d <= self.MAX_HEAD_DIM or sq < 1 or sk < 1:
-            raise ValueError(f"flash_fwd kernel: head_dim {d} must lie in "
-                             f"[1, {self.MAX_HEAD_DIM}] and sequences must "
-                             "be non-empty")
-        if causal and sq > sk:
-            raise ValueError("flash_fwd kernel: causal needs sq <= sk")
-        if lens is not None:
-            if (lens.shape != (bh,) or lens.dtype != torch.float32
-                    or lens.device != q.device or not lens.is_contiguous()):
-                raise ValueError("flash_fwd kernel: lens must be a "
-                                 "contiguous (bh,) float32 tensor on the "
-                                 "device of q")
+        bh, sq, sk, d = _check_attention_args("flash_fwd", q, k, v, lens,
+                                              causal)
         fn = LIBRARY.build()["flash_fwd"]
         o = torch.empty_like(q)
         lse = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        with torch.cuda.device(q.device):
-            err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                     None if lens is None else lens.data_ptr(),
-                     o.data_ptr(), lse.data_ptr(), bh, sq, sk, d,
-                     float(scale), int(bool(causal)), self.DTYPES[q.dtype],
-                     stream)
-        if err != 0:
-            raise RuntimeError(f"flash_fwd: CUDA error {err} at launch")
+        _launch("flash_fwd", fn, q, q.data_ptr(), k.data_ptr(),
+                v.data_ptr(), _ptr(lens), o.data_ptr(), lse.data_ptr(), bh,
+                sq, sk, d, float(scale), int(bool(causal)), _DTYPES[q.dtype])
         self.launches += 1
         return o, lse
 
 
+class FlashBwdDq:
+    """Wrapper of ``flash_bwd_dq`` (csrc/flash_bwd.cu)."""
+
+    def __init__(self):
+        self.launches = 0
+
+    def __call__(self, q, k, v, do, lse, delta, lens, causal: bool,
+                 scale: float):
+        """q/do (bh, sq, d), k/v (bh, sk, d) CUDA tensors of one dtype;
+        lse and delta (bh, sq) f32; ``lens`` as for ``flash_fwd``.
+        Returns dq (bh, sq, d) at the input dtype."""
+        bh, sq, sk, d = _check_attention_args(
+            "flash_bwd_dq", q, k, v, lens, causal, rows=_bwd_rows(
+                q, do, lse, delta))
+        fn = LIBRARY.build()["flash_bwd_dq"]
+        dq = torch.empty_like(q)
+        _launch("flash_bwd_dq", fn, q, q.data_ptr(), k.data_ptr(),
+                v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                delta.data_ptr(), _ptr(lens), dq.data_ptr(), bh, sq, sk, d,
+                float(scale), int(bool(causal)), _DTYPES[q.dtype])
+        self.launches += 1
+        return dq
+
+
+class FlashBwdDkv:
+    """Wrapper of ``flash_bwd_dkv`` (csrc/flash_bwd.cu)."""
+
+    def __init__(self):
+        self.launches = 0
+
+    def __call__(self, q, k, v, do, lse, delta, lens, causal: bool,
+                 scale: float):
+        """As :class:`FlashBwdDq`; returns (dk, dv), each (bh, sk, d) at
+        the input dtype, with every row written (zeros past ``lens``)."""
+        bh, sq, sk, d = _check_attention_args(
+            "flash_bwd_dkv", q, k, v, lens, causal, rows=_bwd_rows(
+                q, do, lse, delta))
+        fn = LIBRARY.build()["flash_bwd_dkv"]
+        dk = torch.empty_like(k)
+        dv = torch.empty_like(v)
+        _launch("flash_bwd_dkv", fn, q, q.data_ptr(), k.data_ptr(),
+                v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                delta.data_ptr(), _ptr(lens), dk.data_ptr(), dv.data_ptr(),
+                bh, sq, sk, d, float(scale), int(bool(causal)),
+                _DTYPES[q.dtype])
+        self.launches += 1
+        return dk, dv
+
+
 flash_fwd = FlashFwd()
+flash_bwd_dq = FlashBwdDq()
+flash_bwd_dkv = FlashBwdDkv()
 
 #: every kernel wrapper, by name (chip_smoke.py resets and reads these)
-KERNELS = {"flash_fwd": flash_fwd}
+KERNELS = {"flash_fwd": flash_fwd, "flash_bwd_dq": flash_bwd_dq,
+           "flash_bwd_dkv": flash_bwd_dkv}
 
 
 def reset_launch_counts():

@@ -5,11 +5,13 @@ implementations share one semantics:
 
 * ``naive_attention``: O(S^2) materialised scores; the test oracle.
 * ``blockwise_attention``: a loop over key blocks with an online softmax.
-* ``flash_attention``: the hand-written CUDA kernel
-  (``csrc/flash_fwd.cu``) on a CUDA tensor; on a CPU tensor its plain
-  version, :func:`flash_attention_reference`, which runs the kernel's
-  tile algorithm in torch (the role Pallas ``interpret=True`` plays for
-  the JAX package).
+* ``flash_attention``: :class:`FlashAttentionFunction`, whose forward
+  is the hand-written CUDA kernel ``csrc/flash_fwd.cu`` and whose
+  backward is the two kernels of ``csrc/flash_bwd.cu`` on a CUDA tensor;
+  on a CPU tensor their plain versions (:func:`flash_attention_reference`,
+  :func:`flash_bwd_dq_reference`, :func:`flash_bwd_dkv_reference`),
+  which run the kernels' tile algorithms in torch (the role Pallas
+  ``interpret=True`` plays for the JAX package).
 
 ``attention`` and ``naive``/``blockwise`` take (batch, seq, heads,
 head_dim); ``attention_bhsd`` takes (batch, heads, seq, head_dim).
@@ -161,14 +163,176 @@ def flash_attention_reference(q, k, v, causal: bool = False,
     return o, lse
 
 
+def _replay_tile(qf, kf, vf, dof, lse, delta, q0, q1, k0, k1, sq, sk,
+                 causal, lens, scale):
+    """p and ds (f32) of one (query tile, key tile) pair, replayed from
+    the forward's lse as the backward kernels do: p = exp(s * scale -
+    lse) where the pair is valid, exactly 0 where it is masked, and
+    ds = p * (dp - delta) * scale with dp = do . v^T."""
+    s = torch.bmm(qf[:, q0:q1], kf[:, k0:k1].transpose(1, 2))
+    q_pos = torch.arange(q0, q1, device=qf.device)
+    k_pos = torch.arange(k0, k1, device=qf.device)
+    valid = torch.ones((q1 - q0, k1 - k0), dtype=torch.bool,
+                       device=qf.device)[None]
+    if causal:
+        valid = valid & (q_pos[:, None] + (sk - sq) >= k_pos[None, :])
+    if lens is not None:
+        valid = valid & (k_pos[None, None, :].float() < lens[:, None, None])
+    p = torch.where(valid, torch.exp(s * scale - lse[:, q0:q1, None]), 0.0)
+    dp = torch.bmm(dof[:, q0:q1], vf[:, k0:k1].transpose(1, 2))
+    ds = p * (dp - delta[:, q0:q1, None]) * scale
+    return p, ds
+
+
+def _key_tiles(sk, lens):
+    """Key tiles any row may reach: ceil(sk / 64), cut at ceil(len / 64)."""
+    n_kb = -(-sk // BLOCK_K)
+    if lens is not None:
+        n_kb = min(n_kb, math.ceil(float(lens.max()) / BLOCK_K))
+    return n_kb
+
+
+def flash_bwd_dq_reference(q, k, v, do, lse, delta, lens, causal: bool,
+                           scale: float):
+    """Plain version of the CUDA kernel ``flash_bwd_dq``: the same tile
+    algorithm in torch.
+
+    q/do (bh, sq, d) and k/v (bh, sk, d) at one dtype (f32 or bf16), lse
+    and delta (bh, sq) f32, ``lens`` (bh,) f32 or None.  For each 64-row
+    query tile it walks the key tiles up to its causal diagonal and
+    ceil(len / 64), replays p and ds (:func:`_replay_tile`) and
+    accumulates dq += ds . k in f32, with ds rounded to k's dtype first.
+    Returns dq (bh, sq, d) at the input dtype."""
+    bh, sq, d = q.shape
+    sk = k.shape[1]
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    dq = torch.empty_like(q)
+    n_kb = _key_tiles(sk, lens)
+    for q0 in range(0, sq, BLOCK_Q):
+        q1 = min(q0 + BLOCK_Q, sq)
+        n_iter = n_kb
+        if causal:
+            n_iter = min(n_iter, (q1 - 1 + sk - sq) // BLOCK_K + 1)
+        acc = torch.zeros((bh, q1 - q0, d), device=q.device)
+        for j in range(n_iter):
+            k0, k1 = j * BLOCK_K, min((j + 1) * BLOCK_K, sk)
+            _, ds = _replay_tile(qf, kf, vf, dof, lse, delta, q0, q1, k0,
+                                 k1, sq, sk, causal, lens, scale)
+            acc = acc + torch.bmm(ds.to(k.dtype).float(), kf[:, k0:k1])
+        dq[:, q0:q1] = acc.to(q.dtype)
+    return dq
+
+
+def flash_bwd_dkv_reference(q, k, v, do, lse, delta, lens, causal: bool,
+                            scale: float):
+    """Plain version of the CUDA kernel ``flash_bwd_dkv``: the same tile
+    algorithm in torch.
+
+    Arguments as :func:`flash_bwd_dq_reference`.  For each 64-key tile it
+    walks the query tiles from the first whose last row reaches it
+    causally, and accumulates dv += p^T . do (p rounded to do's dtype)
+    and dk += ds^T . q (ds rounded to q's dtype) in f32; a key tile at or
+    past every length is left at zero.  Returns (dk, dv), (bh, sk, d) at
+    the input dtype."""
+    bh, sq, d = q.shape
+    sk = k.shape[1]
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    dk = torch.zeros_like(k)
+    dv = torch.zeros_like(v)
+    n_qb = -(-sq // BLOCK_Q)
+    for j in range(_key_tiles(sk, lens)):
+        k0, k1 = j * BLOCK_K, min((j + 1) * BLOCK_K, sk)
+        start = max(0, (k0 - (sk - sq)) // BLOCK_Q) if causal else 0
+        dk_acc = torch.zeros((bh, k1 - k0, d), device=q.device)
+        dv_acc = torch.zeros((bh, k1 - k0, d), device=q.device)
+        for i in range(start, n_qb):
+            q0, q1 = i * BLOCK_Q, min((i + 1) * BLOCK_Q, sq)
+            p, ds = _replay_tile(qf, kf, vf, dof, lse, delta, q0, q1, k0,
+                                 k1, sq, sk, causal, lens, scale)
+            dv_acc = dv_acc + torch.bmm(
+                p.to(do.dtype).float().transpose(1, 2), dof[:, q0:q1])
+            dk_acc = dk_acc + torch.bmm(
+                ds.to(q.dtype).float().transpose(1, 2), qf[:, q0:q1])
+        dk[:, k0:k1] = dk_acc.to(k.dtype)
+        dv[:, k0:k1] = dv_acc.to(v.dtype)
+    return dk, dv
+
+
+def _flash_delta(o, do):
+    """Delta = rowsum(do * o) in f32, (bh, sq): computed outside the
+    kernels, as the JAX package computes it in XLA."""
+    return (do.float() * o.float()).sum(dim=-1)
+
+
+def flash_attention_bwd_reference(q, k, v, o, lse, do, lens=None,
+                                  causal: bool = False, scale: float = None):
+    """Plain flash backward: (dq, dk, dv) of attention at q/k/v with
+    output ``o``, row logsumexp ``lse`` (from the forward) and output
+    cotangent ``do`` (cast to q's dtype), through
+    :func:`flash_bwd_dq_reference` and :func:`flash_bwd_dkv_reference`."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    do = do.to(q.dtype)
+    delta = _flash_delta(o, do)
+    dq = flash_bwd_dq_reference(q, k, v, do, lse, delta, lens, causal, scale)
+    dk, dv = flash_bwd_dkv_reference(q, k, v, do, lse, delta, lens, causal,
+                                     scale)
+    return dq, dk, dv
+
+
+def _check_device(t):
+    if not (t.is_cuda or t.device.type == "cpu"):
+        raise ValueError(f"flash attention runs on CUDA or CPU tensors, got "
+                         f"{t.device}")
+
+
 def _flash_fwd(qf, kf, vf, lens, causal, scale):
     """The kernel on a CUDA tensor, its plain version on a CPU tensor."""
+    _check_device(qf)
     if qf.is_cuda:
         return _kernels.flash_fwd(qf, kf, vf, lens, causal, scale)
-    if qf.device.type == "cpu":
-        return flash_attention_reference(qf, kf, vf, causal, scale, lens)
-    raise ValueError(f"flash attention runs on CUDA or CPU tensors, got "
-                     f"{qf.device}")
+    return flash_attention_reference(qf, kf, vf, causal, scale, lens)
+
+
+def _flash_bwd(qf, kf, vf, out, lse, do, lens, causal, scale):
+    """The two backward kernels on a CUDA tensor, their plain versions on
+    a CPU tensor; ``do`` is contiguous at q's dtype."""
+    _check_device(qf)
+    if not qf.is_cuda:
+        return flash_attention_bwd_reference(qf, kf, vf, out, lse, do, lens,
+                                             causal, scale)
+    delta = _flash_delta(out, do)
+    dq = _kernels.flash_bwd_dq(qf, kf, vf, do, lse, delta, lens, causal,
+                               scale)
+    dk, dv = _kernels.flash_bwd_dkv(qf, kf, vf, do, lse, delta, lens, causal,
+                                    scale)
+    return dq, dk, dv
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """Flash attention on folded (bh, s, d) tensors with a flash backward:
+    the counterpart of the JAX package's ``_flash_core`` custom VJP.
+
+    ``apply(qf, kf, vf, lens, causal, scale)`` returns o (bh, sq, d).  The
+    forward saves the residuals the JAX VJP saves (q, k, v, lens, o,
+    lse); the backward computes delta = rowsum(do * o) in f32 and runs
+    the dq and dk/dv kernels (their plain versions on a CPU tensor, so
+    that the CPU never differentiates the plain forward with autograd).
+    ``lens`` gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, qf, kf, vf, lens, causal, scale):
+        out, lse = _flash_fwd(qf, kf, vf, lens, causal, scale)
+        ctx.save_for_backward(qf, kf, vf, lens, out, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        qf, kf, vf, lens, out, lse = ctx.saved_tensors
+        do = do.to(qf.dtype).contiguous()
+        dq, dk, dv = _flash_bwd(qf, kf, vf, out, lse, do, lens, ctx.causal,
+                                ctx.scale)
+        return dq, dk, dv, None, None, None
 
 
 def _largest_divisor(n: int, cap: int) -> int:
@@ -195,8 +359,9 @@ def _flash_supports(causal: bool, sq: int, sk: int) -> bool:
 
 def flash_attention(q, k, v, causal: bool = False, scale: float = None,
                     layout: str = "bshd", kv_lengths=None):
-    """Flash attention: the CUDA kernel on CUDA tensors, its plain version
-    on CPU tensors.
+    """Flash attention through :class:`FlashAttentionFunction`: the CUDA
+    kernels on CUDA tensors, their plain versions on CPU tensors; it is
+    differentiable either way.
 
     ``layout="bshd"``: q/k/v are (batch, seq, heads, head_dim) and are
     transposed to (batch*heads, seq, head_dim) for the kernel.
@@ -235,7 +400,7 @@ def flash_attention(q, k, v, causal: bool = False, scale: float = None,
         # per-(batch*head) lengths in the b-major fold order
         lens = _clamp_lengths(kv_lengths, sk, q.device)
         lens = lens.repeat_interleave(h).contiguous()
-    out, _ = _flash_fwd(qf, kf, vf, lens, causal, scale)
+    out = FlashAttentionFunction.apply(qf, kf, vf, lens, causal, scale)
     out = out.reshape(b, h, sq, d)
     return out.transpose(1, 2) if layout == "bshd" else out
 

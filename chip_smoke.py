@@ -7,15 +7,22 @@ NVIDIA GPU.
 Phases (any failure makes the exit code non-zero):
 
 1. build: compile every CUDA kernel of the port from ``ops/csrc``;
-2. kernels: hold each kernel against its plain PyTorch version on the
-   card, at the main path's shapes and at edge cases, and time the
-   kernel, the plain version and one PyTorch library call that computes
-   the same function (a yardstick only; the port never calls it);
+2. kernels: hold each kernel (the flash forward, and the backward's dq
+   and dk/dv) against its plain PyTorch version on the card, at the
+   paths' shapes and at edge cases, and time the kernel, the plain
+   version and one PyTorch library call that computes the same function
+   (a yardstick only; the port never calls it);
 3. path: ``TransformerLM.generate`` at full width (12 layers, d_model 768,
    12 heads, vocab 32000; batch 8, prompt 512, 128 greedy tokens) from
    seeded random weights, with the kernel launch counts read around it,
    then the full forward as an oracle for every greedy token;
-4. small: a small model on the card against the same weights on the CPU.
+4. train: ``TransformerLM.compile``/``fit`` at the same width with
+   seq_len 2048 (adam 3e-4, batch 8, 4 steps on 32 periodic sequences
+   after a warm-up fit), with the launch counts read around the 4 steps,
+   then a gradient check of the kernels' backward against blockwise
+   attention on one batch;
+5. small: a small model on the card against the same weights on the CPU,
+   for predict, greedy streams and 3 training steps.
 
 The line before the last is a JSON object with each kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or
@@ -26,6 +33,7 @@ result.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -34,11 +42,25 @@ import time
 F32_PEAK = 67e12      # FLOP/s, H100 SXM, f32 outside the tensor cores
 BF16_PEAK = 989e12    # FLOP/s, H100 SXM, dense bf16 tensor cores
 HBM_RATE = 3.35e12    # bytes/s, H100 SXM
-TOL = {"float32": 1e-4, "bfloat16": 2e-2}  # o; the f32 lse uses 1e-4
+TOL = {"float32": 1e-4, "bfloat16": 2e-2}  # o, dq, dk, dv; lse: 1e-4
 
 FULL = dict(vocab_size=32000, seq_len=1024, n_layers=12, d_model=768,
             n_heads=12, d_ff=3072)
 BATCH, PROMPT, NEW = 8, 512, 128
+# the repo's training configuration (bench.py transformer_lm_b8_seq2048)
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS, TRAIN_LR = 2048, 8, 4, 3e-4
+GRAD_TOL = 1e-3     # per parameter, max|kernels - blockwise| / max|ref|
+KERNELS = {  # name -> (source, the TPU kernel it replaces)
+    "flash_fwd": ("analytics_zoo_tpu_torch/ops/csrc/flash_fwd.cu",
+                  "analytics_zoo_tpu/ops/attention.py:149"),
+    "flash_bwd_dq": ("analytics_zoo_tpu_torch/ops/csrc/flash_bwd.cu",
+                     "analytics_zoo_tpu/ops/attention.py:214"),
+    "flash_bwd_dkv": ("analytics_zoo_tpu_torch/ops/csrc/flash_bwd.cu",
+                      "analytics_zoo_tpu/ops/attention.py:265"),
+}
+#: FLOP per valid (query, key) pair and head-dim element, per kernel:
+#: 2 per product, and 2, 3 or 4 products
+PRODUCTS = {"flash_fwd": 2, "flash_bwd_dq": 3, "flash_bwd_dkv": 4}
 
 
 def log(*a):
@@ -59,10 +81,14 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def attention_bound(q, k, lens, causal):
+def attention_bound(q, k, lens, causal, kernel="flash_fwd"):
     """(ms, "bytes" or "operations"): the least time for this call's work.
-    Operations: 4*d per valid (query, key) pair (two products); bytes:
-    q and o, the keys and values each row may see, lse and lens."""
+    Operations: 2*d FLOP per product per valid (query, key) pair, with 2
+    products in the forward (q.k, p.v), 3 in dq (q.k, do.v, ds.k) and 4 in
+    dk/dv (k.q, v.do, p.do, ds.q).  Bytes: each input read once and each
+    output written once -- per query row q-sized tensors (fwd: q, o; dq:
+    q, do, dq; dkv: q, do) and f32 statistics (lse; lse and delta), the
+    keys and values each row may see, and dk, dv in full; and lens."""
     import torch
     bh, sq, d = q.shape
     sk = k.shape[1]
@@ -74,10 +100,14 @@ def attention_bound(q, k, lens, causal):
                          device=q.device) if lens is None
               else lens.double())
     pairs = float(torch.minimum(limit[None, :], per_bh[:, None]).sum())
-    ops = 4.0 * d * pairs
+    ops = 2.0 * d * PRODUCTS[kernel] * pairs
     keys = float(per_bh.sum())
     item = q.element_size()
-    nbytes = (2 * bh * sq * d * item + 2 * keys * d * item + bh * sq * 4
+    q_side, stats, full_kv = {"flash_fwd": (2, 1, 0),
+                              "flash_bwd_dq": (3, 2, 0),
+                              "flash_bwd_dkv": (2, 2, 2)}[kernel]
+    nbytes = (q_side * bh * sq * d * item + 2 * keys * d * item
+              + full_kv * bh * sk * d * item + stats * bh * sq * 4
               + (0 if lens is None else bh * 4))
     peak = F32_PEAK if q.dtype == torch.float32 else BF16_PEAK
     t_ops, t_bytes = ops / peak, nbytes / HBM_RATE
@@ -103,62 +133,126 @@ def sdpa_call(q, k, v, lens, causal, scale):
                                                   scale=scale)
 
 
+# name, bh, sq, sk, d, dtype, causal, longest length (None: no lens),
+# timed
+CASES = [
+    ("prefill", 96, 512, 512, 64, "float32", True, None, True),
+    ("predict", 96, 1024, 1024, 64, "float32", True, None, True),
+    ("train", 96, TRAIN_SEQ, TRAIN_SEQ, 64, "float32", True, None, True),
+    ("prefill", 96, 512, 512, 64, "bfloat16", True, None, True),
+    ("predict", 96, 1024, 1024, 64, "bfloat16", True, None, True),
+    ("cross causal", 24, 192, 512, 64, "float32", True, None, False),
+    ("cross", 24, 200, 777, 64, "float32", False, None, False),
+    ("kv_lengths", 24, 512, 512, 64, "float32", True, 512, False),
+    ("kv_lengths", 24, 300, 300, 64, "bfloat16", False, 300, False),
+    ("prime", 12, 37, 37, 64, "float32", True, None, False),
+    ("prime d128", 12, 251, 251, 128, "float32", False, 251, False),
+    ("d128", 24, 384, 384, 128, "bfloat16", True, None, False),
+    ("d16", 4, 40, 40, 16, "float32", True, None, False),
+    # lengths of at most 130 of 700 keys: whole key tiles lie past them
+    ("tiles past lens", 8, 160, 700, 64, "float32", False, 130, False),
+]
+
+
+def case_inputs(torch, g, bh, sq, sk, d, dtype, lens_max):
+    dtype = getattr(torch, dtype)
+    q, do = (torch.randn((bh, sq, d), generator=g, device="cuda").to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn((bh, sk, d), generator=g, device="cuda").to(dtype)
+            for _ in range(2))
+    lens = None
+    if lens_max is not None:
+        lens = torch.randint(1, lens_max + 1, (bh,), generator=g,
+                             device="cuda").float()
+    return q, k, v, do, lens
+
+
+def sdpa_backward_call(torch, q, k, v, do, lens, causal, scale):
+    """The library yardstick of the backward: autograd of
+    scaled_dot_product_attention from one saved forward (retain_graph),
+    timed apart from that forward."""
+    qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    out = sdpa_call(qs, ks, vs, lens, causal, scale)()
+    return lambda: torch.autograd.grad(out, (qs, ks, vs), do,
+                                       retain_graph=True)
+
+
 def phase_kernels(torch, ops_attn, kernels):
-    """Each flash_fwd case against flash_attention_reference."""
+    """Each kernel against its plain version, case by case: flash_fwd
+    against flash_attention_reference (o within TOL, lse within 1e-4),
+    flash_bwd_dq and flash_bwd_dkv against flash_bwd_dq_reference and
+    flash_bwd_dkv_reference (dq, dk, dv each within max|diff| / max|ref|
+    <= TOL), and dk = dv = 0 exactly past every length."""
     g = torch.Generator(device="cuda").manual_seed(0)
-    cases = [
-        # name, bh, sq, sk, d, dtype, causal, with lens, timed
-        ("prefill", 96, 512, 512, 64, torch.float32, True, False, True),
-        ("predict", 96, 1024, 1024, 64, torch.float32, True, False, True),
-        ("prefill", 96, 512, 512, 64, torch.bfloat16, True, False, True),
-        ("predict", 96, 1024, 1024, 64, torch.bfloat16, True, False, True),
-        ("cross causal", 24, 192, 512, 64, torch.float32, True, False,
-         False),
-        ("cross", 24, 200, 777, 64, torch.float32, False, False, False),
-        ("kv_lengths", 24, 512, 512, 64, torch.float32, True, True, False),
-        ("kv_lengths", 24, 300, 300, 64, torch.bfloat16, False, True,
-         False),
-        ("prime", 12, 37, 37, 64, torch.float32, True, False, False),
-        ("prime d128", 12, 251, 251, 128, torch.float32, False, True,
-         False),
-        ("d128", 24, 384, 384, 128, torch.bfloat16, True, False, False),
-        ("d16", 4, 40, 40, 16, torch.float32, True, False, False),
-    ]
     rows, ok = [], True
-    for name, bh, sq, sk, d, dtype, causal, masked, timed in cases:
-        q = torch.randn((bh, sq, d), generator=g, device="cuda").to(dtype)
-        k = torch.randn((bh, sk, d), generator=g, device="cuda").to(dtype)
-        v = torch.randn((bh, sk, d), generator=g, device="cuda").to(dtype)
-        lens = None
-        if masked:
-            lens = torch.randint(1, sk + 1, (bh,), generator=g,
-                                 device="cuda").float()
+    for name, bh, sq, sk, d, dt, causal, lens_max, timed in CASES:
+        q, k, v, do, lens = case_inputs(torch, g, bh, sq, sk, d, dt,
+                                        lens_max)
+        masked = lens is not None
         scale = d ** -0.5
         o, lse = kernels.flash_fwd(q, k, v, lens, causal, scale)
         o_ref, lse_ref = ops_attn.flash_attention_reference(
             q, k, v, causal, scale, lens)
+        delta = ops_attn._flash_delta(o, do)
+        args = (q, k, v, do, lse, delta, lens, causal, scale)
+        dq = kernels.flash_bwd_dq(*args)
+        dk, dv = kernels.flash_bwd_dkv(*args)
+        dq_ref = ops_attn.flash_bwd_dq_reference(*args)
+        dk_ref, dv_ref = ops_attn.flash_bwd_dkv_reference(*args)
         torch.cuda.synchronize()
-        err_o = float((o.double() - o_ref.double()).abs().max())
-        err_l = float((lse - lse_ref).abs().max())
-        dt = str(dtype).replace("torch.", "")
-        good = (err_o <= TOL[dt] and err_l <= 1e-4
-                and bool(torch.isfinite(o).all()))
-        ok &= good
-        row = dict(case=name, dtype=dt, bh=bh, sq=sq, sk=sk, d=d,
-                   causal=causal, lens=masked, err_o=err_o, err_lse=err_l,
-                   ok=good)
+        diff = lambda a, b: float((a.double() - b.double()).abs().max())
+        rel = lambda a, b: diff(a, b) / max(float(b.double().abs().max()),
+                                            1e-30)
+        base = dict(case=name, dtype=dt, bh=bh, sq=sq, sk=sk, d=d,
+                    causal=causal, lens=masked)
+        fwd = dict(base, kernel="flash_fwd", abs_err=diff(o, o_ref),
+                   err_lse=diff(lse, lse_ref))
+        fwd["ok"] = (fwd["abs_err"] <= TOL[dt] and fwd["err_lse"] <= 1e-4
+                     and bool(torch.isfinite(o).all()))
+        dq_row = dict(base, kernel="flash_bwd_dq", err=rel(dq, dq_ref),
+                      abs_err=diff(dq, dq_ref))
+        dq_row["ok"] = dq_row["err"] <= TOL[dt] and bool(
+            torch.isfinite(dq).all())
+        dkv_row = dict(base, kernel="flash_bwd_dkv", err=max(
+            rel(dk, dk_ref), rel(dv, dv_ref)), err_dk=rel(dk, dk_ref),
+            err_dv=rel(dv, dv_ref),
+            abs_err=max(diff(dk, dk_ref), diff(dv, dv_ref)))
+        dkv_row["ok"] = dkv_row["err"] <= TOL[dt] and bool(
+            torch.isfinite(dk).all() and torch.isfinite(dv).all())
+        if masked:
+            past = (torch.arange(sk, device="cuda")[None, :]
+                    >= lens[:, None])[..., None]
+            zero = bool((dk.masked_select(past) == 0).all()
+                        and (dv.masked_select(past) == 0).all())
+            dkv_row["zero_past_lens"] = zero
+            dkv_row["ok"] &= zero
         if timed:
-            row["ms"] = cuda_ms(
-                lambda: kernels.flash_fwd(q, k, v, lens, causal, scale), 20)
-            row["plain_ms"] = cuda_ms(
-                lambda: ops_attn.flash_attention_reference(
-                    q, k, v, causal, scale, lens), 3)
-            row["library_ms"] = cuda_ms(
-                sdpa_call(q, k, v, lens, causal, scale), 20)
-            row["bound_ms"], row["bound_by"] = attention_bound(
-                q, k, lens, causal)
-        rows.append(row)
-        log("kernel", json.dumps(row))
+            fwd_fn = lambda: kernels.flash_fwd(q, k, v, lens, causal, scale)
+            fwd.update(
+                ms=cuda_ms(fwd_fn, 20),
+                plain_ms=cuda_ms(lambda: ops_attn.flash_attention_reference(
+                    q, k, v, causal, scale, lens), 3),
+                library_ms=cuda_ms(sdpa_call(q, k, v, lens, causal, scale),
+                                   20))
+            if dt == "float32" and sq == TRAIN_SEQ:
+                lib_ms = cuda_ms(sdpa_backward_call(
+                    torch, q, k, v, do, lens, causal, scale), 10)
+                for row, kern, ref in (
+                        (dq_row, kernels.flash_bwd_dq,
+                         ops_attn.flash_bwd_dq_reference),
+                        (dkv_row, kernels.flash_bwd_dkv,
+                         ops_attn.flash_bwd_dkv_reference)):
+                    row.update(ms=cuda_ms(lambda: kern(*args), 10),
+                               plain_ms=cuda_ms(lambda: ref(*args), 2),
+                               library_ms=lib_ms)
+            for row in (fwd, dq_row, dkv_row):
+                if "ms" in row:
+                    row["bound_ms"], row["bound_by"] = attention_bound(
+                        q, k, lens, causal, row["kernel"])
+        for row in (fwd, dq_row, dkv_row):
+            ok &= row["ok"]
+            rows.append(row)
+            log("kernel", json.dumps(row))
     return ok, rows
 
 
@@ -221,9 +315,98 @@ def phase_path(torch, TransformerLM, kernels):
     return bool(ok), stats
 
 
+def periodic_tokens(n, vocab, seq, seed):
+    """The periodic next-token task of tests/test_transformer_lm.py:
+    token[t] = (start + step * t) % vocab, step in 1..3 per sequence."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    steps = rng.integers(1, 4, n)
+    start = rng.integers(0, vocab, n)
+    toks = (start[:, None] + steps[:, None]
+            * np.arange(seq + 1)[None, :]) % vocab
+    return toks[:, :-1].astype(np.int32), toks[:, 1:].astype(np.int32)
+
+
+def gradient_check(torch, model, objectives, x, y):
+    """One backward through the kernels and one through blockwise
+    attention, same weights and batch: per parameter tensor
+    max|diff| / max|blockwise|."""
+    attns = [getattr(model, f"attn_{i}")
+             for i in range(model.hyper["n_layers"])]
+    params = [p for p in model.parameters() if p.requires_grad]
+    ids = torch.as_tensor(x, device="cuda")
+    labels = torch.as_tensor(y, device="cuda")
+    grads = {}
+    try:
+        for impl in ("flash", "blockwise"):
+            for a in attns:
+                a.implementation = impl
+            loss = objectives.class_nll(labels, model(ids)).mean()
+            grads[impl] = torch.autograd.grad(loss, params)
+            del loss
+    finally:
+        for a in attns:
+            a.implementation = "auto"
+    return [float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+            for a, b in zip(grads["flash"], grads["blockwise"])]
+
+
+def phase_train(torch, TransformerLM, kernels, objectives):
+    """Full-width compile/fit: a warm-up fit, then TRAIN_STEPS fits of one
+    step each (each ends synchronised: fit reads its losses back), with
+    the launch counts read around them; then the gradient check."""
+    import statistics
+    cfg = dict(FULL, seq_len=TRAIN_SEQ)
+    t0 = time.perf_counter()
+    model = TransformerLM(**cfg, device="cuda", seed=0)
+    model.compile({"name": "adam", "lr": TRAIN_LR}, "class_nll",
+                  metrics=["accuracy"])
+    x, y = periodic_tokens(TRAIN_BATCH * (TRAIN_STEPS + 1),
+                           cfg["vocab_size"], TRAIN_SEQ, seed=1)
+    model.fit(x[:TRAIN_BATCH], y[:TRAIN_BATCH], batch_size=TRAIN_BATCH)
+    torch.cuda.synchronize()
+    log(f"train: model built and warmed up in "
+        f"{time.perf_counter() - t0:.2f} s")
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    losses, step_s = [], []
+    for i in range(1, TRAIN_STEPS + 1):
+        rows = slice(i * TRAIN_BATCH, (i + 1) * TRAIN_BATCH)
+        t = time.perf_counter()
+        hist = model.fit(x[rows], y[rows], batch_size=TRAIN_BATCH)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+        losses += hist["loss"]
+    counts = kernels.launch_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    step = statistics.median(step_s)
+    stats = dict(step_ms=step * 1e3, step_ms_all=[t * 1e3 for t in step_s],
+                 tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / step,
+                 peak_gib=peak_gib, losses=losses, launches=counts,
+                 launches_per_step={n: c / TRAIN_STEPS
+                                    for n, c in counts.items()})
+    log("train:", json.dumps(stats))
+    ok = (len(losses) == TRAIN_STEPS
+          and all(math.isfinite(v) for v in losses)
+          and losses[-1] < losses[0])
+    for name in KERNELS:
+        if counts[name] < cfg["n_layers"] * TRAIN_STEPS:
+            ok = False
+            log(f"train: FAIL {name} launched {counts[name]} times in "
+                f"{TRAIN_STEPS} steps, expected >= {cfg['n_layers']} a "
+                "step")
+    errs = gradient_check(torch, model, objectives, x[:2], y[:2])
+    stats["grad_max_rel_err"] = max(errs)
+    log(f"train: gradient check against blockwise over {len(errs)} "
+        f"tensors, max rel err {max(errs):.3g} (tol {GRAD_TOL})")
+    ok &= max(errs) <= GRAD_TOL
+    return bool(ok), stats
+
+
 def phase_small(torch, TransformerLM, from_jax_params, to_jax_params):
     """A small model on the card against the same weights on the CPU:
-    predict log-probs within 1e-4 and equal greedy streams."""
+    predict log-probs within 1e-4, equal greedy streams, and the losses
+    of 3 adam steps within 1e-4."""
     small = dict(vocab_size=59, seq_len=32, n_layers=2, d_model=32,
                  n_heads=2)
     gpu = TransformerLM(**small, device="cuda", seed=3).eval()
@@ -239,7 +422,16 @@ def phase_small(torch, TransformerLM, from_jax_params, to_jax_params):
              == cpu.generate(prompt, 6, prompt_lengths=lens)).all()
     log(f"small: predict max abs err {err:.3g} (tol 1e-4), greedy streams "
         f"equal: {bool(same)}")
-    return err <= 1e-4 and bool(same)
+    xt, yt = periodic_tokens(24, 59, 32, seed=6)
+    fits = []
+    for m in (gpu, cpu):
+        m.compile({"name": "adam", "lr": 3e-3}, "class_nll")
+        fits.append(m.fit(xt, yt, batch_size=8)["loss"])
+    loss_err = max(abs(a - b) for a, b in zip(*fits))
+    log(f"small: 3 training steps, losses {fits[0]} (card) {fits[1]} (CPU), "
+        f"max abs diff {loss_err:.3g} (tol 1e-4)")
+    return (err <= 1e-4 and bool(same) and len(fits[0]) == 3
+            and loss_err <= 1e-4)
 
 
 def main() -> int:
@@ -254,6 +446,7 @@ def main() -> int:
             TransformerLM, from_jax_params, to_jax_params)
         from analytics_zoo_tpu_torch.ops import _kernels as kernels
         from analytics_zoo_tpu_torch.ops import attention as ops_attn
+        from analytics_zoo_tpu_torch.pipeline.api.keras import objectives
     except ImportError as e:
         print(f"chip_smoke: analytics_zoo_tpu_torch is not importable "
               f"beside this script: {e}", file=sys.stderr)
@@ -278,6 +471,8 @@ def main() -> int:
     phases = [
         ("kernels", lambda: phase_kernels(torch, ops_attn, kernels)),
         ("path", lambda: phase_path(torch, TransformerLM, kernels)),
+        ("train", lambda: phase_train(torch, TransformerLM, kernels,
+                                      objectives)),
         ("small", lambda: (phase_small(torch, TransformerLM,
                                        from_jax_params, to_jax_params),
                            None)),
@@ -304,22 +499,30 @@ def main() -> int:
     log(smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
         else "nvidia-smi: no output")
 
-    main_row = next((r for r in results.get("kernels") or []
-                     if r.get("ms") is not None
-                     and r["dtype"] == "float32" and r["sq"] == PROMPT),
-                    None)
-    launches = ((results.get("path") or {}).get("launches") or {})
-    entry = {"name": "flash_fwd", "route": "cuda",
-             "source": "analytics_zoo_tpu_torch/ops/csrc/flash_fwd.cu",
-             "replaces": "analytics_zoo_tpu/ops/attention.py:149",
-             "launches": launches.get("flash_fwd", 0)}
-    if main_row is not None:
-        entry.update(max_abs_err=main_row["err_o"], ms=main_row["ms"],
-                     plain_ms=main_row["plain_ms"],
-                     bound_ms=main_row["bound_ms"],
-                     bound_by=main_row["bound_by"],
-                     library_ms=main_row["library_ms"])
-    log(json.dumps({"kernels": [entry]}))
+    # every kernel at the training shape; launches from the train path,
+    # with each path's own count beside them
+    path_launches = {
+        path: (results.get(path) or {}).get("launches") or {}
+        for path in ("path", "train")}
+    entries = []
+    for name, (source, replaces) in KERNELS.items():
+        entry = {"name": name, "route": "cuda", "source": source,
+                 "replaces": replaces,
+                 "launches": path_launches["train"].get(name, 0),
+                 "launches_by_path": {
+                     "generate": path_launches["path"].get(name, 0),
+                     "train": path_launches["train"].get(name, 0)}}
+        row = next((r for r in results.get("kernels") or []
+                    if r["kernel"] == name and r["case"] == "train"
+                    and r.get("ms") is not None), None)
+        if row is not None:
+            entry.update(max_abs_err=row["abs_err"], ms=row["ms"],
+                         plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+                         bound_by=row["bound_by"],
+                         library_ms=row["library_ms"],
+                         shape=[row["bh"], row["sq"], row["d"]])
+        entries.append(entry)
+    log(json.dumps({"kernels": entries}))
     if failed:
         log(f"chip_smoke: FAILED phases {failed}")
         return 1

@@ -1,0 +1,123 @@
+#!/usr/bin/env python3
+"""Where the time of the port's training step goes, on one NVIDIA GPU.
+
+    python3 scripts/profile_torch_train.py [--steps 2]
+
+Builds TransformerLM at chip_smoke.py's training width (12 layers,
+d_model 768, 12 heads, vocab 32000, seq_len 2048; its constants and data)
+from seeded weights, compiles it with adam 3e-4, warms it up with one
+``fit`` step on 8 periodic sequences, then profiles ``--steps`` more one-step ``fit`` calls
+under ``torch.profiler`` and prints one JSON object: wall and device time
+per step, the device's idle share, launches per step, the device time of
+the GEMMs, of each flash kernel and of the rest (elementwise work,
+reductions and the optimizer's kernels), the optimizer update's kernel
+time and its span on the device (first to last kernel, gaps included),
+and the fifteen kernels that took the most device time.  f32, TF32 off,
+as chip_smoke.py runs it.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import re
+import subprocess
+import sys
+import time
+
+FLASH = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+GEMM = re.compile(r"gemm|gemv|cutlass|xmma", re.IGNORECASE)
+
+
+def kind(name: str) -> str:
+    for k in FLASH:
+        if f"{k}_kernel" in name:
+            return k
+    return "gemm" if GEMM.search(name) else "other"
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--steps", type=int, default=2,
+                    help="one-step fit calls to profile")
+    args = ap.parse_args()
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+    if not torch.cuda.is_available():
+        print("profile_torch_train: needs an NVIDIA GPU", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    from analytics_zoo_tpu_torch.models import TransformerLM
+    from analytics_zoo_tpu_torch.ops import _kernels
+    from chip_smoke import (FULL, TRAIN_BATCH as B, TRAIN_LR, TRAIN_SEQ,
+                            periodic_tokens)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _kernels.build()
+    cfg = dict(FULL, seq_len=TRAIN_SEQ)
+    model = TransformerLM(**cfg, device="cuda", seed=0)
+    model.compile({"name": "adam", "lr": TRAIN_LR}, "class_nll")
+    x, y = periodic_tokens(B * (args.steps + 1), cfg["vocab_size"],
+                           TRAIN_SEQ, seed=1)
+    model.fit(x[:B], y[:B], batch_size=B)  # warm-up
+    opt = model.trainer.optimizer
+    apply = opt.apply
+
+    def labelled_apply(*a):
+        with record_function("zoo_optimizer"):
+            return apply(*a)
+
+    opt.apply = labelled_apply
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(1, args.steps + 1):
+            model.fit(x[B * i:B * (i + 1)], y[B * i:B * (i + 1)],
+                      batch_size=B)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = prof.key_averages()
+    cuda = torch.autograd.DeviceType.CUDA
+    # the label shows twice: as a CPU op whose device time is that of the
+    # kernels launched inside it, and as a device-side annotation spanning
+    # them, idle gaps included; neither is a kernel
+    label = [e for e in events if e.key == "zoo_optimizer"]
+    kernels = [e for e in events
+               if e.device_type == cuda and e.key != "zoo_optimizer"]
+    opt_kernels_us = sum(e.device_time_total for e in label
+                         if e.device_type != cuda)
+    opt_span_us = sum(e.self_device_time_total for e in label
+                      if e.device_type == cuda)
+    by_kind = {}
+    for e in kernels:
+        k = kind(e.key)
+        by_kind[k] = by_kind.get(k, 0.0) + e.self_device_time_total
+    dev_us = sum(by_kind.values())
+    n = args.steps
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]
+    out = {
+        "card": subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60).stdout.strip(),
+        "steps": n, "wall_ms_per_step": wall * 1e3 / n,
+        "device_ms_per_step": dev_us / 1e3 / n,
+        "idle_share": 1 - dev_us / 1e6 / wall,
+        "launches_per_step": sum(e.count for e in kernels) / n,
+        "device_ms_per_step_by_kind": {k: v / 1e3 / n
+                                       for k, v in sorted(by_kind.items())},
+        "optimizer_kernels_ms_per_step": opt_kernels_us / 1e3 / n,
+        "optimizer_span_ms_per_step": opt_span_us / 1e3 / n,
+        "top": [{"kernel": e.key[:90], "ms_per_step":
+                 e.self_device_time_total / 1e3 / n,
+                 "count_per_step": e.count / n} for e in top],
+    }
+    print(json.dumps(out, indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

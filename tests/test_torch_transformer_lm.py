@@ -167,7 +167,8 @@ def test_port_imports_no_jax():
     assert not _forbidden("analytics_zoo_tpu_torch.ops")
     files = sorted((REPO / "analytics_zoo_tpu_torch").rglob("*.py"))
     files += [REPO / "chip_smoke.py",
-              REPO / "scripts" / "profile_torch_generate.py"]
+              REPO / "scripts" / "profile_torch_generate.py",
+              REPO / "scripts" / "profile_torch_train.py"]
     assert len(files) > 15
     bad = [(str(f.relative_to(REPO)), m) for f in files
            for m in _imports(f) if _forbidden(m)]
