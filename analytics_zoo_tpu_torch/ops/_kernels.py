@@ -3,8 +3,9 @@
 Each ``csrc/*.cu`` source has a plain C interface.  It is compiled by
 ``nvcc`` into its own shared library at first use and bound with
 ``ctypes``.  Libraries go to ``build/torch_kernels/<hash>/`` under the
-checkout, keyed by a hash of the sources and the compiler flags, so an
-edited source rebuilds and an unchanged one is reused.  Importing this
+checkout, keyed by a hash of the sources, the headers they include
+(``csrc/*.cuh``) and the compiler flags, so an edited source or header
+rebuilds and an unchanged one is reused.  Importing this
 module builds nothing and needs no ``nvcc``: the build runs on the first
 launch, or when :func:`build` is called.
 
@@ -58,10 +59,13 @@ def _nvcc() -> str:
 
 
 def _build_dir() -> Path:
+    """The build directory of this set of sources: a hash of the flags and
+    of every ``csrc/*.cu`` and ``*.cuh`` file, so that an edited header
+    rebuilds the sources that include it."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in sorted(_SIGNATURES):
-        h.update(name.encode())
-        h.update((_CSRC / name).read_bytes())
+    for path in sorted([*_CSRC.glob("*.cu"), *_CSRC.glob("*.cuh")]):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
     return _BUILD_ROOT / h.hexdigest()[:16]
 
 
@@ -122,12 +126,12 @@ def build() -> None:
 
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 256
 
 
 def _check_attention_args(name, q, k, v, lens, causal, rows=()):
     """The checks every flash wrapper makes: contiguous CUDA (bh, s, d)
-    q/k/v of one dtype (f32 or bf16), head_dim in [1, 128], causal only
+    q/k/v of one dtype (f32 or bf16), head_dim in [1, 256], causal only
     for sq <= sk, ``lens`` None or a contiguous (bh,) f32 tensor on q's
     device.  ``rows`` are extra (name, tensor, dtype) arguments shaped
     per query row: ``(bh, sq, d)`` at q's dtype or ``(bh, sq)`` f32."""

@@ -194,14 +194,17 @@ def _key_tiles(sk, lens):
 
 def flash_bwd_dq_reference(q, k, v, do, lse, delta, lens, causal: bool,
                            scale: float):
-    """Plain version of the CUDA kernel ``flash_bwd_dq``: the same tile
-    algorithm in torch.
+    """Plain version of the CUDA kernel ``flash_bwd_dq``: its tile
+    algorithm in torch, in exact f32 products (the kernel's f32 products
+    are 3xTF32 on the tensor cores, within ~2^-20 relative of these).
 
     q/do (bh, sq, d) and k/v (bh, sk, d) at one dtype (f32 or bf16), lse
     and delta (bh, sq) f32, ``lens`` (bh,) f32 or None.  For each 64-row
-    query tile it walks the key tiles up to its causal diagonal and
+    query tile it walks 64-key tiles up to its causal diagonal and
     ceil(len / 64), replays p and ds (:func:`_replay_tile`) and
     accumulates dq += ds . k in f32, with ds rounded to k's dtype first.
+    The kernel walks narrower key tiles; a skipped tile is one whose pairs
+    are all masked, so the tile size does not change the result.
     Returns dq (bh, sq, d) at the input dtype."""
     bh, sq, d = q.shape
     sk = k.shape[1]
@@ -225,15 +228,17 @@ def flash_bwd_dq_reference(q, k, v, do, lse, delta, lens, causal: bool,
 
 def flash_bwd_dkv_reference(q, k, v, do, lse, delta, lens, causal: bool,
                             scale: float):
-    """Plain version of the CUDA kernel ``flash_bwd_dkv``: the same tile
-    algorithm in torch.
+    """Plain version of the CUDA kernel ``flash_bwd_dkv``: its tile
+    algorithm in torch, in exact f32 products (as
+    :func:`flash_bwd_dq_reference`).
 
     Arguments as :func:`flash_bwd_dq_reference`.  For each 64-key tile it
-    walks the query tiles from the first whose last row reaches it
+    walks 64-row query tiles from the first whose last row reaches it
     causally, and accumulates dv += p^T . do (p rounded to do's dtype)
     and dk += ds^T . q (ds rounded to q's dtype) in f32; a key tile at or
-    past every length is left at zero.  Returns (dk, dv), (bh, sk, d) at
-    the input dtype."""
+    past every length is left at zero.  The kernel walks narrower query
+    tiles, which skips no valid pair either.  Returns (dk, dv),
+    (bh, sk, d) at the input dtype."""
     bh, sq, d = q.shape
     sk = k.shape[1]
     qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
@@ -348,7 +353,11 @@ def _flash_supports(causal: bool, sq: int, sk: int) -> bool:
     before the first key are fully masked), and not the causal cross
     shapes the JAX package cannot pad (no block divisor >= 8 on both
     lengths); the CUDA kernel could run the latter, but the two packages
-    keep one dispatch.  Keep in sync with flash_attention's raises."""
+    keep one dispatch.  Keep in sync with flash_attention's raises.
+
+    The head dim is not tested, as in the JAX package: the CUDA kernels
+    take 1 to ``_kernels.MAX_HEAD_DIM`` (256), and a wider head raises
+    in their wrappers rather than leaving the card's kernels quietly."""
     if causal and sq > sk:
         return False
     if causal and sq != sk and min(_largest_divisor(sq, 256),
@@ -407,10 +416,13 @@ def flash_attention(q, k, v, causal: bool = False, scale: float = None,
 
 def attention_bhsd(q, k, v, causal: bool = False,
                    implementation: str = "auto", kv_lengths=None):
-    """(b, h, s, d)-layout dispatch.  ``"auto"`` takes the CUDA kernel on a
-    CUDA tensor, and on a CPU tensor the plain path the JAX package takes
-    off-TPU: blockwise, or naive where a length has no block divisor
-    >= 8."""
+    """(b, h, s, d)-layout dispatch.  ``"auto"`` takes the CUDA kernels on
+    a CUDA tensor whose lengths they run (:func:`_flash_supports`: no
+    causal sq > sk, no causal cross lengths without a block divisor
+    >= 8), at any head_dim up to 256, and otherwise, as on a CPU tensor,
+    the plain path the JAX package takes off-TPU: blockwise, or naive
+    where a length has no block divisor >= 8.  An explicit ``"flash"``
+    raises on the lengths ``"auto"`` steers away from."""
     sq, sk = q.shape[2], k.shape[2]
     if implementation == "flash" or (
             implementation == "auto" and q.is_cuda
@@ -433,9 +445,11 @@ def attention_bhsd(q, k, v, causal: bool = False,
 
 def attention(q, k, v, causal: bool = False, implementation: str = "auto",
               kv_lengths=None):
-    """(b, s, h, d)-layout dispatch: the CUDA kernel on a CUDA tensor,
-    blockwise on a CPU tensor; lengths with no usable block divisor take
-    naive (as does the causal cross-length shape flash cannot run)."""
+    """(b, s, h, d)-layout dispatch: the CUDA kernels on a CUDA tensor
+    whose lengths they run (as :func:`attention_bhsd`), blockwise
+    otherwise and on a CPU tensor; lengths with no usable block divisor
+    take naive (as does the causal cross-length shape flash cannot run).
+    An explicit ``"flash"`` raises where ``"auto"`` steers away."""
     sq, sk = q.shape[1], k.shape[1]
     if implementation == "auto":
         if q.is_cuda and _flash_supports(causal, sq, sk):

@@ -18,359 +18,315 @@
 // key tiles up to its causal diagonal and ceil(len / BK); the dkv block
 // walks query tiles from the first whose last row reaches it causally,
 // and a key tile wholly at or past `len` writes zeros without looping.
-// bf16 keeps the TPU kernels' rounding points: ds is rounded to the
-// input dtype before ds.k and ds^T.q, p before p^T.do; sums are f32.
+// Rows past sq get p = 0.  bf16 keeps the TPU kernels' rounding points:
+// ds is rounded to the input dtype before ds.k and ds^T.q, p before
+// p^T.do; sums are f32.
 //
-// What bounds it on the H100: the model trains in f32, which has no
-// tensor-core path at "highest" precision, so the work is 3*d (dq) and
-// 4*d (dkv) FMAs per valid (query, key) pair on the CUDA cores (67
-// TFLOP/s); at the training shape (96, 2048, 64) causal that is 7.8 and
-// 10.4 GFLOP against ~0.2 GB of operands: operation-bound.
+// What bounds it on the H100: operations.  Per valid (query, key) pair
+// and head-dim element, dq does 3 products and dk/dv 4, at 2 FLOP each;
+// at the training shape (96, 2048, 64) causal that is 77 and 103 GFLOP
+// against ~0.2 GB of operands.  f32 inputs run every product as 3xTF32
+// on the tensor cores: three TF32 MMAs per product, within ~2^-20
+// relative of an f32 product, which holds the exact f32 reference to
+// 1e-4 where one TF32 pass misses it.  That is 3 x ops at 495 TFLOP/s,
+// 0.47 and 0.62 ms.  bf16 inputs run one bf16 MMA per product at 989
+// TFLOP/s: 0.08 and 0.10 ms.
 //
-// Design, the forward's (flash_fwd.cu): 256 threads as 16 x 16, 64 x 64
-// tiles staged through shared memory as f32, with the ragged query and
-// key edges masked inside.  Thread (ty, tx) owns rows 4*ty..4*ty+3 of its
-// block's own tile and columns tx + 16*j of the other operand's tile (and
-// of the head dim for the outputs).  The tile read along the head dim
-// by all 16 threads of a half-warp is stored transposed with a padded
-// leading dimension, so that both of its reads are free of bank
-// conflicts.  Rows past sq are staged as zeros and their p is forced to
-// 0, not left to exp(0 - lse) of a row that does not exist.
+// Design (flash_mma.cuh holds the MMA, split and staging helpers):
+// - 128 threads; each of the 4 warps owns 16 rows of the block's own
+//   64-row tile (keys in dkv, queries in dq) and computes its rows of
+//   every product with warp-level mma.sync (m16n8k8 tf32, m16n8k16 bf16),
+//   f32 sums in registers: S and dP as (own rows) x (walked tile), then p
+//   and ds in place, then the outputs (16 rows x head dim) with p and ds
+//   as A operands straight from the accumulators, never through shared
+//   memory (flash_mma.cuh mma_pb says how the fragment layouts meet).
+// - The own tile (K and V in dkv; Q and dO in dq) is staged once; the
+//   walked tiles (Q, dO, lse and delta; K and V) go through a two-stage
+//   ring filled by 16-byte cp.async, so that tile i+1 loads while tile i
+//   computes.  Rows past the end are zero-filled by the copy; the head dim
+//   is zero-padded in shared memory up to the template width DP (32, 64,
+//   128 or 256), and only ceil(d / depth) MMA depths and ceil(d / 8)
+//   output column tiles run.  A head dim whose rows are not 16-byte
+//   multiples, or unaligned inputs, stage with plain loads instead.
+// - At DP = 256, f32 walks 16-row tiles (two stages of 32 rows do not fit
+//   in shared memory), and dk/dv splits its output columns into halves
+//   over a third grid dimension: each block replays S and dP in full and
+//   sums 128 columns of dk and dv, as many registers as at DP = 128.
+// - The kernels are held back by latency more than by the tensor cores,
+//   so occupancy matters: 32-row walked tiles and per-kernel register
+//   budgets (Walk) keep 3 to 4 blocks on an SM at head_dim <= 64 without
+//   spills.  p uses exp2 with log2(e) folded into the scale and lse; the
+//   masks are evaluated only on tiles that cross a causal, length or
+//   sequence edge.
+// - Not wgmma yet: TF32 wgmma needs both operands K-major in shared
+//   memory, which would take transposed copies of Q and dO for the dK and
+//   dV products (TMA does not transpose).  mma.sync is the baseline.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
+
+#include "flash_mma.cuh"
 
 namespace {
 
-constexpr int BQ = 64;
-constexpr int BK = 64;
-constexpr int TX = 16;
-constexpr int TY = 16;
-constexpr int NT = TX * TY;
-constexpr int RPT = 64 / TY;  // own rows per thread
-constexpr int CPT = 64 / TX;  // other-tile columns per thread
-constexpr int DMAX = 128;
-constexpr int LD = 64 + 1;    // leading dimension of a transposed tile
+using flash::tile_ld;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
-__device__ __forceinline__ float round_like(float x, float) { return x; }
-__device__ __forceinline__ float round_like(float x, __nv_bfloat16) {
-  return __bfloat162float(__float2bfloat16(x));
-}
+constexpr int NT = 128;  // 4 warps
+constexpr int DMAX = 256;
+constexpr int STAGES = 2;
 
-__device__ __forceinline__ bool pair_valid(int q_row, int k_row, int sq,
-                                           int sk, int causal,
-                                           const float* lens, float len) {
-  bool valid = q_row < sq && k_row < sk;
-  if (causal) valid = valid && q_row + (sk - sq) >= k_row;
-  if (lens) valid = valid && (float)k_row < len;
-  return valid;
+// Rows of the walked tile per stage, and the blocks per SM that each
+// kernel's registers are held to, per input type and padded head dim
+// (chosen by timing on the H100 at the training shape).  f32 at DP = 256
+// walks 16 rows, so that two stages fit in shared memory.
+template <typename T, int DP>
+struct Walk {
+  static constexpr int ROWS = DP > 128 && flash::is_f32<T> ? 16 : 32;
+  static constexpr int DQ_BLOCKS = DP > 64 ? 1 : flash::is_f32<T> ? 4 : 5;
+  static constexpr int DKV_BLOCKS = DP > 64 ? 1 : flash::is_f32<T> ? 3 : 4;
+};
+
+// one (batch*head) row block of a (bh, s, d) tensor
+template <typename T>
+__device__ __forceinline__ const T* rows_of(const T* x, int bh, int s, int d) {
+  return x + (size_t)bh * s * d;
 }
 
-// ---- dq: grid (bh, ceil(sq / BQ)) ----------------------------------------
+// ---- dk/dv: grid (bh, ceil(sk / 64), ceil(d / DO)) ------------------------
 
-size_t dq_smem_bytes(int d) {
-  // Qs, dOs [BQ][d+1]; Kt, Vt [d][LD]; DS [BQ][LD]; lse, delta [BQ]
-  return sizeof(float) *
-         (size_t)(2 * BQ * (d + 1) + 2 * d * LD + BQ * LD + 2 * BQ);
-}
+template <typename T, int DP>
+struct Dkv {
+  static constexpr int BK = 64;                  // own keys, 16 per warp
+  static constexpr int BQ = Walk<T, DP>::ROWS;   // walked queries per stage
+  // output columns per block: at DP = 256 the dk and dv sums of all 256
+  // would take 256 registers a thread, so each block sums a 128-column
+  // half and replays S and dP in full for it
+  static constexpr int DO = DP > 128 ? 128 : DP;
+  static constexpr int LD = tile_ld<T, DP>();
+  static constexpr size_t bytes =
+      sizeof(T) * (size_t)(2 * BK * LD + STAGES * 2 * BQ * LD) +
+      sizeof(float) * STAGES * 2 * BQ;
+};
 
-template <typename T, int DC>
-__global__ void __launch_bounds__(NT)
-    flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v, const T* __restrict__ dout,
-                        const float* __restrict__ lse,
-                        const float* __restrict__ delta,
-                        const float* __restrict__ lens, T* __restrict__ dq,
-                        int sq, int sk, int d, float scale, int causal) {
-  extern __shared__ float smem[];
-  const int q_ld = d + 1;
-  float* Qs = smem;
-  float* dOs = Qs + BQ * q_ld;
-  float* Kt = dOs + BQ * q_ld;
-  float* Vt = Kt + d * LD;
-  float* DS = Vt + d * LD;
-  float* Ls = DS + BQ * LD;
-  float* Ds = Ls + BQ;
-
-  const int tid = threadIdx.x, tx = tid % TX, ty = tid / TX;
-  const int bh = blockIdx.x;
-  // long causal rows first, as in the forward
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
-  const T* qb = q + (size_t)bh * sq * d;
-  const T* ob = dout + (size_t)bh * sq * d;
-  const T* kb = k + (size_t)bh * sk * d;
-  const T* vb = v + (size_t)bh * sk * d;
-
-  for (int idx = tid; idx < BQ * d; idx += NT) {
-    const int r = idx / d, c = idx % d;
-    const bool in = q0 + r < sq;
-    const size_t g = (size_t)(q0 + r) * d + c;
-    Qs[r * q_ld + c] = in ? to_f32(qb[g]) : 0.f;
-    dOs[r * q_ld + c] = in ? to_f32(ob[g]) : 0.f;
-  }
-  for (int r = tid; r < BQ; r += NT) {
-    const bool in = q0 + r < sq;
-    Ls[r] = in ? lse[(size_t)bh * sq + q0 + r] : 0.f;
-    Ds[r] = in ? delta[(size_t)bh * sq + q0 + r] : 0.f;
-  }
-
-  const float len = lens ? lens[bh] : (float)sk;
-  int n_iter = (sk + BK - 1) / BK;
-  if (causal) {
-    const int last_q = min(q0 + BQ, sq) - 1 + (sk - sq);
-    n_iter = min(n_iter, last_q / BK + 1);
-  }
-  if (lens) n_iter = min(n_iter, (int)ceilf(len / BK));
-
-  float acc[RPT][DC];
-#pragma unroll
-  for (int i = 0; i < RPT; ++i)
-#pragma unroll
-    for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
-
-  for (int j = 0; j < n_iter; ++j) {
-    const int k0 = j * BK;
-    __syncthreads();  // Q/dO staged; the last tile's K/V/DS consumed
-    for (int idx = tid; idx < BK * d; idx += NT) {
-      const int r = idx / d, c = idx % d;
-      const bool in = k0 + r < sk;
-      const size_t g = (size_t)(k0 + r) * d + c;
-      Kt[c * LD + r] = in ? to_f32(kb[g]) : 0.f;
-      Vt[c * LD + r] = in ? to_f32(vb[g]) : 0.f;
-    }
-    __syncthreads();
-
-    float s[RPT][CPT], dp[RPT][CPT];
-#pragma unroll
-    for (int i = 0; i < RPT; ++i)
-#pragma unroll
-      for (int jj = 0; jj < CPT; ++jj) s[i][jj] = dp[i][jj] = 0.f;
-    for (int c = 0; c < d; ++c) {
-      float qv[RPT], ov[RPT], kv[CPT], vv[CPT];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) {
-        qv[i] = Qs[(ty * RPT + i) * q_ld + c];
-        ov[i] = dOs[(ty * RPT + i) * q_ld + c];
-      }
-#pragma unroll
-      for (int jj = 0; jj < CPT; ++jj) {
-        kv[jj] = Kt[c * LD + tx + TX * jj];
-        vv[jj] = Vt[c * LD + tx + TX * jj];
-      }
-#pragma unroll
-      for (int i = 0; i < RPT; ++i)
-#pragma unroll
-        for (int jj = 0; jj < CPT; ++jj) {
-          s[i][jj] = fmaf(qv[i], kv[jj], s[i][jj]);
-          dp[i][jj] = fmaf(ov[i], vv[jj], dp[i][jj]);
-        }
-    }
-
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      const int row = ty * RPT + i;
-#pragma unroll
-      for (int jj = 0; jj < CPT; ++jj) {
-        const int col = tx + TX * jj;
-        const bool valid =
-            pair_valid(q0 + row, k0 + col, sq, sk, causal, lens, len);
-        const float p = valid ? expf(s[i][jj] * scale - Ls[row]) : 0.f;
-        const float ds = p * (dp[i][jj] - Ds[row]) * scale;
-        DS[row * LD + col] = round_like(ds, T());
-      }
-    }
-    __syncthreads();
-
-    for (int kk = 0; kk < BK; ++kk) {
-      float dsv[RPT];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) dsv[i] = DS[(ty * RPT + i) * LD + kk];
-#pragma unroll
-      for (int c = 0; c < DC; ++c) {
-        const int col = tx + TX * c;
-        const float kv = col < d ? Kt[col * LD + kk] : 0.f;
-#pragma unroll
-        for (int i = 0; i < RPT; ++i) acc[i][c] = fmaf(dsv[i], kv, acc[i][c]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const int row = q0 + ty * RPT + i;
-    if (row >= sq) continue;
-    T* out = dq + ((size_t)bh * sq + row) * d;
-#pragma unroll
-    for (int c = 0; c < DC; ++c) {
-      const int col = tx + TX * c;
-      if (col < d) store(out + col, acc[i][c]);
-    }
-  }
-}
-
-// ---- dk/dv: grid (bh, ceil(sk / BK)) -------------------------------------
-
-size_t dkv_smem_bytes(int d) {
-  // Ks, Vs [BK][d+1]; Qt, dOt [d][LD]; P, DS [BK][LD]; lse, delta [BQ]
-  return sizeof(float) *
-         (size_t)(2 * BK * (d + 1) + 2 * d * LD + 2 * BK * LD + 2 * BQ);
-}
-
-template <typename T, int DC>
-__global__ void __launch_bounds__(NT)
+template <typename T, int DP>
+__global__ void __launch_bounds__(NT, Walk<T, DP>::DKV_BLOCKS)
     flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          const T* __restrict__ v, const T* __restrict__ dout,
                          const float* __restrict__ lse,
                          const float* __restrict__ delta,
                          const float* __restrict__ lens, T* __restrict__ dk,
                          T* __restrict__ dv, int sq, int sk, int d,
-                         float scale, int causal) {
-  extern __shared__ float smem[];
-  const int k_ld = d + 1;
-  float* Ks = smem;
-  float* Vs = Ks + BK * k_ld;
-  float* Qt = Vs + BK * k_ld;
-  float* dOt = Qt + d * LD;
-  float* P = dOt + d * LD;
-  float* DS = P + BK * LD;
-  float* Ls = DS + BK * LD;
-  float* Ds = Ls + BQ;
+                         float scale, int causal, int vec) {
+  using C = Dkv<T, DP>;
+  constexpr int BK = C::BK, BQ = C::BQ, DO = C::DO, LD = C::LD;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* Ks = reinterpret_cast<T*>(smem);
+  T* Vs = Ks + BK * LD;
+  T* Qs = Vs + BK * LD;            // [STAGES][BQ][LD]
+  T* dOs = Qs + STAGES * BQ * LD;  // [STAGES][BQ][LD]
+  float* Ls = reinterpret_cast<float*>(dOs + STAGES * BQ * LD);
+  float* Ds = Ls + STAGES * BQ;    // Ls, Ds: [STAGES][BQ]
 
-  const int tid = threadIdx.x, tx = tid % TX, ty = tid / TX;
-  const int bh = blockIdx.x;
-  const int k0 = blockIdx.y * BK;
-  const T* qb = q + (size_t)bh * sq * d;
-  const T* ob = dout + (size_t)bh * sq * d;
-  const T* kb = k + (size_t)bh * sk * d;
-  const T* vb = v + (size_t)bh * sk * d;
-
-  for (int idx = tid; idx < BK * d; idx += NT) {
-    const int r = idx / d, c = idx % d;
-    const bool in = k0 + r < sk;
-    const size_t g = (size_t)(k0 + r) * d + c;
-    Ks[r * k_ld + c] = in ? to_f32(kb[g]) : 0.f;
-    Vs[r * k_ld + c] = in ? to_f32(vb[g]) : 0.f;
-  }
+  const int warp = threadIdx.x / flash::WARP;
+  const int lane = threadIdx.x % flash::WARP, g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.x, k0 = blockIdx.y * BK;
+  const T* qb = rows_of(q, bh, sq, d);
+  const T* ob = rows_of(dout, bh, sq, d);
+  const float* lb = lse + (size_t)bh * sq;
+  const float* db = delta + (size_t)bh * sq;
 
   const float len = lens ? lens[bh] : (float)sk;
   // first query tile whose last row reaches this key tile causally
   const int start = causal ? max(0, (k0 - (sk - sq)) / BQ) : 0;
   int end = (sq + BQ - 1) / BQ;
   if (lens && (float)k0 >= len) end = start;  // dk = dv = 0, no loop
+  const int n = end - start;
+  const int ksteps = (d + flash::Elem<T>::KSTEP - 1) / flash::Elem<T>::KSTEP;
+  const int c0 = blockIdx.z * DO;  // this block's first output column
+  const int ntiles = min(DO / 8, (d - c0 + 7) / 8);
+  const float scale2 = scale * flash::LOG2E;
 
-  float dk_acc[RPT][DC], dv_acc[RPT][DC];
-#pragma unroll
-  for (int i = 0; i < RPT; ++i)
-#pragma unroll
-    for (int c = 0; c < DC; ++c) dk_acc[i][c] = dv_acc[i][c] = 0.f;
-
-  for (int qi = start; qi < end; ++qi) {
+  auto stage = [&](int s, int qi) {
     const int q0 = qi * BQ;
-    __syncthreads();  // K/V staged; the last tile's Q/dO/P/DS consumed
-    for (int idx = tid; idx < BQ * d; idx += NT) {
-      const int r = idx / d, c = idx % d;
-      const bool in = q0 + r < sq;
-      const size_t g = (size_t)(q0 + r) * d + c;
-      Qt[c * LD + r] = in ? to_f32(qb[g]) : 0.f;
-      dOt[c * LD + r] = in ? to_f32(ob[g]) : 0.f;
-    }
-    for (int r = tid; r < BQ; r += NT) {
-      const bool in = q0 + r < sq;
-      Ls[r] = in ? lse[(size_t)bh * sq + q0 + r] : 0.f;
-      Ds[r] = in ? delta[(size_t)bh * sq + q0 + r] : 0.f;
-    }
-    __syncthreads();
+    flash::load_tile<T, BQ, LD, NT>(Qs + s * BQ * LD, qb, q0, sq, d, vec);
+    flash::load_tile<T, BQ, LD, NT>(dOs + s * BQ * LD, ob, q0, sq, d, vec);
+    flash::load_vec<BQ, NT>(Ls + s * BQ, lb, q0, sq);
+    flash::load_vec<BQ, NT>(Ds + s * BQ, db, q0, sq);
+  };
 
-    // transposed tiles: rows are this block's keys, columns queries
-    float s[RPT][CPT], dp[RPT][CPT];
+  float dk_acc[DO / 8][4] = {}, dv_acc[DO / 8][4] = {};
+  if (n > 0) {
+    flash::zero_pad<T, 2 * BK + 2 * STAGES * BQ, DP, LD, NT>(Ks, d);
+    flash::load_tile<T, BK, LD, NT>(Ks, rows_of(k, bh, sk, d), k0, sk, d,
+                                    vec);
+    flash::load_tile<T, BK, LD, NT>(Vs, rows_of(v, bh, sk, d), k0, sk, d,
+                                    vec);
+    stage(0, start);
+    flash::cp_async_commit();
+    if (n > 1) stage(1, start + 1);
+    flash::cp_async_commit();
+
+    const T* Kw = Ks + 16 * warp * LD;
+    const T* Vw = Vs + 16 * warp * LD;
+    for (int i = 0; i < n; ++i) {
+      flash::cp_async_wait<STAGES - 1>();  // tile i (and K, V) landed
+      __syncthreads();
+      const int s = i % STAGES, q0 = (start + i) * BQ;
+      const T* Q = Qs + s * BQ * LD;
+      const T* dO = dOs + s * BQ * LD;
+      const float* L = Ls + s * BQ;
+      const float* D = Ds + s * BQ;
+
+      // transposed tiles: rows are this warp's keys, columns the queries
+      float st[BQ / 8][4] = {}, dpt[BQ / 8][4] = {};
+      flash::mma_abt<T, BQ, DP, LD, LD>(st, Kw, Q, ksteps);
+      flash::mma_abt<T, BQ, DP, LD, LD>(dpt, Vw, dO, ksteps);
+      const bool masked =
+          !flash::tile_unmasked(q0, BQ, k0, BK, sq, sk, causal, lens, len);
 #pragma unroll
-    for (int i = 0; i < RPT; ++i)
+      for (int j = 0; j < BQ / 8; ++j)
 #pragma unroll
-      for (int jj = 0; jj < CPT; ++jj) s[i][jj] = dp[i][jj] = 0.f;
-    for (int c = 0; c < d; ++c) {
-      float kv[RPT], vv[RPT], qv[CPT], ov[CPT];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) {
-        kv[i] = Ks[(ty * RPT + i) * k_ld + c];
-        vv[i] = Vs[(ty * RPT + i) * k_ld + c];
-      }
-#pragma unroll
-      for (int jj = 0; jj < CPT; ++jj) {
-        qv[jj] = Qt[c * LD + tx + TX * jj];
-        ov[jj] = dOt[c * LD + tx + TX * jj];
-      }
-#pragma unroll
-      for (int i = 0; i < RPT; ++i)
-#pragma unroll
-        for (int jj = 0; jj < CPT; ++jj) {
-          s[i][jj] = fmaf(kv[i], qv[jj], s[i][jj]);
-          dp[i][jj] = fmaf(vv[i], ov[jj], dp[i][jj]);
+        for (int e = 0; e < 4; ++e) {
+          const int key = k0 + 16 * warp + g + 8 * (e >> 1);
+          const int col = 8 * j + 2 * t + (e & 1);
+          float p = exp2f(fmaf(st[j][e], scale2, -L[col] * flash::LOG2E));
+          if (masked &&
+              !flash::pair_valid(q0 + col, key, sq, sk, causal, lens, len))
+            p = 0.f;
+          dpt[j][e] = p * (dpt[j][e] - D[col]) * scale;
+          st[j][e] = p;
         }
-    }
+      flash::mma_pb<T, BQ, DO, LD>(dv_acc, st, dO + c0, ntiles);
+      flash::mma_pb<T, BQ, DO, LD>(dk_acc, dpt, Q + c0, ntiles);
 
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      const int row = ty * RPT + i;
-#pragma unroll
-      for (int jj = 0; jj < CPT; ++jj) {
-        const int col = tx + TX * jj;
-        const bool valid =
-            pair_valid(q0 + col, k0 + row, sq, sk, causal, lens, len);
-        const float p = valid ? expf(s[i][jj] * scale - Ls[col]) : 0.f;
-        const float ds = p * (dp[i][jj] - Ds[col]) * scale;
-        P[row * LD + col] = round_like(p, T());
-        DS[row * LD + col] = round_like(ds, T());
-      }
+      __syncthreads();  // every warp is done with stage s
+      if (i + STAGES < n) stage(s, start + i + STAGES);
+      flash::cp_async_commit();
     }
-    __syncthreads();
-
-    for (int qq = 0; qq < BQ; ++qq) {
-      float pv[RPT], dsv[RPT];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) {
-        pv[i] = P[(ty * RPT + i) * LD + qq];
-        dsv[i] = DS[(ty * RPT + i) * LD + qq];
-      }
-#pragma unroll
-      for (int c = 0; c < DC; ++c) {
-        const int col = tx + TX * c;
-        const float ov = col < d ? dOt[col * LD + qq] : 0.f;
-        const float qv = col < d ? Qt[col * LD + qq] : 0.f;
-#pragma unroll
-        for (int i = 0; i < RPT; ++i) {
-          dv_acc[i][c] = fmaf(pv[i], ov, dv_acc[i][c]);
-          dk_acc[i][c] = fmaf(dsv[i], qv, dk_acc[i][c]);
-        }
-      }
-    }
+    flash::cp_async_wait<0>();
   }
 
   // every row < sk is written, the zero rows of a skipped tile included
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const int row = k0 + ty * RPT + i;
-    if (row >= sk) continue;
-    T* dk_row = dk + ((size_t)bh * sk + row) * d;
-    T* dv_row = dv + ((size_t)bh * sk + row) * d;
-#pragma unroll
-    for (int c = 0; c < DC; ++c) {
-      const int col = tx + TX * c;
-      if (col < d) {
-        store(dk_row + col, dk_acc[i][c]);
-        store(dv_row + col, dv_acc[i][c]);
-      }
-    }
-  }
+  const int row0 = k0 + 16 * warp;
+  flash::store_rows<T, DO / 8>(dk + (size_t)bh * sk * d, dk_acc, row0, sk, d,
+                               c0);
+  flash::store_rows<T, DO / 8>(dv + (size_t)bh * sk * d, dv_acc, row0, sk, d,
+                               c0);
 }
+
+// ---- dq: grid (bh, ceil(sq / 64)) -----------------------------------------
+
+template <typename T, int DP>
+struct Dq {
+  static constexpr int BQ = 64;                  // own queries, 16 per warp
+  static constexpr int BK = Walk<T, DP>::ROWS;   // walked keys per stage
+  static constexpr int LD = tile_ld<T, DP>();
+  static constexpr size_t bytes =
+      sizeof(T) * (size_t)(2 * BQ * LD + STAGES * 2 * BK * LD);
+};
+
+template <typename T, int DP>
+__global__ void __launch_bounds__(NT, Walk<T, DP>::DQ_BLOCKS)
+    flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, const T* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta,
+                        const float* __restrict__ lens, T* __restrict__ dq,
+                        int sq, int sk, int d, float scale, int causal,
+                        int vec) {
+  using C = Dq<T, DP>;
+  constexpr int BQ = C::BQ, BK = C::BK, LD = C::LD;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* Qs = reinterpret_cast<T*>(smem);
+  T* dOs = Qs + BQ * LD;
+  T* Ks = dOs + BQ * LD;           // [STAGES][BK][LD]
+  T* Vs = Ks + STAGES * BK * LD;   // [STAGES][BK][LD]
+
+  const int warp = threadIdx.x / flash::WARP;
+  const int lane = threadIdx.x % flash::WARP, g = lane >> 2;
+  const int t = lane & 3;
+  const int bh = blockIdx.x;
+  // long causal rows first, as in the forward
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
+  const T* kb = rows_of(k, bh, sk, d);
+  const T* vb = rows_of(v, bh, sk, d);
+
+  // this lane's two query rows, g and g + 8 of its warp's 16
+  const int row0 = q0 + 16 * warp;
+  float row_lse2[2], row_delta[2];  // lse in base 2
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row0 + g + 8 * h;
+    row_lse2[h] = row < sq ? lse[(size_t)bh * sq + row] * flash::LOG2E : 0.f;
+    row_delta[h] = row < sq ? delta[(size_t)bh * sq + row] : 0.f;
+  }
+  const float scale2 = scale * flash::LOG2E;
+
+  const float len = lens ? lens[bh] : (float)sk;
+  int n = (sk + BK - 1) / BK;
+  if (causal) {
+    const int last_q = min(q0 + BQ, sq) - 1 + (sk - sq);
+    n = min(n, last_q / BK + 1);
+  }
+  if (lens) n = min(n, (int)ceilf(len / BK));
+  const int ksteps = (d + flash::Elem<T>::KSTEP - 1) / flash::Elem<T>::KSTEP;
+  const int ntiles = (d + 7) / 8;
+
+  auto stage = [&](int s, int j) {
+    flash::load_tile<T, BK, LD, NT>(Ks + s * BK * LD, kb, j * BK, sk, d, vec);
+    flash::load_tile<T, BK, LD, NT>(Vs + s * BK * LD, vb, j * BK, sk, d, vec);
+  };
+
+  float acc[DP / 8][4] = {};
+  if (n > 0) {
+    flash::zero_pad<T, 2 * BQ + 2 * STAGES * BK, DP, LD, NT>(Qs, d);
+    flash::load_tile<T, BQ, LD, NT>(Qs, rows_of(q, bh, sq, d), q0, sq, d,
+                                    vec);
+    flash::load_tile<T, BQ, LD, NT>(dOs, rows_of(dout, bh, sq, d), q0, sq, d,
+                                    vec);
+    stage(0, 0);
+    flash::cp_async_commit();
+    if (n > 1) stage(1, 1);
+    flash::cp_async_commit();
+
+    const T* Qw = Qs + 16 * warp * LD;
+    const T* dOw = dOs + 16 * warp * LD;
+    for (int j = 0; j < n; ++j) {
+      flash::cp_async_wait<STAGES - 1>();  // tile j (and Q, dO) landed
+      __syncthreads();
+      const int s = j % STAGES, k0 = j * BK;
+      const T* K = Ks + s * BK * LD;
+      const T* V = Vs + s * BK * LD;
+
+      float sc[BK / 8][4] = {}, dp[BK / 8][4] = {};
+      flash::mma_abt<T, BK, DP, LD, LD>(sc, Qw, K, ksteps);
+      flash::mma_abt<T, BK, DP, LD, LD>(dp, dOw, V, ksteps);
+      const bool masked =
+          !flash::tile_unmasked(q0, BQ, k0, BK, sq, sk, causal, lens, len);
+#pragma unroll
+      for (int jj = 0; jj < BK / 8; ++jj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int h = e >> 1;
+          const int key = k0 + 8 * jj + 2 * t + (e & 1);
+          float p = exp2f(fmaf(sc[jj][e], scale2, -row_lse2[h]));
+          if (masked && !flash::pair_valid(row0 + g + 8 * h, key, sq, sk,
+                                           causal, lens, len))
+            p = 0.f;
+          dp[jj][e] = p * (dp[jj][e] - row_delta[h]) * scale;
+        }
+      flash::mma_pb<T, BK, DP, LD>(acc, dp, K, ntiles);
+
+      __syncthreads();  // every warp is done with stage s
+      if (j + STAGES < n) stage(s, j + STAGES);
+      flash::cp_async_commit();
+    }
+    flash::cp_async_wait<0>();
+  }
+
+  flash::store_rows<T, DP / 8>(dq + (size_t)bh * sq * d, acc, row0, sq, d, 0);
+}
+
+// ---- launch ---------------------------------------------------------------
 
 struct Args {
   const void *q, *k, *v, *dout, *lse, *delta, *lens;
@@ -381,59 +337,74 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <typename T, int DC>
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// 16-byte cp.async staging: rows of whole 16-byte chunks, aligned inputs
+template <typename T>
+int vec_ok(const Args& a) {
+  return (a.d * sizeof(T)) % 16 == 0 && aligned16(a.q) && aligned16(a.k) &&
+         aligned16(a.v) && aligned16(a.dout);
+}
+
+template <typename T, int DP>
 cudaError_t launch_dq(const Args& a) {
-  const size_t smem = dq_smem_bytes(a.d);
+  const size_t smem = Dq<T, DP>::bytes;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<T, DC>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      flash_bwd_dq_kernel<T, DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(a.bh, (a.sq + BQ - 1) / BQ);
-  flash_bwd_dq_kernel<T, DC><<<grid, NT, smem, a.stream>>>(
+  const dim3 grid(a.bh, (a.sq + Dq<T, DP>::BQ - 1) / Dq<T, DP>::BQ);
+  flash_bwd_dq_kernel<T, DP><<<grid, NT, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
       static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
       static_cast<const float*>(a.lens), static_cast<T*>(a.out0), a.sq, a.sk,
-      a.d, a.scale, a.causal);
+      a.d, a.scale, a.causal, vec_ok<T>(a));
   return cudaGetLastError();
 }
 
-template <typename T, int DC>
+template <typename T, int DP>
 cudaError_t launch_dkv(const Args& a) {
-  const size_t smem = dkv_smem_bytes(a.d);
+  const size_t smem = Dkv<T, DP>::bytes;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<T, DC>,
+      flash_bwd_dkv_kernel<T, DP>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(a.bh, (a.sk + BK - 1) / BK);
-  flash_bwd_dkv_kernel<T, DC><<<grid, NT, smem, a.stream>>>(
+  constexpr int DO = Dkv<T, DP>::DO;
+  const dim3 grid(a.bh, (a.sk + Dkv<T, DP>::BK - 1) / Dkv<T, DP>::BK,
+                  (a.d + DO - 1) / DO);
+  flash_bwd_dkv_kernel<T, DP><<<grid, NT, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
       static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
       static_cast<const float*>(a.lens), static_cast<T*>(a.out0),
-      static_cast<T*>(a.out1), a.sq, a.sk, a.d, a.scale, a.causal);
+      static_cast<T*>(a.out1), a.sq, a.sk, a.d, a.scale, a.causal,
+      vec_ok<T>(a));
   return cudaGetLastError();
 }
 
-// head_dim picks the per-thread output columns: DC = 2, 4 or 8 (16 * DC
-// >= d)
+// head_dim picks the padded width DP = 32, 64, 128 or 256
 template <typename T>
 cudaError_t dq_by_d(const Args& a) {
-  if (a.d <= 32) return launch_dq<T, 2>(a);
-  if (a.d <= 64) return launch_dq<T, 4>(a);
-  return launch_dq<T, DMAX / TX>(a);
+  if (a.d <= 32) return launch_dq<T, 32>(a);
+  if (a.d <= 64) return launch_dq<T, 64>(a);
+  if (a.d <= 128) return launch_dq<T, 128>(a);
+  return launch_dq<T, DMAX>(a);
 }
 
 template <typename T>
 cudaError_t dkv_by_d(const Args& a) {
-  if (a.d <= 32) return launch_dkv<T, 2>(a);
-  if (a.d <= 64) return launch_dkv<T, 4>(a);
-  return launch_dkv<T, DMAX / TX>(a);
+  if (a.d <= 32) return launch_dkv<T, 32>(a);
+  if (a.d <= 64) return launch_dkv<T, 64>(a);
+  if (a.d <= 128) return launch_dkv<T, 128>(a);
+  return launch_dkv<T, DMAX>(a);
 }
 
 bool bad_shape(int bh, int sq, int sk, int d) {
   return bh < 1 || sq < 1 || sk < 1 || d < 1 || d > DMAX ||
-         sq > 65535 * BQ || sk > 65535 * BK;
+         sq > 65535 * 64 || sk > 65535 * 64;
 }
 
 }  // namespace

@@ -6,7 +6,10 @@ NVIDIA GPU.
 
 Phases (any failure makes the exit code non-zero):
 
-1. build: compile every CUDA kernel of the port from ``ops/csrc``;
+1. build: compile every CUDA kernel of the port from ``ops/csrc``, and
+   count the tensor-core MMA, ``cp.async`` and atomic instructions of
+   each kernel (the backward kernels must have the first two and no
+   atomics);
 2. kernels: hold each kernel (the flash forward, and the backward's dq
    and dk/dv) against its plain PyTorch version on the card, at the
    paths' shapes and at edge cases, and time the kernel, the plain
@@ -35,11 +38,15 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
+import warnings
 
 F32_PEAK = 67e12      # FLOP/s, H100 SXM, f32 outside the tensor cores
+TF32_PEAK = 495e12    # FLOP/s, H100 SXM, dense TF32 tensor cores
 BF16_PEAK = 989e12    # FLOP/s, H100 SXM, dense bf16 tensor cores
 HBM_RATE = 3.35e12    # bytes/s, H100 SXM
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}  # o, dq, dk, dv; lse: 1e-4
@@ -82,7 +89,11 @@ def cuda_ms(fn, reps):
 
 
 def attention_bound(q, k, lens, causal, kernel="flash_fwd"):
-    """(ms, "bytes" or "operations"): the least time for this call's work.
+    """The least time for this call's work, as a dict: ``bound_ms`` and
+    ``bound_by`` ("bytes" or "operations") on the tensor cores, where f32
+    products at f32 accuracy cost three TF32 products (3xTF32, 3 x ops at
+    495 TFLOP/s) and bf16 ones one (989 TFLOP/s); ``bound_f32_cuda_ms``,
+    the same work in f32 on the CUDA cores (67 TFLOP/s) or bytes.
     Operations: 2*d FLOP per product per valid (query, key) pair, with 2
     products in the forward (q.k, p.v), 3 in dq (q.k, do.v, ds.k) and 4 in
     dk/dv (k.q, v.do, p.do, ds.q).  Bytes: each input read once and each
@@ -109,28 +120,57 @@ def attention_bound(q, k, lens, causal, kernel="flash_fwd"):
     nbytes = (q_side * bh * sq * d * item + 2 * keys * d * item
               + full_kv * bh * sk * d * item + stats * bh * sq * 4
               + (0 if lens is None else bh * 4))
-    peak = F32_PEAK if q.dtype == torch.float32 else BF16_PEAK
-    t_ops, t_bytes = ops / peak, nbytes / HBM_RATE
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes")
+    t_ops = (3 * ops / TF32_PEAK if q.dtype == torch.float32
+             else ops / BF16_PEAK)
+    t_bytes = nbytes / HBM_RATE
+    return dict(bound_ms=max(t_ops, t_bytes) * 1e3,
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                bound_f32_cuda_ms=max(ops / F32_PEAK, t_bytes) * 1e3)
+
+
+#: SDPA's backends, fused ones first (names of torch's SDPBackend)
+SDPA_BACKENDS = ("FLASH_ATTENTION", "CUDNN_ATTENTION", "EFFICIENT_ATTENTION",
+                 "MATH")
 
 
 def sdpa_call(q, k, v, lens, causal, scale):
+    """(fn, backend): one F.scaled_dot_product_attention call on the
+    (1, bh, s, d) view of folded (bh, s, d) inputs -- the fused backends
+    take 4-D inputs only -- held to the first backend of SDPA_BACKENDS
+    that runs it, and that backend's name."""
     import torch
     import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    q4, k4, v4 = q[None], k[None], v[None]
     sq, sk = q.shape[1], k.shape[1]
+    kw = dict(scale=scale)
     if lens is None and (not causal or sq == sk):
-        return lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=causal, scale=scale)
-    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
-    if causal:
-        mask = mask.tril(sk - sq)
-    mask = mask[None]
-    if lens is not None:
-        mask = mask & (torch.arange(sk, device=q.device)[None, None, :]
-                       < lens[:, None, None])
-    return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
-                                                  scale=scale)
+        kw["is_causal"] = causal
+    else:
+        mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+        if causal:
+            mask = mask.tril(sk - sq)
+        mask = mask[None]
+        if lens is not None:
+            mask = mask & (torch.arange(sk, device=q.device)[None, None, :]
+                           < lens[:, None, None])
+        kw["attn_mask"] = mask[None]
+    for name in SDPA_BACKENDS:
+        backend = getattr(SDPBackend, name, None)
+        if backend is None:
+            continue
+
+        def fn(backend=backend):
+            with sdpa_kernel(backend):
+                return F.scaled_dot_product_attention(q4, k4, v4, **kw)
+        try:
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                fn()
+        except RuntimeError:
+            continue
+        return fn, name.lower()
+    raise RuntimeError("no SDPA backend runs this case")
 
 
 # name, bh, sq, sk, d, dtype, causal, longest length (None: no lens),
@@ -151,6 +191,34 @@ CASES = [
     ("d16", 4, 40, 40, 16, "float32", True, None, False),
     # lengths of at most 130 of 700 keys: whole key tiles lie past them
     ("tiles past lens", 8, 160, 700, 64, "float32", False, 130, False),
+    # the backward kernels' tile edges: lengths one short of and one past
+    # 64 and 128 (own tiles of 64 rows, walked tiles of 32), head dims
+    # that are no multiple of the MMA depth (8 f32, 16 bf16) and whose
+    # rows are no 16-byte multiple (plain-load staging), cross causal
+    ("edge 63", 8, 63, 63, 64, "float32", True, None, False),
+    ("edge 65", 8, 65, 65, 64, "bfloat16", True, 65, False),
+    ("edge 127", 8, 127, 127, 64, "float32", False, 127, False),
+    ("edge 129", 8, 129, 129, 64, "float32", True, None, False),
+    ("d20", 8, 129, 129, 20, "float32", True, 129, False),
+    ("d20", 8, 127, 127, 20, "bfloat16", True, None, False),
+    ("d72", 8, 200, 200, 72, "float32", True, None, False),
+    ("d72", 8, 65, 65, 72, "bfloat16", False, 65, False),
+    ("d37", 4, 65, 65, 37, "float32", True, None, False),
+    ("d5", 4, 63, 63, 5, "bfloat16", False, 63, False),
+    ("d128 edge", 8, 129, 129, 128, "float32", True, 129, False),
+    ("d128 cross causal", 8, 63, 129, 128, "bfloat16", True, None, False),
+    ("cross causal lens", 8, 65, 127, 64, "float32", True, 127, False),
+    ("cross causal d72", 8, 127, 129, 72, "bfloat16", True, None, False),
+    ("train", 96, TRAIN_SEQ, TRAIN_SEQ, 64, "bfloat16", True, None, True),
+    # head dims past 128 (DP = 256: 16-row walked tiles at f32, dk/dv in
+    # two 128-column halves); rows of 130 f32 or 250 bf16 are no 16-byte
+    # multiple, and d = 130 leaves one column tile in the second half
+    ("d192", 8, 129, 129, 192, "float32", True, 129, False),
+    ("d192", 8, 127, 127, 192, "bfloat16", True, None, False),
+    ("d256", 8, 200, 200, 256, "float32", True, None, False),
+    ("d256 cross causal", 8, 65, 129, 256, "bfloat16", True, 129, False),
+    ("d130", 4, 63, 63, 130, "float32", False, 63, False),
+    ("d250", 4, 65, 65, 250, "bfloat16", True, None, False),
 ]
 
 
@@ -168,13 +236,45 @@ def case_inputs(torch, g, bh, sq, sk, d, dtype, lens_max):
 
 
 def sdpa_backward_call(torch, q, k, v, do, lens, causal, scale):
-    """The library yardstick of the backward: autograd of
-    scaled_dot_product_attention from one saved forward (retain_graph),
-    timed apart from that forward."""
+    """(fn, backend): the library yardstick of the backward, autograd of
+    scaled_dot_product_attention (:func:`sdpa_call`) from one saved
+    forward (retain_graph), timed apart from that forward."""
     qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
-    out = sdpa_call(qs, ks, vs, lens, causal, scale)()
-    return lambda: torch.autograd.grad(out, (qs, ks, vs), do,
-                                       retain_graph=True)
+    fwd, backend = sdpa_call(qs, ks, vs, lens, causal, scale)
+    out = fwd()
+    return (lambda: torch.autograd.grad(out, (qs, ks, vs), do[None],
+                                        retain_graph=True)), backend
+
+
+SASS_OPS = ("HMMA", "LDGSTS", "LDSM", "ATOM", "RED")
+
+
+def sass_counts(kernels):
+    """Per kernel instantiation of the built libraries, counts of the SASS
+    instructions that show the design (``cuobjdump -sass``): HMMA
+    (tensor-core MMA), LDGSTS (cp.async), LDSM (ldmatrix), ATOM and RED
+    (atomics).  None where the toolkit has no cuobjdump."""
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    counts, fn = {}, None
+    for lib in sorted(kernels._build_dir().glob("*.so")):
+        text = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                              text=True, timeout=300, check=True).stdout
+        for line in text.splitlines():
+            if "Function :" in line:
+                m = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv)_kernel)"
+                              r"I(f|13__nv_bfloat16)Li(\d+)E", line)
+                fn = (f"{m[1]}<{'f32' if m[2] == 'f' else 'bf16'},{m[3]}>"
+                      if m else line.split("Function :")[1].strip())
+                counts[fn] = dict.fromkeys(SASS_OPS, 0)
+                continue
+            op = re.match(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z]+)",
+                          line)
+            if fn and op and op[1] in counts[fn]:
+                counts[fn][op[1]] += 1
+    return counts
 
 
 def phase_kernels(torch, ops_attn, kernels):
@@ -182,7 +282,8 @@ def phase_kernels(torch, ops_attn, kernels):
     against flash_attention_reference (o within TOL, lse within 1e-4),
     flash_bwd_dq and flash_bwd_dkv against flash_bwd_dq_reference and
     flash_bwd_dkv_reference (dq, dk, dv each within max|diff| / max|ref|
-    <= TOL), and dk = dv = 0 exactly past every length."""
+    <= TOL), dk = dv = 0 exactly past every length, and a second launch
+    of each backward kernel equal to the first, bit for bit."""
     g = torch.Generator(device="cuda").manual_seed(0)
     rows, ok = [], True
     for name, bh, sq, sk, d, dt, causal, lens_max, timed in CASES:
@@ -197,6 +298,9 @@ def phase_kernels(torch, ops_attn, kernels):
         args = (q, k, v, do, lse, delta, lens, causal, scale)
         dq = kernels.flash_bwd_dq(*args)
         dk, dv = kernels.flash_bwd_dkv(*args)
+        deterministic = (torch.equal(dq, kernels.flash_bwd_dq(*args))
+                         and all(map(torch.equal, (dk, dv),
+                                     kernels.flash_bwd_dkv(*args))))
         dq_ref = ops_attn.flash_bwd_dq_reference(*args)
         dk_ref, dv_ref = ops_attn.flash_bwd_dkv_reference(*args)
         torch.cuda.synchronize()
@@ -210,15 +314,17 @@ def phase_kernels(torch, ops_attn, kernels):
         fwd["ok"] = (fwd["abs_err"] <= TOL[dt] and fwd["err_lse"] <= 1e-4
                      and bool(torch.isfinite(o).all()))
         dq_row = dict(base, kernel="flash_bwd_dq", err=rel(dq, dq_ref),
-                      abs_err=diff(dq, dq_ref))
+                      abs_err=diff(dq, dq_ref), deterministic=deterministic)
         dq_row["ok"] = dq_row["err"] <= TOL[dt] and bool(
-            torch.isfinite(dq).all())
+            torch.isfinite(dq).all()) and deterministic
         dkv_row = dict(base, kernel="flash_bwd_dkv", err=max(
             rel(dk, dk_ref), rel(dv, dv_ref)), err_dk=rel(dk, dk_ref),
             err_dv=rel(dv, dv_ref),
-            abs_err=max(diff(dk, dk_ref), diff(dv, dv_ref)))
+            abs_err=max(diff(dk, dk_ref), diff(dv, dv_ref)),
+            deterministic=deterministic)
         dkv_row["ok"] = dkv_row["err"] <= TOL[dt] and bool(
-            torch.isfinite(dk).all() and torch.isfinite(dv).all())
+            torch.isfinite(dk).all() and torch.isfinite(dv).all()
+        ) and deterministic
         if masked:
             past = (torch.arange(sk, device="cuda")[None, :]
                     >= lens[:, None])[..., None]
@@ -228,15 +334,16 @@ def phase_kernels(torch, ops_attn, kernels):
             dkv_row["ok"] &= zero
         if timed:
             fwd_fn = lambda: kernels.flash_fwd(q, k, v, lens, causal, scale)
+            lib_fn, lib_backend = sdpa_call(q, k, v, lens, causal, scale)
             fwd.update(
                 ms=cuda_ms(fwd_fn, 20),
                 plain_ms=cuda_ms(lambda: ops_attn.flash_attention_reference(
                     q, k, v, causal, scale, lens), 3),
-                library_ms=cuda_ms(sdpa_call(q, k, v, lens, causal, scale),
-                                   20))
-            if dt == "float32" and sq == TRAIN_SEQ:
-                lib_ms = cuda_ms(sdpa_backward_call(
-                    torch, q, k, v, do, lens, causal, scale), 10)
+                library_ms=cuda_ms(lib_fn, 20), library_backend=lib_backend)
+            if sq == TRAIN_SEQ:
+                lib_fn, lib_backend = sdpa_backward_call(
+                    torch, q, k, v, do, lens, causal, scale)
+                lib_ms = cuda_ms(lib_fn, 10)
                 for row, kern, ref in (
                         (dq_row, kernels.flash_bwd_dq,
                          ops_attn.flash_bwd_dq_reference),
@@ -244,11 +351,11 @@ def phase_kernels(torch, ops_attn, kernels):
                          ops_attn.flash_bwd_dkv_reference)):
                     row.update(ms=cuda_ms(lambda: kern(*args), 10),
                                plain_ms=cuda_ms(lambda: ref(*args), 2),
-                               library_ms=lib_ms)
+                               library_ms=lib_ms, library_backend=lib_backend)
             for row in (fwd, dq_row, dkv_row):
                 if "ms" in row:
-                    row["bound_ms"], row["bound_by"] = attention_bound(
-                        q, k, lens, causal, row["kernel"])
+                    row.update(attention_bound(q, k, lens, causal,
+                                               row["kernel"]))
         for row in (fwd, dq_row, dkv_row):
             ok &= row["ok"]
             rows.append(row)
@@ -462,10 +569,20 @@ def main() -> int:
         kernels.build()
         log(f"build: {time.perf_counter() - t0:.2f} s")
         for line in kernels.LIBRARY.build_log.splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("entry function", "registers",
+                                       "spill")):
                 log("build:", line.strip())
-    except RuntimeError as e:
+        sass = sass_counts(kernels)
+    except (RuntimeError, subprocess.SubprocessError) as e:
         log(f"build: FAIL {e}")
+        return 1
+    log("build: sass", json.dumps(sass))
+    # the backward's design: tensor-core MMA and cp.async in every
+    # instantiation, no atomics
+    bad = [fn for fn, c in (sass or {}).items() if "bwd" in fn and (
+        not c["HMMA"] or not c["LDGSTS"] or c["ATOM"] or c["RED"])]
+    if bad or (sass is not None and not any("bwd" in fn for fn in sass)):
+        log(f"build: FAIL backward instantiations off their design: {bad}")
         return 1
 
     phases = [
@@ -514,12 +631,15 @@ def main() -> int:
                      "train": path_launches["train"].get(name, 0)}}
         row = next((r for r in results.get("kernels") or []
                     if r["kernel"] == name and r["case"] == "train"
+                    and r["dtype"] == "float32"
                     and r.get("ms") is not None), None)
         if row is not None:
             entry.update(max_abs_err=row["abs_err"], ms=row["ms"],
                          plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
                          bound_by=row["bound_by"],
+                         bound_f32_cuda_ms=row["bound_f32_cuda_ms"],
                          library_ms=row["library_ms"],
+                         library_backend=row["library_backend"],
                          shape=[row["bh"], row["sq"], row["d"]])
         entries.append(entry)
     log(json.dumps({"kernels": entries}))

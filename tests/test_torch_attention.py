@@ -10,6 +10,7 @@ version only where a card is present, in ``tests/test_torch_cuda.py``.
 """
 
 import importlib
+import shutil
 import subprocess
 
 import numpy as np
@@ -268,3 +269,43 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensor"):
         _kernels.flash_fwd(q, q, q, None, True, 0.25)
     assert _kernels.flash_fwd.launches == 0
+
+
+@pytest.mark.parametrize("causal,sq,sk,runs", [
+    (False, 64, 64, True),
+    (True, 64, 128, True),
+    (False, 96, 48, True),      # sq > sk runs without causal
+    (True, 96, 48, False),      # causal sq > sk
+    (True, 257, 300, False),    # causal cross, no block divisor >= 8
+    (True, 257, 257, True),     # causal self: no divisor needed
+])
+def test_flash_supports_predicate(causal, sq, sk, runs):
+    """``"auto"`` sends a CUDA tensor to the kernels on the lengths the
+    JAX package's predicate accepts, at any head dim: the kernels take
+    head_dim 1 to MAX_HEAD_DIM, and their wrappers raise past it."""
+    assert tattn._flash_supports(causal, sq, sk) is runs
+    assert tattn._flash_supports(causal, sq, sk) is jattn._flash_supports(
+        causal, sq, sk)
+    assert _kernels.MAX_HEAD_DIM == 256
+
+
+@pytest.mark.parametrize("edited", ["flash_fwd.cu", "flash_bwd.cu",
+                                    "flash_mma.cuh", "new_header.cuh"])
+def test_build_dir_hashes_every_source_and_header(tmp_path, monkeypatch,
+                                                  edited):
+    """The build directory changes with any csrc/*.cu or *.cuh file, so an
+    edited header never reuses a library built from the old one."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_kernels._CSRC, csrc)
+    monkeypatch.setattr(_kernels, "_CSRC", csrc)
+    before = _kernels._build_dir()
+    assert _kernels._build_dir() == before
+    path = csrc / edited
+    old = path.read_bytes() if path.exists() else None
+    path.write_bytes((old or b"") + b"\n// edited\n")
+    assert _kernels._build_dir() != before
+    if old is None:
+        path.unlink()
+    else:
+        path.write_bytes(old)
+    assert _kernels._build_dir() == before

@@ -88,6 +88,37 @@ def test_cuda_backward_kernels_match_plain(cuda, dtype, causal, sq, sk,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d_model", [384, 512])
+def test_cuda_auto_attention_at_wide_head_dims(cuda, d_model):
+    """head_dim 192 and 256 (2 heads): ``"auto"`` runs the layer's forward
+    and backward through the kernels on the card, one launch of each, and
+    its output and gradients match the same weights on the CPU (max|diff|
+    / max|ref| <= 1e-4)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    layers = {dev: MultiHeadSelfAttention(d_model, 2, device=dev)
+              for dev in ("cpu", "cuda")}
+    with torch.no_grad():
+        for key, p in layers["cuda"].params().items():
+            p.copy_(layers["cpu"].params()[key])
+    x = torch.randn((2, 40, d_model),
+                    generator=torch.Generator().manual_seed(0))
+    before = _kernels.launch_counts()
+    results = {}
+    for dev, layer in layers.items():
+        out = layer(x.to(dev))
+        out.square().sum().backward()
+        results[dev] = [out.detach()] + [
+            layer.params()[w].grad for w in ("Wq", "Wk", "Wv", "Wo")]
+    torch.cuda.synchronize()
+    after = _kernels.launch_counts()
+    assert all(after[n] == before[n] + 1 for n in after)
+    for got, ref in zip(results["cuda"], results["cpu"]):
+        err = float((got.cpu().double() - ref.double()).abs().max()
+                    / ref.double().abs().max())
+        assert err <= 1e-4
+
+
+@pytest.mark.cuda
 def test_cuda_attention_weights_get_gradients(cuda):
     """One backward through the flash path on the card reaches Wq/Wk/Wv,
     through both backward kernels."""

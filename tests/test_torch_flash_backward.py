@@ -67,6 +67,9 @@ GRAD_CASES = [
     (True, 32, 32, 8, [32, 11], "bshd"),
     (True, 64, 64, 32, None, "bhsd"),
     (False, 130, 130, 16, [130, 70], "bhsd"),
+    # head dims past 128: the kernels' widest instantiation (DP = 256)
+    (True, 65, 65, 192, [65, 29], "bshd"),
+    (False, 40, 72, 256, None, "bhsd"),
 ]
 
 
@@ -170,6 +173,126 @@ def test_plain_backward_matches_jax_custom_vjp_residuals():
     for g, r in zip(got, ref):
         np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=0,
                                    atol=ATOL)
+
+
+_BMM = torch.bmm
+
+
+def tf32_round(x):
+    """x rounded to TF32 (10 significand bits), to nearest with ties away
+    from zero, as ``cvt.rna.tf32.f32``: on the f32 bit pattern."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_cut(x):
+    """x cut to TF32: its low 13 significand bits cleared."""
+    return (x.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
+SPLITS = {
+    # hi and lo both rounded to nearest
+    "rna": lambda x: (tf32_round(x), tf32_round(x - tf32_round(x))),
+    # the kernels' split: hi cut, lo = x - hi read by the MMA as its
+    # TF32 part (cut again)
+    "cut": lambda x: (tf32_cut(x), tf32_cut(x - tf32_cut(x))),
+}
+
+
+def bmm_3xtf32(split):
+    """torch.bmm with every product in 3xTF32: a_lo.b_hi + a_hi.b_lo +
+    a_hi.b_hi over TF32 parts (each partial product exact in f32, sums
+    in f32), lo.lo dropped."""
+    def bmm(a, b):
+        (ah, al), (bh, bl) = split(a), split(b)
+        return _BMM(al, bh) + _BMM(ah, bl) + _BMM(ah, bh)
+    return bmm
+
+
+def _folded_case(b, h, sq, sk, d, seed):
+    q, k, v, do = qkv(b=b, sq=sq, sk=sk, h=h, d=d, seed=seed)
+    fold = lambda a: a.transpose(0, 2, 1, 3).reshape(b * h, -1, d).copy()
+    return [fold(a) for a in (q, k, v, do)]
+
+
+def rel_err(got, ref):
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    return float(np.abs(got - ref).max() / np.abs(ref).max())
+
+
+@pytest.mark.parametrize("split", sorted(SPLITS))
+@pytest.mark.parametrize("causal,sq,sk,d,lens", [
+    (True, 96, 96, 32, [96, 41]),   # causal with lengths
+    (True, 64, 64, 72, None),       # head_dim 72: no multiple of 16
+])
+def test_3xtf32_backward_within_1e5_of_exact(monkeypatch, split, causal, sq,
+                                             sk, d, lens):
+    """The tolerance basis of the CUDA backward kernels: their f32
+    products are 3xTF32 on the tensor cores.  The plain dq/dk/dv tile
+    algorithm with every product emulated that way stays within 1e-5
+    relative (max|diff| / max|ref|) of the exact plain version and of the
+    JAX package's _flash_core VJP (Pallas interpret mode); chip_smoke.py
+    holds the kernels to 1e-4."""
+    b, h = 2, 2
+    qf, kf, vf, dof = _folded_case(b, h, sq, sk, d, seed=sq + d)
+    scale = d ** -0.5
+    lens_bh = None if lens is None else np.repeat(
+        np.asarray(lens, np.float32), h)
+    jlens = (jnp.ones((b * h, 1, 1), jnp.float32) if lens is None
+             else jnp.asarray(lens_bh)[:, None, None])
+    core = lambda q, k, v: jattn._flash_core(
+        q, k, v, jlens, sq, sk, causal, lens is not None, 32, 32, scale,
+        True)
+    _, vjp = jax.vjp(core, *(jnp.asarray(a) for a in (qf, kf, vf)))
+    jax_ref = vjp(jnp.asarray(dof))
+
+    tq, tk, tv, tdo = (torch.from_numpy(a) for a in (qf, kf, vf, dof))
+    tl = None if lens is None else torch.from_numpy(lens_bh)
+    o, lse = tattn.flash_attention_reference(tq, tk, tv, causal, scale, tl)
+    args = (tq, tk, tv, o, lse, tdo, tl, causal, scale)
+    exact = tattn.flash_attention_bwd_reference(*args)
+    monkeypatch.setattr(torch, "bmm", bmm_3xtf32(SPLITS[split]))
+    emulated = tattn.flash_attention_bwd_reference(*args)
+    monkeypatch.undo()
+    for name, e, x, j in zip("qkv", emulated, exact, jax_ref):
+        assert rel_err(e, x) <= 1e-5, f"d{name} against the exact plain"
+        assert rel_err(e, j) <= 1e-5, f"d{name} against JAX"
+        assert rel_err(x, j) <= 1e-5, f"d{name}: exact plain against JAX"
+
+
+def test_one_pass_tf32_backward_misses_what_3xtf32_holds(monkeypatch):
+    """Why three products: one TF32 product per f32 product (hi.hi only)
+    misses the f32 tolerance that 3xTF32 holds (here ~9e-4 against
+    ~9e-7 relative)."""
+    qf, kf, vf, dof = _folded_case(2, 2, 96, 96, 32, seed=5)
+    args = [torch.from_numpy(a) for a in (qf, kf, vf)]
+    o, lse = tattn.flash_attention_reference(*args, True)
+    args += [o, lse, torch.from_numpy(dof), None, True, 32 ** -0.5]
+    exact = tattn.flash_attention_bwd_reference(*args)
+    errs = {}
+    for name, bmm in (("3x", bmm_3xtf32(SPLITS["rna"])),
+                      ("1x", lambda a, b: _BMM(tf32_round(a),
+                                               tf32_round(b)))):
+        monkeypatch.setattr(torch, "bmm", bmm)
+        errs[name] = max(rel_err(g, x) for g, x in zip(
+            tattn.flash_attention_bwd_reference(*args), exact))
+        monkeypatch.undo()
+    assert errs["3x"] <= 1e-5
+    assert errs["1x"] > 1e-4  # past chip_smoke.py's f32 tolerance
+
+
+def test_tf32_helpers_round_and_cut_the_bit_pattern():
+    x = torch.tensor([1 + 2 ** -11, 1 + 3 * 2 ** -11, -(1 + 3 * 2 ** -11),
+                      1 + 2 ** -10 - 2 ** -23], dtype=torch.float32)
+    assert tf32_round(x).tolist() == [1 + 2 ** -10, 1 + 2 ** -9,
+                                      -(1 + 2 ** -9), 1 + 2 ** -10]
+    assert tf32_cut(x).tolist() == [1.0, 1 + 2 ** -10, -(1 + 2 ** -10),
+                                    1.0]
+    for split in SPLITS.values():
+        hi, lo = split(x)
+        assert torch.equal(tf32_cut(hi), hi) and torch.equal(tf32_cut(lo),
+                                                             lo)
+        assert float((hi + lo - x).abs().max()) <= 2 ** -20
 
 
 def test_plain_backward_bf16_keeps_the_rounding_points():
