@@ -28,7 +28,8 @@ import torch
 from . import _kernels
 
 NEG_INF = -1e30
-#: the CUDA kernel's query and key tiles (csrc/flash_fwd.cu BQ, BK)
+#: the plain versions' query and key tiles (the CUDA kernels walk tiles of
+#: their own sizes; see flash_attention_reference)
 BLOCK_Q = 64
 BLOCK_K = 64
 
@@ -110,8 +111,9 @@ def blockwise_attention(q, k, v, causal: bool = False,
 
 def flash_attention_reference(q, k, v, causal: bool = False,
                               scale: float = None, lens=None):
-    """Plain version of the CUDA flash-forward kernel: the same tile
-    algorithm in torch.
+    """Plain version of the CUDA flash-forward kernel: its tile
+    algorithm in torch, in exact f32 products (the kernel's f32 products
+    are 3xTF32 on the tensor cores, within ~2^-20 relative of these).
 
     q (bh, sq, d), k/v (bh, sk, d) at f32 or bf16; ``lens`` (bh,) f32
     valid key counts in [1, sk] or None.  For each 64-row query tile it
@@ -121,7 +123,10 @@ def flash_attention_reference(q, k, v, causal: bool = False,
     product.  Returns (o (bh, sq, d) at the input dtype, lse (bh, sq)
     f32 = m + log(l)).  A tile that a row's causal or length mask covers
     wholly changes nothing for that row (p underflows to 0 and the
-    correction is 1), so the skip count may be shared across rows."""
+    correction is 1), so the skip count may be shared across rows.  The
+    kernel walks other tiles (at head_dim 64: 128 query rows, 16 a warp,
+    and 32 keys at f32 or 64 at bf16); a tile it skips is one whose pairs
+    are all masked, so the tile size does not change the result."""
     bh, sq, d = q.shape
     sk = k.shape[1]
     scale = scale if scale is not None else 1.0 / math.sqrt(d)

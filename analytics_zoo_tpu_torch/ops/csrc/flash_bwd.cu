@@ -68,6 +68,7 @@
 
 namespace {
 
+using flash::rows_of;
 using flash::tile_ld;
 
 constexpr int NT = 128;  // 4 warps
@@ -84,12 +85,6 @@ struct Walk {
   static constexpr int DQ_BLOCKS = DP > 64 ? 1 : flash::is_f32<T> ? 4 : 5;
   static constexpr int DKV_BLOCKS = DP > 64 ? 1 : flash::is_f32<T> ? 3 : 4;
 };
-
-// one (batch*head) row block of a (bh, s, d) tensor
-template <typename T>
-__device__ __forceinline__ const T* rows_of(const T* x, int bh, int s, int d) {
-  return x + (size_t)bh * s * d;
-}
 
 // ---- dk/dv: grid (bh, ceil(sk / 64), ceil(d / DO)) ------------------------
 
@@ -337,15 +332,9 @@ struct Args {
   cudaStream_t stream;
 };
 
-bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
-}
-
-// 16-byte cp.async staging: rows of whole 16-byte chunks, aligned inputs
 template <typename T>
 int vec_ok(const Args& a) {
-  return (a.d * sizeof(T)) % 16 == 0 && aligned16(a.q) && aligned16(a.k) &&
-         aligned16(a.v) && aligned16(a.dout);
+  return flash::vec_ok<T>(a.d, a.q, a.k, a.v, a.dout);
 }
 
 template <typename T, int DP>

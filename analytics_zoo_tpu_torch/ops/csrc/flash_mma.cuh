@@ -82,6 +82,25 @@ __device__ __forceinline__ bool tile_unmasked(int q0, int nq, int k0, int nk,
          (!lens || (float)(k0 + nk - 1) < len);
 }
 
+// max and sum over the 4 lanes of a quad (one g): the lanes that hold a
+// row of a C fragment
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// 2^x on the SFU: ex2.approx.ftz, within 2 ulp; results under 2^-126
+// are flushed to 0 (a p that small adds nothing to an f32 row sum)
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
 // ---- tensor-core products ------------------------------------------------
 
 // x = hi + lo exactly: hi is x cut to TF32 (its low 13 significand bits
@@ -153,6 +172,37 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
       : "r"(a));
 }
 
+// four 8 x 8 b16 matrices (8 rows of 16 bytes each; lanes 8i..8i+7 give
+// matrix i's row addresses): lane (g, t) receives the 32 bits at row g,
+// bytes 4t..4t+3 of each.  At f32 a matrix is 8 rows x 4 floats and lane
+// (g, t) gets element (g, t): a tf32 A or B fragment register.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  const uint32_t a = (uint32_t)__cvta_generic_to_shared(p);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+// Split a ROWS-row f32 shared tile (DP columns, leading dimension LD) in
+// place into its TF32 hi parts, and write the lo parts to the tile of the
+// same shape at `lo`: an operand that many products read is then split
+// once (mma_abt_ldsm).
+template <int ROWS, int DP, int LD, int NT>
+__device__ __forceinline__ void split_tile(float* hi, float* lo) {
+  constexpr int C4 = DP / 4;  // float4 chunks a row
+  for (int i = threadIdx.x; i < ROWS * C4; i += NT) {
+    const int at = (i / C4) * LD + (i % C4) * 4;
+    const float4 x = *reinterpret_cast<const float4*>(hi + at);
+    const float xs[4] = {x.x, x.y, x.z, x.w};
+    uint32_t h[4], l[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) split(xs[e], h[e], l[e]);
+    *reinterpret_cast<uint4*>(hi + at) = make_uint4(h[0], h[1], h[2], h[3]);
+    *reinterpret_cast<uint4*>(lo + at) = make_uint4(l[0], l[1], l[2], l[3]);
+  }
+}
+
 // c[j] += A . Bt_j^T: the warp's 16 x N product over the first `ksteps`
 // MMA depths of the head dim (columns past d are zero in shared memory).
 // A is 16 rows of a shared tile (leading dimension LDA), Bt is N rows
@@ -196,6 +246,66 @@ __device__ __forceinline__ void mma_abt(float (&c)[N / 8][4], const T* A,
         mma_bf16(c[j], af, bf);
       }
     }
+  }
+}
+
+// mma_abt with its fragments loaded by ldmatrix (one instruction gives A's
+// four registers of a depth step, or two n-tiles of Bt).  f32: A comes
+// pre-split (split_tile: its TF32 hi parts at A, lo parts at Alo), so that
+// only Bt is split here, and the two cross terms are summed into an
+// accumulator of their own.  The tensor core cuts every sum it writes back
+// to f32 towards zero; summed apart, the small terms no longer cost c a
+// cut each, which keeps c's bias over a long head dim at a third (one cut
+// a depth step instead of three).  N is a multiple of 16.
+template <typename T, int N, int DP, int LDA, int LDB>
+__device__ __forceinline__ void mma_abt_ldsm(float (&c)[N / 8][4], const T* A,
+                                             const T* Alo, const T* Bt,
+                                             int ksteps) {
+  constexpr int KS = Elem<T>::KSTEP, E16 = 16 / sizeof(T);
+  const int lane = threadIdx.x % WARP, i = lane >> 3, r = lane & 7;
+  // this lane's row address of matrix i: A's rows r (+8 for i odd), the
+  // depth step's half i / 2; Bt's rows r (+8 for i >= 2), half i % 2
+  const int a_at = (r + 8 * (i & 1)) * LDA + E16 * (i >> 1);
+  const int b_at = (r + 8 * (i >> 1)) * LDB + E16 * (i & 1);
+  [[maybe_unused]] float cx[N / 8][4] = {};  // f32: the cross terms
+#pragma unroll
+  for (int ks = 0; ks < DP / KS; ++ks) {
+    if (ks >= ksteps) break;
+    uint32_t ah[4], b[N / 8][2];
+    ldmatrix_x4(ah, A + a_at + KS * ks);
+#pragma unroll
+    for (int j = 0; j < N / 8; j += 2) {
+      uint32_t rb[4];
+      ldmatrix_x4(rb, Bt + b_at + 8 * j * LDB + KS * ks);
+      b[j][0] = rb[0];
+      b[j][1] = rb[1];
+      b[j + 1][0] = rb[2];
+      b[j + 1][1] = rb[3];
+    }
+    if constexpr (is_f32<T>) {
+      uint32_t al[4], bh[N / 8][2], bl[N / 8][2];
+      ldmatrix_x4(al, Alo + a_at + KS * ks);
+#pragma unroll
+      for (int j = 0; j < N / 8; ++j) {
+        split(__uint_as_float(b[j][0]), bh[j][0], bl[j][0]);
+        split(__uint_as_float(b[j][1]), bh[j][1], bl[j][1]);
+      }
+#pragma unroll
+      for (int j = 0; j < N / 8; ++j) mma_tf32(cx[j], al, bh[j]);
+#pragma unroll
+      for (int j = 0; j < N / 8; ++j) mma_tf32(cx[j], ah, bl[j]);
+#pragma unroll
+      for (int j = 0; j < N / 8; ++j) mma_tf32(c[j], ah, bh[j]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < N / 8; ++j) mma_bf16(c[j], ah, b[j]);
+    }
+  }
+  if constexpr (is_f32<T>) {
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) c[j][e] += cx[j][e];
   }
 }
 
@@ -282,6 +392,20 @@ __device__ __forceinline__ void store_rows(T* out, const float (&c)[NT8][4],
 }
 
 // ---- staging --------------------------------------------------------------
+
+// one (batch*head) row block of a (bh, s, d) tensor
+template <typename T>
+__device__ __forceinline__ const T* rows_of(const T* x, int bh, int s, int d) {
+  return x + (size_t)bh * s * d;
+}
+
+// 16-byte cp.async staging (load_tile's `vec`) takes rows of whole
+// 16-byte chunks and 16-byte aligned tensors
+template <typename T, typename... P>
+inline bool vec_ok(int d, const P*... tensors) {
+  return (d * sizeof(T)) % 16 == 0 &&
+         ((reinterpret_cast<uintptr_t>(tensors) % 16 == 0) && ...);
+}
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            int src_bytes) {

@@ -7,9 +7,9 @@ NVIDIA GPU.
 Phases (any failure makes the exit code non-zero):
 
 1. build: compile every CUDA kernel of the port from ``ops/csrc``, and
-   count the tensor-core MMA, ``cp.async`` and atomic instructions of
-   each kernel (the backward kernels must have the first two and no
-   atomics);
+   count the tensor-core MMA, ``cp.async``, ``ldmatrix`` and atomic
+   instructions of each kernel instantiation (every one must have the
+   first two and no atomics, and the forward ``ldmatrix``);
 2. kernels: hold each kernel (the flash forward, and the backward's dq
    and dk/dv) against its plain PyTorch version on the card, at the
    paths' shapes and at edge cases, and time the kernel, the plain
@@ -49,7 +49,9 @@ F32_PEAK = 67e12      # FLOP/s, H100 SXM, f32 outside the tensor cores
 TF32_PEAK = 495e12    # FLOP/s, H100 SXM, dense TF32 tensor cores
 BF16_PEAK = 989e12    # FLOP/s, H100 SXM, dense bf16 tensor cores
 HBM_RATE = 3.35e12    # bytes/s, H100 SXM
-TOL = {"float32": 1e-4, "bfloat16": 2e-2}  # o, dq, dk, dv; lse: 1e-4
+TOL = {"float32": 1e-4, "bfloat16": 2e-2}  # o, dq, dk, dv
+#: the forward's lse, which both backward kernels replay p from
+LSE_TOL = {"float32": 1e-5, "bfloat16": 1e-4}
 
 FULL = dict(vocab_size=32000, seq_len=1024, n_layers=12, d_model=768,
             n_heads=12, d_ff=3072)
@@ -219,6 +221,13 @@ CASES = [
     ("d256 cross causal", 8, 65, 129, 256, "bfloat16", True, 129, False),
     ("d130", 4, 63, 63, 130, "float32", False, 63, False),
     ("d250", 4, 65, 65, 250, "bfloat16", True, None, False),
+    # the forward's ragged query edge at its extreme: one or two query
+    # rows at the end of a long causal key range; and f32 d = 256 (16-key
+    # walked tiles) with lengths
+    ("sq 1", 8, 1, 512, 64, "float32", True, None, False),
+    ("sq 2", 8, 2, 512, 64, "float32", True, 512, False),
+    ("sq 2", 8, 2, 512, 64, "bfloat16", True, None, False),
+    ("d256 lens", 8, 129, 300, 256, "float32", False, 300, False),
 ]
 
 
@@ -279,7 +288,7 @@ def sass_counts(kernels):
 
 def phase_kernels(torch, ops_attn, kernels):
     """Each kernel against its plain version, case by case: flash_fwd
-    against flash_attention_reference (o within TOL, lse within 1e-4),
+    against flash_attention_reference (o within TOL, lse within LSE_TOL),
     flash_bwd_dq and flash_bwd_dkv against flash_bwd_dq_reference and
     flash_bwd_dkv_reference (dq, dk, dv each within max|diff| / max|ref|
     <= TOL), dk = dv = 0 exactly past every length, and a second launch
@@ -311,7 +320,8 @@ def phase_kernels(torch, ops_attn, kernels):
                     causal=causal, lens=masked)
         fwd = dict(base, kernel="flash_fwd", abs_err=diff(o, o_ref),
                    err_lse=diff(lse, lse_ref))
-        fwd["ok"] = (fwd["abs_err"] <= TOL[dt] and fwd["err_lse"] <= 1e-4
+        fwd["ok"] = (fwd["abs_err"] <= TOL[dt]
+                     and fwd["err_lse"] <= LSE_TOL[dt]
                      and bool(torch.isfinite(o).all()))
         dq_row = dict(base, kernel="flash_bwd_dq", err=rel(dq, dq_ref),
                       abs_err=diff(dq, dq_ref), deterministic=deterministic)
@@ -356,6 +366,7 @@ def phase_kernels(torch, ops_attn, kernels):
                 if "ms" in row:
                     row.update(attention_bound(q, k, lens, causal,
                                                row["kernel"]))
+                    row["bound_share"] = row["bound_ms"] / row["ms"]
         for row in (fwd, dq_row, dkv_row):
             ok &= row["ok"]
             rows.append(row)
@@ -577,12 +588,18 @@ def main() -> int:
         log(f"build: FAIL {e}")
         return 1
     log("build: sass", json.dumps(sass))
-    # the backward's design: tensor-core MMA and cp.async in every
-    # instantiation, no atomics
-    bad = [fn for fn, c in (sass or {}).items() if "bwd" in fn and (
-        not c["HMMA"] or not c["LDGSTS"] or c["ATOM"] or c["RED"])]
-    if bad or (sass is not None and not any("bwd" in fn for fn in sass)):
-        log(f"build: FAIL backward instantiations off their design: {bad}")
+    # the kernels' design: tensor-core MMA and cp.async in every
+    # instantiation, no atomics, and ldmatrix in the forward (its Q.K^T
+    # operands at both dtypes, P.V's V at bf16)
+    bad = [fn for fn, c in (sass or {}).items() if "_kernel<" in fn and (
+        not c["HMMA"] or not c["LDGSTS"] or c["ATOM"] or c["RED"]
+        or ("fwd" in fn and not c["LDSM"]))]
+    missing = [k for k in KERNELS
+               if sass is not None and not any(f"{k}_kernel<" in fn
+                                               for fn in sass)]
+    if bad or missing:
+        log(f"build: FAIL instantiations off their design: {bad}; "
+            f"kernels not found: {missing}")
         return 1
 
     phases = [

@@ -11,6 +11,8 @@ import numpy as np
 import pytest
 import torch
 
+from analytics_zoo_tpu_torch.models import (TransformerLM, from_jax_params,
+                                            to_jax_params)
 from analytics_zoo_tpu_torch.ops import _kernels
 from analytics_zoo_tpu_torch.ops import attention as tattn
 from analytics_zoo_tpu_torch.pipeline.api.keras.layers import (
@@ -38,7 +40,7 @@ def cuda():
 ])
 def test_cuda_kernel_matches_plain(cuda, dtype, causal, sq, sk, masked):
     """The CUDA kernel against its plain version on the card: o within
-    1e-4 (f32) or 2e-2 (bf16), lse within 1e-4."""
+    1e-4 (f32) or 2e-2 (bf16), lse within 1e-5 (f32) or 1e-4 (bf16)."""
     g = torch.Generator(device=cuda).manual_seed(0)
     q, k, v = (torch.randn((8, s, 64), generator=g, device=cuda).to(dtype)
                for s in (sq, sk, sk))
@@ -52,7 +54,50 @@ def test_cuda_kernel_matches_plain(cuda, dtype, causal, sq, sk, masked):
     assert _kernels.flash_fwd.launches == before + 1
     tol = 1e-4 if dtype == torch.float32 else 2e-2
     close(o.float().cpu(), o_ref.float().cpu(), rtol=0, atol=tol)
-    close(lse.cpu(), lse_ref.cpu(), rtol=0, atol=1e-4)
+    close(lse.cpu(), lse_ref.cpu(), rtol=0, atol=LSE_TOL[dtype])
+
+
+#: the forward's lse, which both backward kernels replay p from
+LSE_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-4}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [72, 128, 256])
+def test_cuda_forward_matches_plain_at_wide_heads(cuda, dtype, d):
+    """The forward kernel at head dims past 64 (d = 256 is its widest
+    instantiation), cross causal with lengths: o within 1e-4 (f32) or
+    2e-2 (bf16), lse within 1e-5 (f32) or 1e-4 (bf16)."""
+    g = torch.Generator(device=cuda).manual_seed(d)
+    q = torch.randn((8, 129, d), generator=g, device=cuda).to(dtype)
+    k, v = (torch.randn((8, 300, d), generator=g, device=cuda).to(dtype)
+            for _ in range(2))
+    lens = torch.randint(1, 301, (8,), generator=g, device=cuda).float()
+    o, lse = _kernels.flash_fwd(q, k, v, lens, True, d ** -0.5)
+    o_ref, lse_ref = tattn.flash_attention_reference(q, k, v, True,
+                                                     d ** -0.5, lens)
+    torch.cuda.synchronize()
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    close(o.float().cpu(), o_ref.float().cpu(), rtol=0, atol=tol)
+    close(lse.cpu(), lse_ref.cpu(), rtol=0, atol=LSE_TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_cuda_prefill_launches_the_forward_once_a_layer(cuda):
+    """generate() with one new token on the card: its prefill runs the
+    forward kernel once a layer, and the token equals the one the same
+    weights give on the CPU."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dict(vocab_size=61, seq_len=64, n_layers=2, d_model=64, n_heads=2)
+    gpu = TransformerLM(**cfg, device="cuda", seed=0).eval()
+    cpu = TransformerLM(**cfg, device="cpu", seed=1).eval()
+    from_jax_params(cpu, to_jax_params(gpu))
+    prompt = np.random.default_rng(0).integers(0, 61, (2, 40))
+    before = _kernels.flash_fwd.launches
+    out = gpu.generate(prompt, 1)
+    assert _kernels.flash_fwd.launches - before == cfg["n_layers"]
+    assert out.shape == (2, 41) and (out[:, :40] == prompt).all()
+    assert (out == cpu.generate(prompt, 1)).all()
 
 
 @pytest.mark.cuda

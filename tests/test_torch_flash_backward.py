@@ -1,4 +1,5 @@
-"""The port's flash backward against the JAX package's.
+"""The port's flash backward against the JAX package's, and the 3xTF32
+tolerance basis of the CUDA kernels (forward and backward).
 
 Same inputs (numpy, seeded) through both packages on the CPU.  The JAX
 side differentiates its Pallas flash attention in the interpreter
@@ -279,6 +280,90 @@ def test_one_pass_tf32_backward_misses_what_3xtf32_holds(monkeypatch):
         monkeypatch.undo()
     assert errs["3x"] <= 1e-5
     assert errs["1x"] > 1e-4  # past chip_smoke.py's f32 tolerance
+
+
+def _forward_case(causal, sq, sk, d, lens, seed):
+    """Folded (bh, s, d) q/k/v of one case, its (bh,) lengths (or None),
+    and the JAX package's Pallas forward in interpret mode: o from
+    ``flash_attention`` and lse from ``_flash_fwd_call``."""
+    b, h = 2, 2
+    q, k, v, _ = qkv(b=b, sq=sq, sk=sk, h=h, d=d, seed=seed)
+    fold = lambda a: a.transpose(0, 2, 1, 3).reshape(b * h, -1, d).copy()
+    qf, kf, vf = (fold(a) for a in (q, k, v))
+    lens_bh = None if lens is None else np.repeat(
+        np.asarray(lens, np.float32), h)
+    jlens = (jnp.ones((b * h, 1, 1), jnp.float32) if lens is None
+             else jnp.asarray(lens_bh)[:, None, None])
+    block = 16
+    _, jax_lse = jattn._flash_fwd_call(
+        *(jnp.asarray(a) for a in (qf, kf, vf)), jlens, sq, sk, causal,
+        lens is not None, block, block, d ** -0.5, True)
+    jax_o = jattn.flash_attention(q, k, v, causal=causal, interpret=True,
+                                  kv_lengths=lens)
+    jax_o = fold(np.asarray(jax_o))
+    args = [torch.from_numpy(a) for a in (qf, kf, vf)]
+    tl = None if lens is None else torch.from_numpy(lens_bh)
+    return args, tl, jax_o, np.asarray(jax_lse)[:, 0]
+
+
+def lse_err(got, ref):
+    return float(np.abs(np.asarray(got, np.float64)
+                        - np.asarray(ref, np.float64)).max())
+
+
+FORWARD_CASES = [
+    # causal, sq, sk, d, lens
+    (True, 96, 96, 32, [96, 41]),    # causal with lengths
+    (False, 64, 64, 72, None),       # head_dim 72: no multiple of 16
+    (True, 48, 112, 16, None),       # cross causal, sq < sk
+]
+
+
+@pytest.mark.parametrize("split", sorted(SPLITS))
+@pytest.mark.parametrize("causal,sq,sk,d,lens", FORWARD_CASES)
+def test_3xtf32_forward_within_1e5_of_exact(monkeypatch, split, causal, sq,
+                                            sk, d, lens):
+    """The tolerance basis of the CUDA forward kernel: its f32 products
+    (q.k and p.v) are 3xTF32 on the tensor cores.  The plain forward with
+    both products emulated that way stays within 1e-5 of the exact plain
+    version and of the JAX package's Pallas forward (interpret mode): o
+    relative (max|diff| / max|ref|), lse absolute.  chip_smoke.py holds
+    the kernel's lse to 1e-5, since both backward kernels replay p from
+    it."""
+    args, tl, jax_o, jax_lse = _forward_case(causal, sq, sk, d, lens,
+                                             seed=sq + sk + d)
+    scale = d ** -0.5
+    exact_o, exact_lse = tattn.flash_attention_reference(*args, causal,
+                                                         scale, tl)
+    monkeypatch.setattr(torch, "bmm", bmm_3xtf32(SPLITS[split]))
+    o, lse = tattn.flash_attention_reference(*args, causal, scale, tl)
+    monkeypatch.undo()
+    assert rel_err(o, exact_o) <= 1e-5
+    assert lse_err(lse, exact_lse) <= 1e-5
+    assert rel_err(o, jax_o) <= 1e-5
+    assert lse_err(lse, jax_lse) <= 1e-5
+    assert rel_err(exact_o, jax_o) <= 1e-5
+    assert lse_err(exact_lse, jax_lse) <= 1e-5
+
+
+def test_one_pass_tf32_forward_misses_what_3xtf32_holds(monkeypatch):
+    """Why three products in the forward too: one TF32 product per f32
+    product misses the kernel's f32 tolerance (1e-4 on o, here on the lse
+    as well) on the inputs that 3xTF32 holds to 1e-5."""
+    causal, sq, sk, d, lens = FORWARD_CASES[0]
+    args, tl, _, _ = _forward_case(causal, sq, sk, d, lens, seed=sq + sk + d)
+    exact_o, exact_lse = tattn.flash_attention_reference(*args, causal,
+                                                         d ** -0.5, tl)
+    errs = {}
+    for name, bmm in (("3x", bmm_3xtf32(SPLITS["cut"])),
+                      ("1x", lambda a, b: _BMM(tf32_cut(a), tf32_cut(b)))):
+        monkeypatch.setattr(torch, "bmm", bmm)
+        o, lse = tattn.flash_attention_reference(*args, causal, d ** -0.5,
+                                                 tl)
+        monkeypatch.undo()
+        errs[name] = (rel_err(o, exact_o), lse_err(lse, exact_lse))
+    assert max(errs["3x"]) <= 1e-5
+    assert errs["1x"][0] > 1e-4 and errs["1x"][1] > 1e-4
 
 
 def test_tf32_helpers_round_and_cut_the_bit_pattern():
