@@ -1,14 +1,26 @@
-"""Layer: the port's module base.
+"""Layer: the port's module base, with naming, the layer registry and
+deferred building.
 
 Counterpart of ``analytics_zoo_tpu/core/module.py``.  There a layer is a
 pure ``init``/``apply`` pair over a params dict keyed by parameter name;
 here it is an ``nn.Module`` whose parameters carry those same names
 (``W``, ``b``, ``embeddings``, ``gamma``, ...) and shapes, so
 :meth:`Layer.params` is the JAX package's params dict for the layer.
+
+A layer's parameter widths come from its input shape, as in the
+reference.  :meth:`Layer.build` creates them from a shape and a
+``torch.Generator`` (on the generator's device).  A model builds its
+layers (``Sequential.add``, ``Model(input, output)``) from one generator
+seeded with the model's ``seed``.  A layer given ``device=`` or
+``generator=`` builds at construction when its parameter shapes are known
+then (an explicit ``input_shape``/``input_dim``, or none needed); else it
+waits for its model.
 """
 
 from __future__ import annotations
 
+import collections
+import contextlib
 from typing import Dict, Optional
 
 import torch
@@ -16,14 +28,54 @@ from torch import nn
 
 from ..common.context import resolve_device
 from . import initializers
+from . import shapes as shape_utils
 
 _LAYER_REGISTRY: Dict[str, type] = {}
+_NAME_COUNTERS: "collections.Counter" = collections.Counter()
+_SCOPE_STACK: list = []
 
 
 def register_layer(cls):
-    """Class decorator: register a layer class by name."""
-    _LAYER_REGISTRY[cls.__name__] = cls
+    """Class decorator: register a layer class for config-based
+    (de)serialization under ``serial_name`` or its class name."""
+    _LAYER_REGISTRY[getattr(cls, "serial_name", None) or cls.__name__] = cls
     return cls
+
+
+def serial_class_name(layer) -> str:
+    """Registry key a layer instance serializes under."""
+    return getattr(layer, "serial_name", None) or type(layer).__name__
+
+
+def get_layer_class(name: str) -> type:
+    if name not in _LAYER_REGISTRY:
+        raise KeyError(
+            f"Unknown layer class {name!r}; known: {sorted(_LAYER_REGISTRY)}")
+    return _LAYER_REGISTRY[name]
+
+
+def fresh_name(prefix: str) -> str:
+    """``<prefix>_<k>`` from a per-prefix counter: the process-wide one, or
+    inside :func:`name_scope` the scope's own (``<scope>/<prefix>_<k>``)."""
+    if _SCOPE_STACK:
+        scope, counter = _SCOPE_STACK[-1]
+        counter[prefix] += 1
+        return f"{scope}/{prefix}_{counter[prefix]}"
+    _NAME_COUNTERS[prefix] += 1
+    return f"{prefix}_{_NAME_COUNTERS[prefix]}"
+
+
+@contextlib.contextmanager
+def name_scope(scope: str):
+    """Deterministic layer naming: inside the scope, auto-names restart
+    from a scope-local counter (``<scope>/<type>_<k>``), so rebuilding the
+    same architecture yields the same layer names in any process (and the
+    JAX package's ``name_scope`` the same names as this one)."""
+    _SCOPE_STACK.append((scope, collections.Counter()))
+    try:
+        yield
+    finally:
+        _SCOPE_STACK.pop()
 
 
 def make_generator(device=None,
@@ -41,13 +93,72 @@ def make_generator(device=None,
     return torch.Generator(resolve_device(device)).manual_seed(0)
 
 
-class Layer(nn.Module):
-    """Base class of the port's layers.  A layer with parameters creates
-    them with :meth:`add_param`, on the device of its generator."""
+class Symbolic:
+    """Marker base of graph nodes (``core.graph.Variable``): calling a
+    layer on one adds a node instead of running the layer."""
 
-    def __init__(self, name: Optional[str] = None):
+
+class Layer(nn.Module):
+    """Base class of the port's layers.
+
+    Subclasses create their parameters in ``build_params(input_shape,
+    generator)`` with :meth:`add_param`, compute in ``forward`` and infer
+    shapes in ``compute_output_shape``; a subclass's ``__init__`` ends
+    with ``self._build_if_ready()``.  Calling a layer on a graph
+    ``Variable`` adds a graph node (the functional API); on tensors it
+    runs ``forward``."""
+
+    #: override when the class name collides with another registered layer
+    serial_name: Optional[str] = None
+    #: False where the parameter shapes need no input shape (Embedding)
+    needs_input_shape: bool = True
+
+    def __init__(self, input_shape=None, name: Optional[str] = None,
+                 trainable: bool = True, device=None,
+                 generator: Optional[torch.Generator] = None):
         super().__init__()
-        self.name = name or type(self).__name__.lower()
+        self.name = name or fresh_name(type(self).__name__.lower())
+        self.batch_input_shape = (shape_utils.to_batch_shape(input_shape)
+                                  if input_shape else None)
+        self._trainable = bool(trainable)
+        self._init_device = device
+        self._init_generator = generator
+        self.built = False
+
+    def __call__(self, *args, **kwargs):
+        x = args[0] if args else None
+        if isinstance(x, Symbolic) or (
+                isinstance(x, (list, tuple)) and x
+                and all(isinstance(v, Symbolic) for v in x)):
+            from .graph import Variable  # graph imports this module
+            return Variable.from_layer(self, x)
+        return super().__call__(*args, **kwargs)
+
+    # ---- building ----
+    def _build_if_ready(self):
+        """Build now when a device or generator was given and the
+        parameter shapes are known; else the model builds the layer."""
+        if self._init_device is None and self._init_generator is None:
+            return
+        if self.batch_input_shape is None and self.needs_input_shape:
+            return
+        self.build(self.batch_input_shape,
+                   make_generator(self._init_device, self._init_generator))
+
+    def build(self, input_shape, generator: torch.Generator) -> None:
+        """Create the parameters for ``input_shape`` (batch dim first)
+        from ``generator``, on its device.  A built layer only checks that
+        it lies on that device."""
+        if self.built:
+            check_device(self, generator.device)
+            return
+        self.build_params(input_shape, generator)
+        self.built = True
+        if not self._trainable:
+            self.trainable = False
+
+    def build_params(self, input_shape, generator: torch.Generator) -> None:
+        pass
 
     def add_param(self, name: str, init, shape,
                   generator: torch.Generator) -> nn.Parameter:
@@ -59,3 +170,48 @@ class Layer(nn.Module):
         """This layer's own parameters, keyed as the JAX package keys
         them."""
         return dict(self.named_parameters(recurse=False))
+
+    def compute_output_shape(self, input_shape):
+        return input_shape
+
+    @property
+    def trainable(self) -> bool:
+        return self._trainable
+
+    @trainable.setter
+    def trainable(self, flag: bool):
+        """A frozen layer's parameters get no gradient; set it before
+        ``compile`` (the trainer collects its parameters then)."""
+        self._trainable = bool(flag)
+        for p in self.parameters():
+            p.requires_grad_(self._trainable)
+
+    # ---- serialization ----
+    def get_config(self) -> dict:
+        cfg = {"name": self.name}
+        if self.batch_input_shape is not None:
+            cfg["input_shape"] = list(self.batch_input_shape[1:])
+        if not self.trainable:
+            cfg["trainable"] = False
+        return cfg
+
+    @classmethod
+    def from_config(cls, config: dict) -> "Layer":
+        config = dict(config)
+        trainable = config.pop("trainable", True)
+        config.pop("remat", None)  # the JAX package's jax.checkpoint flag
+        layer = cls(**config)
+        layer._trainable = bool(trainable)
+        return layer
+
+
+def check_device(layer: nn.Module, device) -> None:
+    """Raise when ``layer``'s parameters lie on another device type than
+    ``device``: a model keeps all its weights on its own device."""
+    want = torch.device(device).type
+    for p in layer.parameters():
+        if p.device.type != want:
+            raise ValueError(
+                f"layer {getattr(layer, 'name', layer)!r} was built on "
+                f"{p.device}, but its model lives on {want}")
+        return

@@ -15,8 +15,7 @@ from ..pipeline.api.keras.engine import KerasNet
 
 class ZooModel(KerasNet):
     def __init__(self, name: Optional[str] = None, **hyper):
-        super().__init__()
-        self.name = name or type(self).__name__.lower()
+        super().__init__(name=name or type(self).__name__.lower())
         self.hyper = hyper
 
     def get_config(self) -> dict:

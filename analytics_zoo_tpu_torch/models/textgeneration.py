@@ -53,27 +53,34 @@ class TransformerLM(ZooModel):
         h = self.hyper
         g = torch.Generator(resolve_device(device)).manual_seed(seed)
         add = self.add_module
+        # explicit widths, so every layer builds here from g: the order
+        # and shapes of these draws fix the parameters a seed gives
+        # (pinned by tests/test_torch_repairs.py)
+        x_shape = (h["seq_len"], d_model)
         add("tok_embed", Embedding(h["vocab_size"], d_model,
                                    name="tok_embed", generator=g))
-        add("pos_embed", PositionalEmbedding(h["max_len"], d_model,
-                                             name="pos_embed", generator=g))
+        add("pos_embed", PositionalEmbedding(
+            h["max_len"], input_shape=x_shape, name="pos_embed",
+            generator=g))
         for i in range(n_layers):
-            add(f"ln_attn_{i}", LayerNorm(d_model, name=f"ln_attn_{i}",
-                                          generator=g))
+            add(f"ln_attn_{i}", LayerNorm(input_shape=x_shape,
+                                          name=f"ln_attn_{i}", generator=g))
             add(f"attn_{i}", MultiHeadSelfAttention(
-                d_model, n_heads, causal=True, implementation=implementation,
-                name=f"attn_{i}", generator=g))
-            add(f"ln_mlp_{i}", LayerNorm(d_model, name=f"ln_mlp_{i}",
-                                         generator=g))
-            add(f"mlp_up_{i}", Dense(d_model, h["d_ff"], activation="gelu",
-                                     name=f"mlp_up_{i}", generator=g))
-            add(f"mlp_down_{i}", Dense(h["d_ff"], d_model,
+                n_heads, causal=True, implementation=implementation,
+                input_shape=x_shape, name=f"attn_{i}", generator=g))
+            add(f"ln_mlp_{i}", LayerNorm(input_shape=x_shape,
+                                         name=f"ln_mlp_{i}", generator=g))
+            add(f"mlp_up_{i}", Dense(h["d_ff"], activation="gelu",
+                                     input_dim=d_model, name=f"mlp_up_{i}",
+                                     generator=g))
+            add(f"mlp_down_{i}", Dense(d_model, input_dim=h["d_ff"],
                                        name=f"mlp_down_{i}", generator=g))
-        add("ln_final", LayerNorm(d_model, name="ln_final", generator=g))
-        add("lm_head", Dense(d_model, h["vocab_size"], name="lm_head",
-                             generator=g))
+        add("ln_final", LayerNorm(input_shape=x_shape, name="ln_final",
+                                  generator=g))
+        add("lm_head", Dense(h["vocab_size"], input_dim=d_model,
+                             name="lm_head", generator=g))
         self.drop = Dropout(dropout, generator=g)
-        self.residual = Merge("sum")
+        self.residual = Merge(mode="sum")
         self.head_act = Activation("log_softmax")
 
     @property

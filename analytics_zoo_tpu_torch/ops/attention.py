@@ -102,8 +102,10 @@ def blockwise_attention(q, k, v, causal: bool = False,
         p = torch.exp(scores - m_new[..., None])
         correction = torch.exp(m - m_new)
         l = l * correction + p.sum(dim=-1)
+        # p is f32 (m is): promote v as jnp.einsum does, so bf16 inputs
+        # give the JAX package's f32 output
         o = (o * correction[..., None]
-             + torch.einsum("bhqk,bkhd->bhqd", p, v_blk))
+             + torch.einsum("bhqk,bkhd->bhqd", p, v_blk.to(p.dtype)))
         m = m_new
     out = o / l[..., None].clamp_min(1e-30)
     return out.transpose(1, 2)  # (b, h, q, d) -> (b, q, h, d)

@@ -1,23 +1,40 @@
-"""KerasNet: the compile/fit/evaluate/predict lifecycle on an nn.Module.
+"""KerasNet, Sequential and Model: the compile/fit/evaluate/predict
+lifecycle over the graph engine.
 
-Counterpart of ``KerasNet`` in
-``analytics_zoo_tpu/pipeline/api/keras/engine.py``.  There a KerasNet is
-a graph of layers whose weights live in its Trainer's state; here it is
-an ``nn.Module`` that owns its parameters, and its Trainer updates them in
-place.  So ``compile`` never re-initializes weights: they come from the
-model's constructor (or ``set_weights``), and a new compile only starts a
-fresh optimizer state and step count.  The graph engine
-(``Sequential``/``Model``), freezing, checkpoints and summaries are not
-ported yet (see ROADMAP.md).
+Counterpart of ``analytics_zoo_tpu/pipeline/api/keras/engine.py``.  There
+a KerasNet is a graph of layers whose weights live in its Trainer's state;
+here every layer is an ``nn.Module`` that owns its parameters, and the
+Trainer updates them in place.  So ``compile`` never re-initializes
+weights: they are made when the model builds its layers (``Sequential.add``,
+``Model(input, output)``: one ``torch.Generator`` per model, seeded with
+its ``seed`` on its ``device``), and a new compile only starts a fresh
+optimizer state and step count.  Models that share layer instances
+(``to_model``, ``new_graph``) share their weights.
+
+A KerasNet is a Layer, so a model nests in another
+(``Sequential.add(Sequential)``).  ``save_model`` writes the reference's
+``architecture.json`` and the weights in the flat checkpoint format;
+``load_model`` rebuilds the model from it.  Freezing by name, graph
+surgery beyond ``new_graph``, quantization and serving are not ported yet
+(see ROADMAP.md).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+import json
+import os
+from typing import Dict, List, Optional, Sequence
 
+import numpy as np
+import torch
 from torch import nn
 
+from ....common.context import resolve_device
+from ....core.graph import GraphModule, Input, InputLayer, Variable
+from ....core.module import (Layer, get_layer_class, register_layer,
+                             serial_class_name)
 from ....data.dataset import Dataset
+from ....train import checkpoint as checkpoint_lib
 from ....train import triggers as trigger_lib
 from ....train.trainer import Trainer, predict_batches
 from . import metrics as metrics_lib
@@ -25,15 +42,30 @@ from . import objectives as objectives_lib
 from . import optimizers as optimizers_lib
 
 
-class KerasNet(nn.Module):
-    """Compiled-model lifecycle: subclasses define ``forward``."""
+class KerasNet(Layer):
+    """Compiled-model lifecycle shared by Sequential, Model and the zoo's
+    models; graph-based subclasses (``graph_based``) define
+    ``to_graph``."""
 
-    def __init__(self):
-        super().__init__()
+    #: True where the weights are those of the layers of ``to_graph()``
+    graph_based = False
+
+    def __init__(self, name=None):
+        super().__init__(name=name)
         self.trainer: Optional[Trainer] = None
         self._compile_args: Optional[dict] = None
+        self._tensorboard: Optional[tuple] = None
+        self._checkpoint: Optional[tuple] = None
         self._clip_norm = None
         self._clip_value = None
+
+    def to_graph(self) -> GraphModule:
+        raise NotImplementedError(
+            f"{type(self).__name__} is not built on the graph engine")
+
+    @property
+    def device(self) -> torch.device:
+        return self._device
 
     def compile(self, optimizer, loss, metrics: Sequence = (),
                 seed: int = 0, compute_dtype=None):
@@ -49,9 +81,35 @@ class KerasNet(nn.Module):
                        for m in metrics]
         self.trainer = Trainer(self, loss_fn, opt, metrics=metric_objs,
                                seed=seed, compute_dtype=compute_dtype)
+        if self._tensorboard:
+            self.trainer.set_tensorboard(*self._tensorboard)
+        if self._checkpoint:
+            self.trainer.set_checkpoint(*self._checkpoint)
         self._compile_args = {"optimizer": optimizer, "loss": loss,
                               "metrics": list(metrics)}
         return self
+
+    def set_tensorboard(self, log_dir: str, app_name: str):
+        """Write training and validation scalars under
+        ``<log_dir>/<app_name>``; takes effect now or at compile."""
+        self._tensorboard = (log_dir, app_name)
+        if self.trainer is not None:
+            self.trainer.set_tensorboard(log_dir, app_name)
+
+    @property
+    def train_summary(self):
+        return None if self.trainer is None else self.trainer.train_summary
+
+    @property
+    def val_summary(self):
+        return None if self.trainer is None else self.trainer.val_summary
+
+    def set_checkpoint(self, path: str, over_write: bool = True):
+        """Save the training state under ``path`` at the end of every
+        epoch; takes effect now or at compile."""
+        self._checkpoint = (path, over_write)
+        if self.trainer is not None:
+            self.trainer.set_checkpoint(path, over_write)
 
     def set_gradient_clipping_by_l2_norm(self, clip_norm: float):
         """Clip gradients by their global L2 norm; call before compile."""
@@ -67,6 +125,13 @@ class KerasNet(nn.Module):
         """Drop both clippings; call before compile."""
         self._clip_norm = None
         self._clip_value = None
+
+    def get_layer(self, name: str) -> Layer:
+        """The layer of this model's graph named ``name``."""
+        matches = [l for l in self.to_graph().layers if l.name == name]
+        if not matches:
+            raise ValueError(f"no layer named {name!r}")
+        return matches[0]
 
     def _require_compiled(self):
         if self.trainer is None:
@@ -102,20 +167,271 @@ class KerasNet(nn.Module):
         return self.trainer.evaluate(ds, batch_size, metrics=metrics)
 
     def predict(self, x, batch_size: int = 32):
-        """Forward ``x`` in batches without dropout; numpy out.  Needs no
-        compile."""
+        """Forward ``x`` in batches without dropout; numpy out (a list for
+        several outputs).  Needs no compile."""
         return predict_batches(self, x, batch_size)
+
+    def predict_classes(self, x, batch_size: int = 32,
+                        zero_based_label: bool = True):
+        """The argmax class of each prediction; ``zero_based_label=False``
+        counts classes from 1."""
+        classes = np.argmax(self.predict(x, batch_size), axis=-1)
+        return classes if zero_based_label else classes + 1
 
     def get_weights(self):
         """The parameters as the JAX package's tree: {layer: {name:
-        numpy array}}."""
+        numpy array}}, in model order."""
         # models/ imports this module, so its helpers load at call time
         from ....models.jax_params import to_jax_params
         return to_jax_params(self)
 
     def set_weights(self, params):
         """Load a {layer: {name: array}} tree (this package's or the JAX
-        package's ``get_weights()``) in place."""
-        # models/ imports this module, so its helpers load at call time
+        package's ``get_weights()``) in place; layers are matched by name,
+        or by position when the names differ but every shape matches."""
         from ....models.jax_params import from_jax_params
         from_jax_params(self, params)
+
+    def summary(self) -> str:
+        """Print and return each layer's name, class and parameter
+        count."""
+        lines = [f"Model: {self.name}", "-" * 64]
+        total = 0
+        for layer in self.to_graph().layers:
+            count = sum(p.numel() for p in layer.parameters())
+            total += count
+            lines.append(f"{layer.name:<36} {type(layer).__name__:<20} "
+                         f"params: {count}")
+        lines += ["-" * 64, f"Total params: {total}"]
+        text = "\n".join(lines)
+        print(text)
+        return text
+
+    # ---- persistence ----
+    def save_model(self, path: str, over_write: bool = True):
+        """``architecture.json`` (``{"class_name", "config"}``, the
+        reference's schema) and the weights, as the flat checkpoint
+        ``weights/ckpt_final``."""
+        os.makedirs(path, exist_ok=True)
+        arch_path = os.path.join(path, "architecture.json")
+        if os.path.exists(arch_path) and not over_write:
+            raise FileExistsError(path)
+        with open(arch_path, "w") as f:
+            json.dump({"class_name": type(self).__name__,
+                       "config": self.get_config()}, f)
+        from ....models.jax_params import weight_tree
+        checkpoint_lib.save_checkpoint(os.path.join(path, "weights"), "final",
+                                       weight_tree(self))
+
+    @staticmethod
+    def load_model(path: str, device=None) -> "KerasNet":
+        """Rebuild a model saved by :meth:`save_model` on ``device``
+        (``"cuda"`` unless asked otherwise), load its weights and, when it
+        was compiled, compile it again."""
+        with open(os.path.join(path, "architecture.json")) as f:
+            arch = json.load(f)
+        model = _MODEL_CLASSES[arch["class_name"]].from_config(
+            arch["config"], device=device)
+        weights_dir = os.path.join(path, "weights")
+        if os.path.isdir(weights_dir):
+            from ....models.jax_params import weight_tree
+            checkpoint_lib.restore_into(weights_dir, weight_tree(model),
+                                        "final")
+        if model._compile_args is not None:
+            model.compile(**model._compile_args)
+        return model
+
+    # ---- as a layer of another model ----
+    def build_params(self, input_shape, generator):
+        self.to_graph().build(input_shape, generator)
+
+    def compute_output_shape(self, input_shape):
+        return self.to_graph().compute_output_shape(input_shape)
+
+
+def _seeded_generator(device, seed: int) -> torch.Generator:
+    return torch.Generator(device).manual_seed(int(seed))
+
+
+@register_layer
+class Sequential(KerasNet):
+    """A stack of layers.  ``add`` builds each layer from the previous
+    one's output shape (the first needs ``input_shape``) on the model's
+    ``device``, drawing from the model's generator seeded with ``seed``."""
+
+    graph_based = True
+
+    def __init__(self, name=None, device=None, seed: int = 0):
+        super().__init__(name=name)
+        self._device = resolve_device(device)
+        self.seed = int(seed)
+        self._generator = _seeded_generator(self._device, seed)
+        self.stack = nn.ModuleList()
+        self._output_shape = None
+        self.__dict__["_graph"] = None  # derived; not a submodule
+
+    @staticmethod
+    def _given_input_shape(layer: Layer):
+        """A first layer's batch input shape: its own, or a nested
+        model's."""
+        if layer.batch_input_shape is None and isinstance(layer, KerasNet):
+            return layer.to_graph().input_shapes[0]
+        return layer.batch_input_shape
+
+    def add(self, layer: Layer) -> "Sequential":
+        if not len(self.stack):
+            shape = self._given_input_shape(layer)
+            if shape is None:
+                raise ValueError(
+                    "First layer needs input_shape (reference Sequential "
+                    "requires the same)")
+        else:
+            shape = self._output_shape
+        layer.build(shape, self._generator)
+        self._output_shape = layer.compute_output_shape(shape)
+        self.stack.append(layer)
+        self.__dict__["_graph"] = None
+        return self
+
+    @property
+    def layers(self) -> List[Layer]:
+        return list(self.stack)
+
+    def forward(self, x):
+        for layer in self.stack:
+            x = layer(x)
+        return x
+
+    def to_graph(self) -> GraphModule:
+        if self._graph is None:
+            shape = self._given_input_shape(self.stack[0])
+            x = Input(tuple(shape[1:]), name=f"{self.name}_input")
+            h = x
+            for layer in self.stack:
+                h = layer(h)
+            self.__dict__["_graph"] = GraphModule(x, h, name=self.name)
+        return self._graph
+
+    def to_model(self) -> "Model":
+        """The functional ``Model`` over the same layers (and so the same
+        weights), sharing this model's compiled trainer."""
+        g = self.to_graph()
+        model = Model(input=g.input_vars[0], output=g.output_vars[0],
+                      name=self.name, device=self._device, seed=self.seed)
+        model.trainer = self.trainer
+        model._compile_args = self._compile_args
+        return model
+
+    def get_config(self):
+        return {
+            "name": self.name,
+            "layers": [{"class_name": serial_class_name(l),
+                        "config": l.get_config()} for l in self.stack],
+            "compile_args": self._compile_args,
+        }
+
+    @classmethod
+    def from_config(cls, config, device=None, seed: int = 0):
+        model = cls(name=config.get("name"), device=device, seed=seed)
+        for spec in config["layers"]:
+            model.add(_layer_from_spec(spec, model.device))
+        model._compile_args = config.get("compile_args")
+        return model
+
+
+@register_layer
+class Model(KerasNet):
+    """Functional graph model from ``input`` to ``output`` Variables
+    (lists for several).  Every layer not built yet is built from the
+    shape of its first use, in first-use order, on ``device`` from one
+    generator seeded with ``seed``."""
+
+    graph_based = True
+
+    def __init__(self, input=None, output=None, name=None, device=None,
+                 seed: int = 0):
+        super().__init__(name=name)
+        if input is None or output is None:
+            raise ValueError("Model requires input and output Variables")
+        self._device = resolve_device(device)
+        self.seed = int(seed)
+        self.graph = GraphModule(input, output, name=self.name)
+        self.graph.build(None, _seeded_generator(self._device, seed))
+        self.inputs = self.graph.input_vars
+        self.outputs = self.graph.output_vars
+
+    def forward(self, inputs):
+        return self.graph(inputs)
+
+    def to_graph(self) -> GraphModule:
+        return self.graph
+
+    def new_graph(self, outputs: List[str]) -> "Model":
+        """A model over the same inputs re-rooted on the named nodes
+        (sharing their layers and weights)."""
+        by_name = {v.name: v for v in self.graph.nodes}
+        outs = [by_name[n] for n in outputs]
+        return Model(input=self.graph.input_vars,
+                     output=outs[0] if len(outs) == 1 else outs,
+                     name=f"{self.name}_sub", device=self._device)
+
+    def get_config(self):
+        nodes = []
+        for v in self.graph.nodes:
+            nodes.append({
+                "id": v.node_id,
+                "name": v.name,
+                "layer": {"class_name": serial_class_name(v.layer),
+                          "config": v.layer.get_config()},
+                "inputs": [p.node_id for p in v.inputs],
+                "shape": list(v.shape),
+            })
+        return {"name": self.name, "nodes": nodes,
+                "input_ids": [v.node_id for v in self.graph.input_vars],
+                "output_ids": [v.node_id for v in self.graph.output_vars],
+                "single_output": self.graph.single_output,
+                "compile_args": self._compile_args}
+
+    @classmethod
+    def from_config(cls, config, device=None, seed: int = 0):
+        device = resolve_device(device)
+        built: Dict[int, Variable] = {}
+        layers: Dict[str, Layer] = {}
+        for spec in config["nodes"]:
+            layer_spec = spec["layer"]
+            if layer_spec is None or layer_spec["class_name"] == "InputLayer":
+                cfg = (layer_spec or {}).get("config", {})
+                shape = tuple(cfg.get("input_shape") or spec["shape"][1:])
+                built[spec["id"]] = Input(shape, name=spec["name"])
+                continue
+            lname = layer_spec["config"].get("name", spec["name"])
+            if lname not in layers:
+                layers[lname] = _layer_from_spec(layer_spec, device)
+            parents = [built[i] for i in spec["inputs"]]
+            built[spec["id"]] = layers[lname](
+                parents if len(parents) > 1 else parents[0])
+        outs = [built[i] for i in config["output_ids"]]
+        single = config.get("single_output", len(outs) == 1)
+        model = cls(input=[built[i] for i in config["input_ids"]],
+                    output=outs[0] if single else outs,
+                    name=config.get("name"), device=device, seed=seed)
+        model._compile_args = config.get("compile_args")
+        return model
+
+
+def _layer_from_spec(spec: dict, device) -> Layer:
+    layer_cls = get_layer_class(spec["class_name"])
+    if issubclass(layer_cls, KerasNet):
+        return layer_cls.from_config(spec["config"], device=device)
+    return layer_cls.from_config(spec["config"])
+
+
+_MODEL_CLASSES = {"Sequential": Sequential, "Model": Model}
+
+
+def load_model(path: str, device=None) -> KerasNet:
+    return KerasNet.load_model(path, device=device)
+
+
+__all__ = ["Input", "InputLayer", "KerasNet", "Model", "Sequential",
+           "load_model"]

@@ -12,41 +12,58 @@ from typing import Optional
 
 import torch
 
-from .....core.module import Layer, make_generator, register_layer
+from .....core.module import Layer, register_layer
 from .....ops.attention import attention_bhsd
+
+
+def _x_shape(input_shape):
+    """The x shape of a one-input or ``[x, lengths]`` input shape."""
+    if (isinstance(input_shape, (list, tuple)) and input_shape
+            and isinstance(input_shape[0], (list, tuple))):
+        return tuple(input_shape[0])
+    return tuple(input_shape)
 
 
 @register_layer
 class MultiHeadSelfAttention(Layer):
-    """Multi-head self-attention over (batch, seq, d_model) inputs.
+    """Multi-head self-attention over (batch, seq, d_model) inputs;
+    d_model is the last axis of the input shape.
 
     ``Wq``/``Wk``/``Wv`` are (d_model, heads, head_dim) and ``Wo`` is
-    (heads, head_dim, d_model).  ``implementation``: ``"auto"`` (the CUDA
-    kernel on a CUDA tensor, the JAX package's off-TPU choice on a CPU
-    tensor), ``"flash"``, ``"blockwise"`` or ``"naive"``.  Pass
-    ``[x, lengths]`` to mask keys past each row's (batch,) length."""
+    (heads, head_dim, d_model), ``head_dim`` defaulting to d_model //
+    n_heads.  ``implementation``: ``"auto"`` (the CUDA kernel on a CUDA
+    tensor, the JAX package's off-TPU choice on a CPU tensor),
+    ``"flash"``, ``"blockwise"`` or ``"naive"``.  Pass ``[x, lengths]``
+    to mask keys past each row's (batch,) length."""
 
-    def __init__(self, d_model: int, n_heads: int, head_dim=None,
-                 causal: bool = True, implementation: str = "auto",
-                 init="glorot_uniform", name: Optional[str] = None,
-                 device=None, generator: Optional[torch.Generator] = None):
-        super().__init__(name)
+    def __init__(self, n_heads, head_dim=None, causal=True,
+                 implementation="auto", init="glorot_uniform",
+                 input_shape=None, name=None, device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__(input_shape=input_shape, name=name, device=device,
+                         generator=generator)
         if implementation == "ring":
             raise NotImplementedError(
                 "ring attention is not ported yet (see ROADMAP.md)")
         self.n_heads = int(n_heads)
         self.head_dim = None if head_dim is None else int(head_dim)
+        self.causal = bool(causal)
+        self.implementation = implementation
+        self.init_name = init
+        self._build_if_ready()
+
+    def build_params(self, input_shape, generator):
+        d_model = int(_x_shape(input_shape)[-1])
         hd = self.head_dim or d_model // self.n_heads
         if hd * self.n_heads != d_model and self.head_dim is None:
             raise ValueError(
                 f"d_model ({d_model}) not divisible by n_heads "
                 f"({self.n_heads}); pass head_dim explicitly")
-        self.causal = bool(causal)
-        self.implementation = implementation
-        g = make_generator(device, generator)
         for w in ("Wq", "Wk", "Wv"):
-            self.add_param(w, init, (d_model, self.n_heads, hd), g)
-        self.add_param("Wo", init, (self.n_heads, hd, d_model), g)
+            self.add_param(w, self.init_name, (d_model, self.n_heads, hd),
+                           generator)
+        self.add_param("Wo", self.init_name, (self.n_heads, hd, d_model),
+                       generator)
 
     def forward(self, inputs):
         lengths = None
@@ -68,20 +85,36 @@ class MultiHeadSelfAttention(Layer):
                            kv_lengths=lengths)
         return torch.einsum("bhsd,hde->bse", o, self.Wo)
 
+    def compute_output_shape(self, input_shape):
+        return _x_shape(input_shape)
+
+    def get_config(self):
+        cfg = super().get_config()
+        cfg.update(n_heads=self.n_heads, head_dim=self.head_dim,
+                   causal=self.causal, implementation=self.implementation,
+                   init=self.init_name)
+        return cfg
+
 
 @register_layer
 class PositionalEmbedding(Layer):
     """Learned positional table added to a (batch, seq, d_model) input:
-    ``y = x + table[:seq]``; ``max_len`` bounds the table."""
+    ``y = x + table[:seq]``; ``max_len`` bounds the table, d_model is the
+    last axis of the input shape."""
 
-    def __init__(self, max_len: int, d_model: int, init="uniform",
-                 name: Optional[str] = None, device=None,
-                 generator: Optional[torch.Generator] = None):
-        super().__init__(name)
+    def __init__(self, max_len, init="uniform", input_shape=None, name=None,
+                 device=None, generator: Optional[torch.Generator] = None):
+        super().__init__(input_shape=input_shape, name=name, device=device,
+                         generator=generator)
         self.max_len = int(max_len)
-        table = self.add_param("table", init, (self.max_len, int(d_model)),
-                               make_generator(device, generator))
-        if init == "uniform":
+        self.init_name = init
+        self._build_if_ready()
+
+    def build_params(self, input_shape, generator):
+        table = self.add_param("table", self.init_name,
+                               (self.max_len, int(input_shape[-1])),
+                               generator)
+        if self.init_name == "uniform":
             with torch.no_grad():
                 table.mul_(0.02)
 
@@ -91,3 +124,8 @@ class PositionalEmbedding(Layer):
             raise ValueError(
                 f"sequence length {s} exceeds max_len {self.max_len}")
         return x + self.table[:s].to(x.dtype)
+
+    def get_config(self):
+        cfg = super().get_config()
+        cfg.update(max_len=self.max_len, init=self.init_name)
+        return cfg

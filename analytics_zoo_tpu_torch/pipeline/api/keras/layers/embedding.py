@@ -1,7 +1,9 @@
 """Embedding: a trainable lookup table named ``embeddings``.
 
 Counterpart of ``Embedding`` in
-``analytics_zoo_tpu/pipeline/api/keras/layers/embedding.py``."""
+``analytics_zoo_tpu/pipeline/api/keras/layers/embedding.py``.  The table's
+shape comes from ``input_dim`` and ``output_dim``, so the layer builds at
+construction whenever it is given a device or generator."""
 
 from __future__ import annotations
 
@@ -10,17 +12,40 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from .....core.module import Layer, make_generator, register_layer
+from .....core.module import Layer, register_layer
+from .core import _no_regularizers
 
 
 @register_layer
 class Embedding(Layer):
-    def __init__(self, input_dim: int, output_dim: int, init="uniform",
-                 name: Optional[str] = None, device=None,
+    needs_input_shape = False
+
+    def __init__(self, input_dim, output_dim, init="uniform",
+                 input_length=None, W_regularizer=None, input_shape=None,
+                 name=None, device=None,
                  generator: Optional[torch.Generator] = None):
-        super().__init__(name)
-        self.add_param("embeddings", init, (int(input_dim), int(output_dim)),
-                       make_generator(device, generator))
+        if input_length is not None and input_shape is None:
+            input_shape = (input_length,)
+        super().__init__(input_shape=input_shape, name=name, device=device,
+                         generator=generator)
+        _no_regularizers(self, W_regularizer)
+        self.input_dim = int(input_dim)
+        self.output_dim = int(output_dim)
+        self.init_name = init
+        self._build_if_ready()
+
+    def build_params(self, input_shape, generator):
+        self.add_param("embeddings", self.init_name,
+                       (self.input_dim, self.output_dim), generator)
 
     def forward(self, ids):
         return F.embedding(ids.long(), self.embeddings)
+
+    def compute_output_shape(self, input_shape):
+        return tuple(input_shape) + (self.output_dim,)
+
+    def get_config(self):
+        cfg = super().get_config()
+        cfg.update(input_dim=self.input_dim, output_dim=self.output_dim,
+                   init=self.init_name, W_regularizer=None)
+        return cfg

@@ -2,7 +2,8 @@
 
 Counterpart of ``LayerNorm`` in
 ``analytics_zoo_tpu/pipeline/api/keras/layers/normalization.py``: the
-population variance (``jnp.var``), ``eps`` inside the square root."""
+population variance (``jnp.var``), ``eps`` inside the square root; the
+width of ``gamma`` and ``beta`` is the last axis of the input shape."""
 
 from __future__ import annotations
 
@@ -10,7 +11,7 @@ from typing import Optional
 
 import torch
 
-from .....core.module import Layer, make_generator, register_layer
+from .....core.module import Layer, register_layer
 
 
 def layer_norm(x, gamma, beta, eps: float = 1e-5):
@@ -21,14 +22,22 @@ def layer_norm(x, gamma, beta, eps: float = 1e-5):
 
 @register_layer
 class LayerNorm(Layer):
-    def __init__(self, features: int, epsilon: float = 1e-5,
-                 name: Optional[str] = None, device=None,
-                 generator: Optional[torch.Generator] = None):
-        super().__init__(name)
+    def __init__(self, epsilon=1e-5, input_shape=None, name=None,
+                 device=None, generator: Optional[torch.Generator] = None):
+        super().__init__(input_shape=input_shape, name=name, device=device,
+                         generator=generator)
         self.epsilon = float(epsilon)
-        g = make_generator(device, generator)
-        self.add_param("gamma", "ones", (int(features),), g)
-        self.add_param("beta", "zeros", (int(features),), g)
+        self._build_if_ready()
+
+    def build_params(self, input_shape, generator):
+        n = int(input_shape[-1])
+        self.add_param("gamma", "ones", (n,), generator)
+        self.add_param("beta", "zeros", (n,), generator)
 
     def forward(self, x):
         return layer_norm(x, self.gamma, self.beta, self.epsilon)
+
+    def get_config(self):
+        cfg = super().get_config()
+        cfg["epsilon"] = self.epsilon
+        return cfg

@@ -1,8 +1,8 @@
 """Validation metrics.
 
 Counterpart of ``analytics_zoo_tpu/pipeline/api/keras/metrics.py``,
-reduced to what the training slice evaluates: ``Accuracy`` (zero-based
-label aware) and ``Loss``.  Metrics stream: ``init() -> acc``,
+reduced to what the ported slices evaluate: ``Accuracy`` (zero-based
+label aware), ``Top5Accuracy`` and ``Loss``.  Metrics stream: ``init() -> acc``,
 ``update(acc, y_true, y_pred, mask=None) -> acc``, ``result(acc) ->
 float``.  The accumulator holds device scalars, so an evaluation reads
 nothing back until ``result``.  ``mask`` is an optional per-sample 0/1
@@ -87,6 +87,36 @@ class Accuracy(Metric):
         return float(acc["correct"] / total)
 
 
+class Top5Accuracy(Metric):
+    """Share of samples whose label is among the five highest scores,
+    ranked as ``jnp.argsort``'s last five: a stable ascending sort, so of
+    tied scores the higher class indices rank first."""
+
+    name = "top5accuracy"
+
+    def __init__(self, zero_based_label=True):
+        self.zero_based_label = zero_based_label
+
+    def init(self):
+        return {"correct": 0.0, "total": 0.0}
+
+    def update(self, acc, y_true, y_pred, mask=None):
+        true = torch.as_tensor(y_true, device=y_pred.device).squeeze()
+        true = true.long().reshape(-1)
+        if not self.zero_based_label:
+            true = true - 1
+        w = _sample_mask(mask, true.shape[0], y_pred.device)
+        top5 = torch.argsort(y_pred, dim=-1, stable=True)[..., -5:]
+        top5 = top5.reshape(len(true), 5)
+        hit = (top5 == true[:, None]).any(dim=-1)
+        return {"correct": acc["correct"] + torch.sum(hit * w),
+                "total": acc["total"] + torch.sum(w)}
+
+    def result(self, acc) -> float:
+        total = torch.as_tensor(acc["total"]).clamp_min(1)
+        return float(acc["correct"] / total)
+
+
 class Loss(Metric):
     """Mean per-sample loss over the validation set."""
 
@@ -111,8 +141,7 @@ class Loss(Metric):
         return float(acc["sum"] / total)
 
 
-_NOT_PORTED = {"top5accuracy", "top5", "top5acc", "auc", "mae", "hitratio",
-               "hit_ratio", "hitrate", "ndcg"}
+_NOT_PORTED = {"auc", "mae", "hitratio", "hit_ratio", "hitrate", "ndcg"}
 
 
 def get(name, zero_based_label=True):
@@ -123,8 +152,10 @@ def get(name, zero_based_label=True):
     key = str(name).lower()
     if key in ("accuracy", "acc"):
         return Accuracy(zero_based_label=zero_based_label)
+    if key in ("top5accuracy", "top5", "top5acc"):
+        return Top5Accuracy(zero_based_label=zero_based_label)
     if key in _NOT_PORTED:
         raise NotImplementedError(
             f"metric {name!r} is not ported yet (see ROADMAP.md); ported: "
-            "accuracy")
+            "accuracy, top5accuracy")
     raise ValueError(f"Unknown metric {name!r}")

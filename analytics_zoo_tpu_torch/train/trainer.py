@@ -4,9 +4,11 @@ Counterpart of ``analytics_zoo_tpu/train/trainer.py``, reduced to one
 device: ``build_train_step`` (forward, mean loss, backward, optimizer
 update), ``Trainer.fit`` with its epoch/step loop and triggers,
 ``Trainer.evaluate`` with the padded, masked tail, and
-``Trainer.predict``.  The JAX package compiles the step with ``jit``;
-here it runs eagerly, with the model's parameters updated in place.
-Checkpoints, summaries, the step profiler, fault injection, sharding,
+``Trainer.predict``, TensorBoard scalars (``set_tensorboard``) and
+epoch-triggered checkpoints in the flat format (``set_checkpoint``).  The
+JAX package compiles the step with ``jit``; here it runs eagerly, with the
+model's parameters updated in place.  Iteration-triggered and sharded
+checkpoints, resuming, the step profiler, fault injection, sharding,
 gradient accumulation and mixed precision are not ported yet (see
 ROADMAP.md).
 
@@ -16,6 +18,7 @@ transfer at its end, as in the JAX package: a step makes no host sync.
 
 from __future__ import annotations
 
+import time
 from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
@@ -24,7 +27,9 @@ import torch
 from ..data.dataset import Dataset
 from ..pipeline.api.keras import metrics as metrics_lib
 from ..pipeline.api.keras.objectives import _batch_mean
+from . import checkpoint as checkpoint_lib
 from . import triggers as trigger_lib
+from .summary import TrainSummary, ValidationSummary
 
 
 def _pad_tail(batch, pad: int):
@@ -50,6 +55,12 @@ def _to_device(batch, device):
     return torch.as_tensor(np.asarray(batch), device=device)
 
 
+def _to_host(y):
+    if isinstance(y, (list, tuple)):
+        return [t.cpu() for t in y]
+    return y.cpu()
+
+
 def _model_device(model) -> torch.device:
     return next(model.parameters()).device
 
@@ -63,6 +74,12 @@ class TrainState:
         self.opt_state = opt_state
         self.step = step
         self.epoch = epoch
+
+    def opt_tree(self) -> dict:
+        """The optimizer state as a tree of its tensors (for
+        checkpoints): the update count and each transform's state."""
+        return {"count": np.int64(self.opt_state.count),
+                "states": self.opt_state.states}
 
 
 def build_train_step(model, loss_fn, optimizer, compute_dtype=None,
@@ -100,8 +117,9 @@ def build_train_step(model, loss_fn, optimizer, compute_dtype=None,
 
 def predict_batches(model, x, batch_size: int = 32):
     """Forward ``x`` (an array or a Dataset) in batches of ``batch_size``
-    without gradients or dropout; returns numpy.  The tail batch runs at
-    its own size (an eager step needs no fixed shape)."""
+    without gradients or dropout; returns numpy (a list of arrays for a
+    model of several outputs).  The tail batch runs at its own size (an
+    eager step needs no fixed shape)."""
     ds = x if isinstance(x, Dataset) else Dataset.from_ndarray(x)
     if ds.size == 0:
         raise ValueError("predict called with an empty dataset")
@@ -110,10 +128,13 @@ def predict_batches(model, x, batch_size: int = 32):
     model.eval()
     try:
         with torch.no_grad():
-            out = [model(_to_device(bx, device)).cpu()
+            out = [_to_host(model(_to_device(bx, device)))
                    for bx, _ in ds.batches(batch_size, drop_remainder=False)]
     finally:
         model.train(was_training)
+    if isinstance(out[0], list):  # a model of several outputs
+        return [torch.cat([o[i] for o in out]).numpy()
+                for i in range(len(out[0]))]
     return torch.cat(out).numpy()
 
 
@@ -164,6 +185,7 @@ class Trainer:
         while not (stop or end_trigger({"epoch": st.epoch,
                                         "iteration": st.step})):
             epoch_losses = []
+            epoch_start = time.perf_counter()
             for bx, by in dataset.batches(batch_size, shuffle=shuffle,
                                           seed=self.seed, epoch=st.epoch):
                 loss = self._train_step(st, _to_device(bx, device),
@@ -179,6 +201,14 @@ class Trainer:
             losses = (torch.stack(epoch_losses).cpu().tolist()
                       if epoch_losses else [])
             history["loss"].extend(losses)
+            if self.train_summary is not None:
+                elapsed = max(time.perf_counter() - epoch_start, 1e-9)
+                for i, lossf in enumerate(losses):
+                    self.train_summary.add_scalar(
+                        "Loss", lossf, st.step - len(losses) + i + 1)
+                self.train_summary.add_scalar(
+                    "Throughput", len(losses) * batch_size / elapsed, st.step)
+                self.train_summary.flush()
             epoch_record = {"epoch": st.epoch, "iteration": st.step,
                             "epoch_finished": True,
                             "loss": losses[-1] if losses else None}
@@ -190,8 +220,14 @@ class Trainer:
                 results = self.evaluate(validation_data,
                                         validation_batch_size or batch_size)
                 history["val"].append({"epoch": st.epoch, **results})
+                if self.val_summary is not None:
+                    for k, v in results.items():
+                        self.val_summary.add_scalar(k, v, st.step)
+                    self.val_summary.flush()
                 if verbose:
                     print(f"[zoo-torch]   validation: {results}")
+            if self._ckpt_path:
+                self.save_weights(self._ckpt_path, f"epoch{st.epoch}")
         return history
 
     def evaluate(self, dataset: Dataset, batch_size: int,
@@ -240,3 +276,47 @@ class Trainer:
 
     def predict(self, x, batch_size: int = 32):
         return predict_batches(self.model, x, batch_size)
+
+    # ---- summaries and checkpoints ----
+    train_summary: Optional[TrainSummary] = None
+    val_summary: Optional[ValidationSummary] = None
+    _ckpt_path: Optional[str] = None
+    _ckpt_overwrite = True
+
+    def set_tensorboard(self, log_dir: str, app_name: str):
+        """Loss per step and Throughput (samples/s) per epoch under
+        ``<log_dir>/<app_name>/train``, each validation result per epoch
+        under ``.../validation``."""
+        self.train_summary = TrainSummary(log_dir, app_name)
+        self.val_summary = ValidationSummary(log_dir, app_name)
+
+    def set_checkpoint(self, path: str, over_write: bool = True):
+        """Save the training state at the end of every epoch, as
+        ``ckpt_epoch<n>`` under ``path``."""
+        self._ckpt_path = path
+        self._ckpt_overwrite = over_write
+
+    def state_tree(self) -> dict:
+        """The model's weights ({layer: {param: tensor}}) and the
+        optimizer state."""
+        from ..models.jax_params import weight_tree
+        self.ensure_initialized()
+        return {"params": weight_tree(self.model),
+                "opt_state": self.state.opt_tree()}
+
+    def save_weights(self, directory: str, tag="final"):
+        self.ensure_initialized()
+        checkpoint_lib.save_checkpoint(
+            directory, tag, self.state_tree(),
+            overwrite=self._ckpt_overwrite,
+            meta={"step": self.state.step, "epoch": self.state.epoch})
+
+    def load_weights(self, directory: str, tag=None):
+        """Restore weights, optimizer state and counters from a
+        checkpoint of this model (the newest tag when None)."""
+        self.ensure_initialized()
+        pairs = checkpoint_lib.restore_into(directory, self.state_tree(), tag)
+        self.state.opt_state.count = int(dict(pairs)["opt_state/count"])
+        meta = checkpoint_lib.read_meta(directory, tag)
+        self.state.step = int(meta.get("step", self.state.step))
+        self.state.epoch = int(meta.get("epoch", self.state.epoch))

@@ -25,7 +25,16 @@ Phases (any failure makes the exit code non-zero):
    then a gradient check of the kernels' backward against blockwise
    attention on one batch;
 5. small: a small model on the card against the same weights on the CPU,
-   for predict, greedy streams and 3 training steps.
+   for predict, greedy streams and 3 training steps;
+6. lenet: the reference's LeNet (a Sequential of Convolution2D,
+   MaxPooling2D, Flatten, Dense) fitted for 3 epochs on 512 synthetic
+   28x28 blobs with validation, then predict, predict_classes, evaluate,
+   save_model/load_model and to_model, and the same weights on the CPU;
+7. graph: a functional attention Model (Input, Embedding,
+   PositionalEmbedding, LayerNorm, MultiHeadSelfAttention(flash), Dense)
+   at d_model 768, 12 heads, seq 2048, batch 2: 2 fit steps, each of which
+   must launch all three kernels, and predict against the same weights
+   under blockwise attention.
 
 The line before the last is a JSON object with each kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or
@@ -59,6 +68,11 @@ BATCH, PROMPT, NEW = 8, 512, 128
 # the repo's training configuration (bench.py transformer_lm_b8_seq2048)
 TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS, TRAIN_LR = 2048, 8, 4, 3e-4
 GRAD_TOL = 1e-3     # per parameter, max|kernels - blockwise| / max|ref|
+# LeNet (tests/test_lenet_e2e.py): 512 blobs, 3 epochs at batch 64
+LENET_N, LENET_EPOCHS, LENET_BATCH, LENET_TIMED_STEPS = 512, 3, 64, 20
+# the graph phase's functional attention model
+GRAPH = dict(vocab=32000, d_model=768, n_heads=12, seq=2048, batch=2,
+             steps=2)
 KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "flash_fwd": ("analytics_zoo_tpu_torch/ops/csrc/flash_fwd.cu",
                   "analytics_zoo_tpu/ops/attention.py:149"),
@@ -552,6 +566,173 @@ def phase_small(torch, TransformerLM, from_jax_params, to_jax_params):
             and loss_err <= 1e-4)
 
 
+def smi_card() -> str:
+    """The card's name and power limit as nvidia-smi gives them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    lines = smi.stdout.strip().splitlines()
+    return lines[0] if lines else "nvidia-smi: no output"
+
+
+def lenet_blobs(n, seed, classes=10):
+    """tests/test_lenet_e2e.py's make_data: class-dependent blobs."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    y = rng.integers(0, classes, size=n)
+    x = rng.normal(0, 0.3, size=(n, 28, 28, 1)).astype(np.float32)
+    for i in range(n):
+        x[i, 2 * y[i]:2 * y[i] + 3, 2 * y[i]:2 * y[i] + 3, 0] += 2.0
+    return x, y.astype(np.int32)
+
+
+def build_lenet(keras, device, seed=0):
+    """tests/test_lenet_e2e.py's LeNet, unchanged but for the device."""
+    L = keras.layers
+    model = keras.Sequential(device=device, seed=seed)
+    model.add(L.Convolution2D(6, 5, 5, activation="relu",
+                              border_mode="same", input_shape=(28, 28, 1)))
+    model.add(L.MaxPooling2D())
+    model.add(L.Convolution2D(16, 5, 5, activation="relu"))
+    model.add(L.MaxPooling2D())
+    model.add(L.Flatten())
+    model.add(L.Dense(120, activation="relu"))
+    model.add(L.Dropout(0.1))
+    model.add(L.Dense(84, activation="relu"))
+    model.add(L.Dense(10, activation="softmax"))
+    return model
+
+
+def phase_lenet(torch, keras, kernels, tmp):
+    """LeNet on the card: fit with validation (losses fall, accuracy above
+    0.5), predict (rows sum to 1 within 1e-4, the CPU's answer on the
+    same weights within 1e-4), predict_classes, evaluate (accuracy and
+    top5accuracy), save_model/load_model and to_model (predictions within
+    1e-6); then LENET_TIMED_STEPS synchronised one-step fits, timed."""
+    import statistics
+    import numpy as np
+    x, y = lenet_blobs(LENET_N, seed=0)
+    xv, yv = lenet_blobs(128, seed=1)
+    model = build_lenet(keras, "cuda")
+    model.compile(optimizer={"name": "adam", "lr": 1e-3},
+                  loss="sparse_categorical_crossentropy",
+                  metrics=["accuracy", "top5accuracy"])
+    kernels.reset_launch_counts()
+    hist = model.fit(x, y, batch_size=LENET_BATCH, nb_epoch=LENET_EPOCHS,
+                     validation_data=(xv, yv))
+    counts = kernels.launch_counts()
+    losses, val = hist["loss"], hist["val"]
+    probs = model.predict(x[:100], batch_size=LENET_BATCH)
+    row_err = float(abs(probs.sum(axis=1) - 1).max())
+    classes = model.predict_classes(x[:100])
+    results = model.evaluate(x, y, batch_size=LENET_BATCH)
+    cpu = build_lenet(keras, "cpu", seed=1)
+    cpu.set_weights(model.get_weights())
+    cpu_err = float(abs(cpu.predict(x[:100], LENET_BATCH) - probs).max())
+    model.save_model(os.path.join(tmp, "lenet"))
+    loaded = keras.load_model(os.path.join(tmp, "lenet"), device="cuda")
+    load_err = float(abs(loaded.predict(x[:100], LENET_BATCH)
+                         - probs).max())
+    model_err = float(abs(model.to_model().predict(x[:100], LENET_BATCH)
+                          - probs).max())
+
+    torch.cuda.reset_peak_memory_stats()
+    step_s = []
+    for i in range(LENET_TIMED_STEPS):
+        rows = slice((i % (LENET_N // LENET_BATCH)) * LENET_BATCH,
+                     (i % (LENET_N // LENET_BATCH) + 1) * LENET_BATCH)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        model.fit(x[rows], y[rows], batch_size=LENET_BATCH)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+    step = statistics.median(step_s)
+    stats = dict(step_ms=step * 1e3, step_ms_all=[t * 1e3 for t in step_s],
+                 images_per_s=LENET_BATCH / step,
+                 peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                 card=smi_card(), losses_first_last=[losses[0], losses[-1]],
+                 steps=len(losses), val=val, evaluate=results,
+                 row_sum_err=row_err, cpu_err=cpu_err,
+                 load_model_err=load_err, to_model_err=model_err,
+                 launches=counts)
+    log("lenet:", json.dumps(stats))
+    ok = (len(losses) == LENET_EPOCHS * (LENET_N // LENET_BATCH)
+          and all(math.isfinite(v) for v in losses)
+          and losses[-1] < losses[0]
+          and len(val) == LENET_EPOCHS and val[-1]["accuracy"] > 0.5
+          and probs.shape == (100, 10) and row_err <= 1e-4
+          and classes.shape == (100,)
+          and set(results) >= {"accuracy", "top5accuracy", "loss"}
+          and cpu_err <= 1e-4 and load_err <= 1e-6 and model_err <= 1e-6
+          and all(p.is_cuda for p in loaded.parameters()))
+    return bool(ok), stats
+
+
+def build_attention_model(keras, impl, seed=0):
+    L = keras.layers
+    x = L.Input((GRAPH["seq"],))
+    h = L.Embedding(GRAPH["vocab"], GRAPH["d_model"])(x)
+    h = L.PositionalEmbedding(GRAPH["seq"])(h)
+    h = L.LayerNorm()(h)
+    h = L.MultiHeadSelfAttention(GRAPH["n_heads"], causal=True,
+                                 implementation=impl)(h)
+    y = L.Dense(GRAPH["vocab"], activation="log_softmax")(h)
+    return keras.Model(input=x, output=y, device="cuda", seed=seed)
+
+
+def phase_graph(torch, keras, kernels):
+    """The functional attention Model: GRAPH["steps"] synchronised
+    one-step fits, each of which must launch the flash forward, dq and
+    dk/dv kernels (the counts read around each); then predict under
+    flash against predict under blockwise on the same weights, within
+    1e-4."""
+    import numpy as np
+    model = build_attention_model(keras, "flash")
+    attn = [l for l in model.to_graph().layers
+            if type(l).__name__ == "MultiHeadSelfAttention"]
+    model.compile({"name": "adam", "lr": 3e-4}, "class_nll")
+    x, y = periodic_tokens(GRAPH["batch"] * (GRAPH["steps"] + 1),
+                           GRAPH["vocab"], GRAPH["seq"], seed=2)
+    b = GRAPH["batch"]
+    model.fit(x[:b], y[:b], batch_size=b)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    per_step, losses, step_s = [], [], []
+    for i in range(1, GRAPH["steps"] + 1):
+        before = kernels.launch_counts()
+        t = time.perf_counter()
+        losses += model.fit(x[i * b:(i + 1) * b], y[i * b:(i + 1) * b],
+                            batch_size=b)["loss"]
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+        after = kernels.launch_counts()
+        per_step.append({n: after[n] - before[n] for n in after})
+    counts = kernels.launch_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    flash = model.predict(x[:b], batch_size=b)
+    try:
+        for layer in attn:
+            layer.implementation = "blockwise"
+        plain = model.predict(x[:b], batch_size=b)
+    finally:
+        for layer in attn:
+            layer.implementation = "flash"
+    err = float(np.abs(flash - plain).max())
+    stats = dict(step_ms_all=[t * 1e3 for t in step_s], losses=losses,
+                 launches=counts, launches_per_step=per_step,
+                 peak_gib=peak_gib, predict_vs_blockwise_max_abs_err=err,
+                 shape=list(flash.shape))
+    log("graph:", json.dumps(stats))
+    ok = (len(attn) == 1 and len(losses) == GRAPH["steps"]
+          and all(math.isfinite(v) for v in losses)
+          and all(step[n] >= 1 for step in per_step for n in KERNELS)
+          and flash.shape == (b, GRAPH["seq"], GRAPH["vocab"])
+          and bool(np.isfinite(flash).all()) and err <= 1e-4)
+    return bool(ok), stats
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -564,6 +745,7 @@ def main() -> int:
             TransformerLM, from_jax_params, to_jax_params)
         from analytics_zoo_tpu_torch.ops import _kernels as kernels
         from analytics_zoo_tpu_torch.ops import attention as ops_attn
+        from analytics_zoo_tpu_torch.pipeline.api import keras
         from analytics_zoo_tpu_torch.pipeline.api.keras import objectives
     except ImportError as e:
         print(f"chip_smoke: analytics_zoo_tpu_torch is not importable "
@@ -571,6 +753,11 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # saved models go under build/ (git ignores it), beside the kernels
+    tmp = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                       "chip_smoke")
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
     failed = []
@@ -610,6 +797,8 @@ def main() -> int:
         ("small", lambda: (phase_small(torch, TransformerLM,
                                        from_jax_params, to_jax_params),
                            None)),
+        ("lenet", lambda: phase_lenet(torch, keras, kernels, tmp)),
+        ("graph", lambda: phase_graph(torch, keras, kernels)),
     ]
     results = {}
     for name, run in phases:
@@ -626,18 +815,13 @@ def main() -> int:
         if not ok:
             failed.append(name)
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60)
-    log(smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
-        else "nvidia-smi: no output")
+    log(smi_card())
 
     # every kernel at the training shape; launches from the train path,
     # with each path's own count beside them
     path_launches = {
         path: (results.get(path) or {}).get("launches") or {}
-        for path in ("path", "train")}
+        for path in ("path", "train", "graph")}
     entries = []
     for name, (source, replaces) in KERNELS.items():
         entry = {"name": name, "route": "cuda", "source": source,
@@ -645,7 +829,8 @@ def main() -> int:
                  "launches": path_launches["train"].get(name, 0),
                  "launches_by_path": {
                      "generate": path_launches["path"].get(name, 0),
-                     "train": path_launches["train"].get(name, 0)}}
+                     "train": path_launches["train"].get(name, 0),
+                     "graph": path_launches["graph"].get(name, 0)}}
         row = next((r for r in results.get("kernels") or []
                     if r["kernel"] == name and r["case"] == "train"
                     and r["dtype"] == "float32"

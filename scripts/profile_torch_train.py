@@ -1,19 +1,23 @@
 #!/usr/bin/env python3
 """Where the time of the port's training step goes, on one NVIDIA GPU.
 
-    python3 scripts/profile_torch_train.py [--steps 2]
+    python3 scripts/profile_torch_train.py [--model lenet] [--steps 2]
 
-Builds TransformerLM at chip_smoke.py's training width (12 layers,
-d_model 768, 12 heads, vocab 32000, seq_len 2048; its constants and data)
-from seeded weights, compiles it with adam 3e-4, warms it up with one
-``fit`` step on 8 periodic sequences, then profiles ``--steps`` more one-step ``fit`` calls
-under ``torch.profiler`` and prints one JSON object: wall and device time
-per step, the device's idle share, launches per step, the device time of
-the GEMMs, of each flash kernel and of the rest (elementwise work,
-reductions and the optimizer's kernels), the optimizer update's kernel
-time and its span on the device (first to last kernel, gaps included),
-and the fifteen kernels that took the most device time.  f32, TF32 off,
-as chip_smoke.py runs it.
+``--model transformer_lm`` (the default) builds TransformerLM at
+chip_smoke.py's training width (12 layers, d_model 768, 12 heads, vocab
+32000, seq_len 2048; its constants and data) from seeded weights,
+compiles it with adam 3e-4 and warms it up with one ``fit`` step on 8
+periodic sequences.  ``--model lenet`` builds chip_smoke.py's LeNet
+(the reference's Sequential) with adam 1e-3 and warms it up with one
+step on 64 of its synthetic 28x28 blobs.  Then ``--steps`` more one-step
+``fit`` calls run under ``torch.profiler``, and one JSON object is
+printed: wall and device time per step, the device's idle share,
+launches per step, the device time of the GEMMs, the convolutions, each
+flash kernel and the rest (elementwise work, reductions and the
+optimizer's kernels), the optimizer update's kernel time and its span on
+the device (first to last kernel, gaps included), and the fifteen
+kernels that took the most device time.  f32, TF32 off, as chip_smoke.py
+runs it.
 """
 
 from __future__ import annotations
@@ -28,17 +32,50 @@ import time
 
 FLASH = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 GEMM = re.compile(r"gemm|gemv|cutlass|xmma", re.IGNORECASE)
+# cuDNN's convolution kernels (forward, data and weight gradients)
+CONV = re.compile(r"conv|fprop|dgrad|wgrad", re.IGNORECASE)
 
 
 def kind(name: str) -> str:
     for k in FLASH:
         if f"{k}_kernel" in name:
             return k
+    if CONV.search(name):
+        return "conv"
     return "gemm" if GEMM.search(name) else "other"
+
+
+def transformer_lm(torch, steps):
+    """(model, x, y, batch) at chip_smoke's training width."""
+    from analytics_zoo_tpu_torch.models import TransformerLM
+    from chip_smoke import (FULL, TRAIN_BATCH, TRAIN_LR, TRAIN_SEQ,
+                            periodic_tokens)
+    cfg = dict(FULL, seq_len=TRAIN_SEQ)
+    model = TransformerLM(**cfg, device="cuda", seed=0)
+    model.compile({"name": "adam", "lr": TRAIN_LR}, "class_nll")
+    x, y = periodic_tokens(TRAIN_BATCH * (steps + 1), cfg["vocab_size"],
+                           TRAIN_SEQ, seed=1)
+    return model, x, y, TRAIN_BATCH
+
+
+def lenet(torch, steps):
+    """(model, x, y, batch): chip_smoke's LeNet and blobs."""
+    from analytics_zoo_tpu_torch.pipeline.api import keras
+    from chip_smoke import LENET_BATCH, build_lenet, lenet_blobs
+    model = build_lenet(keras, "cuda")
+    model.compile({"name": "adam", "lr": 1e-3},
+                  "sparse_categorical_crossentropy")
+    x, y = lenet_blobs(LENET_BATCH * (steps + 1), seed=0)
+    return model, x, y, LENET_BATCH
+
+
+MODELS = {"transformer_lm": transformer_lm, "lenet": lenet}
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--model", choices=sorted(MODELS),
+                    default="transformer_lm", help="what to train")
     ap.add_argument("--steps", type=int, default=2,
                     help="one-step fit calls to profile")
     args = ap.parse_args()
@@ -49,18 +86,11 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
-    from analytics_zoo_tpu_torch.models import TransformerLM
     from analytics_zoo_tpu_torch.ops import _kernels
-    from chip_smoke import (FULL, TRAIN_BATCH as B, TRAIN_LR, TRAIN_SEQ,
-                            periodic_tokens)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     _kernels.build()
-    cfg = dict(FULL, seq_len=TRAIN_SEQ)
-    model = TransformerLM(**cfg, device="cuda", seed=0)
-    model.compile({"name": "adam", "lr": TRAIN_LR}, "class_nll")
-    x, y = periodic_tokens(B * (args.steps + 1), cfg["vocab_size"],
-                           TRAIN_SEQ, seed=1)
+    model, x, y, B = MODELS[args.model](torch, args.steps)
     model.fit(x[:B], y[:B], batch_size=B)  # warm-up
     opt = model.trainer.optimizer
     apply = opt.apply
@@ -103,7 +133,7 @@ def main() -> int:
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True,
             timeout=60).stdout.strip(),
-        "steps": n, "wall_ms_per_step": wall * 1e3 / n,
+        "model": args.model, "steps": n, "wall_ms_per_step": wall * 1e3 / n,
         "device_ms_per_step": dev_us / 1e3 / n,
         "idle_share": 1 - dev_us / 1e6 / wall,
         "launches_per_step": sum(e.count for e in kernels) / n,

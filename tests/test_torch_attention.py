@@ -213,7 +213,8 @@ def test_mhsa_layer_matches_jax(causal):
     b, s, e = 2, 24, 32
     jl = JMHSA(4, causal=causal, implementation="auto", name="t_mhsa")
     params, _ = jl.init(jax.random.PRNGKey(0), (None, s, e))
-    tl = MultiHeadSelfAttention(e, 4, causal=causal, device="cpu")
+    tl = MultiHeadSelfAttention(4, causal=causal, input_shape=(s, e),
+                                device="cpu")
     with torch.no_grad():
         for key, p in tl.params().items():
             p.copy_(torch.from_numpy(np.array(params[key])))
@@ -228,7 +229,7 @@ def test_mhsa_layer_matches_jax(causal):
 def test_positional_embedding_matches_jax():
     jl = JPosEmb(16, name="t_pos")
     params, _ = jl.init(jax.random.PRNGKey(1), (None, 10, 8))
-    tl = PositionalEmbedding(16, 8, device="cpu")
+    tl = PositionalEmbedding(16, input_shape=(10, 8), device="cpu")
     # uniform(-0.05, 0.05) * 0.02
     assert float(tl.table.detach().abs().max()) <= 0.02 * 0.05
     with torch.no_grad():

@@ -1,7 +1,9 @@
 """The port's CUDA kernels on the card (marker ``cuda``).
 
-Each kernel against its plain PyTorch version, and one backward of the
-attention layer through the kernels.  This file imports no jax (nor does
+Each kernel against its plain PyTorch version, one backward of the
+attention layer through the kernels, and LeNet (a Sequential of
+Convolution2D, MaxPooling2D, Flatten, Dense) fitting, predicting, saved
+and loaded on the card.  This file imports no jax (nor does
 anything it imports), so that it runs on a GPU host without the JAX
 package: ``python -m pytest --noconftest tests/test_torch_cuda.py -m
 cuda``.  Without a card every test skips inside the ``cuda`` fixture.
@@ -15,7 +17,9 @@ from analytics_zoo_tpu_torch.models import (TransformerLM, from_jax_params,
                                             to_jax_params)
 from analytics_zoo_tpu_torch.ops import _kernels
 from analytics_zoo_tpu_torch.ops import attention as tattn
+from analytics_zoo_tpu_torch.pipeline.api.keras import Sequential, load_model
 from analytics_zoo_tpu_torch.pipeline.api.keras.layers import (
+    Convolution2D, Dense, Dropout, Flatten, MaxPooling2D,
     MultiHeadSelfAttention)
 
 
@@ -140,7 +144,8 @@ def test_cuda_auto_attention_at_wide_head_dims(cuda, d_model):
     its output and gradients match the same weights on the CPU (max|diff|
     / max|ref| <= 1e-4)."""
     torch.backends.cuda.matmul.allow_tf32 = False
-    layers = {dev: MultiHeadSelfAttention(d_model, 2, device=dev)
+    layers = {dev: MultiHeadSelfAttention(2, input_shape=(40, d_model),
+                                          device=dev)
               for dev in ("cpu", "cuda")}
     with torch.no_grad():
         for key, p in layers["cuda"].params().items():
@@ -167,8 +172,8 @@ def test_cuda_auto_attention_at_wide_head_dims(cuda, d_model):
 def test_cuda_attention_weights_get_gradients(cuda):
     """One backward through the flash path on the card reaches Wq/Wk/Wv,
     through both backward kernels."""
-    layer = MultiHeadSelfAttention(64, 4, implementation="flash",
-                                   device="cuda")
+    layer = MultiHeadSelfAttention(4, implementation="flash",
+                                   input_shape=(96, 64), device="cuda")
     x = torch.randn((2, 96, 64), device=cuda)
     before = _kernels.launch_counts()
     layer(x).square().sum().backward()
@@ -178,3 +183,82 @@ def test_cuda_attention_weights_get_gradients(cuda):
         grad = getattr(layer, w).grad
         assert grad is not None and bool(torch.isfinite(grad).all())
         assert float(grad.abs().max()) > 0
+
+
+def make_blobs(n, classes=10, seed=0):
+    """tests/test_lenet_e2e.py's synthetic 28x28 class blobs."""
+    rng = np.random.default_rng(seed)
+    y = rng.integers(0, classes, size=n)
+    x = rng.normal(0, 0.3, size=(n, 28, 28, 1)).astype(np.float32)
+    for i in range(n):
+        x[i, 2 * y[i]:2 * y[i] + 3, 2 * y[i]:2 * y[i] + 3, 0] += 2.0
+    return x, y.astype(np.int32)
+
+
+def lenet(device, seed=0):
+    """tests/test_lenet_e2e.py's LeNet on ``device``."""
+    model = Sequential(device=device, seed=seed)
+    model.add(Convolution2D(6, 5, 5, activation="relu", border_mode="same",
+                            input_shape=(28, 28, 1)))
+    model.add(MaxPooling2D())
+    model.add(Convolution2D(16, 5, 5, activation="relu"))
+    model.add(MaxPooling2D())
+    model.add(Flatten())
+    model.add(Dense(120, activation="relu"))
+    model.add(Dropout(0.1))
+    model.add(Dense(84, activation="relu"))
+    model.add(Dense(10, activation="softmax"))
+    return model
+
+
+@pytest.fixture
+def f32_convs():
+    """cuDNN convolutions and matmuls in f32 (PyTorch's default lets
+    cuDNN use TF32), restored after the test."""
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    (torch.backends.cudnn.allow_tf32,
+     torch.backends.cuda.matmul.allow_tf32) = flags
+
+
+@pytest.mark.cuda
+def test_cuda_lenet_fits_and_predicts(cuda, f32_convs):
+    """LeNet trains on the card (losses fall, validation accuracy above
+    0.5, softmax rows sum to 1), and its predictions match the same
+    weights on the CPU within 1e-4."""
+    x, y = make_blobs(256)
+    xv, yv = make_blobs(64, seed=1)
+    model = lenet("cuda")
+    assert all(p.is_cuda for p in model.parameters())
+    model.compile(optimizer={"name": "adam", "lr": 1e-3},
+                  loss="sparse_categorical_crossentropy",
+                  metrics=["accuracy", "top5accuracy"])
+    hist = model.fit(x, y, batch_size=64, nb_epoch=3,
+                     validation_data=(xv, yv))
+    assert len(hist["loss"]) == 12 and hist["loss"][-1] < hist["loss"][0]
+    assert hist["val"][-1]["accuracy"] > 0.5
+    probs = model.predict(x[:100], batch_size=64)
+    assert probs.shape == (100, 10)
+    close(probs.sum(axis=1), 1.0, rtol=0, atol=1e-4)
+    cpu = lenet("cpu", seed=1)
+    cpu.set_weights(model.get_weights())
+    close(probs, cpu.predict(x[:100], batch_size=64), rtol=0, atol=1e-4)
+    assert set(model.evaluate(x, y, batch_size=64)) == {
+        "accuracy", "top5accuracy", "loss"}
+
+
+@pytest.mark.cuda
+def test_cuda_lenet_save_load(cuda, f32_convs, tmp_path):
+    """save_model/load_model on the card: the same predictions, on the
+    card."""
+    x, y = make_blobs(128)
+    model = lenet("cuda")
+    model.compile(optimizer="adam", loss="sparse_categorical_crossentropy")
+    model.fit(x, y, batch_size=64, nb_epoch=1)
+    model.save_model(str(tmp_path / "lenet"))
+    loaded = load_model(str(tmp_path / "lenet"), device="cuda")
+    assert all(p.is_cuda for p in loaded.parameters())
+    close(loaded.predict(x[:64]), model.predict(x[:64]), rtol=0, atol=1e-6)

@@ -139,8 +139,8 @@ def test_flash_backward_calls_the_plain_backward(monkeypatch):
             return _real(*a)
 
         monkeypatch.setattr(tattn, name, spy)
-    layer = MultiHeadSelfAttention(16, 2, implementation="flash",
-                                   device="cpu")
+    layer = MultiHeadSelfAttention(2, implementation="flash",
+                                   input_shape=(24, 16), device="cpu")
     x = torch.from_numpy(np.random.default_rng(4).normal(
         size=(2, 24, 16)).astype(np.float32))
     layer(x).sum().backward()

@@ -25,7 +25,7 @@ from analytics_zoo_tpu_torch import resolve_device
 from analytics_zoo_tpu_torch.core import initializers
 from analytics_zoo_tpu_torch.models import (
     TransformerLM, from_jax_params, to_jax_params)
-from analytics_zoo_tpu_torch.pipeline.api.keras import activations
+from analytics_zoo_tpu_torch.pipeline.api.keras import Sequential, activations
 from analytics_zoo_tpu_torch.pipeline.api.keras.layers import (
     Dense, Embedding, LayerNorm)
 
@@ -135,7 +135,9 @@ def test_default_device_is_cuda_and_raises_without_it(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         TransformerLM(**SMALL)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        Dense(4, 4)
+        Sequential()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Dense(4, input_dim=4, device="cuda")
     assert resolve_device("cpu") == torch.device("cpu")
     assert TransformerLM(**SMALL, device="cpu").device.type == "cpu"
 
@@ -180,11 +182,12 @@ def test_layers_match_jax(which):
     rng = np.random.default_rng(4)
     x = rng.normal(size=(3, 5, 8)).astype(np.float32)
     if which == "layernorm":
-        jl, tl = JLayerNorm(name="t_ln"), LayerNorm(8, device="cpu")
+        jl = JLayerNorm(name="t_ln")
+        tl = LayerNorm(input_shape=(5, 8), device="cpu")
         shape = (None, 5, 8)
     elif which == "dense_gelu":
         jl = JDense(6, activation="gelu", name="t_dense")
-        tl = Dense(8, 6, activation="gelu", device="cpu")
+        tl = Dense(6, activation="gelu", input_dim=8, device="cpu")
         shape = (None, 5, 8)
     else:
         jl, tl = JEmbedding(11, 8, name="t_emb"), Embedding(11, 8,
@@ -205,12 +208,14 @@ def test_layers_match_jax(which):
 
 
 def test_activations_match_jax():
-    """gelu is the tanh approximation (jax.nn.gelu's default)."""
+    """Every name of the JAX package's activations; gelu is the tanh
+    approximation (jax.nn.gelu's default)."""
     x = np.linspace(-6, 6, 101, dtype=np.float32).reshape(1, 101)
-    for name in ("gelu", "log_softmax"):
+    assert set(activations._ACTIVATIONS) == set(jact._ACTIVATIONS)
+    for name in jact._ACTIVATIONS:
         np.testing.assert_allclose(
             activations.get(name)(torch.from_numpy(x)).numpy(),
             np.asarray(jact.get(name)(jnp.asarray(x))), rtol=1e-5,
             atol=1e-6, err_msg=name)
     with pytest.raises(ValueError, match="Unknown activation"):
-        activations.get("swish")
+        activations.get("nope")
