@@ -78,6 +78,18 @@ def name_scope(scope: str):
         _SCOPE_STACK.pop()
 
 
+def promote(*tensors):
+    """The tensors at their common dtype, as ``jnp`` promotes the
+    operands of a product (bf16 with f32 gives f32).  ``torch.matmul``,
+    ``einsum`` and the convolutions refuse mixed dtypes instead, and
+    under mixed precision an f32 activation (blockwise attention's
+    output) meets bf16 weights."""
+    dtype = tensors[0].dtype
+    for t in tensors[1:]:
+        dtype = torch.promote_types(dtype, t.dtype)
+    return tuple(t if t.dtype == dtype else t.to(dtype) for t in tensors)
+
+
 def make_generator(device=None,
                    generator: Optional[torch.Generator] = None
                    ) -> torch.Generator:
@@ -180,8 +192,9 @@ class Layer(nn.Module):
 
     @trainable.setter
     def trainable(self, flag: bool):
-        """A frozen layer's parameters get no gradient; set it before
-        ``compile`` (the trainer collects its parameters then)."""
+        """A frozen layer's parameters get no gradient and no update; the
+        trainer reads the flags at every step, and its optimizer state
+        keeps covering them."""
         self._trainable = bool(flag)
         for p in self.parameters():
             p.requires_grad_(self._trainable)

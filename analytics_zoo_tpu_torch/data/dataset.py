@@ -2,17 +2,19 @@
 
 Counterpart of ``analytics_zoo_tpu/data/dataset.py``, reduced to the
 in-memory dataset the training slice needs: ``from_ndarray``, ``size``
-and ``batches``.  The shuffle draws ``np.random.default_rng(seed +
-epoch)`` exactly as the JAX package does, so both packages see the same
-batch order from the same seed.
+and ``batches``, and the ``prefetch_iterator`` shim.  The shuffle draws
+``np.random.default_rng(seed + epoch)`` exactly as the JAX package does,
+so both packages see the same batch order from the same seed.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Iterator, Optional, Tuple
+from typing import Any, Callable, Iterator, Optional, Tuple
 
 import numpy as np
+
+from ..common.prefetch import prefetch
 
 
 class Dataset:
@@ -66,3 +68,10 @@ class Dataset:
         for s in range(steps):
             sel = idx[s * batch_size:(s + 1) * batch_size]
             yield self._index(self.x, sel), self._index(self.y, sel)
+
+
+def prefetch_iterator(iterator: Iterator, put_fn: Callable, depth: int = 2):
+    """``depth`` items of ``put_fn(item)`` in flight ahead of the
+    consumer, ``put_fn`` run on a background thread
+    (:func:`~analytics_zoo_tpu_torch.common.prefetch.prefetch`)."""
+    return prefetch(iterator, transform=put_fn, depth=depth)

@@ -11,11 +11,13 @@ launch, or when :func:`build` is called.
 
 A wrapper checks device, dtype, shape and contiguity, allocates its
 outputs with ``torch.empty``, launches on the current CUDA stream, raises
-when the launch returns a CUDA error, and counts its launches.
+when the launch returns a CUDA error, and counts its launches, in all
+and by dtype (``launch_counts_by_dtype``: ``flash_fwd[bf16]``).
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -126,6 +128,7 @@ def build() -> None:
 
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_NAMES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 MAX_HEAD_DIM = 256
 
 
@@ -191,12 +194,21 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-class FlashFwd:
-    """Wrapper of ``flash_fwd`` (csrc/flash_fwd.cu).  ``launches`` counts
-    the kernel launches made through it."""
+class _Wrapper:
+    """``launches`` counts the kernel launches made through a wrapper;
+    ``by_dtype`` splits them by the inputs' dtype."""
 
     def __init__(self):
         self.launches = 0
+        self.by_dtype = collections.Counter()
+
+    def _count(self, q):
+        self.launches += 1
+        self.by_dtype[_DTYPE_NAMES[q.dtype]] += 1
+
+
+class FlashFwd(_Wrapper):
+    """Wrapper of ``flash_fwd`` (csrc/flash_fwd.cu)."""
 
     def __call__(self, q, k, v, lens, causal: bool, scale: float):
         """q (bh, sq, d), k/v (bh, sk, d) CUDA tensors of one dtype;
@@ -210,15 +222,12 @@ class FlashFwd:
         _launch("flash_fwd", fn, q, q.data_ptr(), k.data_ptr(),
                 v.data_ptr(), _ptr(lens), o.data_ptr(), lse.data_ptr(), bh,
                 sq, sk, d, float(scale), int(bool(causal)), _DTYPES[q.dtype])
-        self.launches += 1
+        self._count(q)
         return o, lse
 
 
-class FlashBwdDq:
+class FlashBwdDq(_Wrapper):
     """Wrapper of ``flash_bwd_dq`` (csrc/flash_bwd.cu)."""
-
-    def __init__(self):
-        self.launches = 0
 
     def __call__(self, q, k, v, do, lse, delta, lens, causal: bool,
                  scale: float):
@@ -234,15 +243,12 @@ class FlashBwdDq:
                 v.data_ptr(), do.data_ptr(), lse.data_ptr(),
                 delta.data_ptr(), _ptr(lens), dq.data_ptr(), bh, sq, sk, d,
                 float(scale), int(bool(causal)), _DTYPES[q.dtype])
-        self.launches += 1
+        self._count(q)
         return dq
 
 
-class FlashBwdDkv:
+class FlashBwdDkv(_Wrapper):
     """Wrapper of ``flash_bwd_dkv`` (csrc/flash_bwd.cu)."""
-
-    def __init__(self):
-        self.launches = 0
 
     def __call__(self, q, k, v, do, lse, delta, lens, causal: bool,
                  scale: float):
@@ -259,7 +265,7 @@ class FlashBwdDkv:
                 delta.data_ptr(), _ptr(lens), dk.data_ptr(), dv.data_ptr(),
                 bh, sq, sk, d, float(scale), int(bool(causal)),
                 _DTYPES[q.dtype])
-        self.launches += 1
+        self._count(q)
         return dk, dv
 
 
@@ -275,7 +281,15 @@ KERNELS = {"flash_fwd": flash_fwd, "flash_bwd_dq": flash_bwd_dq,
 def reset_launch_counts():
     for kernel in KERNELS.values():
         kernel.launches = 0
+        kernel.by_dtype.clear()
 
 
 def launch_counts() -> dict:
     return {name: kernel.launches for name, kernel in KERNELS.items()}
+
+
+def launch_counts_by_dtype() -> dict:
+    """``{"flash_fwd[bf16]": n, ...}``: every kernel at both dtypes."""
+    return {f"{name}[{dt}]": kernel.by_dtype[dt]
+            for name, kernel in KERNELS.items()
+            for dt in _DTYPE_NAMES.values()}

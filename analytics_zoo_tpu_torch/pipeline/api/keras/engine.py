@@ -14,9 +14,11 @@ optimizer state and step count.  Models that share layer instances
 A KerasNet is a Layer, so a model nests in another
 (``Sequential.add(Sequential)``).  ``save_model`` writes the reference's
 ``architecture.json`` and the weights in the flat checkpoint format;
-``load_model`` rebuilds the model from it.  Freezing by name, graph
-surgery beyond ``new_graph``, quantization and serving are not ported yet
-(see ROADMAP.md).
+``load_model`` rebuilds the model from it.  Layers freeze by name
+(``freeze``, ``freeze_up_to``, ``unfreeze``): the flags take effect at
+the next step and persist through ``save_model``.  Graph surgery beyond
+``new_graph``, quantization and serving are not ported yet (see
+ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -68,11 +70,16 @@ class KerasNet(Layer):
         return self._device
 
     def compile(self, optimizer, loss, metrics: Sequence = (),
-                seed: int = 0, compute_dtype=None):
+                seed: int = 0, compute_dtype=None,
+                accum_steps: Optional[int] = None):
         """Resolve the loss, the optimizer (with the clipping set before
         compile) and the metrics; string metrics inherit the loss's
         ``zero_based_label``.  ``seed`` orders the shuffled batches.
-        ``compute_dtype`` is not ported yet and raises at ``fit``."""
+        ``compute_dtype`` (``torch.bfloat16``: bf16 compute over f32
+        master weights and moments) and ``accum_steps`` (microbatches a
+        batch) go to the :class:`Trainer`, which falls back to
+        ``ZOO_TRAIN_DTYPE`` and ``ZOO_TRAIN_ACCUM`` for either not
+        given."""
         loss_fn = objectives_lib.get(loss)
         opt = optimizers_lib.get(optimizer, clip_norm=self._clip_norm,
                                  clip_value=self._clip_value)
@@ -80,7 +87,8 @@ class KerasNet(Layer):
         metric_objs = [metrics_lib.get(m, zero_based_label=zero_based)
                        for m in metrics]
         self.trainer = Trainer(self, loss_fn, opt, metrics=metric_objs,
-                               seed=seed, compute_dtype=compute_dtype)
+                               seed=seed, compute_dtype=compute_dtype,
+                               accum_steps=accum_steps)
         if self._tensorboard:
             self.trainer.set_tensorboard(*self._tensorboard)
         if self._checkpoint:
@@ -132,6 +140,63 @@ class KerasNet(Layer):
         if not matches:
             raise ValueError(f"no layer named {name!r}")
         return matches[0]
+
+    # ---- freezing ----
+    def _layers_by_name(self) -> Dict[str, Layer]:
+        """The model's own layers by name: its graph's, or for a model
+        built by hand (TransformerLM) its child layers."""
+        if self.graph_based:
+            return {l.name: l for l in self.to_graph().layers}
+        return {m.name: m for m in self.children() if isinstance(m, Layer)}
+
+    def _resolve_layer_names(self, names):
+        names = [names] if isinstance(names, str) else list(names)
+        known = self._layers_by_name()
+        unknown = [n for n in names if n not in known]
+        if unknown:
+            raise ValueError(f"unknown layer names {unknown}; known: "
+                             f"{sorted(known)}")
+        return names, known
+
+    def _sync_freeze(self):
+        if self.trainer is not None:
+            self.trainer.refresh_optimizer()
+        return self
+
+    def freeze(self, names):
+        """Freeze the named layers: no gradient and no update from the
+        next step on."""
+        names, known = self._resolve_layer_names(names)
+        for n in names:
+            known[n].trainable = False
+        return self._sync_freeze()
+
+    def freeze_up_to(self, names):
+        """Freeze the named layers and every layer they depend on, from
+        the inputs: ancestors only, so parallel branches stay
+        trainable."""
+        names, _ = self._resolve_layer_names(names)
+        for v in self.to_graph().nodes:
+            if v.layer.name in names:
+                for a in v.ancestors():
+                    if not isinstance(a.layer, InputLayer):
+                        a.layer.trainable = False
+        return self._sync_freeze()
+
+    def unfreeze(self, names=None):
+        """Unfreeze the named layers (all when ``names`` is None)."""
+        if names is None:
+            layers = self._layers_by_name().values()
+        else:
+            names, known = self._resolve_layer_names(names)
+            layers = [known[n] for n in names]
+        for layer in layers:
+            layer.trainable = True
+        return self._sync_freeze()
+
+    def frozen_layer_names(self) -> List[str]:
+        return sorted(n for n, l in self._layers_by_name().items()
+                      if not l.trainable)
 
     def _require_compiled(self):
         if self.trainer is None:

@@ -3,7 +3,8 @@
 Counterpart of ``analytics_zoo_tpu/pipeline/api/keras/layers/
 attention.py``.  q/k/v are projected straight into (batch, heads, seq,
 head_dim) with ``einsum("bse,ehd->bhsd")``, so the flash kernel's
-(batch*heads, seq, head_dim) fold is a free reshape.
+(batch*heads, seq, head_dim) fold is a free reshape.  The products
+promote mixed dtypes as ``jnp`` does.
 """
 
 from __future__ import annotations
@@ -12,7 +13,7 @@ from typing import Optional
 
 import torch
 
-from .....core.module import Layer, register_layer
+from .....core.module import Layer, promote, register_layer
 from .....ops.attention import attention_bhsd
 
 
@@ -77,13 +78,14 @@ class MultiHeadSelfAttention(Layer):
             lengths = torch.as_tensor(lengths, device=inputs.device)
             if lengths.dim() == 2 and lengths.shape[-1] == 1:
                 lengths = lengths[:, 0]  # accept (batch, 1) columns
-        q = torch.einsum("bse,ehd->bhsd", inputs, self.Wq)
-        k = torch.einsum("bse,ehd->bhsd", inputs, self.Wk)
-        v = torch.einsum("bse,ehd->bhsd", inputs, self.Wv)
+        x, wq, wk, wv = promote(inputs, self.Wq, self.Wk, self.Wv)
+        q = torch.einsum("bse,ehd->bhsd", x, wq)
+        k = torch.einsum("bse,ehd->bhsd", x, wk)
+        v = torch.einsum("bse,ehd->bhsd", x, wv)
         o = attention_bhsd(q, k, v, causal=self.causal,
                            implementation=self.implementation,
                            kv_lengths=lengths)
-        return torch.einsum("bhsd,hde->bse", o, self.Wo)
+        return torch.einsum("bhsd,hde->bse", *promote(o, self.Wo))
 
     def compute_output_shape(self, input_shape):
         return _x_shape(input_shape)

@@ -24,9 +24,9 @@ import torch
 import torch.nn.functional as F
 
 from .....core import shapes as shape_utils
-from .....core.module import Layer, register_layer
+from .....core.module import Layer, promote, register_layer
 from .. import activations
-from .core import _no_regularizers
+from ..regularizers import RegularizedLayerMixin
 
 _CONV = {1: F.conv1d, 2: F.conv2d}
 
@@ -66,7 +66,7 @@ def pad_spatial(x_cl, pads, value: float = 0.0):
     return F.pad(x_cl, flat, value=value)
 
 
-class _ConvND(Layer):
+class _ConvND(RegularizedLayerMixin, Layer):
     """Shared machinery of the 1-D and 2-D convolutions."""
 
     rank: int = 2
@@ -80,7 +80,7 @@ class _ConvND(Layer):
         super().__init__(input_shape=input_shape, name=name,
                          trainable=trainable, device=device,
                          generator=generator)
-        _no_regularizers(self, W_regularizer, b_regularizer)
+        self._setup_regularizers(W_regularizer, b_regularizer)
         if border_mode not in ("valid", "same") and not (
                 border_mode == "causal" and self.rank == 1):
             raise ValueError(
@@ -121,10 +121,12 @@ class _ConvND(Layer):
         r = self.rank
         x_cl = to_channels_last(x, self.data_format, r)
         x_cl = pad_spatial(x_cl, self._pads(x_cl.shape[1:1 + r]))
+        self._add_penalty()
+        x_cl, w, *b = promote(x_cl, *((self.W, self.b) if self.bias
+                                      else (self.W,)))
         # HWIO -> OIHW (WIO -> OIW): a view
-        w = self.W.permute((r + 1, r) + tuple(range(r)))
-        y = _CONV[r](channels_first_view(x_cl, r), w,
-                     self.b if self.bias else None,
+        w = w.permute((r + 1, r) + tuple(range(r)))
+        y = _CONV[r](channels_first_view(x_cl, r), w, *b,
                      stride=self.subsample, dilation=self.dilation)
         y = y.permute((0,) + tuple(range(2, 2 + r)) + (1,))  # channels last
         if self.activation is not None:
@@ -152,7 +154,7 @@ class _ConvND(Layer):
                    subsample=list(self.subsample),
                    dilation=list(self.dilation), bias=self.bias,
                    dim_ordering=self.data_format,
-                   W_regularizer=None, b_regularizer=None)
+                   **self._regularizer_config())
         return cfg
 
 

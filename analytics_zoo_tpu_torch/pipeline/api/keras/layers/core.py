@@ -12,21 +12,16 @@ from typing import Optional
 
 import torch
 
-from .....core.module import Layer, register_layer
+from .....core.module import Layer, promote, register_layer
 from .. import activations
-
-
-def _no_regularizers(layer, *regs):
-    if any(r is not None for r in regs):
-        raise NotImplementedError(
-            f"{type(layer).__name__}: weight regularizers are not ported "
-            "yet (see ROADMAP.md)")
+from ..regularizers import RegularizedLayerMixin
 
 
 @register_layer
-class Dense(Layer):
+class Dense(RegularizedLayerMixin, Layer):
     """Fully connected layer ``y = act(x @ W + b)``, ``W`` (in, out); the
-    input width is the last axis of the input shape."""
+    input width is the last axis of the input shape.  The product
+    promotes mixed dtypes as ``jnp`` does."""
 
     def __init__(self, output_dim, init="glorot_uniform", activation=None,
                  W_regularizer=None, b_regularizer=None, bias=True,
@@ -38,7 +33,7 @@ class Dense(Layer):
         super().__init__(input_shape=input_shape, name=name,
                          trainable=trainable, device=device,
                          generator=generator)
-        _no_regularizers(self, W_regularizer, b_regularizer)
+        self._setup_regularizers(W_regularizer, b_regularizer)
         self.output_dim = int(output_dim)
         self.init_name = init
         self.activation_name = activation if not callable(activation) else None
@@ -53,7 +48,9 @@ class Dense(Layer):
             self.add_param("b", "zeros", (self.output_dim,), generator)
 
     def forward(self, x):
-        y = x @ self.W
+        self._add_penalty()
+        x, w = promote(x, self.W)
+        y = x @ w
         if self.bias:
             y = y + self.b
         if self.activation is not None:
@@ -67,7 +64,7 @@ class Dense(Layer):
         cfg = super().get_config()
         cfg.update(output_dim=self.output_dim, init=self.init_name,
                    activation=self.activation_name, bias=self.bias,
-                   W_regularizer=None, b_regularizer=None)
+                   **self._regularizer_config())
         return cfg
 
 

@@ -13,12 +13,13 @@ import torch
 import torch.nn.functional as F
 
 from .....core.module import Layer, register_layer
-from .core import _no_regularizers
+from ..regularizers import RegularizedLayerMixin, to_config
 
 
 @register_layer
-class Embedding(Layer):
+class Embedding(RegularizedLayerMixin, Layer):
     needs_input_shape = False
+    _reg_w_key = "embeddings"
 
     def __init__(self, input_dim, output_dim, init="uniform",
                  input_length=None, W_regularizer=None, input_shape=None,
@@ -28,7 +29,7 @@ class Embedding(Layer):
             input_shape = (input_length,)
         super().__init__(input_shape=input_shape, name=name, device=device,
                          generator=generator)
-        _no_regularizers(self, W_regularizer)
+        self._setup_regularizers(W_regularizer)
         self.input_dim = int(input_dim)
         self.output_dim = int(output_dim)
         self.init_name = init
@@ -39,6 +40,7 @@ class Embedding(Layer):
                        (self.input_dim, self.output_dim), generator)
 
     def forward(self, ids):
+        self._add_penalty()
         return F.embedding(ids.long(), self.embeddings)
 
     def compute_output_shape(self, input_shape):
@@ -47,5 +49,6 @@ class Embedding(Layer):
     def get_config(self):
         cfg = super().get_config()
         cfg.update(input_dim=self.input_dim, output_dim=self.output_dim,
-                   init=self.init_name, W_regularizer=None)
+                   init=self.init_name,
+                   W_regularizer=to_config(self.W_regularizer))
         return cfg

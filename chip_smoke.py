@@ -34,7 +34,15 @@ Phases (any failure makes the exit code non-zero):
    PositionalEmbedding, LayerNorm, MultiHeadSelfAttention(flash), Dense)
    at d_model 768, 12 heads, seq 2048, batch 2: 2 fit steps, each of which
    must launch all three kernels, and predict against the same weights
-   under blockwise attention.
+   under blockwise attention;
+8. mixed: the train phase's model and data compiled with
+   ``compute_dtype=torch.bfloat16`` and ``accum_steps=2`` (two
+   microbatches of 4): a warm-up fit and 4 one-step fits, each of which
+   must launch every kernel at bf16 once a layer and microbatch and none
+   at f32, with f32 master weights and adam moments after, and losses
+   within atol 0.05, rtol 0.05 of the train phase's f32 losses; then, at
+   f32 and 2 layers, one step with accum_steps=2 against one with
+   accum_steps=1 from the same weights.
 
 The line before the last is a JSON object with each kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or
@@ -73,6 +81,22 @@ LENET_N, LENET_EPOCHS, LENET_BATCH, LENET_TIMED_STEPS = 512, 3, 64, 20
 # the graph phase's functional attention model
 GRAPH = dict(vocab=32000, d_model=768, n_heads=12, seq=2048, batch=2,
              steps=2)
+# the mixed phase: bf16 compute, two microbatches a step; its losses
+# track the f32 ones within the JAX package's own bf16 bound
+# (tests/test_trainer_sharded.py::test_bf16_keeps_f32_master_weights_...)
+MIXED_ACCUM = 2
+MIXED_LOSS_TOL = dict(atol=0.05, rtol=0.05)
+# accum_steps=2 against 1 at f32, 2 layers, one sgd step at rate 1, so
+# that the weights move by the (accumulated) gradient itself: adam's
+# first step, lr * g / (|g| + eps), is +-lr wherever |g| >> eps (it
+# hides a wrongly scaled gradient) and amplifies the rounding of
+# gradients near eps.  The bound of the JAX package's accumulation test
+# on the weights, and 1e-4 (not the CPU's 1e-5) on the losses: the
+# 3xTF32 kernels and the GEMMs re-associate differently at half the
+# batch
+ACCUM_LAYERS = 2
+ACCUM_OPTIMIZER = {"name": "sgd", "lr": 1.0}
+ACCUM_TOL = dict(loss_rtol=1e-4, rtol=1e-4, atol=1e-6)
 KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "flash_fwd": ("analytics_zoo_tpu_torch/ops/csrc/flash_fwd.cu",
                   "analytics_zoo_tpu/ops/attention.py:149"),
@@ -226,6 +250,8 @@ CASES = [
     ("cross causal lens", 8, 65, 127, 64, "float32", True, 127, False),
     ("cross causal d72", 8, 127, 129, 72, "bfloat16", True, None, False),
     ("train", 96, TRAIN_SEQ, TRAIN_SEQ, 64, "bfloat16", True, None, True),
+    # the mixed phase's microbatch: 4 of the 8 sequences
+    ("mixed", 48, TRAIN_SEQ, TRAIN_SEQ, 64, "bfloat16", True, None, True),
     # head dims past 128 (DP = 256: 16-row walked tiles at f32, dk/dv in
     # two 128-column halves); rows of 130 f32 or 250 bf16 are no 16-byte
     # multiple, and d = 130 leaves one column tile in the second half
@@ -733,6 +759,115 @@ def phase_graph(torch, keras, kernels):
     return bool(ok), stats
 
 
+def initial_weights(torch, TransformerLM, cfg):
+    model = TransformerLM(**cfg, device="cuda", seed=0)
+    return [p.detach().clone() for p in model.parameters()]
+
+
+def accumulation_check(torch, TransformerLM, x, y):
+    """At f32 and ACCUM_LAYERS layers, one ACCUM_OPTIMIZER step with
+    accum_steps=2 and one with accum_steps=1, from the same seeded
+    weights and batch: the losses within ACCUM_TOL["loss_rtol"], every
+    weight within isclose(rtol, atol)."""
+    cfg = dict(FULL, seq_len=TRAIN_SEQ, n_layers=ACCUM_LAYERS)
+    runs = {}
+    for accum in (1, MIXED_ACCUM):
+        model = TransformerLM(**cfg, device="cuda", seed=0)
+        model.compile(ACCUM_OPTIMIZER, "class_nll", accum_steps=accum)
+        loss = model.fit(x, y, batch_size=len(x))["loss"]
+        runs[accum] = (loss, [p.detach().clone()
+                              for p in model.parameters()])
+        del model
+    (l1, w1), (l2, w2) = runs[1], runs[MIXED_ACCUM]
+    loss_err = abs(l2[0] - l1[0]) / abs(l1[0])
+    bad = sum(int((~torch.isclose(b, a, rtol=ACCUM_TOL["rtol"],
+                                  atol=ACCUM_TOL["atol"])).sum())
+              for a, b in zip(w1, w2))
+    weight_err = max(float((b - a).abs().max()) for a, b in zip(w1, w2))
+    moved = max(float((a - b).abs().max())
+                for a, b in zip(w1, initial_weights(torch, TransformerLM,
+                                                    cfg)))
+    stats = dict(losses={"accum_1": l1, f"accum_{MIXED_ACCUM}": l2},
+                 loss_rel_err=loss_err, weights_outside_tol=bad,
+                 weight_max_abs_err=weight_err,
+                 largest_weight_move=moved, optimizer=ACCUM_OPTIMIZER,
+                 tol=ACCUM_TOL)
+    # the step must move the weights well past the bound, or the
+    # comparison says nothing
+    ok = (len(l1) == len(l2) == 1 and loss_err <= ACCUM_TOL["loss_rtol"]
+          and bad == 0 and moved > 10 * ACCUM_TOL["atol"])
+    return ok, stats
+
+
+def phase_mixed(torch, TransformerLM, kernels, f32_losses):
+    """The train phase's model and data at bf16 compute with
+    MIXED_ACCUM microbatches a step: a warm-up fit, then TRAIN_STEPS
+    synchronised one-step fits with the launch counts by dtype read
+    around them; then the accumulation check at f32."""
+    import statistics
+    import numpy as np
+    cfg = dict(FULL, seq_len=TRAIN_SEQ)
+    t0 = time.perf_counter()
+    model = TransformerLM(**cfg, device="cuda", seed=0)
+    model.compile({"name": "adam", "lr": TRAIN_LR}, "class_nll",
+                  compute_dtype=torch.bfloat16, accum_steps=MIXED_ACCUM)
+    x, y = periodic_tokens(TRAIN_BATCH * (TRAIN_STEPS + 1),
+                           cfg["vocab_size"], TRAIN_SEQ, seed=1)
+    model.fit(x[:TRAIN_BATCH], y[:TRAIN_BATCH], batch_size=TRAIN_BATCH)
+    torch.cuda.synchronize()
+    log(f"mixed: model built and warmed up in "
+        f"{time.perf_counter() - t0:.2f} s")
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    losses, step_s = [], []
+    for i in range(1, TRAIN_STEPS + 1):
+        rows = slice(i * TRAIN_BATCH, (i + 1) * TRAIN_BATCH)
+        t = time.perf_counter()
+        hist = model.fit(x[rows], y[rows], batch_size=TRAIN_BATCH)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+        losses += hist["loss"]
+    counts = kernels.launch_counts_by_dtype()
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    adam = model.trainer.state.opt_state.states[0]
+    f32_state = (all(p.dtype == torch.float32 for p in model.parameters())
+                 and all(t.dtype == torch.float32
+                         for t in adam["mu"] + adam["nu"]))
+    step = statistics.median(step_s)
+    per_step = cfg["n_layers"] * MIXED_ACCUM
+    stats = dict(step_ms=step * 1e3, step_ms_all=[t * 1e3 for t in step_s],
+                 tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / step,
+                 peak_gib=peak_gib, losses=losses, f32_losses=f32_losses,
+                 launches=counts,
+                 launches_per_step={n: c / TRAIN_STEPS
+                                    for n, c in counts.items()},
+                 f32_master_weights_and_moments=f32_state,
+                 accum_steps=MIXED_ACCUM, card=smi_card())
+    del model, adam
+    torch.cuda.empty_cache()
+    ok = (len(losses) == TRAIN_STEPS
+          and all(math.isfinite(v) for v in losses)
+          and losses[-1] < losses[0] and f32_state)
+    for name in KERNELS:
+        if (counts[f"{name}[bf16]"] < per_step * TRAIN_STEPS
+                or counts[f"{name}[f32]"]):
+            ok = False
+            log(f"mixed: FAIL {name} launched {counts[f'{name}[bf16]']} "
+                f"times at bf16 and {counts[f'{name}[f32]']} at f32 in "
+                f"{TRAIN_STEPS} steps, expected >= {per_step} a step at "
+                "bf16 and none at f32")
+    if not f32_losses or len(f32_losses) != len(losses) or not np.allclose(
+            losses, f32_losses, **MIXED_LOSS_TOL):
+        ok = False
+        log(f"mixed: FAIL losses {losses} do not track the train phase's "
+            f"f32 losses {f32_losses} within {MIXED_LOSS_TOL}")
+    rows = slice(TRAIN_BATCH, 2 * TRAIN_BATCH)
+    accum_ok, stats["accumulation"] = accumulation_check(
+        torch, TransformerLM, x[rows], y[rows])
+    log("mixed:", json.dumps(stats))
+    return bool(ok and accum_ok), stats
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -799,6 +934,9 @@ def main() -> int:
                            None)),
         ("lenet", lambda: phase_lenet(torch, keras, kernels, tmp)),
         ("graph", lambda: phase_graph(torch, keras, kernels)),
+        ("mixed", lambda: phase_mixed(
+            torch, TransformerLM, kernels,
+            (results.get("train") or {}).get("losses"))),
     ]
     results = {}
     for name, run in phases:
@@ -817,32 +955,42 @@ def main() -> int:
 
     log(smi_card())
 
-    # every kernel at the training shape; launches from the train path,
-    # with each path's own count beside them
+    # every kernel at the shape of the mixed phase's microbatch, bf16,
+    # with its launches there; the f32 numbers at the training shape and
+    # each path's own count beside them
     path_launches = {
         path: (results.get(path) or {}).get("launches") or {}
-        for path in ("path", "train", "graph")}
+        for path in ("path", "train", "graph", "mixed")}
+
+    def timed_row(name, case, dtype):
+        row = next((r for r in results.get("kernels") or []
+                    if r["kernel"] == name and r["case"] == case
+                    and r["dtype"] == dtype and r.get("ms") is not None),
+                   None)
+        if row is None:
+            return {}
+        return dict(max_abs_err=row["abs_err"], ms=row["ms"],
+                    plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+                    bound_by=row["bound_by"],
+                    bound_f32_cuda_ms=row["bound_f32_cuda_ms"],
+                    library_ms=row["library_ms"],
+                    library_backend=row["library_backend"],
+                    shape=[row["bh"], row["sq"], row["d"]], dtype=dtype)
+
     entries = []
     for name, (source, replaces) in KERNELS.items():
         entry = {"name": name, "route": "cuda", "source": source,
                  "replaces": replaces,
-                 "launches": path_launches["train"].get(name, 0),
+                 "launches": path_launches["mixed"].get(f"{name}[bf16]", 0),
                  "launches_by_path": {
                      "generate": path_launches["path"].get(name, 0),
                      "train": path_launches["train"].get(name, 0),
-                     "graph": path_launches["graph"].get(name, 0)}}
-        row = next((r for r in results.get("kernels") or []
-                    if r["kernel"] == name and r["case"] == "train"
-                    and r["dtype"] == "float32"
-                    and r.get("ms") is not None), None)
-        if row is not None:
-            entry.update(max_abs_err=row["abs_err"], ms=row["ms"],
-                         plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
-                         bound_by=row["bound_by"],
-                         bound_f32_cuda_ms=row["bound_f32_cuda_ms"],
-                         library_ms=row["library_ms"],
-                         library_backend=row["library_backend"],
-                         shape=[row["bh"], row["sq"], row["d"]])
+                     "graph": path_launches["graph"].get(name, 0),
+                     "mixed": path_launches["mixed"].get(f"{name}[bf16]",
+                                                         0)}}
+        entry.update(timed_row(name, "mixed", "bfloat16"))
+        entry["f32"] = timed_row(name, "train", "float32")
+        entry["bf16_batch8"] = timed_row(name, "train", "bfloat16")
         entries.append(entry)
     log(json.dumps({"kernels": entries}))
     if failed:

@@ -7,7 +7,10 @@
 chip_smoke.py's training width (12 layers, d_model 768, 12 heads, vocab
 32000, seq_len 2048; its constants and data) from seeded weights,
 compiles it with adam 3e-4 and warms it up with one ``fit`` step on 8
-periodic sequences.  ``--model lenet`` builds chip_smoke.py's LeNet
+periodic sequences; ``--model transformer_lm_mixed`` is the same model
+compiled as chip_smoke.py's mixed phase compiles it
+(``compute_dtype=torch.bfloat16``, ``accum_steps=2``).  ``--model lenet``
+builds chip_smoke.py's LeNet
 (the reference's Sequential) with adam 1e-3 and warms it up with one
 step on 64 of its synthetic 28x28 blobs.  Then ``--steps`` more one-step
 ``fit`` calls run under ``torch.profiler``, and one JSON object is
@@ -16,7 +19,7 @@ launches per step, the device time of the GEMMs, the convolutions, each
 flash kernel and the rest (elementwise work, reductions and the
 optimizer's kernels), the optimizer update's kernel time and its span on
 the device (first to last kernel, gaps included), and the fifteen
-kernels that took the most device time.  f32, TF32 off, as chip_smoke.py
+kernels that took the most device time.  TF32 off, as chip_smoke.py
 runs it.
 """
 
@@ -31,7 +34,8 @@ import sys
 import time
 
 FLASH = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
-GEMM = re.compile(r"gemm|gemv|cutlass|xmma", re.IGNORECASE)
+# cuBLAS's GEMMs (nvjet_* at bf16 on the H100)
+GEMM = re.compile(r"gemm|gemv|cutlass|xmma|nvjet", re.IGNORECASE)
 # cuDNN's convolution kernels (forward, data and weight gradients)
 CONV = re.compile(r"conv|fprop|dgrad|wgrad", re.IGNORECASE)
 
@@ -45,14 +49,15 @@ def kind(name: str) -> str:
     return "gemm" if GEMM.search(name) else "other"
 
 
-def transformer_lm(torch, steps):
+def transformer_lm(torch, steps, **compile_args):
     """(model, x, y, batch) at chip_smoke's training width."""
     from analytics_zoo_tpu_torch.models import TransformerLM
     from chip_smoke import (FULL, TRAIN_BATCH, TRAIN_LR, TRAIN_SEQ,
                             periodic_tokens)
     cfg = dict(FULL, seq_len=TRAIN_SEQ)
     model = TransformerLM(**cfg, device="cuda", seed=0)
-    model.compile({"name": "adam", "lr": TRAIN_LR}, "class_nll")
+    model.compile({"name": "adam", "lr": TRAIN_LR}, "class_nll",
+                  **compile_args)
     x, y = periodic_tokens(TRAIN_BATCH * (steps + 1), cfg["vocab_size"],
                            TRAIN_SEQ, seed=1)
     return model, x, y, TRAIN_BATCH
@@ -69,7 +74,15 @@ def lenet(torch, steps):
     return model, x, y, LENET_BATCH
 
 
-MODELS = {"transformer_lm": transformer_lm, "lenet": lenet}
+def transformer_lm_mixed(torch, steps):
+    """transformer_lm as chip_smoke's mixed phase compiles it."""
+    from chip_smoke import MIXED_ACCUM
+    return transformer_lm(torch, steps, compute_dtype=torch.bfloat16,
+                          accum_steps=MIXED_ACCUM)
+
+
+MODELS = {"transformer_lm": transformer_lm,
+          "transformer_lm_mixed": transformer_lm_mixed, "lenet": lenet}
 
 
 def main() -> int:
@@ -95,9 +108,9 @@ def main() -> int:
     opt = model.trainer.optimizer
     apply = opt.apply
 
-    def labelled_apply(*a):
+    def labelled_apply(*a, **kw):
         with record_function("zoo_optimizer"):
-            return apply(*a)
+            return apply(*a, **kw)
 
     opt.apply = labelled_apply
     torch.cuda.synchronize()

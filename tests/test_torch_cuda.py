@@ -262,3 +262,75 @@ def test_cuda_lenet_save_load(cuda, f32_convs, tmp_path):
     loaded = load_model(str(tmp_path / "lenet"), device="cuda")
     assert all(p.is_cuda for p in loaded.parameters())
     close(loaded.predict(x[:64]), model.predict(x[:64]), rtol=0, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_accumulated_fit_runs_the_bf16_kernels(cuda):
+    """A small TransformerLM compiled with compute_dtype=bf16 and
+    accum_steps=2 on the card: each step launches every kernel at bf16
+    once a layer and microbatch and none at f32, the master weights and
+    adam moments stay f32, and the losses match the same weights trained
+    on the CPU (flash's plain versions at bf16) within 2e-2 relative."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dict(vocab_size=61, seq_len=64, n_layers=2, d_model=64, n_heads=2)
+    gpu = TransformerLM(**cfg, device="cuda", seed=0)
+    cpu = TransformerLM(**cfg, implementation="flash", device="cpu", seed=1)
+    from_jax_params(cpu, to_jax_params(gpu))
+    rng = np.random.default_rng(0)
+    x = rng.integers(0, 61, (16, 64)).astype(np.int32)
+    y = np.roll(x, -1, axis=1)
+    losses = {}
+    for name, m in (("cuda", gpu), ("cpu", cpu)):
+        m.compile({"name": "adam", "lr": 3e-3}, "class_nll",
+                  compute_dtype=torch.bfloat16, accum_steps=2)
+        _kernels.reset_launch_counts()
+        losses[name] = m.fit(x, y, batch_size=8, shuffle=False)["loss"]
+        if name == "cuda":
+            counts = _kernels.launch_counts_by_dtype()
+    steps = len(losses["cuda"])
+    for kernel in _kernels.KERNELS:
+        assert counts[f"{kernel}[bf16]"] == 2 * 2 * steps
+        assert counts[f"{kernel}[f32]"] == 0
+    assert all(p.dtype == torch.float32 and p.is_cuda
+               for p in gpu.parameters())
+    adam = gpu.trainer.state.opt_state.states[0]
+    assert all(t.dtype == torch.float32 for t in adam["mu"] + adam["nu"])
+    close(losses["cuda"], losses["cpu"], rtol=2e-2, atol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_prefetch_keeps_order_on_the_device(cuda):
+    """The trainer's device feed on the card: batches arrive in order, as
+    CUDA tensors equal to the host arrays, through the side stream."""
+    from analytics_zoo_tpu_torch.common.prefetch import DeviceFeed, prefetch
+    feed = DeviceFeed(cuda)
+    assert feed.stream is not None
+    batches = [(np.full((64, 128), i, np.float32),
+                np.arange(64, dtype=np.int32) + i) for i in range(20)]
+    out = []
+    with prefetch(batches, transform=feed, depth=2) as it:
+        for item in it:
+            x, y = feed.ready(item)
+            assert x.is_cuda and y.is_cuda
+            out.append((float(x.sum()), int(y[0])))
+    assert out == [(64 * 128 * i, i) for i in range(20)]
+
+
+@pytest.mark.cuda
+def test_cuda_frozen_layer_does_not_move(cuda):
+    """freeze() on the card: the frozen layer's weights stay bit for bit
+    through a fit, the others train."""
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(64, 4)).astype(np.float32)
+    y = rng.normal(size=(64, 2)).astype(np.float32)
+    m = Sequential(device="cuda")
+    m.add(Dense(8, input_shape=(4,), activation="relu", name="fz_a"))
+    m.add(Dense(2, name="fz_b"))
+    m.compile("adam", "mse")
+    m.fit(x, y, batch_size=32, nb_epoch=1)
+    m.freeze("fz_a")
+    before = m.get_weights()
+    m.fit(x, y, batch_size=32, nb_epoch=2)
+    after = m.get_weights()
+    np.testing.assert_array_equal(after["fz_a"]["W"], before["fz_a"]["W"])
+    assert not np.allclose(after["fz_b"]["W"], before["fz_b"]["W"])

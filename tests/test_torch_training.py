@@ -75,12 +75,17 @@ def test_class_nll_label_base_and_guard_match_jax():
 
 
 def test_unported_losses_and_metrics_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        objectives.get("mse")
+    """Every loss and metric name the JAX package resolves resolves here
+    to the counterpart of the same name; only unknown names raise."""
+    for name, fn in jobj._LOSSES.items():
+        assert objectives.get(name).__name__ == fn.__name__, name
     with pytest.raises(ValueError, match="Unknown loss"):
         objectives.get("nope")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        metrics.get("auc")
+    for name in ("accuracy", "acc", "top5accuracy", "top5", "top5acc",
+                 "auc", "mae", "hitratio", "hit_ratio", "hitrate", "ndcg"):
+        ours, ref = metrics.get(name), jmetrics.get(name)
+        assert (type(ours).__name__, ours.name) == (type(ref).__name__,
+                                                    ref.name), name
     with pytest.raises(ValueError, match="Unknown metric"):
         metrics.get("nope")
 
@@ -155,8 +160,23 @@ def test_optimizer_updates_match_optax(spec, clip_norm, clip_value):
 
 
 def test_unported_optimizers_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        optimizers.get("rmsprop")
+    """Every optimizer name resolves to optax's transforms in optax's
+    order, with the JAX package's default rate; unknown names and
+    options raise."""
+    rate = "ScaleByLearningRate"
+    chains = {"sgd": [rate], "adam": ["ScaleByAdam", rate],
+              "adamax": ["ScaleByAdamax", rate], "adagrad": ["ScaleByRss",
+                                                             rate],
+              "adadelta": ["ScaleByAdadelta", rate],
+              "rmsprop": ["ScaleByRms", rate],
+              "adamw": ["ScaleByAdam", "AddDecayedWeights", rate],
+              "lamb": ["ScaleByAdam", "ScaleByTrustRatio", rate],
+              "lars": ["ScaleByTrustRatio", rate, "Trace"]}
+    assert set(chains) == set(optimizers.DEFAULTS)
+    for name, kinds in chains.items():
+        opt = optimizers.get(name)
+        assert [type(t).__name__ for t in opt.transforms] == kinds, name
+        assert opt.lr_fn(0) == pytest.approx(jopt.get(name).lr_fn(0))
     with pytest.raises(ValueError, match="Unknown optimizer"):
         optimizers.get("nope")
     with pytest.raises(TypeError, match="unknown options"):
@@ -275,11 +295,13 @@ def test_lifecycle_errors_and_clipping():
         lm.evaluate(x, y)
     assert lm.predict(x, 4).shape == (8, 24, 12)
     lm.compile("sgd", "class_nll", compute_dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="compute_dtype"):
-        lm.fit(x, y, batch_size=4)
-    with pytest.raises(NotImplementedError, match="accum_steps"):
-        build_train_step(lm, objectives.class_nll, optimizers.get("sgd"),
-                         accum_steps=2)
+    assert len(lm.fit(x, y, batch_size=4)["loss"]) == 2
+    assert all(p.dtype == torch.float32 for p in lm.parameters())
+    step = build_train_step(lm, objectives.class_nll, optimizers.get("sgd"),
+                            accum_steps=3)
+    with pytest.raises(ValueError, match="accum_steps"):
+        step(lm.trainer.state, torch.from_numpy(x[:4]),
+             torch.from_numpy(y[:4]))
     lm.set_constant_gradient_clipping(-0.1, 0.2)
     lm.set_gradient_clipping_by_l2_norm(1.0)
     lm.compile("sgd", "class_nll")
