@@ -11,8 +11,12 @@ back to the host until the end.
 
 The decode math mirrors ``TransformerLM.forward`` (pre-norm blocks, gelu
 MLP, final LayerNorm and lm_head) and reads the parameters by layer name.
-Beam search, the k-query ``_decode_window`` and the prefix-conditioned
-``_prefill_ext`` are not ported yet (see ROADMAP.md).
+Beyond ``generate`` it holds what the serving engine
+(``pipeline/inference/decode.py``) steps with: the k-query
+``_decode_window`` (speculative verify) and the prefix-conditioned
+``_prefill_ext`` (prefix-KV pool admission).  Beam search
+(``build_beam_fn``, ``_backtrack_beams``) rides the batch dimension, one
+row per beam, and gathers the surviving beams' caches on the device.
 """
 
 from __future__ import annotations
@@ -118,6 +122,154 @@ def _decode_step(model, caches, x_tok, pos):
     return _head_logits(model, x)
 
 
+def _decode_window(model, caches, x_toks, pos):
+    """k-query cached decode, the speculative-verify compute.
+
+    ``x_toks`` is (b, k, d_model): the embeddings of k consecutive tokens
+    per row, at positions ``pos + j`` (``pos``: (b,)).  Each token's K/V
+    is written IN PLACE at its own clamped position ``min(pos + j, t - 1)``
+    (one write per entry, never a block write, whose clamp would shift
+    early entries onto live cache lines), then the k queries attend in
+    one batched einsum under a per-query causal mask.  Returns the
+    (b, k, vocab) logits.
+
+    The k-query products have other shapes than :func:`_decode_step`'s,
+    so the logits agree with k single steps to rounding, not bit for bit:
+    the engine takes each window's first token from the exact single-query
+    step and uses this pass only to certify draft proposals."""
+    k = x_toks.shape[1]
+    t = caches[0][0].shape[2]
+    dev = x_toks.device
+    qpos = (pos[:, None] + torch.arange(k, device=dev)[None, :]).clamp(
+        max=t - 1)
+    valid = (torch.arange(t, device=dev)[None, None, None, :]
+             <= qpos[:, None, :, None])
+    x = x_toks
+    for i in range(model.hyper["n_layers"]):
+        attn = getattr(model, f"attn_{i}")
+        ck, cv = caches[i]
+        a = _layer_norm(getattr(model, f"ln_attn_{i}"), x)
+        q = torch.einsum("bke,ehd->bhkd", a, attn.Wq)
+        kk = torch.einsum("bke,ehd->bhkd", a, attn.Wk)
+        vv = torch.einsum("bke,ehd->bhkd", a, attn.Wv)
+        for j in range(k):
+            _cache_write(ck, kk[:, :, j], qpos[:, j])
+            _cache_write(cv, vv[:, :, j], qpos[:, j])
+        d = q.shape[-1]
+        scores = torch.einsum("bhkd,bhtd->bhkt", q, ck) / math.sqrt(d)
+        scores = torch.where(valid, scores, -1e30)
+        probs = torch.softmax(scores.float(), dim=-1)
+        o = torch.einsum("bhkt,bhtd->bhkd", probs.to(cv.dtype), cv)
+        x = x + torch.einsum("bhkd,hde->bke", o, attn.Wo)
+        f = _layer_norm(getattr(model, f"ln_mlp_{i}"), x)
+        x = x + _mlp(model, i, f)
+    b = x.shape[0]
+    return _head_logits(model, x.reshape(b * k, -1)).reshape(b, k, -1)
+
+
+def _prefill_ext(model, tail, prefix_kv, p_len: int):
+    """Prefix-conditioned tail prefill, the prefix-KV pool's admission
+    compute.  ``tail`` is (1, s_t) ids at positions ``[p_len, p_len +
+    s_t)``; ``prefix_kv`` the per-layer (k, v) blocks of the first
+    ``p_len`` positions, each (1, heads, p_len, d_head).  The tail queries
+    attend causally over prefix + tail in one batched forward, with its
+    own einsum attention (as the JAX package's).  Returns (tail hidden
+    states (1, s_t, d_model), per-layer tail (k, v) blocks)."""
+    s_t = tail.shape[1]
+    x = model.tok_embed.embeddings[tail.long()]
+    x = x + model.pos_embed.table[p_len:p_len + s_t].to(x.dtype)
+    ar = torch.arange(s_t, device=tail.device)
+    causal = ar[None, None, :, None] >= ar[None, None, None, :]
+    tail_caches = []
+    for i in range(model.hyper["n_layers"]):
+        attn = getattr(model, f"attn_{i}")
+        pk, pv = prefix_kv[i]
+        a = _layer_norm(getattr(model, f"ln_attn_{i}"), x)
+        q = torch.einsum("bse,ehd->bhsd", a, attn.Wq)
+        k = torch.einsum("bse,ehd->bhsd", a, attn.Wk)
+        v = torch.einsum("bse,ehd->bhsd", a, attn.Wv)
+        d = q.shape[-1]
+        sp = torch.einsum("bhsd,bhtd->bhst", q, pk) / math.sqrt(d)
+        st = torch.einsum("bhsd,bhtd->bhst", q, k) / math.sqrt(d)
+        st = torch.where(causal, st, -1e30)
+        probs = torch.softmax(torch.cat([sp, st], dim=-1).float(), dim=-1)
+        vall = torch.cat([pv, v], dim=2)
+        o = torch.einsum("bhst,bhtd->bhsd", probs.to(vall.dtype), vall)
+        x = x + torch.einsum("bhsd,hde->bse", o, attn.Wo)
+        f = _layer_norm(getattr(model, f"ln_mlp_{i}"), x)
+        x = x + _mlp(model, i, f)
+        tail_caches.append((k, v))
+    return x, tail_caches
+
+
+def _top_k(x, k: int):
+    """The k largest entries of the last axis, descending, ties in index
+    order (as ``lax.top_k``): (values, indices)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def build_beam_fn(s_p: int, max_new: int, beam_width: int):
+    """One beam-search plan: ``run(model, prompt)`` with ``prompt`` a
+    (b, s_p) id tensor on the model's device returns (tok0 (b, W), toks
+    (max_new - 1, b, W), parents (max_new - 1, b, W), scores (b, W)) for
+    :func:`_backtrack_beams`.  Deterministic; beams ride the batch
+    dimension (row b*W + w), so every step is one batched decode step,
+    and each step's surviving beams gather their parents' KV caches on
+    the device."""
+    cache_len = s_p + max_new
+    W = beam_width
+
+    def run(model, prompt):
+        b = prompt.shape[0]
+        x, caches = _prefill(model, prompt, cache_len)
+        logp0 = torch.log_softmax(
+            _head_logits(model, x[:, -1, :]).float(), dim=-1)
+        cum, tok0 = _top_k(logp0, W)  # (b, W)
+        caches = [(ck.repeat_interleave(W, 0), cv.repeat_interleave(W, 0))
+                  for ck, cv in caches]
+        brow = torch.arange(b, device=prompt.device)[:, None]
+        tok, toks, parents = tok0, [], []
+        for i in range(max_new - 1):
+            pos = s_p + i
+            logits = _decode_step(model, caches, _embed_token(
+                model, tok.reshape(b * W), pos), pos)
+            logp = torch.log_softmax(logits.float(), dim=-1)
+            V = logp.shape[-1]
+            total = cum[:, :, None] + logp.reshape(b, W, V)
+            cum, idx = _top_k(total.reshape(b, W * V), W)
+            parent = idx // V  # (b, W) the surviving beams' ancestors
+            tok = idx % V
+            caches = [tuple(c.reshape(b, W, *c.shape[1:])[brow, parent]
+                            .reshape(b * W, *c.shape[1:]) for c in kv)
+                      for kv in caches]
+            toks.append(tok)
+            parents.append(parent)
+        empty = tok0.new_zeros((0, b, W))
+        return (tok0, torch.stack(toks) if toks else empty,
+                torch.stack(parents) if parents else empty, cum)
+
+    return run
+
+
+def _backtrack_beams(tok0, toks, parents, scores):
+    """Reassemble (b, W, max_new) sequences from per-step (token, parent)
+    records, walking each final beam's ancestry backwards; returns
+    (seqs int32, scores) as numpy."""
+    tok0, toks, parents, scores = (
+        a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+        for a in (tok0, toks, parents, scores))
+    steps, b, W = toks.shape
+    seqs = np.zeros((b, W, steps + 1), np.int32)
+    rows = np.arange(b)[:, None]
+    beam = np.tile(np.arange(W), (b, 1))  # final beams, in score order
+    for t in range(steps - 1, -1, -1):
+        seqs[:, :, t + 1] = toks[t][rows, beam]
+        beam = parents[t][rows, beam]
+    seqs[:, :, 0] = tok0[rows, beam]
+    return seqs, scores
+
+
 def _sample(logits, temperature: float, top_k: Optional[int] = None,
             top_p: Optional[float] = None,
             generator: Optional[torch.Generator] = None, uniforms=None):
@@ -176,8 +328,9 @@ def generate(model, prompt_ids, max_new_tokens: int,
     sampling; ``prompt_lengths`` (batch,) are the true lengths of
     right-padded prompts, each row decoding from its own last real token.
     Sampling draws from a ``torch.Generator`` seeded with ``seed`` (its
-    stream differs from ``jax.random``'s).  ``num_beams > 1`` is not
-    ported yet and raises after the JAX package's validation.
+    stream differs from ``jax.random``'s).  ``num_beams > 1`` runs
+    deterministic beam search (:func:`build_beam_fn`) and returns each
+    row's highest cumulative log-prob beam.
 
     Returns (batch, prompt_len + max_new_tokens) int32 ids: the prompt,
     then the continuation (for ragged prompts at [lengths[b],
@@ -219,8 +372,13 @@ def generate(model, prompt_ids, max_new_tokens: int,
         if num_beams > h["vocab_size"]:
             raise ValueError(f"num_beams ({num_beams}) exceeds "
                              f"vocab_size ({h['vocab_size']})")
-        raise NotImplementedError(
-            "beam search is not ported yet (see ROADMAP.md)")
+        run = build_beam_fn(s_p, max_new, int(num_beams))
+        with torch.no_grad():
+            seqs, _ = _backtrack_beams(*run(model, torch.as_tensor(
+                prompt, dtype=torch.long, device=model.device)))
+        # beams come out in descending cumulative log-prob order, all of
+        # one length, so the first is the answer
+        return np.concatenate([prompt.astype(np.int32), seqs[:, 0]], axis=1)
     dev = model.device
     b = prompt.shape[0]
     with torch.no_grad():

@@ -16,9 +16,9 @@ A KerasNet is a Layer, so a model nests in another
 ``architecture.json`` and the weights in the flat checkpoint format;
 ``load_model`` rebuilds the model from it.  Layers freeze by name
 (``freeze``, ``freeze_up_to``, ``unfreeze``): the flags take effect at
-the next step and persist through ``save_model``.  Graph surgery beyond
-``new_graph``, quantization and serving are not ported yet (see
-ROADMAP.md).
+the next step and persist through ``save_model``.  ``to_serving`` wraps
+a model in an ``InferenceModel``.  Graph surgery beyond ``new_graph``
+and quantization are not ported yet (see ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -236,6 +236,24 @@ class KerasNet(Layer):
         several outputs).  Needs no compile."""
         return predict_batches(self, x, batch_size)
 
+    def to_serving(self, supported_concurrent_num: int = 1,
+                   max_batch_size: int = 32, coalescing: bool = False,
+                   max_wait_ms: float = 2.0, quantize: Optional[bool] = None,
+                   warmup_shapes=None, replicas=1):
+        """This model in an ``InferenceModel`` on the serving fast path
+        (bucketed forward, optionally coalesced) on the model's device.
+        ``warmup_shapes`` (a per-sample shape, or a list of them for
+        several inputs) runs the whole bucket ladder before traffic."""
+        from ...inference import InferenceModel
+        im = InferenceModel(
+            supported_concurrent_num=supported_concurrent_num,
+            max_batch_size=max_batch_size, coalescing=coalescing,
+            max_wait_ms=max_wait_ms, replicas=replicas)
+        im.load_keras_net(self, quantize=quantize)
+        if warmup_shapes is not None:
+            im.warmup(warmup_shapes)
+        return im
+
     def predict_classes(self, x, batch_size: int = 32,
                         zero_based_label: bool = True):
         """The argmax class of each prediction; ``zero_based_label=False``
@@ -295,8 +313,12 @@ class KerasNet(Layer):
         was compiled, compile it again."""
         with open(os.path.join(path, "architecture.json")) as f:
             arch = json.load(f)
-        model = _MODEL_CLASSES[arch["class_name"]].from_config(
-            arch["config"], device=device)
+        cls = _MODEL_CLASSES.get(arch["class_name"])
+        if cls is None:
+            raise ValueError(
+                f"unknown model class {arch['class_name']!r}: a zoo model "
+                "registers when analytics_zoo_tpu_torch.models is imported")
+        model = cls.from_config(arch["config"], device=device)
         weights_dir = os.path.join(path, "weights")
         if os.path.isdir(weights_dir):
             from ....models.jax_params import weight_tree
@@ -491,6 +513,8 @@ def _layer_from_spec(spec: dict, device) -> Layer:
     return layer_cls.from_config(spec["config"])
 
 
+#: the classes ``load_model`` rebuilds, by the name ``save_model`` wrote
+#: (the zoo's models register themselves, models/common.py)
 _MODEL_CLASSES = {"Sequential": Sequential, "Model": Model}
 
 

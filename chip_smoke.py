@@ -19,23 +19,35 @@ Phases (any failure makes the exit code non-zero):
    12 heads, vocab 32000; batch 8, prompt 512, 128 greedy tokens) from
    seeded random weights, with the kernel launch counts read around it,
    then the full forward as an oracle for every greedy token;
-4. train: ``TransformerLM.compile``/``fit`` at the same width with
+4. serve: the serving plane at the same width (max_len 640):
+   ``InferenceModel(decode_capacity=8, decode_prompt_buckets=(128, 256,
+   512), decode_prefix_pool=8)`` warmed, 32 requests of 16-512 prompt
+   tokens and 8 or 128 new ones streamed from 4 threads (every greedy
+   token against the forward's argmax, the flash forward launched 12 times
+   an admission, no CUDA graph captured after warm-up), the same requests
+   at step_fuse=1 (equal streams; fused and single-step dispatch timed in
+   turns, with a steady decode beside), 24 requests sharing a 256-token
+   prefix with the prefix pool on and off, speculative decoding with a
+   0-layer draft against the plain engine, coalesced LeNet predict from 8
+   threads against solo predict, and beam search (4 beams) against the
+   forward's log-probs;
+5. train: ``TransformerLM.compile``/``fit`` at the same width with
    seq_len 2048 (adam 3e-4, batch 8, 4 steps on 32 periodic sequences
    after a warm-up fit), with the launch counts read around the 4 steps,
    then a gradient check of the kernels' backward against blockwise
    attention on one batch;
-5. small: a small model on the card against the same weights on the CPU,
+6. small: a small model on the card against the same weights on the CPU,
    for predict, greedy streams and 3 training steps;
-6. lenet: the reference's LeNet (a Sequential of Convolution2D,
+7. lenet: the reference's LeNet (a Sequential of Convolution2D,
    MaxPooling2D, Flatten, Dense) fitted for 3 epochs on 512 synthetic
    28x28 blobs with validation, then predict, predict_classes, evaluate,
    save_model/load_model and to_model, and the same weights on the CPU;
-7. graph: a functional attention Model (Input, Embedding,
+8. graph: a functional attention Model (Input, Embedding,
    PositionalEmbedding, LayerNorm, MultiHeadSelfAttention(flash), Dense)
    at d_model 768, 12 heads, seq 2048, batch 2: 2 fit steps, each of which
    must launch all three kernels, and predict against the same weights
    under blockwise attention;
-8. mixed: the train phase's model and data compiled with
+9. mixed: the train phase's model and data compiled with
    ``compute_dtype=torch.bfloat16`` and ``accum_steps=2`` (two
    microbatches of 4): a warm-up fit and 4 one-step fits, each of which
    must launch every kernel at bf16 once a layer and microbatch and none
@@ -97,6 +109,16 @@ MIXED_LOSS_TOL = dict(atol=0.05, rtol=0.05)
 ACCUM_LAYERS = 2
 ACCUM_OPTIMIZER = {"name": "sgd", "lr": 1.0}
 ACCUM_TOL = dict(loss_rtol=1e-4, rtol=1e-4, atol=1e-6)
+# the serve phase: the handle of bench.py's decode cells at full width
+SERVE = dict(capacity=8, max_len=640, buckets=(128, 256, 512), pool=8,
+             requests=32, threads=4, max_new=(8, 8, 8, 8, 128),
+             prefix_len=256, prefix_tail=32, prefix_requests=24,
+             spec_requests=8, steady_len=16, steady_new=128,
+             spec_new=32, spec_tokens=4, spec_scale=0.02,
+             predict_threads=8, predict_requests=4, beams=4, beam_batch=2)
+TIE = 1e-4          # top-2 log-prob gap below which a greedy pick is a tie
+BEAM_TOL = 1e-3     # beam score against the forward's summed log-probs
+PREDICT_TOL = 1e-5  # coalesced predict against solo predict
 KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "flash_fwd": ("analytics_zoo_tpu_torch/ops/csrc/flash_fwd.cu",
                   "analytics_zoo_tpu/ops/attention.py:149"),
@@ -220,6 +242,10 @@ CASES = [
     ("predict", 96, 1024, 1024, 64, "float32", True, None, True),
     ("train", 96, TRAIN_SEQ, TRAIN_SEQ, 64, "float32", True, None, True),
     ("prefill", 96, 512, 512, 64, "bfloat16", True, None, True),
+    # the serve phase's prefills, one prompt (12 heads) per bucket: the
+    # admission's and the prefix block's
+    *[("serve admit", 12, s, s, 64, "float32", True, None, True)
+      for s in SERVE["buckets"]],
     ("predict", 96, 1024, 1024, 64, "bfloat16", True, None, True),
     ("cross causal", 24, 192, 512, 64, "float32", True, None, False),
     ("cross", 24, 200, 777, 64, "float32", False, None, False),
@@ -471,6 +497,423 @@ def phase_path(torch, TransformerLM, kernels):
     ok &= (finite and mismatched == 0
            and oracle["checked"] >= oracle["total"] // 2)
     return bool(ok), stats
+
+
+def percentile(values, q):
+    import numpy as np
+    return float(np.percentile(values, q)) if len(values) else None
+
+
+def greedy_oracle(torch, model, prompts, outs):
+    """Each greedy token against the argmax of the model's forward at the
+    position before it, one request at a time: (checked, ties,
+    mismatched), positions whose top two log-probs lie within TIE counted
+    as ties and not compared."""
+    checked = ties = mismatched = 0
+    with torch.no_grad():
+        for p, o in zip(prompts, outs):
+            ids = torch.as_tensor(list(p) + list(o[:-1]), device=model.device)
+            logp = model(ids[None])[0, len(p) - 1:]
+            top2 = logp.topk(2, dim=-1)
+            tie = (top2.values[:, 0] - top2.values[:, 1] <= TIE).cpu()
+            bad = (top2.indices[:, 0].cpu()
+                   != torch.as_tensor(o, dtype=torch.long)) & ~tie
+            ties += int(tie.sum())
+            checked += int((~tie).sum())
+            mismatched += int(bad.sum())
+    return checked, ties, mismatched
+
+
+def compare_streams(torch, model, prompts, a, b):
+    """Two runs' streams of the same greedy requests: (equal, tied,
+    differing).  Where two streams part, the pick at the parting
+    position must be a tie of the forward (top-2 gap within TIE), or the
+    pair counts as differing."""
+    equal = tied = differing = 0
+    with torch.no_grad():
+        for p, x, y in zip(prompts, a, b):
+            x, y = list(x), list(y)
+            if x == y:
+                equal += 1
+                continue
+            j = next((i for i, (u, v) in enumerate(zip(x, y)) if u != v),
+                     min(len(x), len(y)))
+            ids = torch.as_tensor(list(p) + x[:j], device=model.device)
+            top2 = model(ids[None])[0, -1].topk(2)
+            if len(x) == len(y) and float(
+                    top2.values[0] - top2.values[1]) <= TIE:
+                tied += 1
+            else:
+                differing += 1
+    return equal, tied, differing
+
+
+def mixed_requests(cfg, rng):
+    """The mixed stream's requests: SERVE["requests"] prompts of lengths
+    drawn from 16-512, max_new cycling SERVE["max_new"]."""
+    n = SERVE["requests"]
+    lens = rng.integers(16, SERVE["buckets"][-1] + 1, n)
+    prompts = [rng.integers(0, cfg["vocab_size"], int(L)) for L in lens]
+    news = [SERVE["max_new"][i % len(SERVE["max_new"])] for i in range(n)]
+    return prompts, news
+
+
+def serve_stream(submit, prompts, news):
+    """``prompts`` submitted from SERVE["threads"] threads at once through
+    ``submit`` (``generate_stream`` or an engine's ``submit``): the
+    outputs, the wall seconds, and each request's time to first token,
+    inter-token gaps and time per output token after the first."""
+    import threading
+    n = len(prompts)
+    streams = [None] * n
+    errors = []
+    go = threading.Event()
+
+    def client(t):
+        try:
+            go.wait(10)
+            mine = range(t, n, SERVE["threads"])
+            for i in mine:
+                streams[i] = submit(prompts[i], news[i])
+            for i in mine:
+                streams[i].result(timeout=120)
+        except Exception as e:  # re-raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(t,))
+               for t in range(SERVE["threads"])]
+    for t in threads:
+        t.start()
+    t0 = time.perf_counter()
+    go.set()
+    for t in threads:
+        t.join(180)
+    wall = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    outs = [s.result(timeout=1) for s in streams]
+    ttft = [s.t_tokens[0] - s.t_submit for s in streams]
+    itl = [b - a for s in streams for a, b in zip(s.t_tokens, s.t_tokens[1:])]
+    # time per output token after the first, per request
+    tpot = [(s.t_tokens[-1] - s.t_tokens[0]) / (len(s.t_tokens) - 1)
+            for s in streams if len(s.t_tokens) > 1]
+    return outs, wall, ttft, itl, tpot
+
+
+def stream_metrics(outs, wall, ttft, itl, tpot):
+    """A served stream's end-to-end numbers (the serve line's keys)."""
+    tokens = sum(len(o) for o in outs)
+    return dict(
+        requests=len(outs), generated_tokens=tokens, wall_s=wall,
+        requests_per_s=len(outs) / wall, tokens_per_s=tokens / wall,
+        ttft_ms_p50=percentile(ttft, 50) * 1e3,
+        ttft_ms_p99=percentile(ttft, 99) * 1e3,
+        itl_ms_p50=percentile(itl, 50) * 1e3,
+        itl_ms_p99=percentile(itl, 99) * 1e3,
+        tpot_ms_p50=percentile(tpot, 50) * 1e3,
+        tpot_ms_p99=percentile(tpot, 99) * 1e3)
+
+
+def fusion_timing(torch, submits, vocab, prompts, news):
+    """Fused (step_fuse 4) against single-step dispatch, in turns fused,
+    unfused, unfused, fused on one card: the mixed stream, then a steady
+    decode with no admission in its way (capacity prompts of
+    SERVE["steady_len"] tokens, SERVE["steady_new"] new tokens each),
+    each run's tokens/s, TPOT p50 and TTFT p50.  Returns the unfused
+    engine's first mixed-stream outputs too."""
+    import numpy as np
+    rng = np.random.default_rng(5)
+    steady = [rng.integers(0, vocab, SERVE["steady_len"])
+              for _ in range(SERVE["capacity"])]
+    steady_new = [SERVE["steady_new"]] * len(steady)
+    runs = {"fused": [], "unfused": []}
+    first_unfused = None
+    for name in ("fused", "unfused", "unfused", "fused"):
+        row = {}
+        for cell, (ps, ns) in (("mixed", (prompts, news)),
+                               ("steady", (steady, steady_new))):
+            outs, wall, ttft, itl, tpot = serve_stream(submits[name], ps, ns)
+            m = stream_metrics(outs, wall, ttft, itl, tpot)
+            row[cell] = dict(tokens_per_s=m["tokens_per_s"],
+                             tpot_ms_p50=m["tpot_ms_p50"],
+                             ttft_ms_p50=m["ttft_ms_p50"])
+            if name == "unfused" and cell == "mixed" and first_unfused is None:
+                first_unfused = outs
+        runs[name].append(row)
+    return runs, first_unfused
+
+
+def step_times(torch, engine, reps=50):
+    """Device ms of one replay of the engine's single-step graph and of
+    its fused window (per token), and of the same step run eagerly, at
+    the engine's capacity (the engine idle, its state don't-care)."""
+    out = {}
+    with engine._on_device():
+        plans = {"step_ms": (engine._step_plan.graph.replay, 1),
+                 "step_ms_eager": (engine._step_body, 1)}
+        for k, plan in engine._stepk_plans.items():
+            plans[f"window{k}_ms_per_token"] = (plan.graph.replay, k)
+        for name, (fn, k) in plans.items():
+            out[name] = cuda_ms(fn, reps) / k
+    return out
+
+
+def scaled_copy(torch, TransformerLM, cfg, scale, device):
+    """The serve model's weights with every block weight scaled by
+    ``scale``: a target its 0-layer draft agrees with often."""
+    model = TransformerLM(**cfg, device=device, seed=0).eval()
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.startswith(("attn_", "mlp_", "ln_attn", "ln_mlp")):
+                p.mul_(scale)
+    return model
+
+
+def beam_check(torch, model, cfg, generation):
+    """generate(num_beams) at the path phase's prompt and length, batch
+    SERVE["beam_batch"]; then the plan's beams: descending scores, each
+    within BEAM_TOL of the forward's summed log-probs of its tokens, and
+    the first equal to generate's answer."""
+    import numpy as np
+    W, b = SERVE["beams"], SERVE["beam_batch"]
+    g = torch.Generator().manual_seed(4)
+    prompt = torch.randint(0, cfg["vocab_size"], (b, PROMPT), generator=g)
+    if model.device.type == "cuda":
+        torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = model.generate(prompt.numpy(), NEW, num_beams=W)
+    beam_s = time.perf_counter() - t
+    with torch.no_grad():
+        seqs, scores = generation._backtrack_beams(
+            *generation.build_beam_fn(PROMPT, NEW, W)(
+                model, prompt.to(model.device)))
+        ids = torch.cat([prompt.repeat_interleave(W, 0), torch.as_tensor(
+            seqs.reshape(b * W, NEW), dtype=torch.long)], 1).to(model.device)
+        logp = model(ids[:, :-1])[:, PROMPT - 1:]
+        tok = ids[:, PROMPT:]
+        ref = logp.gather(-1, tok[..., None])[..., 0].double().sum(-1)
+    err = float(np.abs(ref.cpu().numpy().reshape(b, W) - scores).max())
+    ok = (out.shape == (b, PROMPT + NEW)
+          and (out[:, PROMPT:] == seqs[:, 0]).all()
+          and bool((np.diff(scores, axis=1) <= 0).all()) and err <= BEAM_TOL)
+    return bool(ok), dict(beams=W, batch=b, new=NEW, seconds=beam_s,
+                          score_max_abs_err=err, scores=scores.tolist())
+
+
+def predict_check(torch, keras, device="cuda"):
+    """LeNet through to_serving(coalescing=True) from SERVE[
+    "predict_threads"] threads of ragged 1-32-row batches, each result
+    within PREDICT_TOL of a solo predict, one build per bucket."""
+    import threading
+    import numpy as np
+    net = build_lenet(keras, device)
+    coal = net.to_serving(supported_concurrent_num=2, max_batch_size=32,
+                          coalescing=True, warmup_shapes=(28, 28, 1))
+    solo = net.to_serving(max_batch_size=32)
+    rng = np.random.default_rng(3)
+    jobs = [rng.normal(size=(int(rng.integers(1, 33)), 28, 28, 1)).astype(
+        np.float32) for _ in range(SERVE["predict_threads"]
+                                   * SERVE["predict_requests"])]
+    results = [None] * len(jobs)
+    errors = []
+
+    def client(t):
+        try:
+            for i in range(t, len(jobs), SERVE["predict_threads"]):
+                results[i] = coal.predict(jobs[i])
+        except Exception as e:  # re-raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(t,))
+               for t in range(SERVE["predict_threads"])]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(120)
+    wall = time.perf_counter() - t0
+    try:
+        if errors:
+            raise errors[0]
+        err = max(float(np.abs(r - solo.predict(x)).max())
+                  for r, x in zip(results, jobs))
+        stats = coal.serving_stats()
+    finally:
+        coal.close()
+        solo.close()
+    ok = (err <= PREDICT_TOL
+          and set(stats["misses"].values()) == {1}
+          and set(stats["misses"]) == set(stats["buckets"]))
+    return bool(ok), dict(requests=len(jobs), rows=sum(len(x) for x in jobs),
+                          seconds=wall, max_abs_err=err,
+                          dispatches=stats["dispatches"],
+                          misses=stats["misses"])
+
+
+def phase_serve(torch, TransformerLM, keras, kernels, inference,
+                generation, device="cuda"):
+    """The serving plane at full width (SERVE): the mixed stream with
+    the launch counts read around it, step times, then the fused,
+    prefix, speculative, predict and beam checks.  What it holds is
+    freed before the next phase, lest it stand in that phase's peak
+    memory: its engines and models (a plan's body closes over its
+    engine, so they live in reference cycles until a collection), and
+    the cuBLAS workspace PyTorch keeps for each stream it ran a GEMM on
+    (every engine and coalescer runs on a stream of its own)."""
+    import gc
+    try:
+        return serve_checks(torch, TransformerLM, keras, kernels, inference,
+                            generation, device)
+    finally:
+        gc.collect()
+        if device == "cuda":
+            torch._C._cuda_clearCublasWorkspaces()
+            torch.cuda.empty_cache()
+
+
+def serve_checks(torch, TransformerLM, keras, kernels, inference,
+                 generation, device):
+    import numpy as np
+    cfg = dict(FULL, seq_len=SERVE["max_len"])
+    model = TransformerLM(**cfg, device=device, seed=0).eval()
+    handle = inference.InferenceModel(
+        decode_capacity=SERVE["capacity"], decode_max_len=SERVE["max_len"],
+        decode_prompt_buckets=SERVE["buckets"],
+        decode_prefix_pool=SERVE["pool"])
+    t = time.perf_counter()
+    handle.load_keras_net(model)
+    warm_s = time.perf_counter() - t
+    engine = handle.decode_engine
+    before = engine.stats()
+    rng = np.random.default_rng(2)
+    checks, stats = {}, {}
+    try:
+        prompts, news = mixed_requests(cfg, rng)
+        kernels.reset_launch_counts()
+        outs, wall, ttft, itl, tpot = serve_stream(handle.generate_stream,
+                                                   prompts, news)
+        launches = kernels.launch_counts()
+        after = engine.stats()
+        admitted = after["admitted"] - before["admitted"]
+        computed = admitted - (after["prefix_hits"] - before["prefix_hits"])
+        tokens = sum(len(o) for o in outs)
+        checked, ties, mismatched = greedy_oracle(torch, model, prompts,
+                                                  outs)
+        checks["mixed"] = (
+            all(len(o) == m for o, m in zip(outs, news))
+            and mismatched == 0 and checked >= tokens // 2
+            and launches["flash_fwd"] == cfg["n_layers"] * admitted
+            and computed == admitted
+            and after["captures"] == before["captures"])
+        stats.update(stream_metrics(outs, wall, ttft, itl, tpot))
+        stats.update(
+            oracle=dict(checked=checked, ties=ties, mismatched=mismatched),
+            admitted=admitted, flash_fwd_launches=launches["flash_fwd"],
+            launches=launches, captures=after["captures"],
+            captures_at_warmup=before["captures"], warmup_s=warm_s,
+            steps=after["steps"] - before["steps"],
+            fused_dispatches=(after["fused_dispatches"]
+                              - before["fused_dispatches"]))
+        stats.update(step_times(torch, engine))
+
+        # the same requests one step a dispatch, timed against the fused
+        # handle
+        unfused = inference.DecodeEngine(
+            model, capacity=SERVE["capacity"], max_len=SERVE["max_len"],
+            prompt_buckets=SERVE["buckets"], prefix_pool=SERVE["pool"],
+            step_fuse=1)
+        try:
+            unfused.warmup()
+            stats["fusion"], unfused_outs = fusion_timing(
+                torch, {"fused": handle.generate_stream,
+                        "unfused": unfused.submit}, cfg["vocab_size"],
+                prompts, news)
+            res = compare_streams(torch, model, prompts, outs, unfused_outs)
+        finally:
+            unfused.close()
+        stats["fused_vs_unfused"] = dict(zip(("equal", "tied",
+                                              "differing"), res))
+        checks["fused"] = res[2] == 0
+
+        # a shared 256-token prefix, pool on (the handle) and off
+        head = rng.integers(0, cfg["vocab_size"], SERVE["prefix_len"])
+        pp = [np.concatenate([head, rng.integers(0, cfg["vocab_size"],
+                                                 int(u))])
+              for u in rng.integers(1, SERVE["prefix_tail"],
+                                    SERVE["prefix_requests"])]
+        pn = [8 if i % 8 == 7 else 2 for i in range(len(pp))]
+        s0 = engine.stats()
+        on = handle.generate(pp, pn, timeout=120)
+        s1 = engine.stats()
+        plain = inference.DecodeEngine(
+            model, capacity=SERVE["capacity"], max_len=SERVE["max_len"],
+            prompt_buckets=SERVE["buckets"])
+        try:
+            plain.warmup()
+            kernels.reset_launch_counts()
+            off = plain.generate(pp, pn, timeout=120)
+            off_launches = kernels.launch_counts()["flash_fwd"]
+            off_prefills = plain.stats()["prefills"]
+        finally:
+            plain.close()
+        res = compare_streams(torch, model, pp, on, off)
+        misses = s1["prefix_misses"] - s0["prefix_misses"]
+        stats["prefix"] = dict(zip(("equal", "tied", "differing"), res),
+                               misses=misses,
+                               hits=s1["prefix_hits"] - s0["prefix_hits"],
+                               pool_off_prefills=off_prefills,
+                               pool_off_flash_fwd=off_launches)
+        checks["prefix"] = (res[2] == 0 and misses == 1
+                            and off_prefills == len(pp)
+                            and off_launches == cfg["n_layers"] * len(pp))
+    finally:
+        handle.close()
+    del handle, engine
+
+    # speculative decoding against the plain engine, same weights
+    target = scaled_copy(torch, TransformerLM, cfg, SERVE["spec_scale"],
+                         device)
+    sp = prompts[:SERVE["spec_requests"]]
+    sn = [SERVE["spec_new"]] * len(sp)
+    runs, window_ms = {}, None
+    for name, draft in (("spec", inference.skeleton_draft(target)),
+                        ("plain", None)):
+        eng = inference.DecodeEngine(
+            target, capacity=SERVE["capacity"], max_len=SERVE["max_len"],
+            prompt_buckets=SERVE["buckets"], draft=draft,
+            spec_tokens=SERVE["spec_tokens"])
+        try:
+            eng.warmup()
+            t = time.perf_counter()
+            runs[name] = (eng.generate(sp, sn, timeout=120),
+                          time.perf_counter() - t, eng.stats())
+            if draft is not None and device == "cuda":
+                with eng._on_device():
+                    window_ms = cuda_ms(eng._spec_plan.graph.replay, 20)
+        finally:
+            eng.close()
+    res = compare_streams(torch, target, sp, runs["spec"][0],
+                          runs["plain"][0])
+    st = runs["spec"][2]
+    stats["spec"] = dict(zip(("equal", "tied", "differing"), res),
+                         acceptance=st["spec_acceptance"],
+                         windows=st["spec_windows"],
+                         window_ms=window_ms,
+                         spec_s=runs["spec"][1], plain_s=runs["plain"][1])
+    checks["spec"] = res[2] == 0 and st["spec_windows"] > 0
+    del target
+
+    checks["predict"], stats["predict"] = predict_check(torch, keras,
+                                                        device)
+    checks["beam"], stats["beam"] = beam_check(torch, model, cfg,
+                                               generation)
+    stats["checks"] = checks
+    stats["card"] = smi_card()
+    log("serve:", json.dumps(stats))
+    for name, ok in checks.items():
+        if not ok:
+            log(f"serve: FAIL {name}")
+    return all(checks.values()), stats
 
 
 def periodic_tokens(n, vocab, seq, seed):
@@ -878,6 +1321,8 @@ def main() -> int:
     try:
         from analytics_zoo_tpu_torch.models import (
             TransformerLM, from_jax_params, to_jax_params)
+        from analytics_zoo_tpu_torch.models import generation
+        from analytics_zoo_tpu_torch.pipeline import inference
         from analytics_zoo_tpu_torch.ops import _kernels as kernels
         from analytics_zoo_tpu_torch.ops import attention as ops_attn
         from analytics_zoo_tpu_torch.pipeline.api import keras
@@ -927,6 +1372,8 @@ def main() -> int:
     phases = [
         ("kernels", lambda: phase_kernels(torch, ops_attn, kernels)),
         ("path", lambda: phase_path(torch, TransformerLM, kernels)),
+        ("serve", lambda: phase_serve(torch, TransformerLM, keras, kernels,
+                                      inference, generation)),
         ("train", lambda: phase_train(torch, TransformerLM, kernels,
                                       objectives)),
         ("small", lambda: (phase_small(torch, TransformerLM,
@@ -960,13 +1407,13 @@ def main() -> int:
     # each path's own count beside them
     path_launches = {
         path: (results.get(path) or {}).get("launches") or {}
-        for path in ("path", "train", "graph", "mixed")}
+        for path in ("path", "serve", "train", "graph", "mixed")}
 
-    def timed_row(name, case, dtype):
+    def timed_row(name, case, dtype, sq=None):
         row = next((r for r in results.get("kernels") or []
                     if r["kernel"] == name and r["case"] == case
-                    and r["dtype"] == dtype and r.get("ms") is not None),
-                   None)
+                    and r["dtype"] == dtype and r.get("ms") is not None
+                    and sq in (None, r["sq"])), None)
         if row is None:
             return {}
         return dict(max_abs_err=row["abs_err"], ms=row["ms"],
@@ -984,6 +1431,7 @@ def main() -> int:
                  "launches": path_launches["mixed"].get(f"{name}[bf16]", 0),
                  "launches_by_path": {
                      "generate": path_launches["path"].get(name, 0),
+                     "serve": path_launches["serve"].get(name, 0),
                      "train": path_launches["train"].get(name, 0),
                      "graph": path_launches["graph"].get(name, 0),
                      "mixed": path_launches["mixed"].get(f"{name}[bf16]",
@@ -991,6 +1439,9 @@ def main() -> int:
         entry.update(timed_row(name, "mixed", "bfloat16"))
         entry["f32"] = timed_row(name, "train", "float32")
         entry["bf16_batch8"] = timed_row(name, "train", "bfloat16")
+        if name == "flash_fwd":  # the serve phase's prefill shapes
+            entry["serve"] = [timed_row(name, "serve admit", "float32", s)
+                              for s in SERVE["buckets"]]
         entries.append(entry)
     log(json.dumps({"kernels": entries}))
     if failed:

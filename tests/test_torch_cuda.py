@@ -1,12 +1,15 @@
 """The port's CUDA kernels on the card (marker ``cuda``).
 
 Each kernel against its plain PyTorch version, one backward of the
-attention layer through the kernels, and LeNet (a Sequential of
+attention layer through the kernels, LeNet (a Sequential of
 Convolution2D, MaxPooling2D, Flatten, Dense) fitting, predicting, saved
-and loaded on the card.  This file imports no jax (nor does
-anything it imports), so that it runs on a GPU host without the JAX
-package: ``python -m pytest --noconftest tests/test_torch_cuda.py -m
-cuda``.  Without a card every test skips inside the ``cuda`` fixture.
+and loaded on the card, and the serving plane: the decode engine's CUDA
+graphs, its admissions' kernel launches, coalesced predict, and the
+engine's and coalescer's streams waiting for the caller's writes. This
+file imports no jax (nor does anything it imports), so that it runs on a
+GPU host without the JAX package: ``python -m pytest --noconftest
+tests/test_torch_cuda.py -m cuda``. Without a card every test skips
+inside the ``cuda`` fixture.
 """
 
 import numpy as np
@@ -21,6 +24,7 @@ from analytics_zoo_tpu_torch.pipeline.api.keras import Sequential, load_model
 from analytics_zoo_tpu_torch.pipeline.api.keras.layers import (
     Convolution2D, Dense, Dropout, Flatten, MaxPooling2D,
     MultiHeadSelfAttention)
+from analytics_zoo_tpu_torch.pipeline.inference import DecodeEngine
 
 
 def close(a, b, rtol, atol):
@@ -334,3 +338,168 @@ def test_cuda_frozen_layer_does_not_move(cuda):
     after = m.get_weights()
     np.testing.assert_array_equal(after["fz_a"]["W"], before["fz_a"]["W"])
     assert not np.allclose(after["fz_b"]["W"], before["fz_b"]["W"])
+
+
+def sharp_lm(cfg, device, seed=0):
+    """A TransformerLM whose head is scaled by 5: greedy picks stay far
+    from f32 ties, so the card's and the CPU's streams can be compared
+    token for token."""
+    model = TransformerLM(**cfg, device=device, seed=seed).eval()
+    with torch.no_grad():
+        model.lm_head.W.mul_(5)
+    return model
+
+
+@pytest.mark.cuda
+def test_cuda_engine_captures_its_plans_once(cuda, f32_convs):
+    """The engine on the card: warmup captures the single step and the
+    fused windows (4 and 2) as CUDA graphs, serving at every occupancy
+    captures none more, and each greedy stream equals generate() of its
+    prompt padded to the bucket."""
+    cfg = dict(vocab_size=64, seq_len=48, n_layers=2, d_model=64, n_heads=2)
+    model = sharp_lm(cfg, "cuda")
+    engine = DecodeEngine(model, capacity=3, prompt_buckets=(16,))
+    try:
+        engine.warmup()
+        assert engine.stats()["captures"] == 3
+        rng = np.random.default_rng(0)
+        prompts = [rng.integers(0, 64, int(n)) for n in (3, 16, 7, 11, 5)]
+        news = [9, 4, 12, 3, 7]
+        outs = engine.generate(prompts, news, timeout=60)
+        for p, m, out in zip(prompts, news, outs):
+            padded = np.zeros((1, 16), np.int32)
+            padded[0, :len(p)] = p
+            ref = model.generate(padded, m, prompt_lengths=[len(p)])
+            np.testing.assert_array_equal(out, ref[0, len(p):len(p) + m])
+        stats = engine.stats()
+        assert stats["captures"] == 3 and stats["plans_built"] == 3
+        assert stats["fused_dispatches"] > 0
+    finally:
+        engine.close()
+
+
+@pytest.mark.cuda
+def test_cuda_admission_launches_the_forward_once_a_layer(cuda):
+    """An admission's prefill runs the flash forward once a layer; a
+    prefix-pool hit runs none (its prefix is copied, its tail prefilled
+    with einsum attention), a miss once a layer."""
+    cfg = dict(vocab_size=64, seq_len=48, n_layers=2, d_model=64, n_heads=2)
+    model = sharp_lm(cfg, "cuda")
+    engine = DecodeEngine(model, capacity=2, prompt_buckets=(8, 16),
+                          prefix_pool=2)
+    try:
+        engine.warmup()
+        rng = np.random.default_rng(1)
+        head = rng.integers(0, 64, 8)
+        counts = []
+        for tail in (3, 5):
+            before = _kernels.flash_fwd.launches
+            engine.generate([np.concatenate([head, rng.integers(0, 64,
+                                                                tail)])],
+                            [2], timeout=60)
+            counts.append(_kernels.flash_fwd.launches - before)
+        before = _kernels.flash_fwd.launches
+        engine.generate([rng.integers(0, 64, 5)], [2], timeout=60)
+        counts.append(_kernels.flash_fwd.launches - before)
+        assert counts == [cfg["n_layers"], 0, cfg["n_layers"]]
+        st = engine.stats()
+        assert st["prefix_misses"] == 1 and st["prefix_hits"] == 1
+    finally:
+        engine.close()
+
+
+@pytest.mark.cuda
+def test_cuda_coalesced_predict_matches_solo(cuda, f32_convs):
+    """Coalesced LeNet predictions from 4 threads on the card: each within
+    1e-5 of a solo predict (at f32 convolutions: TF32 ones would round
+    differently at the two runs' batch sizes)."""
+    import threading
+    net = Sequential(device="cuda")
+    net.add(Convolution2D(6, 5, 5, activation="relu", border_mode="same",
+                          input_shape=(28, 28, 1)))
+    net.add(MaxPooling2D())
+    net.add(Flatten())
+    net.add(Dense(10, activation="softmax"))
+    coal = net.to_serving(supported_concurrent_num=2, coalescing=True,
+                          warmup_shapes=(28, 28, 1))
+    solo = net.to_serving()
+    try:
+        rng = np.random.default_rng(2)
+        xs = [rng.normal(size=(int(rng.integers(1, 9)), 28, 28, 1)).astype(
+            np.float32) for _ in range(12)]
+        outs = [None] * len(xs)
+
+        def client(t):
+            for i in range(t, len(xs), 4):
+                outs[i] = coal.predict(xs[i])
+
+        threads = [threading.Thread(target=client, args=(t,))
+                   for t in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(60)
+        for x, out in zip(xs, outs):
+            close(out, solo.predict(x), rtol=0, atol=1e-5)
+    finally:
+        coal.close()
+        solo.close()
+
+
+def overwrite_behind_a_sleep(model, new):
+    """Copy ``new``'s weights into ``model`` on the default stream behind
+    a device sleep of about a second: work that does not wait for the
+    default stream reads the old weights."""
+    torch.cuda.synchronize()
+    torch.cuda._sleep(1 << 31)
+    with torch.no_grad():
+        for p, q in zip(model.parameters(), new.parameters()):
+            p.copy_(q)
+
+
+@pytest.mark.cuda
+def test_cuda_engine_waits_for_weights_written_before_it(cuda, f32_convs):
+    """Weights rewritten in place on the default stream, then an engine
+    made and served at once, with no warmup: the engine's stream orders
+    itself after the caller's (it has the sleep to wait for), so its
+    greedy streams are the new weights' generate().  Without warmup the
+    plans are captured at the dispatcher's start, before any slot is
+    live."""
+    cfg = dict(vocab_size=64, seq_len=48, n_layers=2, d_model=64, n_heads=2)
+    model = sharp_lm(cfg, "cuda")
+    new = sharp_lm(cfg, "cuda", seed=1)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, 64, int(n)) for n in (5, 9)]
+    refs = []
+    for p in prompts:
+        padded = np.zeros((1, 16), np.int32)
+        padded[0, :len(p)] = p
+        refs.append(new.generate(padded, 6, prompt_lengths=[len(p)])[
+            0, len(p):len(p) + 6])
+    overwrite_behind_a_sleep(model, new)
+    engine = DecodeEngine(model, capacity=2, prompt_buckets=(16,))
+    try:
+        assert not engine._stream.query()
+        outs = engine.generate(prompts, [6, 6], timeout=60)
+    finally:
+        engine.close()
+    for out, ref in zip(outs, refs):
+        np.testing.assert_array_equal(out, ref)
+
+
+@pytest.mark.cuda
+def test_cuda_coalescer_waits_for_weights_written_before_it(cuda,
+                                                            f32_convs):
+    """The same for a coalescing handle made right after the write: its
+    first predict (a bucket build on the coalescer's stream) is within
+    1e-5 of the new weights' predict."""
+    net, new = lenet("cuda", seed=0), lenet("cuda", seed=1)
+    x = make_blobs(5, seed=4)[0]
+    ref = new.predict(x)
+    overwrite_behind_a_sleep(net, new)
+    coal = net.to_serving(coalescing=True)
+    try:
+        assert not coal._coalescer._stream.query()
+        close(coal.predict(x), ref, rtol=0, atol=1e-5)
+    finally:
+        coal.close()

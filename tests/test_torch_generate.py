@@ -99,12 +99,6 @@ def test_validation_errors_match_jax(what, kw):
     assert str(out.value) == str(ref.value)
 
 
-def test_beam_search_is_not_ported_yet():
-    _, tm = models()
-    with pytest.raises(NotImplementedError, match="beam"):
-        tm.generate(np.zeros((2, 8), int), 2, num_beams=2)
-
-
 @pytest.mark.parametrize("temperature,top_k,top_p", [
     (0.8, None, None),
     (1.0, 5, None),

@@ -162,15 +162,14 @@ def _imports(path: Path):
 
 def test_port_imports_no_jax():
     """No module of the port, nor chip_smoke.py or the port's profile
-    script, imports jax or the JAX package (matched by exact top-level
+    scripts, imports jax or the JAX package (matched by exact top-level
     name, not by prefix)."""
     assert _forbidden("analytics_zoo_tpu.ops.attention")
     assert _forbidden("jax.numpy")
     assert not _forbidden("analytics_zoo_tpu_torch.ops")
     files = sorted((REPO / "analytics_zoo_tpu_torch").rglob("*.py"))
     files += [REPO / "chip_smoke.py",
-              REPO / "scripts" / "profile_torch_generate.py",
-              REPO / "scripts" / "profile_torch_train.py"]
+              *sorted((REPO / "scripts").glob("profile_torch_*.py"))]
     assert len(files) > 15
     bad = [(str(f.relative_to(REPO)), m) for f in files
            for m in _imports(f) if _forbidden(m)]
