@@ -5,7 +5,9 @@ Counterpart of ``analytics_zoo_tpu/core/module.py``.  There a layer is a
 pure ``init``/``apply`` pair over a params dict keyed by parameter name;
 here it is an ``nn.Module`` whose parameters carry those same names
 (``W``, ``b``, ``embeddings``, ``gamma``, ...) and shapes, so
-:meth:`Layer.params` is the JAX package's params dict for the layer.
+:meth:`Layer.params` is the JAX package's params dict for the layer.  A
+stateful layer's state (BatchNormalization's moving statistics) is its
+buffers, :meth:`Layer.state`, keyed as the JAX package's ``init_state``.
 
 A layer's parameter widths come from its input shape, as in the
 reference.  :meth:`Layer.build` creates them from a shape and a
@@ -124,6 +126,8 @@ class Layer(nn.Module):
     serial_name: Optional[str] = None
     #: False where the parameter shapes need no input shape (Embedding)
     needs_input_shape: bool = True
+    #: True on layers that carry non-trainable state (BatchNormalization)
+    stateful: bool = False
 
     def __init__(self, input_shape=None, name: Optional[str] = None,
                  trainable: bool = True, device=None,
@@ -182,6 +186,18 @@ class Layer(nn.Module):
         """This layer's own parameters, keyed as the JAX package keys
         them."""
         return dict(self.named_parameters(recurse=False))
+
+    def add_state(self, name: str, value: torch.Tensor) -> torch.Tensor:
+        """Register ``value`` as state: a buffer, which the layer updates
+        in place in training mode, saves with its weights, and which gets
+        no gradient, optimizer update or cast under ``compute_dtype``."""
+        self.register_buffer(name, value)
+        return value
+
+    def state(self) -> Dict[str, torch.Tensor]:
+        """This layer's own state, keyed as the JAX package's
+        ``init_state`` keys it."""
+        return dict(self.named_buffers(recurse=False))
 
     def compute_output_shape(self, input_shape):
         return input_shape

@@ -1,5 +1,7 @@
 from .common import ZooModel
-from .jax_params import from_jax_params, to_jax_params
+from .image import ImageClassifier
+from .jax_params import (from_jax_params, to_jax_params, to_jax_state)
 from .textgeneration import TransformerLM
 
-__all__ = ["TransformerLM", "ZooModel", "from_jax_params", "to_jax_params"]
+__all__ = ["ImageClassifier", "TransformerLM", "ZooModel",
+           "from_jax_params", "to_jax_params", "to_jax_state"]

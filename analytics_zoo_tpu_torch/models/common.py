@@ -2,16 +2,22 @@
 
 Counterpart of ``analytics_zoo_tpu/models/common.py``: a model of the
 zoo is a :class:`KerasNet` (compile/fit/evaluate/predict) holding its
-hyperparameters, a name and the config they give.  Here the subclass
-builds its layers in ``__init__`` and defines ``forward``; the JAX
-package's ``build_model`` graph has no counterpart yet.  A subclass
-registers with ``load_model``, which rebuilds it from its saved hyper
-parameters."""
+hyperparameters, a name and the config they give.  A subclass either
+builds its layers in ``__init__`` and defines ``forward``
+(``TransformerLM``), or defines ``build_model(device, seed)``, which
+returns a graph ``Model``, and calls :meth:`ZooModel.build_graph`
+(``ImageClassifier``): as in the JAX package the graph is built inside
+``name_scope(<class name, lower case>)``, so the auto-named layers of the
+two packages' models get equal names.  A subclass registers with
+``load_model``, which rebuilds it from its saved hyperparameters.
+"""
 
 from __future__ import annotations
 
 from typing import Optional
 
+from ..common.context import resolve_device
+from ..core.module import name_scope
 from ..pipeline.api.keras.engine import _MODEL_CLASSES, KerasNet
 
 
@@ -24,6 +30,27 @@ class ZooModel(KerasNet):
         super().__init_subclass__(**kwargs)
         _MODEL_CLASSES[cls.__name__] = cls
 
+    def build_model(self, device, seed: int):
+        raise NotImplementedError(
+            f"{type(self).__name__} builds its layers in __init__")
+
+    def build_graph(self, device=None, seed: int = 0) -> None:
+        """Build ``build_model``'s graph on ``device`` (``"cuda"`` unless
+        asked otherwise) from ``seed``, inside the class's name scope;
+        the model's layers, weights and state are the graph's."""
+        self._device = resolve_device(device)
+        with name_scope(type(self).__name__.lower()):
+            self.model = self.build_model(self._device, seed)
+        self.graph_based = True
+
+    def to_graph(self):
+        if not self.graph_based:
+            return super().to_graph()
+        return self.model.to_graph()
+
+    def forward(self, x):
+        return self.model(x)
+
     @classmethod
     def from_config(cls, config, device=None):
         model = cls(name=config["name"], device=device, **config["hyper"])
@@ -33,3 +60,39 @@ class ZooModel(KerasNet):
     def get_config(self) -> dict:
         return {"name": self.name, "hyper": dict(self.hyper),
                 "compile_args": self._compile_args}
+
+
+def parse_quantize_name(model_name: str):
+    """'<arch>[-quantize]' -> (arch, wants_int8): the registry's
+    convention for int8 variants."""
+    if model_name.endswith("-quantize"):
+        return model_name[:-len("-quantize")], True
+    return model_name, False
+
+
+class QuantizedVariantMixin:
+    """Zoo models whose registry carries '<name>-quantize' variants.  The
+    int8 inference path needs the port of ``ops/quantize.py``: until
+    then a '-quantize' variant builds and trains, and its ``predict`` and
+    ``to_serving`` raise."""
+
+    def _refuse_int8(self):
+        if parse_quantize_name(self.hyper["model_name"])[1]:
+            raise NotImplementedError(
+                f"{self.hyper['model_name']!r}: the int8 ('-quantize') "
+                "inference path is not ported yet (see ROADMAP.md)")
+
+    def predict(self, x, batch_size: int = 32):
+        self._refuse_int8()
+        return super().predict(x, batch_size)
+
+    def to_serving(self, *args, **kwargs):
+        self._refuse_int8()
+        return super().to_serving(*args, **kwargs)
+
+
+def register_zoo_model(cls):
+    """Make ``cls`` loadable by ``load_model`` (every ZooModel subclass
+    registers when it is defined; this names it for readers)."""
+    _MODEL_CLASSES[cls.__name__] = cls
+    return cls

@@ -6,10 +6,12 @@ each a dict keyed by parameter name (``get_weights()``); a nested model
 The port's layers carry the same names, parameter names, shapes and
 layouts (Dense ``W`` (in, out), convolution ``W`` HWIO), so the transfer
 is the identity on every leaf: numpy arrays in, numpy arrays out, and a
-round trip is bit-exact.  A graph model (``Sequential``/``Model``) lists
-its layers in first-use order; any other model (``TransformerLM``) every
-``Layer`` with parameters among its modules.  This module takes and
-returns numpy only; it imports nothing of JAX.
+round trip is bit-exact.  The layer state (BatchNormalization's moving
+statistics and ``count``) moves the same way, keyed as the JAX package's
+``trainer.state.model_state``.  A graph model (``Sequential``/``Model``)
+lists its layers in first-use order; any other model (``TransformerLM``)
+every ``Layer`` with parameters or state among its modules.  This module
+takes and returns numpy only; it imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -27,19 +29,24 @@ def _is_graph(m) -> bool:
     return isinstance(m, GraphModule) or getattr(m, "graph_based", False)
 
 
-def _entries(model) -> List[Tuple[str, Layer]]:
-    """(name, layer) pairs whose weights make the model's tree, in model
-    order; a layer name used twice raises (one would hide the other)."""
+def _layers(model) -> List[Layer]:
     if isinstance(model, GraphModule):
-        layers = list(model.layers)
-    elif _is_graph(model):
-        layers = list(model.to_graph().layers)
-    else:
-        layers = [m for m in model.modules()
-                  if isinstance(m, Layer) and m.params()]
+        return list(model.layers)
+    if _is_graph(model):
+        return list(model.to_graph().layers)
+    return [m for m in model.modules()
+            if isinstance(m, Layer) and (m.params() or m.state())]
+
+
+def _entries(model, kind: str = "params") -> List[Tuple[str, Layer]]:
+    """(name, layer) pairs whose ``kind`` ("params" or "state") makes the
+    model's tree, in model order; a layer name used twice raises (one
+    would hide the other)."""
+    own = (lambda l: any(True for _ in l.parameters())) if kind == "params" \
+        else (lambda l: any(True for _ in l.buffers()))
     out, seen = [], set()
-    for layer in layers:
-        if not any(True for _ in layer.parameters()):
+    for layer in _layers(model):
+        if not own(layer):
             continue
         if layer.name in seen:
             raise ValueError(
@@ -58,29 +65,39 @@ def weight_tree(model) -> Dict[str, dict]:
             for name, layer in _entries(model)}
 
 
+def state_tree(model) -> Dict[str, dict]:
+    """The model's state tensors (stateful layers' buffers, themselves,
+    not copies) as the JAX package's ``model_state`` tree: {layer:
+    {moving_mean, moving_var, count}}, one level more per nested
+    model."""
+    return {name: (state_tree(layer) if _is_graph(layer)
+                   else layer.state())
+            for name, layer in _entries(model, "state")}
+
+
+def model_tree(model) -> Dict[str, dict]:
+    """What ``save_model`` writes: {"params": ..., "model_state": ...}."""
+    return {"params": weight_tree(model), "model_state": state_tree(model)}
+
+
 def _shapes(tree):
     return {k: (_shapes(v) if isinstance(v, dict) else tuple(np.shape(v)))
             for k, v in tree.items()}
 
 
-def from_jax_params(model, tree) -> None:
-    """Load a JAX param tree (nested dicts of arrays, as the JAX package's
-    ``get_weights()`` gives) into ``model`` in place.  Every parameter of
-    the model must be given, with its exact shape; layers without
-    parameters may appear as empty dicts.  When the layer names differ
-    but the count and every shape match (auto-named layers of another
-    process), layers are matched by position, as the JAX package's
-    ``set_weights`` does."""
-    entries = _entries(model)
+def _load(model, tree, kind: str) -> None:
+    own_tree, leaves_of = ((weight_tree, Layer.params) if kind == "params"
+                           else (state_tree, Layer.state))
+    entries = _entries(model, kind)
     given = [(name, leaves) for name, leaves in tree.items() if leaves]
     names = [name for name, _ in entries]
     if {n for n, _ in given} != set(names):
         if len(given) != len(entries):
             raise KeyError(
-                f"param tree layers "
+                f"{kind} tree layers "
                 f"{sorted({n for n, _ in given} ^ set(names))} do not "
                 "match the model's")
-        own = weight_tree(model)
+        own = own_tree(model)
         for (name, _), (gname, leaves) in zip(entries, given):
             if _shapes(own[name]) != _shapes(leaves):
                 raise ValueError(
@@ -91,26 +108,49 @@ def from_jax_params(model, tree) -> None:
     with torch.no_grad():
         for name, layer in entries:
             if _is_graph(layer):
-                from_jax_params(layer, tree[name])
+                _load(layer, tree[name], kind)
                 continue
-            own = layer.params()
+            own = leaves_of(layer)
             leaves = tree[name]
             if set(leaves) != set(own):
-                raise KeyError(f"{name}: params {sorted(leaves)} do not "
+                raise KeyError(f"{name}: {kind} {sorted(leaves)} do not "
                                f"match the model's {sorted(own)}")
-            for key, p in own.items():
+            for key, t in own.items():
                 arr = np.asarray(leaves[key])
-                if tuple(arr.shape) != tuple(p.shape):
+                if tuple(arr.shape) != tuple(t.shape):
                     raise ValueError(
                         f"{name}/{key}: shape {arr.shape} != "
-                        f"{tuple(p.shape)}")
-                p.copy_(torch.from_numpy(np.array(arr, copy=True)))
+                        f"{tuple(t.shape)}")
+                t.copy_(torch.from_numpy(np.array(arr, copy=True)))
+
+
+def from_jax_params(model, params, state=None) -> None:
+    """Load a JAX param tree (nested dicts of arrays, as the JAX package's
+    ``get_weights()`` gives) into ``model`` in place, and with ``state``
+    a JAX ``model_state`` tree (``trainer.state.model_state``) into its
+    stateful layers.  Every parameter (and, when ``state`` is given,
+    every state tensor) of the model must be given, with its exact
+    shape; layers without any may appear as empty dicts.  When the layer
+    names differ but the count and every shape match (auto-named layers
+    of another process), layers are matched by position, as the JAX
+    package's ``set_weights`` does."""
+    _load(model, params, "params")
+    if state is not None:
+        _load(model, state, "state")
+
+
+def _host(tree):
+    return {k: (_host(v) if isinstance(v, dict)
+                else v.detach().cpu().numpy().copy())
+            for k, v in tree.items()}
 
 
 def to_jax_params(model) -> Dict[str, dict]:
     """The model's parameters as a JAX-keyed tree of numpy arrays."""
-    def host(tree):
-        return {k: (host(v) if isinstance(v, dict)
-                    else v.detach().cpu().numpy().copy())
-                for k, v in tree.items()}
-    return host(weight_tree(model))
+    return _host(weight_tree(model))
+
+
+def to_jax_state(model) -> Dict[str, dict]:
+    """The model's layer state as the JAX package's ``model_state`` tree
+    of numpy arrays (``count`` a 0-d f32 array)."""
+    return _host(state_tree(model))

@@ -13,7 +13,8 @@ optimizer state and step count.  Models that share layer instances
 
 A KerasNet is a Layer, so a model nests in another
 (``Sequential.add(Sequential)``).  ``save_model`` writes the reference's
-``architecture.json`` and the weights in the flat checkpoint format;
+``architecture.json`` and the weights and layer state in the flat
+checkpoint format;
 ``load_model`` rebuilds the model from it.  Layers freeze by name
 (``freeze``, ``freeze_up_to``, ``unfreeze``): the flags take effect at
 the next step and persist through ``save_model``.  ``to_serving`` wraps
@@ -263,7 +264,8 @@ class KerasNet(Layer):
 
     def get_weights(self):
         """The parameters as the JAX package's tree: {layer: {name:
-        numpy array}}, in model order."""
+        numpy array}}, in model order; the layer state is not among them,
+        as in the JAX package."""
         # models/ imports this module, so its helpers load at call time
         from ....models.jax_params import to_jax_params
         return to_jax_params(self)
@@ -293,7 +295,8 @@ class KerasNet(Layer):
     # ---- persistence ----
     def save_model(self, path: str, over_write: bool = True):
         """``architecture.json`` (``{"class_name", "config"}``, the
-        reference's schema) and the weights, as the flat checkpoint
+        reference's schema) and the weights with the layer state
+        (``{"params", "model_state"}``), as the flat checkpoint
         ``weights/ckpt_final``."""
         os.makedirs(path, exist_ok=True)
         arch_path = os.path.join(path, "architecture.json")
@@ -302,15 +305,15 @@ class KerasNet(Layer):
         with open(arch_path, "w") as f:
             json.dump({"class_name": type(self).__name__,
                        "config": self.get_config()}, f)
-        from ....models.jax_params import weight_tree
+        from ....models.jax_params import model_tree
         checkpoint_lib.save_checkpoint(os.path.join(path, "weights"), "final",
-                                       weight_tree(self))
+                                       model_tree(self))
 
     @staticmethod
     def load_model(path: str, device=None) -> "KerasNet":
         """Rebuild a model saved by :meth:`save_model` on ``device``
-        (``"cuda"`` unless asked otherwise), load its weights and, when it
-        was compiled, compile it again."""
+        (``"cuda"`` unless asked otherwise), load its weights and layer
+        state and, when it was compiled, compile it again."""
         with open(os.path.join(path, "architecture.json")) as f:
             arch = json.load(f)
         cls = _MODEL_CLASSES.get(arch["class_name"])
@@ -321,8 +324,8 @@ class KerasNet(Layer):
         model = cls.from_config(arch["config"], device=device)
         weights_dir = os.path.join(path, "weights")
         if os.path.isdir(weights_dir):
-            from ....models.jax_params import weight_tree
-            checkpoint_lib.restore_into(weights_dir, weight_tree(model),
+            from ....models.jax_params import model_tree
+            checkpoint_lib.restore_into(weights_dir, model_tree(model),
                                         "final")
         if model._compile_args is not None:
             model.compile(**model._compile_args)

@@ -1,6 +1,8 @@
-"""Convolutions: Convolution1D and Convolution2D.
+"""Convolutions (Convolution1D, Convolution2D, SeparableConvolution2D)
+and the layout layers ZeroPadding2D and SpaceToDepth2D.
 
-Counterpart of ``_ConvND``, ``Convolution1D`` and ``Convolution2D`` in
+Counterpart of ``_ConvND``, ``Convolution1D``, ``Convolution2D``,
+``SeparableConvolution2D``, ``ZeroPadding2D`` and ``SpaceToDepth2D`` in
 ``analytics_zoo_tpu/pipeline/api/keras/layers/convolutional.py``.
 
 Layout: the public input is channels-last (NHWC, or NWC in 1-D), as in
@@ -176,3 +178,177 @@ class Convolution2D(_ConvND):
 
     def __init__(self, nb_filter, nb_row=3, nb_col=3, kernel_size=None, **kw):
         super().__init__(nb_filter, kernel_size or (nb_row, nb_col), **kw)
+
+
+@register_layer
+class SeparableConvolution2D(Layer):
+    """Depthwise-separable convolution: a depthwise convolution (one
+    group per input channel, ``depth_multiplier`` filters each), then a
+    1x1 pointwise one.  The parameters keep the JAX package's names and
+    layouts: ``depthwise`` (kh, kw, 1, in*depth_multiplier), ``pointwise``
+    (1, 1, in*depth_multiplier, nb_filter), ``b``."""
+
+    def __init__(self, nb_filter, nb_row=3, nb_col=3, init="glorot_uniform",
+                 activation=None, border_mode="valid", subsample=(1, 1),
+                 depth_multiplier=1, dim_ordering=None, bias=True,
+                 input_shape=None, name=None, trainable=True, device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__(input_shape=input_shape, name=name,
+                         trainable=trainable, device=device,
+                         generator=generator)
+        if border_mode not in ("valid", "same"):
+            raise ValueError(f"SeparableConvolution2D: unsupported "
+                             f"border_mode {border_mode!r}")
+        self.nb_filter = int(nb_filter)
+        self.kernel_size = (int(nb_row), int(nb_col))
+        self.subsample = shape_utils.normalize_tuple(subsample, 2)
+        self.border_mode = border_mode
+        self.depth_multiplier = int(depth_multiplier)
+        self.init_name = init
+        self.activation_name = activation if not callable(activation) else None
+        self.activation = activations.get(activation)
+        self.bias = bias
+        self.data_format = shape_utils.normalize_data_format(dim_ordering)
+        self._build_if_ready()
+
+    def build_params(self, input_shape, generator):
+        in_ch = int(channels_last_shape(input_shape, self.data_format)[-1])
+        mid = in_ch * self.depth_multiplier
+        self.add_param("depthwise", self.init_name,
+                       self.kernel_size + (1, mid), generator)
+        self.add_param("pointwise", self.init_name,
+                       (1, 1, mid, self.nb_filter), generator)
+        if self.bias:
+            self.add_param("b", "zeros", (self.nb_filter,), generator)
+
+    def forward(self, x):
+        x_cl = to_channels_last(x, self.data_format, 2)
+        if self.border_mode == "same":
+            x_cl = pad_spatial(x_cl, [
+                shape_utils.same_padding(n, k, s) for n, k, s in
+                zip(x_cl.shape[1:3], self.kernel_size, self.subsample)])
+        x_cl, dw, pw, *b = promote(
+            x_cl, self.depthwise, self.pointwise,
+            *((self.b,) if self.bias else ()))
+        # HWIO -> OIHW views; the depthwise O axis is channel-major
+        # (output o reads input o // depth_multiplier), as XLA's groups
+        y = F.conv2d(channels_first_view(x_cl, 2), dw.permute(3, 2, 0, 1),
+                     stride=self.subsample, groups=x_cl.shape[-1])
+        y = F.conv2d(y, pw.permute(3, 2, 0, 1), *b)
+        y = y.permute(0, 2, 3, 1)
+        if self.activation is not None:
+            y = self.activation(y)
+        return from_channels_last(y, self.data_format, 2)
+
+    def compute_output_shape(self, input_shape):
+        cl = channels_last_shape(input_shape, self.data_format)
+        spatial = [
+            shape_utils.conv_output_length(
+                cl[1 + i], self.kernel_size[i], self.border_mode,
+                self.subsample[i]) for i in range(2)]
+        out = (cl[0],) + tuple(spatial) + (self.nb_filter,)
+        if self.data_format == "channels_first":
+            return (out[0], out[3], out[1], out[2])
+        return out
+
+    def get_config(self):
+        cfg = super().get_config()
+        cfg.update(nb_filter=self.nb_filter, nb_row=self.kernel_size[0],
+                   nb_col=self.kernel_size[1], init=self.init_name,
+                   activation=self.activation_name,
+                   border_mode=self.border_mode,
+                   subsample=list(self.subsample),
+                   depth_multiplier=self.depth_multiplier, bias=self.bias,
+                   dim_ordering=self.data_format)
+        return cfg
+
+
+class _PadCropBase(Layer):
+    def __init__(self, dim_ordering=None, input_shape=None, name=None):
+        super().__init__(input_shape=input_shape, name=name)
+        self.data_format = shape_utils.normalize_data_format(dim_ordering)
+
+
+@register_layer
+class ZeroPadding2D(_PadCropBase):
+    """Zero rows and columns around the image: ``padding`` (rows, cols)
+    pads both sides of each axis by its value, (top, bottom, left, right)
+    each side by its own."""
+
+    def __init__(self, padding=(1, 1), dim_ordering=None, input_shape=None,
+                 name=None):
+        super().__init__(dim_ordering=dim_ordering, input_shape=input_shape,
+                         name=name)
+        if len(padding) == 2:
+            self.padding = ((padding[0], padding[0]),
+                            (padding[1], padding[1]))
+        else:
+            self.padding = ((padding[0], padding[1]),
+                            (padding[2], padding[3]))
+
+    def forward(self, x):
+        (top, bottom), (left, right) = self.padding
+        if self.data_format == "channels_last":
+            return F.pad(x, [0, 0, left, right, top, bottom])
+        return F.pad(x, [left, right, top, bottom])
+
+    def compute_output_shape(self, input_shape):
+        s = list(input_shape)
+        axes = (1, 2) if self.data_format == "channels_last" else (2, 3)
+        for ax, (lo, hi) in zip(axes, self.padding):
+            if s[ax] is not None:
+                s[ax] += lo + hi
+        return tuple(s)
+
+    def get_config(self):
+        cfg = super().get_config()
+        cfg["padding"] = [p for pair in self.padding for p in pair]
+        cfg["dim_ordering"] = self.data_format
+        return cfg
+
+
+@register_layer
+class SpaceToDepth2D(_PadCropBase):
+    """(H, W, C) -> (H/b, W/b, b*b*C) by b x b blocks, the packed channel
+    of block offset (r, s) and channel c being (r*b + s)*C + c: the
+    space-to-depth stem of ResNet-50 (``space_to_depth=True``)."""
+
+    def __init__(self, block_size=2, dim_ordering=None, input_shape=None,
+                 name=None):
+        super().__init__(dim_ordering=dim_ordering, input_shape=input_shape,
+                         name=name)
+        self.block_size = int(block_size)
+
+    def forward(self, x):
+        b = self.block_size
+        cf = self.data_format == "channels_first"
+        x = x.permute(0, 2, 3, 1) if cf else x
+        n, h, w, c = x.shape
+        if h % b or w % b:
+            raise ValueError(
+                f"SpaceToDepth2D: spatial dims ({h}, {w}) not divisible "
+                f"by block_size {b}")
+        y = x.reshape(n, h // b, b, w // b, b, c).permute(0, 1, 3, 2, 4, 5)
+        y = y.reshape(n, h // b, w // b, b * b * c)
+        return y.permute(0, 3, 1, 2) if cf else y
+
+    def compute_output_shape(self, input_shape):
+        b = self.block_size
+        if self.data_format == "channels_first":
+            n, c, h, w = input_shape
+        else:
+            n, h, w, c = input_shape
+        if (h is not None and h % b) or (w is not None and w % b):
+            # fail when the model is built, not at its first call
+            raise ValueError(
+                f"SpaceToDepth2D: spatial dims ({h}, {w}) not divisible "
+                f"by block_size {b}")
+        if self.data_format == "channels_first":
+            return (n, c * b * b, h // b, w // b)
+        return (n, h // b, w // b, c * b * b)
+
+    def get_config(self):
+        cfg = super().get_config()
+        cfg["block_size"] = self.block_size
+        cfg["dim_ordering"] = self.data_format
+        return cfg

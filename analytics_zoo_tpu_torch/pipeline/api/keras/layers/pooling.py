@@ -1,10 +1,14 @@
-"""Max pooling: MaxPooling2D.
+"""Pooling: MaxPooling2D, AveragePooling2D and the global pools.
 
-Counterpart of ``_PoolND`` and ``MaxPooling2D`` in
+Counterpart of ``_PoolND``, ``MaxPooling2D``, ``AveragePooling2D`` and
+``_GlobalPoolND`` with its six classes in
 ``analytics_zoo_tpu/pipeline/api/keras/layers/pooling.py``.  The input is
 channels-last unless ``dim_ordering="th"``, as for the convolutions;
-``border_mode="same"`` pads as XLA's ``SAME`` does, with -inf, so a
-padded element never wins a window.  The other pooling layers are not
+``border_mode="same"`` pads as XLA's ``SAME`` does (the odd element on
+the high side).  Max pooling pads with -inf, so a padded element never
+wins a window; average pooling divides each window's sum by the number
+of real (unpadded) elements in it, as the JAX package does, and by the
+window's size under ``valid``.  The 1-D and 3-D windowed pools are not
 ported yet (see ROADMAP.md).
 """
 
@@ -12,6 +16,7 @@ from __future__ import annotations
 
 import math
 
+import torch
 import torch.nn.functional as F
 
 from .....core import shapes as shape_utils
@@ -21,10 +26,12 @@ from .convolutional import (channels_first_view, channels_last_shape,
                             to_channels_last)
 
 _MAX_POOL = {1: F.max_pool1d, 2: F.max_pool2d}
+_AVG_POOL = {2: F.avg_pool2d}
 
 
 class _PoolND(Layer):
     rank = 2
+    mode = "max"  # or "avg"
 
     def __init__(self, pool_size=2, strides=None, border_mode="valid",
                  dim_ordering=None, input_shape=None, name=None):
@@ -41,13 +48,28 @@ class _PoolND(Layer):
     def forward(self, x):
         r = self.rank
         x_cl = to_channels_last(x, self.data_format, r)
-        if self.border_mode == "same":
-            x_cl = pad_spatial(x_cl, [
-                shape_utils.same_padding(n, k, s) for n, k, s in
-                zip(x_cl.shape[1:1 + r], self.pool_size, self.strides)],
-                value=-math.inf)
-        y = _MAX_POOL[r](channels_first_view(x_cl, r), self.pool_size,
-                         self.strides)
+        pads = ([shape_utils.same_padding(n, k, s) for n, k, s in
+                 zip(x_cl.shape[1:1 + r], self.pool_size, self.strides)]
+                if self.border_mode == "same" else [(0, 0)] * r)
+        if self.mode == "max":
+            y = _MAX_POOL[r](channels_first_view(
+                pad_spatial(x_cl, pads, value=-math.inf), r),
+                self.pool_size, self.strides)
+        elif not any(lo or hi for lo, hi in pads):
+            y = _AVG_POOL[r](channels_first_view(x_cl, r), self.pool_size,
+                             self.strides)
+        else:
+            # window sums over the zero-padded input, over the windows'
+            # counts of real elements (a ones plane padded alike)
+            sums = _AVG_POOL[r](
+                channels_first_view(pad_spatial(x_cl, pads), r),
+                self.pool_size, self.strides, divisor_override=1)
+            ones = torch.ones((1, 1) + tuple(x_cl.shape[1:1 + r]),
+                              dtype=x_cl.dtype, device=x_cl.device)
+            flat = [v for lo_hi in reversed(pads) for v in lo_hi]
+            counts = _AVG_POOL[r](F.pad(ones, flat), self.pool_size,
+                                  self.strides, divisor_override=1)
+            y = sums / counts
         y = y.permute((0,) + tuple(range(2, 2 + r)) + (1,))
         return from_channels_last(y, self.data_format, r)
 
@@ -72,4 +94,68 @@ class _PoolND(Layer):
 
 @register_layer
 class MaxPooling2D(_PoolND):
+    rank, mode = 2, "max"
+
+
+@register_layer
+class AveragePooling2D(_PoolND):
+    rank, mode = 2, "avg"
+
+
+class _GlobalPoolND(Layer):
+    """Max or mean over every spatial axis: (batch, ..., channels) ->
+    (batch, channels)."""
+
     rank = 2
+    mode = "max"
+
+    def __init__(self, dim_ordering=None, input_shape=None, name=None):
+        super().__init__(input_shape=input_shape, name=name)
+        self.data_format = shape_utils.normalize_data_format(dim_ordering)
+
+    def forward(self, x):
+        first = 1 if self.data_format == "channels_last" else 2
+        axes = tuple(range(first, first + self.rank))
+        if self.mode == "max":
+            return torch.amax(x, dim=axes)
+        return torch.mean(x, dim=axes)
+
+    def compute_output_shape(self, input_shape):
+        ch = (input_shape[-1] if self.data_format == "channels_last"
+              else input_shape[1])
+        return (input_shape[0], ch)
+
+    def get_config(self):
+        cfg = super().get_config()
+        cfg["dim_ordering"] = self.data_format
+        return cfg
+
+
+@register_layer
+class GlobalMaxPooling1D(_GlobalPoolND):
+    rank, mode = 1, "max"
+
+
+@register_layer
+class GlobalAveragePooling1D(_GlobalPoolND):
+    rank, mode = 1, "avg"
+
+
+@register_layer
+class GlobalMaxPooling2D(_GlobalPoolND):
+    rank, mode = 2, "max"
+
+
+@register_layer
+class GlobalAveragePooling2D(_GlobalPoolND):
+    rank, mode = 2, "avg"
+
+
+@register_layer
+class GlobalMaxPooling3D(_GlobalPoolND):
+    rank, mode = 3, "max"
+
+
+@register_layer
+class GlobalAveragePooling3D(_GlobalPoolND):
+    rank, mode = 3, "avg"

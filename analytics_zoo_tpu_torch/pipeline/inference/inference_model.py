@@ -153,8 +153,9 @@ class InferenceModel:
     def load(self, model_path: str, weight_path: Optional[str] = None,
              quantize: Optional[bool] = None):
         """Load a model saved with ``save_model`` (the port's flat
-        format) onto this handle's device and serve it.  ``weight_path``
-        is a checkpoint directory whose final weights replace the saved
+        format) onto this handle's device and serve it, with its layer
+        state.  ``weight_path`` is a checkpoint directory (a saved model's
+        ``weights``) whose final weights and state replace the saved
         ones."""
         from ... import models  # noqa: F401  (registers the zoo's models)
         from ..api.keras.engine import KerasNet
@@ -162,9 +163,9 @@ class InferenceModel:
         net = KerasNet.load_model(model_path,
                                   device=resolve_device(self._device))
         if weight_path is not None:
-            from ...models.jax_params import weight_tree
+            from ...models.jax_params import model_tree
             from ...train import checkpoint as checkpoint_lib
-            checkpoint_lib.restore_into(weight_path, weight_tree(net),
+            checkpoint_lib.restore_into(weight_path, model_tree(net),
                                         "final")
         return self.load_keras_net(net, quantize=quantize)
 

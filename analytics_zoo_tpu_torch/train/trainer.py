@@ -92,7 +92,8 @@ def _to_host(y):
 
 
 def _model_device(model) -> torch.device:
-    return next(model.parameters()).device
+    p = next(model.parameters(), None)
+    return p.device if p is not None else torch.device(model.device)
 
 
 def _cast_floating(x, dtype):
@@ -119,11 +120,15 @@ def _split(batch, accum: int):
 class TrainState:
     """Every parameter of the model (its own tensors, updated in place;
     frozen ones too, so that freezing never changes the optimizer
-    state's layout), the optimizer state and the step and epoch
-    counters."""
+    state's layout), the model's state (its stateful layers' buffers,
+    as the JAX package's ``model_state`` tree: {layer: {name: tensor}};
+    the layers update them in place in training mode), the optimizer
+    state and the step and epoch counters."""
 
-    def __init__(self, params, opt_state, step: int = 0, epoch: int = 0):
+    def __init__(self, params, model_state, opt_state, step: int = 0,
+                 epoch: int = 0):
         self.params = params
+        self.model_state = model_state
         self.opt_state = opt_state
         self.step = step
         self.epoch = epoch
@@ -154,8 +159,14 @@ def build_train_step(model, loss_fn, optimizer, compute_dtype=None,
     ``accum_steps > 1``: the batch splits into that many equal
     microbatches; their gradients sum in f32 and scale by 1/accum, the
     loss is the mean of theirs, and microbatch i draws its dropout from
-    generators seeded from (``seed``, step, i).  ``accum_steps == 1`` is
-    the single-shot step.
+    generators seeded from (``seed``, step, i).  The microbatches run in
+    turn, so microbatch i+1 sees the layer state (BatchNormalization's
+    moving statistics) that microbatch i left, as the JAX package's scan
+    carries it.  ``accum_steps == 1`` is the single-shot step.
+
+    Under ``compute_dtype`` the layers' state stays f32 and is updated in
+    place on the model's own buffers (``functional_call`` is given the
+    parameters only).
 
     Returns ``step(state, x, y) -> loss``, a device scalar."""
     accum = max(int(accum_steps), 1)
@@ -258,7 +269,8 @@ class Trainer:
     into that many microbatches (:func:`build_train_step`); either falls
     back to its environment knob (``ZOO_TRAIN_DTYPE``,
     ``ZOO_TRAIN_ACCUM``) when not given.  ``evaluate`` and ``predict``
-    run in f32."""
+    run in f32 and in eval mode (BatchNormalization on its moving
+    statistics)."""
 
     def __init__(self, model, loss_fn: Callable, optimizer,
                  metrics: Sequence = (), seed: int = 0,
@@ -277,8 +289,10 @@ class Trainer:
 
     def ensure_initialized(self):
         if self.state is None:
+            from ..models.jax_params import state_tree
             params = list(self.model.parameters())
-            self.state = TrainState(params, self.optimizer.init(params))
+            self.state = TrainState(params, state_tree(self.model),
+                                    self.optimizer.init(params))
 
     def refresh_optimizer(self):
         """Take up changed ``trainable`` flags (the JAX package re-masks
@@ -440,11 +454,13 @@ class Trainer:
         self._ckpt_overwrite = over_write
 
     def state_tree(self) -> dict:
-        """The model's weights ({layer: {param: tensor}}) and the
-        optimizer state."""
+        """The model's weights ({layer: {param: tensor}}), its layer state
+        and the optimizer state, as the JAX package's
+        ``TrainState.as_tree``."""
         from ..models.jax_params import weight_tree
         self.ensure_initialized()
         return {"params": weight_tree(self.model),
+                "model_state": self.state.model_state,
                 "opt_state": self.state.opt_tree()}
 
     def save_weights(self, directory: str, tag="final"):
@@ -455,8 +471,8 @@ class Trainer:
             meta={"step": self.state.step, "epoch": self.state.epoch})
 
     def load_weights(self, directory: str, tag=None):
-        """Restore weights, optimizer state and counters from a
-        checkpoint of this model (the newest tag when None)."""
+        """Restore weights, layer state, optimizer state and counters
+        from a checkpoint of this model (the newest tag when None)."""
         self.ensure_initialized()
         pairs = checkpoint_lib.restore_into(directory, self.state_tree(), tag)
         self.state.opt_state.count = int(dict(pairs)["opt_state/count"])

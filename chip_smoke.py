@@ -54,12 +54,36 @@ Phases (any failure makes the exit code non-zero):
    at f32, with f32 master weights and adam moments after, and losses
    within atol 0.05, rtol 0.05 of the train phase's f32 losses; then, at
    f32 and 2 layers, one step with accum_steps=2 against one with
-   accum_steps=1 from the same weights.
+   accum_steps=1 from the same weights;
+10. resnet: ``ImageClassifier("resnet-50")`` on the JAX bench's plan
+   (224x224x3, 1000 classes, batch 128, sgd 0.1 momentum 0.9,
+   ``compute_dtype=torch.bfloat16``, x ~ N(0, 1) and uniform labels from
+   seed 0): a warm-up fit and 10 one-step fits, timed (ms a step,
+   images/s, peak GiB, the share of the bf16 peak that the convolutions'
+   and Dense's FLOPs make, beside bench.py's analytic count); f32 master
+   weights and momentum, every BatchNormalization's count equal to the
+   steps and its moving statistics off their init; an f32 copy of the
+   seeded init on the card against one on the CPU (batch 4: predict
+   within 1e-4, then one sgd step: moving statistics within 1e-4, weight
+   change within 0.1, each over the largest entry); f32
+   predict of 128 images (rows sum to 1 within 1e-5),
+   save_model/load_model (predict within 1e-6, every count and moving
+   statistic restored) and to_serving predict of 16 images from 4
+   threads within 1e-5;
+11. registry: the other eight architectures of the registry at their
+   input size (299 for inception-v3), batch 16: one predict and two
+   bf16 fit steps each, timed; then the space-to-depth ResNet-50 stem with
+   ``space_to_depth_stem_kernel``'s weights against the standard stem
+   (f32 predict within 1e-4).
 
-The line before the last is a JSON object with each kernel's numbers;
-the last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or
-without the package beside it, the script exits non-zero and prints no
-result.
+A ``resnet:`` line (ms a step, images/s, peak GiB, FLOP share, the
+card's name and power limit) and the card's line come near the end; the
+line before the last is a JSON object with each kernel's numbers; the
+last line is ``{"ok": true, "device": {...}}``.  ResNet-50 and the
+registry reach none of the port's CUDA kernels (BatchNorm's closed form
+is torch ops): their launch counts stand beside the other paths'.
+Without CUDA, or without the package beside it, the script exits
+non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -119,6 +143,28 @@ SERVE = dict(capacity=8, max_len=640, buckets=(128, 256, 512), pool=8,
 TIE = 1e-4          # top-2 log-prob gap below which a greedy pick is a tie
 BEAM_TOL = 1e-3     # beam score against the forward's summed log-probs
 PREDICT_TOL = 1e-5  # coalesced predict against solo predict
+# the resnet phase: the JAX bench's plan (bench.py:129-160), ResNet-50 at
+# 224x224, 1000 classes, batch 128, sgd 0.1 momentum 0.9, bf16 compute;
+# then an f32 copy on the card against the CPU at batch 4
+RESNET = dict(size=224, classes=1000, batch=128, timed_steps=10,
+              cpu_batch=4, predict_rows=128, serve_rows=16,
+              serve_threads=4)
+RESNET_OPTIMIZER = {"name": "sgd", "lr": 0.1, "momentum": 0.9}
+# the weight change's bound is the JAX package's own spread, doubled:
+# at its random init ResNet-50's training-mode gradient is
+# ill-conditioned (the stem's norm near 1e4), and the JAX package's two
+# forms of BatchNorm give weight changes 4.9% apart on the CPU
+# (tests/test_torch_image_classifier.py); the card's f32 step lands
+# 2-4% from the CPU's, its forward within 1e-6
+RESNET_TOL = dict(cpu_predict=1e-4, cpu_stats=1e-4, cpu_change=0.1,
+                  row_sum=1e-5, load=1e-6, serve=1e-5)
+#: bench.py:306's analytic count: ResNet-50's forward is 4.09 G
+#: multiply-adds an image at 224x224, and a train step 3 forwards
+BENCH_GMAC_PER_IMAGE = 4.09
+# the registry phase: the other eight architectures at their registry
+# input size, one predict and two bf16 fit steps each
+REGISTRY = dict(batch=16, sizes={"inception-v3": 299}, s2d_rows=8,
+                s2d_tol=1e-4)
 KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "flash_fwd": ("analytics_zoo_tpu_torch/ops/csrc/flash_fwd.cu",
                   "analytics_zoo_tpu/ops/attention.py:149"),
@@ -1202,6 +1248,279 @@ def phase_graph(torch, keras, kernels):
     return bool(ok), stats
 
 
+def forward_flops(model, batch):
+    """FLOPs (2 a multiply-add) of one forward of the convolutions and
+    Dense layers of a graph model at ``batch``, from its layers' shapes:
+    the work on the tensor cores.  BatchNorm, the pools and the
+    activations are left out (a few percent of ResNet-50's)."""
+    total = 0
+    for v in model.to_graph().nodes:
+        kind = type(v.layer).__name__
+        if kind == "Convolution2D":
+            _, ho, wo, co = v.shape
+            kh, kw, ci, _ = v.layer.W.shape
+            total += 2 * ho * wo * kh * kw * ci * co
+        elif kind == "SeparableConvolution2D":
+            _, ho, wo, co = v.shape
+            kh, kw, _, mid = v.layer.depthwise.shape
+            total += 2 * ho * wo * (kh * kw * mid + mid * co)
+        elif kind == "Dense":
+            ci, co = v.layer.W.shape
+            total += 2 * ci * co
+    return total * batch
+
+
+def bn_layers(model):
+    return [l for l in model.to_graph().layers
+            if type(l).__name__ == "BatchNormalization"]
+
+
+def rel_err(got, ref, base=None):
+    """max |got - ref| over max |ref - base| across two JAX-keyed trees
+    ({layer: {name: array}}) of the same keys."""
+    import numpy as np
+    num = max(float(np.abs(got[n][k] - ref[n][k]).max())
+              for n in ref for k in ref[n])
+    den = max(float(np.abs(ref[n][k] - (0 if base is None
+                                        else base[n][k])).max())
+              for n in ref for k in ref[n])
+    return num / den if den > 0 else math.inf
+
+
+def worst_tensors(got, ref, base, n=3):
+    """The ``n`` tensors of the largest max |got - ref| over the largest
+    max |ref - base| of the model, with those values."""
+    import numpy as np
+    den = max(float(np.abs(ref[l][k] - base[l][k]).max())
+              for l in ref for k in ref[l])
+    errs = sorted(((float(np.abs(got[l][k] - ref[l][k]).max()) / den,
+                    f"{l}/{k}") for l in ref for k in ref[l]), reverse=True)
+    return [[name, err] for err, name in errs[:n]]
+
+
+def resnet_vs_cpu(torch, models, weights, state, x, y):
+    """An f32 ResNet-50 on the card and one on the CPU, from the same
+    weights and state: predict, then one sgd step on the same batch
+    (TF32 is off).  Returns the predict error, the moving statistics'
+    error and the weight change's error (each over the largest entry of
+    the CPU's, or of its change), and the tensors whose change differs
+    most."""
+    from_jax, to_state = models.from_jax_params, models.to_jax_state
+    runs = []
+    for dev in ("cuda", "cpu"):
+        m = models.ImageClassifier(
+            "resnet-50", input_shape=(RESNET["size"],) * 2 + (3,),
+            num_classes=RESNET["classes"], device=dev)
+        from_jax(m, weights, state)
+        probs = m.predict(x, batch_size=len(x))
+        m.compile(RESNET_OPTIMIZER, "sparse_categorical_crossentropy")
+        m.fit(x, y, batch_size=len(x), shuffle=False)
+        moving = {n: {k: v for k, v in d.items() if k != "count"}
+                  for n, d in to_state(m).items()}
+        runs.append((probs, moving, m.get_weights()))
+        del m
+    (p, s, w), (p_ref, s_ref, w_ref) = runs
+    return (rel_err({"p": {"p": p}}, {"p": {"p": p_ref}}),
+            rel_err(s, s_ref), rel_err(w, w_ref, weights),
+            worst_tensors(w, w_ref, weights))
+
+
+def serve_predict(net, x, threads):
+    """``to_serving()`` predict of ``x`` split row-wise over ``threads``
+    threads; the rows back in order."""
+    import threading
+    import numpy as np
+    im = net.to_serving(max_batch_size=len(x))
+    parts = np.array_split(np.arange(len(x)), threads)
+    out, errors = [None] * threads, []
+
+    def client(i):
+        try:
+            out[i] = im.predict(x[parts[i]])
+        except Exception as e:  # re-raised below
+            errors.append(e)
+
+    workers = [threading.Thread(target=client, args=(i,))
+               for i in range(threads)]
+    try:
+        for t in workers:
+            t.start()
+        for t in workers:
+            t.join(300)
+        if errors:
+            raise errors[0]
+        return np.concatenate(out)
+    finally:
+        im.close()
+
+
+def phase_resnet(torch, models, keras, kernels, tmp):
+    """ResNet-50 on the JAX bench's plan (RESNET): a warm-up fit and
+    RESNET["timed_steps"] synchronised one-step fits at bf16, timed;
+    f32 master weights and momentum, every BatchNormalization's count
+    equal to the steps and its statistics off their init; an f32 copy of
+    the seeded init on the card against one on the CPU (predict, then
+    one sgd step); f32 predict (rows sum to 1), save_model/load_model
+    (predict and every moving statistic and count) and to_serving
+    predict from several threads."""
+    import statistics
+    import numpy as np
+    R = RESNET
+    shape = (R["size"], R["size"], 3)
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(R["batch"],) + shape).astype(np.float32)
+    y = rng.integers(0, R["classes"], R["batch"]).astype(np.int32)
+    model = models.ImageClassifier("resnet-50", input_shape=shape,
+                                   num_classes=R["classes"], seed=0)
+    # the seeded init, for the check against the CPU: sgd at 0.1 drives
+    # this plan's random-label softmax into the loss's clipping within a
+    # few steps, where the gradients vanish
+    weights, state = model.get_weights(), models.to_jax_state(model)
+    model.compile(RESNET_OPTIMIZER, "sparse_categorical_crossentropy",
+                  compute_dtype=torch.bfloat16)
+    kernels.reset_launch_counts()
+    losses = model.fit(x, y, batch_size=R["batch"])["loss"]  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_s = []
+    for _ in range(R["timed_steps"]):
+        t = time.perf_counter()
+        losses += model.fit(x, y, batch_size=R["batch"])["loss"]
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    launches = kernels.launch_counts()
+    step = statistics.median(step_s)
+    flops = 3 * forward_flops(model, R["batch"])
+    bench_flops = 3 * 2 * BENCH_GMAC_PER_IMAGE * 1e9 * R["batch"]
+    st = model.trainer.state
+    bns = bn_layers(model)
+    steps = 1 + R["timed_steps"]
+    f32_master = all(p.dtype == torch.float32 for p in st.params) and all(
+        t.dtype == torch.float32 for s in st.opt_state.states
+        if s is not None for t in s)
+    counts = {float(l.count) for l in bns}
+    stats_moved = all(bool(l.moving_mean.abs().max() > 0)
+                      and bool((l.moving_var - 1).abs().max() > 0)
+                      for l in bns)
+
+    cpu_pred, cpu_stats, cpu_change, cpu_worst = resnet_vs_cpu(
+        torch, models, weights, state, x[:R["cpu_batch"]],
+        y[:R["cpu_batch"]])
+
+    probs = model.predict(x[:R["predict_rows"]], batch_size=R["batch"])
+    row_err = float(np.abs(probs.sum(axis=1) - 1).max())
+    state = models.to_jax_state(model)
+    model.save_model(os.path.join(tmp, "resnet50"))
+    loaded = keras.load_model(os.path.join(tmp, "resnet50"))
+    load_err = float(np.abs(loaded.predict(
+        x[:R["predict_rows"]], batch_size=R["batch"]) - probs).max())
+    loaded_state = models.to_jax_state(loaded)
+    state_restored = all(
+        np.array_equal(loaded_state[n][k], state[n][k])
+        for n in state for k in state[n])
+    del loaded
+    rows = R["serve_rows"]
+    serve_err = float(np.abs(serve_predict(model, x[:rows],
+                                           R["serve_threads"])
+                             - probs[:rows]).max())
+    stats = dict(
+        step_ms=step * 1e3, step_ms_all=[t * 1e3 for t in step_s],
+        images_per_s=R["batch"] / step, peak_gib=peak_gib,
+        train_flops=flops, flop_share_bf16=flops / step / BF16_PEAK,
+        bench_analytic_flops=bench_flops,
+        bench_analytic_share_bf16=bench_flops / step / BF16_PEAK,
+        batch=R["batch"], size=R["size"], losses=losses,
+        bn_layers=len(bns), bn_counts=sorted(counts),
+        f32_master_weights_and_momentum=f32_master,
+        stats_off_init=stats_moved,
+        cpu_predict_rel_err=cpu_pred, cpu_moving_stats_rel_err=cpu_stats,
+        cpu_weight_change_rel_err=cpu_change,
+        cpu_weight_change_worst=cpu_worst, row_sum_err=row_err,
+        load_model_err=load_err, load_state_restored=state_restored,
+        serve_err=serve_err, launches=launches, card=smi_card())
+    log("resnet:", json.dumps(stats))
+    ok = (len(losses) == steps and all(math.isfinite(v) for v in losses)
+          and len(bns) == 53 and counts == {float(steps)} and stats_moved
+          and f32_master
+          and probs.shape == (R["predict_rows"], R["classes"])
+          and cpu_pred <= RESNET_TOL["cpu_predict"]
+          and cpu_stats <= RESNET_TOL["cpu_stats"]
+          and cpu_change <= RESNET_TOL["cpu_change"]
+          and row_err <= RESNET_TOL["row_sum"]
+          and load_err <= RESNET_TOL["load"] and state_restored
+          and serve_err <= RESNET_TOL["serve"])
+    return bool(ok), stats
+
+
+def phase_registry(torch, models, kernels):
+    """The other eight architectures of the registry at their registry
+    input size (REGISTRY), batch 16: one predict and two bf16 fit steps
+    each ((16, 1000) softmax rows, the first step's loss finite), timed;
+    then the space-to-depth ResNet-50 stem with
+    space_to_depth_stem_kernel's weights against the standard stem (f32
+    predict)."""
+    import numpy as np
+    from analytics_zoo_tpu_torch.models.image import classification as zoo
+    b = REGISTRY["batch"]
+    rng = np.random.default_rng(1)
+    kernels.reset_launch_counts()
+    archs, ok = {}, True
+    for name in zoo._ARCHITECTURES:
+        if name == "resnet-50":
+            continue
+        size = REGISTRY["sizes"].get(name, 224)
+        x = rng.normal(size=(b, size, size, 3)).astype(np.float32)
+        y = rng.integers(0, 1000, b).astype(np.int32)
+        m = models.ImageClassifier(name, input_shape=(size, size, 3),
+                                   num_classes=1000)
+        m.compile(RESNET_OPTIMIZER, "sparse_categorical_crossentropy",
+                  compute_dtype=torch.bfloat16)
+        # predict first: one sgd step at 0.1 from these random inits
+        # moves the weights by up to ~1e3 (their gradients' norms reach
+        # 1e4 on noise images), which eval mode's moving statistics,
+        # taken before the step, do not follow
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        probs = m.predict(x, batch_size=b)
+        t_predict = time.perf_counter() - t
+        fits, losses = [], []
+        for _ in range(2):  # the first call includes cuDNN's choices
+            t = time.perf_counter()
+            losses += m.fit(x, y, batch_size=b)["loss"]
+            torch.cuda.synchronize()
+            fits.append(time.perf_counter() - t)
+        # the second step starts from the first's ~1e3 moves: its loss
+        # is reported, the first's checked
+        good = (len(losses) == 2 and math.isfinite(losses[0])
+                and probs.shape == (b, 1000)
+                and bool(np.isfinite(probs).all())
+                and float(np.abs(probs.sum(axis=1) - 1).max()) <= 1e-4)
+        archs[name] = dict(size=size, losses=losses,
+                           first_fit_step_ms=fits[0] * 1e3,
+                           fit_step_ms=fits[1] * 1e3,
+                           predict_ms=t_predict * 1e3,
+                           params=sum(p.numel() for p in m.parameters()),
+                           bn_layers=len(bn_layers(m)), ok=good)
+        ok = ok and good
+        del m
+    shape = (224, 224, 3)
+    std = zoo.resnet50(input_shape=shape, num_classes=1000, seed=0)
+    s2d = zoo.resnet50(input_shape=shape, num_classes=1000,
+                       space_to_depth=True, seed=1)
+    w = std.get_weights()
+    w["conv1"] = {"W": zoo.space_to_depth_stem_kernel(w["conv1"]["W"])}
+    s2d.set_weights(w)
+    x = rng.normal(size=(REGISTRY["s2d_rows"],) + shape).astype(np.float32)
+    ref = std.predict(x, batch_size=len(x))
+    s2d_err = float(np.abs(s2d.predict(x, batch_size=len(x)) - ref).max()
+                    / np.abs(ref).max())
+    stats = dict(archs=archs, batch=b, s2d_stem_rel_err=s2d_err,
+                 launches=kernels.launch_counts(), card=smi_card())
+    log("registry:", json.dumps(stats))
+    return bool(ok and s2d_err <= REGISTRY["s2d_tol"]), stats
+
+
 def initial_weights(torch, TransformerLM, cfg):
     model = TransformerLM(**cfg, device="cuda", seed=0)
     return [p.detach().clone() for p in model.parameters()]
@@ -1319,6 +1638,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
+        from analytics_zoo_tpu_torch import models
         from analytics_zoo_tpu_torch.models import (
             TransformerLM, from_jax_params, to_jax_params)
         from analytics_zoo_tpu_torch.models import generation
@@ -1384,6 +1704,8 @@ def main() -> int:
         ("mixed", lambda: phase_mixed(
             torch, TransformerLM, kernels,
             (results.get("train") or {}).get("losses"))),
+        ("resnet", lambda: phase_resnet(torch, models, keras, kernels, tmp)),
+        ("registry", lambda: phase_registry(torch, models, kernels)),
     ]
     results = {}
     for name, run in phases:
@@ -1401,13 +1723,19 @@ def main() -> int:
             failed.append(name)
 
     log(smi_card())
+    res = results.get("resnet") or {}
+    log("resnet: " + json.dumps({
+        k: res.get(k) for k in ("step_ms", "images_per_s", "peak_gib",
+                                "flop_share_bf16", "bench_analytic_share_bf16",
+                                "batch", "size", "card")}))
 
     # every kernel at the shape of the mixed phase's microbatch, bf16,
     # with its launches there; the f32 numbers at the training shape and
     # each path's own count beside them
     path_launches = {
         path: (results.get(path) or {}).get("launches") or {}
-        for path in ("path", "serve", "train", "graph", "mixed")}
+        for path in ("path", "serve", "train", "graph", "mixed", "resnet",
+                     "registry")}
 
     def timed_row(name, case, dtype, sq=None):
         row = next((r for r in results.get("kernels") or []
@@ -1435,7 +1763,9 @@ def main() -> int:
                      "train": path_launches["train"].get(name, 0),
                      "graph": path_launches["graph"].get(name, 0),
                      "mixed": path_launches["mixed"].get(f"{name}[bf16]",
-                                                         0)}}
+                                                         0),
+                     "resnet": path_launches["resnet"].get(name, 0),
+                     "registry": path_launches["registry"].get(name, 0)}}
         entry.update(timed_row(name, "mixed", "bfloat16"))
         entry["f32"] = timed_row(name, "train", "float32")
         entry["bf16_batch8"] = timed_row(name, "train", "bfloat16")

@@ -2,6 +2,7 @@
 """Where the time of the port's training step goes, on one NVIDIA GPU.
 
     python3 scripts/profile_torch_train.py [--model lenet] [--steps 2]
+    python3 scripts/profile_torch_train.py --model resnet50 [--naive-bn]
 
 ``--model transformer_lm`` (the default) builds TransformerLM at
 chip_smoke.py's training width (12 layers, d_model 768, 12 heads, vocab
@@ -12,15 +13,23 @@ compiled as chip_smoke.py's mixed phase compiles it
 (``compute_dtype=torch.bfloat16``, ``accum_steps=2``).  ``--model lenet``
 builds chip_smoke.py's LeNet
 (the reference's Sequential) with adam 1e-3 and warms it up with one
-step on 64 of its synthetic 28x28 blobs.  Then ``--steps`` more one-step
+step on 64 of its synthetic 28x28 blobs.  ``--model resnet50`` builds
+chip_smoke.py's resnet phase (the JAX bench's plan: ResNet-50 at
+224x224, 1000 classes, batch 128, sgd 0.1 momentum 0.9, bf16 compute,
+x ~ N(0, 1) from seed 0) and warms it up with one step; ``--naive-bn``
+trains its BatchNormalization layers on the plain formulation
+(``ops.batchnorm.set_naive_bn``, the JAX bench's A/B) instead of the
+closed form.  Then ``--steps`` more one-step
 ``fit`` calls run under ``torch.profiler``, and one JSON object is
 printed: wall and device time per step, the device's idle share,
 launches per step, the device time of the GEMMs, the convolutions, each
 flash kernel and the rest (elementwise work, reductions and the
 optimizer's kernels), the optimizer update's kernel time and its span on
 the device (first to last kernel, gaps included), and the fifteen
-kernels that took the most device time.  TF32 off, as chip_smoke.py
-runs it.
+kernels that took the most device time; with BatchNormalization layers
+also the device time of the kernels launched inside their forward and
+inside the closed form's backward (labelled spans).  TF32 off, as
+chip_smoke.py runs it.
 """
 
 from __future__ import annotations
@@ -81,8 +90,47 @@ def transformer_lm_mixed(torch, steps):
                           accum_steps=MIXED_ACCUM)
 
 
+def resnet50(torch, steps):
+    """(model, x, y, batch): chip_smoke's resnet phase; every step sees
+    the same batch, as there."""
+    import numpy as np
+    from analytics_zoo_tpu_torch.models import ImageClassifier
+    from chip_smoke import RESNET, RESNET_OPTIMIZER
+    shape = (RESNET["size"], RESNET["size"], 3)
+    b = RESNET["batch"]
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(b,) + shape).astype(np.float32)
+    y = rng.integers(0, RESNET["classes"], b).astype(np.int32)
+    model = ImageClassifier("resnet-50", input_shape=shape,
+                            num_classes=RESNET["classes"], seed=0)
+    model.compile(RESNET_OPTIMIZER, "sparse_categorical_crossentropy",
+                  compute_dtype=torch.bfloat16)
+    return (model, np.concatenate([x] * (steps + 1)),
+            np.concatenate([y] * (steps + 1)), b)
+
+
 MODELS = {"transformer_lm": transformer_lm,
-          "transformer_lm_mixed": transformer_lm_mixed, "lenet": lenet}
+          "transformer_lm_mixed": transformer_lm_mixed, "lenet": lenet,
+          "resnet50": resnet50}
+
+
+def label(owner, attr, name, record_function):
+    """Wrap ``owner.attr`` so that its kernels run inside a profiler span
+    named ``name``."""
+    fn = getattr(owner, attr)
+
+    def labelled(*a, **kw):
+        with record_function(name):
+            return fn(*a, **kw)
+
+    setattr(owner, attr, labelled)
+
+
+def span_ms(events, name, cuda):
+    """Device time of the kernels launched inside the span ``name`` (its
+    CPU op's device total)."""
+    return sum(e.device_time_total for e in events
+               if e.key == name and e.device_type != cuda) / 1e3
 
 
 def main() -> int:
@@ -91,6 +139,8 @@ def main() -> int:
                     default="transformer_lm", help="what to train")
     ap.add_argument("--steps", type=int, default=2,
                     help="one-step fit calls to profile")
+    ap.add_argument("--naive-bn", action="store_true",
+                    help="BatchNormalization on the plain formulation")
     args = ap.parse_args()
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -100,19 +150,20 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
     from analytics_zoo_tpu_torch.ops import _kernels
+    from analytics_zoo_tpu_torch.ops import batchnorm as bn_ops
+    from analytics_zoo_tpu_torch.pipeline.api.keras.layers import (
+        BatchNormalization)
+    bn_ops.set_naive_bn(args.naive_bn)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     _kernels.build()
     model, x, y, B = MODELS[args.model](torch, args.steps)
     model.fit(x[:B], y[:B], batch_size=B)  # warm-up
-    opt = model.trainer.optimizer
-    apply = opt.apply
-
-    def labelled_apply(*a, **kw):
-        with record_function("zoo_optimizer"):
-            return apply(*a, **kw)
-
-    opt.apply = labelled_apply
+    label(model.trainer.optimizer, "apply", "zoo_optimizer",
+          record_function)
+    label(BatchNormalization, "forward", "zoo_batchnorm", record_function)
+    label(bn_ops.BatchNormTrain, "backward", "zoo_batchnorm_backward",
+          record_function)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -127,13 +178,11 @@ def main() -> int:
     # the label shows twice: as a CPU op whose device time is that of the
     # kernels launched inside it, and as a device-side annotation spanning
     # them, idle gaps included; neither is a kernel
-    label = [e for e in events if e.key == "zoo_optimizer"]
+    spans = ("zoo_optimizer", "zoo_batchnorm", "zoo_batchnorm_backward")
     kernels = [e for e in events
-               if e.device_type == cuda and e.key != "zoo_optimizer"]
-    opt_kernels_us = sum(e.device_time_total for e in label
-                         if e.device_type != cuda)
-    opt_span_us = sum(e.self_device_time_total for e in label
-                      if e.device_type == cuda)
+               if e.device_type == cuda and e.key not in spans]
+    opt_span_us = sum(e.self_device_time_total for e in events
+                      if e.key == "zoo_optimizer" and e.device_type == cuda)
     by_kind = {}
     for e in kernels:
         k = kind(e.key)
@@ -152,8 +201,14 @@ def main() -> int:
         "launches_per_step": sum(e.count for e in kernels) / n,
         "device_ms_per_step_by_kind": {k: v / 1e3 / n
                                        for k, v in sorted(by_kind.items())},
-        "optimizer_kernels_ms_per_step": opt_kernels_us / 1e3 / n,
+        "optimizer_kernels_ms_per_step":
+            span_ms(events, "zoo_optimizer", cuda) / n,
         "optimizer_span_ms_per_step": opt_span_us / 1e3 / n,
+        "batchnorm_forward_kernels_ms_per_step":
+            span_ms(events, "zoo_batchnorm", cuda) / n,
+        "batchnorm_backward_kernels_ms_per_step":
+            span_ms(events, "zoo_batchnorm_backward", cuda) / n,
+        "naive_bn": args.naive_bn,
         "top": [{"kernel": e.key[:90], "ms_per_step":
                  e.self_device_time_total / 1e3 / n,
                  "count_per_step": e.count / n} for e in top],
