@@ -8,8 +8,10 @@ holds each distinct layer instance once (in first-use order) and runs
 the nodes in topological order, so a layer called at several nodes
 shares its weights; autograd differentiates through the whole graph.
 
-The autograd DSL's operators on Variables (``x + y``, ``x[...]``, ...)
-need the port of the autograd layers and raise until then.
+The same engine backs the autograd DSL (``pipeline/api/autograd.py``):
+a Variable's operators (``x + y``, ``x[...]``, ``x.slice(...)``, ...)
+add ``ops/elementwise.py``'s op nodes, and a ``Parameter`` or a constant
+is a source node, a layer with no inputs (``is_source``).
 """
 
 from __future__ import annotations
@@ -26,10 +28,25 @@ from .module import Layer, Symbolic, fresh_name, register_layer
 _NODE_IDS = itertools.count()
 
 
-def _not_ported(*_args, **_kwargs):
-    raise NotImplementedError(
-        "arithmetic and slicing on graph Variables need the autograd "
-        "layers, which are not ported yet (see ROADMAP.md)")
+def broadcast_shapes(a, b):
+    """Numpy-style broadcast of two batch shapes where ``None`` is
+    unknown."""
+    la, lb = len(a), len(b)
+    n = max(la, lb)
+    a = (1,) * (n - la) + tuple(a)
+    b = (1,) * (n - lb) + tuple(b)
+    out = []
+    for da, db in zip(a, b):
+        if da is None or db is None:
+            out.append(None if (da in (1, None) and db in (1, None)) else
+                       (da if da not in (1, None) else db))
+        elif da == 1:
+            out.append(db)
+        elif db == 1 or da == db:
+            out.append(da)
+        else:
+            raise ValueError(f"Cannot broadcast shapes {a} and {b}")
+    return tuple(out)
 
 
 class Variable(Symbolic):
@@ -66,9 +83,60 @@ class Variable(Symbolic):
         visit(self)
         return order
 
-    __add__ = __radd__ = __sub__ = __rsub__ = __mul__ = __rmul__ = \
-        __truediv__ = __rtruediv__ = __neg__ = __pow__ = __getitem__ = \
-        slice = index_select = squeeze = _not_ported
+    # -- operators: op nodes of ops/elementwise.py (imported at call
+    # time: it imports this module) --
+    def __add__(self, other):
+        from ..ops import elementwise as E
+        return E.add(self, other)
+
+    __radd__ = __add__
+
+    def __sub__(self, other):
+        from ..ops import elementwise as E
+        return E.sub(self, other)
+
+    def __rsub__(self, other):
+        from ..ops import elementwise as E
+        return E.sub(other, self)
+
+    def __mul__(self, other):
+        from ..ops import elementwise as E
+        return E.mul(self, other)
+
+    __rmul__ = __mul__
+
+    def __truediv__(self, other):
+        from ..ops import elementwise as E
+        return E.div(self, other)
+
+    def __rtruediv__(self, other):
+        from ..ops import elementwise as E
+        return E.div(other, self)
+
+    def __neg__(self):
+        from ..ops import elementwise as E
+        return E.neg(self)
+
+    def __pow__(self, p):
+        from ..ops import elementwise as E
+        return E.pow(self, p)
+
+    def __getitem__(self, item):
+        from ..ops import elementwise as E
+        return E.getitem(self, item)
+
+    # the reference's Variable.slice / indexSelect / squeeze
+    def slice(self, dim, start_index, length):
+        from ..ops import elementwise as E
+        return E.slice(self, dim, start_index, length)
+
+    def index_select(self, dim, index):
+        from ..ops import elementwise as E
+        return E.index_select(self, dim, index)
+
+    def squeeze(self, dim):
+        from ..ops import elementwise as E
+        return E.squeeze(self, dim)
 
     def __repr__(self):
         return f"Variable({self.name}, shape={self.shape})"
@@ -118,6 +186,12 @@ class GraphModule(Layer):
                 raise ValueError(
                     f"Graph input {v.name} is not among the model's inputs "
                     f"{[iv.name for iv in self.input_vars]}")
+            if not v.inputs and v.node_id not in input_ids and not (
+                    isinstance(v.layer, InputLayer)
+                    or getattr(v.layer, "is_source", False)):
+                raise ValueError(
+                    f"Graph node {v.name} has no inputs and is not a graph "
+                    "input / Parameter / constant")
         layers, ids = [], set()
         for v in self.nodes:
             if not isinstance(v.layer, InputLayer) and id(v.layer) not in ids:
@@ -126,13 +200,15 @@ class GraphModule(Layer):
         self.layers = nn.ModuleList(layers)
 
     def first_use_shapes(self) -> Dict[int, object]:
-        """Each layer's input shape at its first node, by ``id``."""
+        """Each layer's input shape at its first node, by ``id`` (None
+        for a source node's layer)."""
         shaped = {}
         for v in self.nodes:
-            if v.inputs and id(v.layer) not in shaped:
-                shaped[id(v.layer)] = ([p.shape for p in v.inputs]
-                                       if len(v.inputs) > 1
-                                       else v.inputs[0].shape)
+            if isinstance(v.layer, InputLayer) or id(v.layer) in shaped:
+                continue
+            shaped[id(v.layer)] = ([p.shape for p in v.inputs]
+                                   if len(v.inputs) > 1 else
+                                   v.inputs[0].shape if v.inputs else None)
         return shaped
 
     def build(self, input_shape, generator: torch.Generator) -> None:
@@ -151,6 +227,9 @@ class GraphModule(Layer):
         values = {v.node_id: x for v, x in zip(self.input_vars, xs)}
         for v in self.nodes:
             if v.node_id in values:
+                continue
+            if not v.inputs:  # a source: Parameter or constant
+                values[v.node_id] = v.layer()
                 continue
             ins = ([values[p.node_id] for p in v.inputs]
                    if len(v.inputs) > 1 else values[v.inputs[0].node_id])

@@ -498,6 +498,10 @@ class Model(KerasNet):
             if lname not in layers:
                 layers[lname] = _layer_from_spec(layer_spec, device)
             parents = [built[i] for i in spec["inputs"]]
+            if not parents:  # a source: Parameter or constant
+                built[spec["id"]] = Variable(layers[lname], (),
+                                             spec["shape"], name=spec["name"])
+                continue
             built[spec["id"]] = layers[lname](
                 parents if len(parents) > 1 else parents[0])
         outs = [built[i] for i in config["output_ids"]]

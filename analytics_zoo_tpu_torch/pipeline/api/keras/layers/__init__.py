@@ -3,7 +3,7 @@ from .attention import MultiHeadSelfAttention, PositionalEmbedding
 from .convolutional import (Convolution1D, Convolution2D,
                             SeparableConvolution2D, SpaceToDepth2D,
                             ZeroPadding2D)
-from .core import Activation, Dense, Dropout, Flatten
+from .core import Activation, Dense, Dropout, Flatten, Reshape
 from .embedding import Embedding
 from .merge import Merge
 from .normalization import BatchNormalization, LayerNorm
@@ -18,5 +18,5 @@ __all__ = ["Activation", "AveragePooling2D", "BatchNormalization",
            "GlobalAveragePooling3D", "GlobalMaxPooling1D",
            "GlobalMaxPooling2D", "GlobalMaxPooling3D", "Input", "InputLayer",
            "LayerNorm", "Merge", "MaxPooling2D", "MultiHeadSelfAttention",
-           "PositionalEmbedding", "SeparableConvolution2D", "SpaceToDepth2D",
-           "ZeroPadding2D"]
+           "PositionalEmbedding", "Reshape", "SeparableConvolution2D",
+           "SpaceToDepth2D", "ZeroPadding2D"]

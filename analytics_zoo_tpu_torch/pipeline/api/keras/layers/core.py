@@ -1,4 +1,4 @@
-"""Core Keras-1 layers: Dense, Activation, Dropout, Flatten.
+"""Core Keras-1 layers: Dense, Activation, Dropout, Flatten, Reshape.
 
 Counterpart of ``analytics_zoo_tpu/pipeline/api/keras/layers/core.py``,
 with the reference's signatures: widths come from the input shape.
@@ -135,3 +135,33 @@ class Flatten(Layer):
         if any(d is None for d in dims):
             return (input_shape[0], None)
         return (input_shape[0], math.prod(dims))
+
+
+@register_layer
+class Reshape(Layer):
+    """Reshape the non-batch axes to ``target_shape``; one entry may be
+    -1.  The elements keep their logical (row-major, NHWC) order, as
+    ``jnp.reshape`` keeps them, whatever the memory format of the input
+    (a convolution's output is a permuted view)."""
+
+    def __init__(self, target_shape=None, input_shape=None, name=None):
+        super().__init__(input_shape=input_shape, name=name)
+        self.target_shape = tuple(int(d) for d in target_shape)
+
+    def forward(self, x):
+        return x.reshape((x.shape[0],) + self.target_shape)
+
+    def compute_output_shape(self, input_shape):
+        dims = input_shape[1:]
+        tgt = list(self.target_shape)
+        if -1 in tgt:
+            known = math.prod(d for d in tgt if d != -1)
+            total = (math.prod(dims) if all(d is not None for d in dims)
+                     else None)
+            tgt[tgt.index(-1)] = total // known if total else None
+        return (input_shape[0],) + tuple(tgt)
+
+    def get_config(self):
+        cfg = super().get_config()
+        cfg["target_shape"] = list(self.target_shape)
+        return cfg

@@ -74,14 +74,37 @@ Phases (any failure makes the exit code non-zero):
    input size (299 for inception-v3), batch 16: one predict and two
    bf16 fit steps each, timed; then the space-to-depth ResNet-50 stem with
    ``space_to_depth_stem_kernel``'s weights against the standard stem
-   (f32 predict within 1e-4).
+   (f32 predict within 1e-4);
+12. detect: ``ObjectDetector("ssd-vgg16-300")`` with PASCAL VOC's 21
+   classes (conf 0.01, NMS 0.45, top_k 200, 100 detections) from seed 0:
+   f32 ``predict`` of 8 images of 300x300 (x ~ U(0, 255)) and
+   ``decode_output`` on the card, timed (ms, images/s, peak GiB, the
+   share of the f32 peak that the convolutions' FLOPs make, the decode's
+   kernel launches), the decode of ``predict``'s numpy with the model's
+   priors (on the card, equal), ``ScaleDetection`` to 480x640 (boxes
+   inside the image, padding rows all -1); an f32 copy on the CPU with the same
+   weights at 2 images (raw head within 1e-4 of its largest entry, equal
+   labels, scores and boxes within 1e-4); then ssd-mobilenet-300 (2,252
+   priors) and ssd-vgg16-512 (24,656) predict and decode at batch 2;
+13. recommend: ``NeuralCF`` on the JAX bench's plan (6040 users x 3706
+   items, 5 classes, embeddings 20/20, MF 20, hidden (40, 20, 10), batch
+   2800, adam 1e-3, class_nll; ids and labels from seed 0 as
+   ``_bench_ncf`` draws them): a warm-up fit, 20 timed one-step fits and
+   one fit of 20 epochs (ms a step, steps/s, samples/s, peak GiB; losses
+   finite and falling), an f32 copy on the CPU after 3 steps (parameters
+   within NCF_TOL of the largest change the steps made),
+   ``predict_user_item_pair`` probabilities in [0, 1] and
+   ``recommend_for_user`` sorted; ``WideAndDeep("wide_n_deep")`` through
+   a fit and a predict (exp rows sum to 1 within 1e-5); a ``CustomLoss``
+   model of each form and a ``Parameter`` model through a fit step.
 
-A ``resnet:`` line (ms a step, images/s, peak GiB, FLOP share, the
-card's name and power limit) and the card's line come near the end; the
-line before the last is a JSON object with each kernel's numbers; the
-last line is ``{"ok": true, "device": {...}}``.  ResNet-50 and the
-registry reach none of the port's CUDA kernels (BatchNorm's closed form
-is torch ops): their launch counts stand beside the other paths'.
+The card's line, then ``resnet:``, ``detect:`` and ``recommend:``
+summary lines (each with the card's name and power limit) come near the
+end; the line before the last is a JSON object with each kernel's
+numbers; the last line is ``{"ok": true, "device": {...}}``.  ResNet-50,
+the registry, SSD and the recommenders reach none of the port's CUDA
+kernels (BatchNorm's closed form, NMS and the gathers are torch ops):
+their launch counts stand beside the other paths'.
 Without CUDA, or without the package beside it, the script exits
 non-zero and prints no result.
 """
@@ -165,6 +188,35 @@ BENCH_GMAC_PER_IMAGE = 4.09
 # input size, one predict and two bf16 fit steps each
 REGISTRY = dict(batch=16, sizes={"inception-v3": 299}, s2d_rows=8,
                 s2d_tol=1e-4)
+# the detect phase: SSD-VGG16-300 with PASCAL VOC's 21 classes and the
+# registry's postprocessing, f32 at batch 8 on x ~ U(0, 255); then an f32
+# copy on the CPU at 2 images, and the other two architectures at batch 2
+DETECT = dict(name="ssd-vgg16-300", classes=21, size=300, batch=8,
+              conf_threshold=0.01, nms_threshold=0.45, top_k=200,
+              max_detections=100, reps=5, cpu_rows=2, scaled=(480, 640),
+              priors=8732, others={"ssd-mobilenet-300": (300, 2252),
+                                   "ssd-vgg16-512": (512, 24656)},
+              other_batch=2)
+DETECT_TOL = 1e-4   # raw head over its largest entry; scores and boxes
+# the recommend phase: bench.py's NCF plan (_bench_ncf, ncf_b2800_plan:
+# MovieLens-1M's 6040 users x 3706 items, 5 classes, batch 2800, adam
+# 1e-3, class_nll), then 3 steps of an f32 copy on the CPU
+NCF = dict(users=6040, items=3706, classes=5, embed=20, mf=20,
+           hidden=(40, 20, 10), batch=2800, timed_steps=20, cpu_steps=3,
+           pairs=64, top=3)
+NCF_OPTIMIZER = {"name": "adam", "lr": 1e-3}
+NCF_TOL = 1e-3      # parameters over the largest change, card vs CPU
+                    # (read 1.7e-4 on an H100 80GB HBM3 at 700 W)
+WND_TOL = 1e-5      # WideAndDeep's probability rows sum to 1
+#: the summary line printed near the end for each phase, and its keys
+SUMMARIES = {
+    "resnet": ("step_ms", "images_per_s", "peak_gib", "flop_share_bf16",
+               "bench_analytic_share_bf16", "batch", "size", "card"),
+    "detect": ("predict_ms", "decode_ms", "images_per_s", "decode_launches",
+               "peak_gib", "flop_share_f32", "batch", "card"),
+    "recommend": ("step_ms", "steps_per_s", "samples_per_s",
+                  "fit_ms_per_step", "peak_gib", "batch", "card"),
+}
 KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "flash_fwd": ("analytics_zoo_tpu_torch/ops/csrc/flash_fwd.cu",
                   "analytics_zoo_tpu/ops/attention.py:149"),
@@ -1521,6 +1573,307 @@ def phase_registry(torch, models, kernels):
     return bool(ok and s2d_err <= REGISTRY["s2d_tol"]), stats
 
 
+def device_launches(torch, fn):
+    """Kernels the card runs for ``fn()`` (torch.profiler's CUDA events,
+    copies and fills left out)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.key.startswith(("Memcpy", "Memset")))
+
+
+def timed(torch, fn, reps):
+    """``fn()``'s result and its synchronised wall seconds, ``reps``
+    times, after one warm-up call."""
+    out = fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    return out, times
+
+
+def phase_detect(torch, models, kernels):
+    """SSD-VGG16-300 (DETECT) on the card: f32 ``predict`` of 8 images
+    and ``decode_output`` on the card, timed, the decode's kernel
+    launches counted, the decode of ``predict``'s numpy with the model's
+    priors (on the card, equal), ``ScaleDetection`` to 480x640; an f32
+    copy on the CPU with the same weights (raw head within 1e-4 of its largest
+    entry, the same detections); padding rows all -1, scaled boxes
+    inside the image; then ssd-mobilenet-300 and ssd-vgg16-512 predict
+    and decode at batch 2."""
+    import statistics
+    import numpy as np
+    D = DETECT
+    post = dict(conf_threshold=D["conf_threshold"],
+                nms_threshold=D["nms_threshold"], top_k=D["top_k"],
+                max_detections=D["max_detections"])
+    rng = np.random.default_rng(0)
+    x = rng.uniform(0, 255, (D["batch"], D["size"], D["size"], 3)).astype(
+        np.float32)
+    kernels.reset_launch_counts()
+    det = models.ObjectDetector(
+        D["name"], num_classes=D["classes"],
+        conf_threshold=D["conf_threshold"],
+        nms_threshold=D["nms_threshold"],
+        max_detections=D["max_detections"], seed=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    raw, predict_s = timed(torch, lambda: det.predict(
+        x, batch_size=D["batch"]), D["reps"])
+    raw_dev = torch.from_numpy(raw).cuda()
+
+    def decode():
+        return models.decode_output(raw_dev, det.priors, D["classes"],
+                                    **post)
+
+    dets, decode_s = timed(torch, decode, D["reps"])
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    launches = device_launches(torch, decode)
+    # predict's numpy with the model's priors decodes on the card
+    natural = models.decode_output(raw, det.priors, D["classes"], **post)
+    follows = (natural.device.type == "cuda"
+               and bool(torch.equal(natural, dets)))
+    dets = dets.cpu().numpy()
+    h, w = D["scaled"]
+    scaled = models.ScaleDetection()(dets, [h] * len(dets),
+                                     [w] * len(dets))
+    real = scaled[..., 0] >= 0
+    pad_ok = bool((dets[~real] == -1).all())
+    inside = bool((scaled[real][:, [2, 4]] >= 0).all()
+                  and (scaled[real][:, [2, 4]] <= w).all()
+                  and (scaled[real][:, [3, 5]] >= 0).all()
+                  and (scaled[real][:, [3, 5]] <= h).all())
+
+    cpu = models.ObjectDetector(D["name"], num_classes=D["classes"],
+                                device="cpu")
+    models.from_jax_params(cpu, det.get_weights())
+    rows = D["cpu_rows"]
+    cpu_raw = cpu.predict(x[:rows], batch_size=rows)
+    cpu_err = float(np.abs(raw[:rows] - cpu_raw).max()
+                    / np.abs(cpu_raw).max())
+    cpu_dets = models.decode_output(torch.from_numpy(cpu_raw), cpu.priors,
+                                    D["classes"], **post).numpy()
+    same = (cpu_dets.shape == dets[:rows].shape
+            and bool(np.array_equal(dets[:rows, :, 0], cpu_dets[..., 0]))
+            and float(np.abs(dets[:rows, :, 1:] - cpu_dets[..., 1:]).max())
+            <= DETECT_TOL)
+    del cpu
+
+    predict = statistics.median(predict_s)
+    flops = forward_flops(det, D["batch"])
+    others, others_ok = {}, True
+    for name, (size, n_priors) in D["others"].items():
+        m = models.ObjectDetector(name, num_classes=D["classes"], seed=0)
+        xb = rng.uniform(0, 255, (D["other_batch"], size, size, 3)).astype(
+            np.float32)
+        out, p_s = timed(torch, lambda: m.predict(
+            xb, batch_size=D["other_batch"]), 2)
+        out_dev = torch.from_numpy(out).cuda()
+        d, d_s = timed(torch, lambda: models.decode_output(
+            out_dev, m.priors, D["classes"], **post), 2)
+        d = d.cpu().numpy()
+        good = (tuple(m.priors.shape) == (n_priors, 4)
+                and out.shape == (D["other_batch"], n_priors,
+                                  4 + D["classes"])
+                and d.shape == (D["other_batch"], D["max_detections"], 6)
+                and bool(np.isfinite(out).all() and np.isfinite(d).all()))
+        others[name] = dict(priors=n_priors, predict_ms=min(p_s) * 1e3,
+                            decode_ms=min(d_s) * 1e3,
+                            detections=int((d[..., 0] >= 0).sum()), ok=good)
+        others_ok = others_ok and good
+        del m
+    stats = dict(
+        model=D["name"], batch=D["batch"], priors=int(det.priors.shape[0]),
+        predict_ms=predict * 1e3,
+        predict_ms_all=[t * 1e3 for t in predict_s],
+        decode_ms=statistics.median(decode_s) * 1e3,
+        decode_ms_all=[t * 1e3 for t in decode_s],
+        images_per_s=D["batch"] / predict, decode_launches=launches,
+        peak_gib=peak_gib, forward_gflop_per_image=flops / D["batch"] / 1e9,
+        flop_share_f32=flops / predict / F32_PEAK,
+        f32_peak="67 TFLOP/s (H100 SXM f32 outside the tensor cores, "
+                 "TF32 off)",
+        detections=int(real.sum()), cpu_rows=rows,
+        cpu_raw_rel_err=cpu_err, cpu_same_detections=same,
+        decode_follows_model=follows,
+        padding_all_minus_one=pad_ok, scaled_inside_image=inside,
+        others=others, launches=kernels.launch_counts(), card=smi_card())
+    log("detect:", json.dumps(stats))
+    ok = (raw.shape == (D["batch"], D["priors"], 4 + D["classes"])
+          and dets.shape == (D["batch"], D["max_detections"], 6)
+          and bool(np.isfinite(raw).all()) and cpu_err <= DETECT_TOL
+          and same and follows and pad_ok and inside and others_ok)
+    return bool(ok), stats
+
+
+def ncf_data(seed=0):
+    """_bench_ncf's draw: 1-based (user, item) ids and 0-based labels."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    x = np.stack([rng.integers(1, NCF["users"] + 1, NCF["batch"]),
+                  rng.integers(1, NCF["items"] + 1, NCF["batch"])],
+                 axis=1).astype(np.int32)
+    return x, rng.integers(0, NCF["classes"], NCF["batch"]).astype(np.int32)
+
+
+def build_ncf(models, device, seed=0):
+    return models.NeuralCF(
+        user_count=NCF["users"], item_count=NCF["items"],
+        num_classes=NCF["classes"], user_embed=NCF["embed"],
+        item_embed=NCF["embed"], hidden_layers=NCF["hidden"],
+        include_mf=True, mf_embed=NCF["mf"], device=device, seed=seed)
+
+
+def ncf_vs_cpu(torch, models, weights, x, y):
+    """NCF_OPTIMIZER steps from ``weights`` on the card and on the CPU:
+    the largest parameter difference over the largest change the CPU's
+    steps made, and the two loss lists."""
+    import numpy as np
+    runs = []
+    for dev in ("cuda", "cpu"):
+        m = build_ncf(models, dev)
+        models.from_jax_params(m, weights)
+        m.compile(NCF_OPTIMIZER, "class_nll")
+        losses = m.fit(np.concatenate([x] * NCF["cpu_steps"]),
+                       np.concatenate([y] * NCF["cpu_steps"]),
+                       batch_size=NCF["batch"], shuffle=False)["loss"]
+        runs.append((m.get_weights(), losses))
+    (w, losses), (w_ref, ref_losses) = runs
+    return rel_err(w, w_ref, weights), losses, ref_losses
+
+
+def custom_models_step(torch, models, keras):
+    """One fit step on the card of a Dense under a CustomLoss of each
+    form, and of a graph with a Parameter bias (wide_out + bias); the
+    losses and whether the bias moved."""
+    import numpy as np
+    from analytics_zoo_tpu_torch.pipeline.api import autograd as A
+    rng = np.random.default_rng(2)
+    x = rng.normal(size=(64, 8)).astype(np.float32)
+    y = x[:, :2].sum(axis=1, keepdims=True).astype(np.float32)
+    yt, yp = A.Input((1,), name="cl_true"), A.Input((1,), name="cl_pred")
+    losses = {}
+    for form, loss in (
+            ("lambda", A.CustomLoss(lambda t, p: A.mean(A.abs(p - t),
+                                                        axis=1))),
+            ("from_variables", A.CustomLoss.from_variables(
+                yt, yp, A.mean(A.square(yp - yt), axis=1)))):
+        m = keras.Sequential(seed=0)
+        m.add(keras.layers.Dense(1, input_shape=(8,)))
+        m.compile({"name": "sgd", "lr": 0.1}, loss)
+        losses[form] = m.fit(x, y, batch_size=64)["loss"]
+    inp = A.Input((8,), name="p_in")
+    bias = A.Parameter((1,), init_method="zero", name="p_bias")
+    m = keras.Model(input=inp, output=keras.layers.Dense(1)(inp) + bias)
+    m.compile({"name": "sgd", "lr": 0.1}, "mse")
+    losses["parameter"] = m.fit(x, y, batch_size=64)["loss"]
+    moved = bool(np.abs(m.get_weights()["p_bias"]["weight"]).max() > 0)
+    return losses, moved
+
+
+def phase_recommend(torch, models, keras, kernels):
+    """NeuralCF on bench.py's plan (NCF): a warm-up fit and
+    NCF["timed_steps"] synchronised one-step fits, timed, then one fit of
+    the same number of epochs over the batch; losses finite and falling;
+    an f32 copy on the CPU after 3 steps within NCF_TOL of the largest
+    change; predict_user_item_pair probabilities in [0, 1] and recommend_for_user
+    sorted; WideAndDeep wide_n_deep (test_wide_and_deep_variants'
+    columns) through one fit and one predict (exp rows sum to 1 within
+    1e-5); a CustomLoss model of each form and a Parameter model through
+    a fit step."""
+    import statistics
+    import numpy as np
+    x, y = ncf_data()
+    kernels.reset_launch_counts()
+    model = build_ncf(models, "cuda")
+    weights = model.get_weights()
+    model.compile(NCF_OPTIMIZER, "class_nll")
+    losses = model.fit(x, y, batch_size=NCF["batch"])["loss"]  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_s = []
+    for _ in range(NCF["timed_steps"]):
+        t = time.perf_counter()
+        losses += model.fit(x, y, batch_size=NCF["batch"])["loss"]
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+    t = time.perf_counter()
+    losses += model.fit(x, y, batch_size=NCF["batch"],
+                        nb_epoch=NCF["timed_steps"])["loss"]
+    torch.cuda.synchronize()
+    epochs_s = time.perf_counter() - t
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    step = statistics.median(step_s)
+
+    cpu_err, card_losses, cpu_losses = ncf_vs_cpu(torch, models, weights,
+                                                  x, y)
+    pairs = [models.UserItemFeature(int(u), int(i), row)
+             for (u, i), row in zip(x[:NCF["pairs"]], x[:NCF["pairs"]])]
+    preds = model.predict_user_item_pair(pairs)
+    probs_ok = (len(preds) == NCF["pairs"]
+                and all(0.0 <= p.probability <= 1.0 for p in preds)
+                and all(1 <= p.prediction <= NCF["classes"] for p in preds))
+    recs = model.recommend_for_user(pairs, max_items=NCF["top"])
+    by_user = {}
+    for r in recs:
+        by_user.setdefault(r.user_id, []).append(r.probability)
+    sorted_ok = bool(recs) and all(
+        len(v) <= NCF["top"] and v == sorted(v, reverse=True)
+        for v in by_user.values())
+
+    ci = models.ColumnFeatureInfo(
+        wide_base_dims=(5, 7), wide_cross_dims=(9,), indicator_dims=(4,),
+        embed_in_dims=(10, 6), embed_out_dims=(4, 3),
+        continuous_cols=("age",))
+    rng = np.random.default_rng(0)
+    n = 128
+    wide = np.stack([rng.integers(1, 6, n), 5 + rng.integers(1, 8, n),
+                     12 + rng.integers(1, 10, n)], axis=1).astype(np.int32)
+    deep = np.concatenate([rng.integers(0, 2, (n, 4)),
+                           np.stack([rng.integers(1, 11, n),
+                                     rng.integers(1, 7, n)], axis=1),
+                           rng.normal(size=(n, 1))], axis=1).astype(
+        np.float32)
+    wy = rng.integers(0, 2, n).astype(np.int32)
+    wnd = models.WideAndDeep(model_type="wide_n_deep", num_classes=2,
+                             column_info=ci, hidden_layers=(16, 8), seed=0)
+    wnd.compile({"name": "adam", "lr": 1e-3}, "class_nll")
+    wnd_loss = wnd.fit((wide, deep), wy, batch_size=n)["loss"]
+    wnd_out = wnd.predict((wide, deep), batch_size=n)
+    wnd_err = float(np.abs(np.exp(wnd_out).sum(axis=1) - 1).max())
+    custom_losses, bias_moved = custom_models_step(torch, models, keras)
+
+    stats = dict(
+        step_ms=step * 1e3, step_ms_all=[t * 1e3 for t in step_s],
+        steps_per_s=1.0 / step, samples_per_s=NCF["batch"] / step,
+        fit_ms_per_step=epochs_s * 1e3 / NCF["timed_steps"],
+        peak_gib=peak_gib, batch=NCF["batch"], users=NCF["users"],
+        items=NCF["items"], losses=losses,
+        cpu_param_rel_err=cpu_err, cpu_losses=cpu_losses,
+        card_losses=card_losses, probs_in_unit=probs_ok,
+        recommend_sorted=sorted_ok, wnd_loss=wnd_loss,
+        wnd_row_sum_err=wnd_err, custom_losses=custom_losses,
+        parameter_moved=bias_moved, launches=kernels.launch_counts(),
+        card=smi_card())
+    log("recommend:", json.dumps(stats))
+    finite = all(math.isfinite(v) for v in losses + wnd_loss + sum(
+        custom_losses.values(), []))
+    ok = (finite and losses[-1] < losses[0]
+          and len(losses) == 1 + 2 * NCF["timed_steps"]
+          and cpu_err <= NCF_TOL and probs_ok and sorted_ok
+          and wnd_out.shape == (n, 2) and wnd_err <= WND_TOL and bias_moved)
+    return bool(ok), stats
+
+
 def initial_weights(torch, TransformerLM, cfg):
     model = TransformerLM(**cfg, device="cuda", seed=0)
     return [p.detach().clone() for p in model.parameters()]
@@ -1706,6 +2059,9 @@ def main() -> int:
             (results.get("train") or {}).get("losses"))),
         ("resnet", lambda: phase_resnet(torch, models, keras, kernels, tmp)),
         ("registry", lambda: phase_registry(torch, models, kernels)),
+        ("detect", lambda: phase_detect(torch, models, kernels)),
+        ("recommend", lambda: phase_recommend(torch, models, keras,
+                                              kernels)),
     ]
     results = {}
     for name, run in phases:
@@ -1723,11 +2079,9 @@ def main() -> int:
             failed.append(name)
 
     log(smi_card())
-    res = results.get("resnet") or {}
-    log("resnet: " + json.dumps({
-        k: res.get(k) for k in ("step_ms", "images_per_s", "peak_gib",
-                                "flop_share_bf16", "bench_analytic_share_bf16",
-                                "batch", "size", "card")}))
+    for name, keys in SUMMARIES.items():
+        res = results.get(name) or {}
+        log(f"{name}: " + json.dumps({k: res.get(k) for k in keys}))
 
     # every kernel at the shape of the mixed phase's microbatch, bf16,
     # with its launches there; the f32 numbers at the training shape and
@@ -1735,7 +2089,7 @@ def main() -> int:
     path_launches = {
         path: (results.get(path) or {}).get("launches") or {}
         for path in ("path", "serve", "train", "graph", "mixed", "resnet",
-                     "registry")}
+                     "registry", "detect", "recommend")}
 
     def timed_row(name, case, dtype, sq=None):
         row = next((r for r in results.get("kernels") or []
@@ -1765,7 +2119,9 @@ def main() -> int:
                      "mixed": path_launches["mixed"].get(f"{name}[bf16]",
                                                          0),
                      "resnet": path_launches["resnet"].get(name, 0),
-                     "registry": path_launches["registry"].get(name, 0)}}
+                     "registry": path_launches["registry"].get(name, 0),
+                     "detect": path_launches["detect"].get(name, 0),
+                     "recommend": path_launches["recommend"].get(name, 0)}}
         entry.update(timed_row(name, "mixed", "bfloat16"))
         entry["f32"] = timed_row(name, "train", "float32")
         entry["bf16_batch8"] = timed_row(name, "train", "bfloat16")

@@ -2,6 +2,7 @@
 """Where the time of the port's serving decode goes, on one NVIDIA GPU.
 
     python3 scripts/profile_torch_serve.py [--new 64] [--capacity 8]
+    python3 scripts/profile_torch_serve.py --mode detect
 
 Builds TransformerLM at chip_smoke.py's full width (max_len 640) from
 seeded weights and a warmed ``DecodeEngine`` (prompt buckets 128/256/512),
@@ -15,6 +16,12 @@ then profiles under ``torch.profiler`` and prints one JSON object:
 * ``step_graph`` and ``step_eager``: 32 replays of the single-step CUDA
   graph, and 32 runs of the same step body eagerly, at full capacity:
   wall and device time per step and kernel launches per step.
+
+``--mode detect`` builds chip_smoke.py's detect phase instead
+(SSD-VGG16-300, 21 classes, f32, batch 8 of 300x300 images from seed 0,
+TF32 off) and profiles ``predict`` (``predict``) and ``decode_output``
+on the card (``decode``), each after a warm-up call, with the same
+fields.
 """
 
 from __future__ import annotations
@@ -22,7 +29,6 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import subprocess
 import sys
 import time
 
@@ -58,8 +64,35 @@ def per_step(row, steps):
                 top=row["top"][:5])
 
 
+def detect(torch) -> dict:
+    """chip_smoke's detect phase: predict and decode_output, profiled."""
+    import numpy as np
+    from analytics_zoo_tpu_torch import models
+    from chip_smoke import DETECT, smi_card
+    torch.backends.cudnn.allow_tf32 = False
+    D = DETECT
+    post = dict(conf_threshold=D["conf_threshold"],
+                nms_threshold=D["nms_threshold"], top_k=D["top_k"],
+                max_detections=D["max_detections"])
+    x = np.random.default_rng(0).uniform(
+        0, 255, (D["batch"], D["size"], D["size"], 3)).astype(np.float32)
+    det = models.ObjectDetector(D["name"], num_classes=D["classes"], seed=0)
+    raw = torch.from_numpy(det.predict(x, batch_size=D["batch"])).cuda()
+
+    def decode():
+        return models.decode_output(raw, det.priors, D["classes"], **post)
+
+    decode()
+    return {"card": smi_card(), "model": D["name"], "batch": D["batch"],
+            "predict": profiled(torch, lambda: det.predict(
+                x, batch_size=D["batch"])),
+            "decode": profiled(torch, decode)}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--mode", choices=("decode", "detect"),
+                    default="decode", help="what to profile")
     ap.add_argument("--new", type=int, default=64,
                     help="tokens each request decodes in the engine run")
     ap.add_argument("--capacity", type=int, default=8)
@@ -70,6 +103,9 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
+    if args.mode == "detect":
+        print(json.dumps(detect(torch), indent=1))
+        return 0
     from analytics_zoo_tpu_torch.models import TransformerLM
     from analytics_zoo_tpu_torch.ops import _kernels
     from analytics_zoo_tpu_torch.pipeline.inference import DecodeEngine
@@ -88,12 +124,8 @@ def main() -> int:
                             generator=g).numpy()
     engine.generate(prompts, 4, timeout=120)  # the dispatcher's first run
     try:
-        out = {"card": subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"], capture_output=True, text=True,
-            timeout=60).stdout.strip(),
-            "capacity": args.capacity, "new": args.new,
-            "warmup_s": warm_s}
+        out = {"card": smi_card(), "capacity": args.capacity,
+               "new": args.new, "warmup_s": warm_s}
         before = engine.stats()
         out["engine"] = profiled(torch, lambda: engine.generate(
             prompts, args.new, timeout=300))

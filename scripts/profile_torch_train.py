@@ -3,6 +3,7 @@
 
     python3 scripts/profile_torch_train.py [--model lenet] [--steps 2]
     python3 scripts/profile_torch_train.py --model resnet50 [--naive-bn]
+    python3 scripts/profile_torch_train.py --model ncf [--steps 20]
 
 ``--model transformer_lm`` (the default) builds TransformerLM at
 chip_smoke.py's training width (12 layers, d_model 768, 12 heads, vocab
@@ -19,7 +20,10 @@ chip_smoke.py's resnet phase (the JAX bench's plan: ResNet-50 at
 x ~ N(0, 1) from seed 0) and warms it up with one step; ``--naive-bn``
 trains its BatchNormalization layers on the plain formulation
 (``ops.batchnorm.set_naive_bn``, the JAX bench's A/B) instead of the
-closed form.  Then ``--steps`` more one-step
+closed form.  ``--model ncf`` builds chip_smoke.py's recommend phase
+(NeuralCF on the JAX bench's plan: 6040 users x 3706 items, 5 classes,
+batch 2800, adam 1e-3, class_nll, ids and labels from seed 0) and warms
+it up with one step.  Then ``--steps`` more one-step
 ``fit`` calls run under ``torch.profiler``, and one JSON object is
 printed: wall and device time per step, the device's idle share,
 launches per step, the device time of the GEMMs, the convolutions, each
@@ -109,9 +113,22 @@ def resnet50(torch, steps):
             np.concatenate([y] * (steps + 1)), b)
 
 
+def ncf(torch, steps):
+    """(model, x, y, batch): chip_smoke's recommend phase; every step
+    sees the same batch, as there."""
+    import numpy as np
+    from analytics_zoo_tpu_torch import models
+    from chip_smoke import NCF, NCF_OPTIMIZER, build_ncf, ncf_data
+    x, y = ncf_data()
+    model = build_ncf(models, "cuda")
+    model.compile(NCF_OPTIMIZER, "class_nll")
+    return (model, np.concatenate([x] * (steps + 1)),
+            np.concatenate([y] * (steps + 1)), NCF["batch"])
+
+
 MODELS = {"transformer_lm": transformer_lm,
           "transformer_lm_mixed": transformer_lm_mixed, "lenet": lenet,
-          "resnet50": resnet50}
+          "resnet50": resnet50, "ncf": ncf}
 
 
 def label(owner, attr, name, record_function):

@@ -18,9 +18,11 @@ import numpy as np
 import pytest
 import torch
 
-from analytics_zoo_tpu_torch.models import (ImageClassifier, TransformerLM,
-                                            from_jax_params, to_jax_params,
-                                            to_jax_state)
+from analytics_zoo_tpu_torch.models import (ImageClassifier, NeuralCF,
+                                            ObjectDetector, TransformerLM,
+                                            decode_output, from_jax_params,
+                                            to_jax_params, to_jax_state)
+from analytics_zoo_tpu_torch.models.image.detection import ssd_priors
 from analytics_zoo_tpu_torch.ops import _kernels
 from analytics_zoo_tpu_torch.ops import batchnorm as tbn
 from analytics_zoo_tpu_torch.ops import attention as tattn
@@ -34,6 +36,17 @@ from analytics_zoo_tpu_torch.pipeline.inference import DecodeEngine
 def close(a, b, rtol, atol):
     np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=rtol,
                                atol=atol)
+
+
+def rel_err(got, ref, base=None):
+    """max |got - ref| over max |ref - base| across two JAX-keyed trees
+    ({layer: {name: array}}) of the same keys."""
+    num = max(float(np.abs(got[n][k] - ref[n][k]).max())
+              for n in ref for k in ref[n])
+    den = max(float(np.abs(ref[n][k] - (0 if base is None
+                                        else base[n][k])).max())
+              for n in ref for k in ref[n])
+    return num / den
 
 
 @pytest.fixture
@@ -71,6 +84,9 @@ def test_cuda_kernel_matches_plain(cuda, dtype, causal, sq, sk, masked):
 
 #: the forward's lse, which both backward kernels replay p from
 LSE_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-4}
+# parameters over the largest change of 3 adam steps; the card read
+# 4.6e-4 here (H100 80GB HBM3, 700 W)
+NCF_TOL = 1e-3
 
 
 @pytest.mark.cuda
@@ -577,19 +593,76 @@ def test_cuda_resnet50_train_step_matches_cpu(cuda, f32_convs):
                      m.predict(x, batch_size=8)))
     (l_ref, w_ref, s_ref, p_ref), (l, w, s, p) = runs
     close(l, l_ref, 1e-4, 0)
-
-    def worst(got, ref, base=None):
-        num = max(float(np.abs(got[n][k] - ref[n][k]).max())
-                  for n in ref for k in ref[n])
-        den = max(float(np.abs(ref[n][k] - (0 if base is None
-                                            else base[n][k])).max())
-                  for n in ref for k in ref[n])
-        return num / den
-
     moving = {n: {k: v for k, v in d.items() if k != "count"}
               for n, d in s_ref.items()}
-    assert worst({n: {k: s[n][k] for k in d} for n, d in moving.items()},
-                 moving) <= 1e-4
-    assert worst(w, w_ref, p0) <= 0.1
+    assert rel_err({n: {k: s[n][k] for k in d} for n, d in moving.items()},
+                   moving) <= 1e-4
+    assert rel_err(w, w_ref, p0) <= 0.1
     assert {float(d["count"]) for d in s.values()} == {1.0}
     close(p, p_ref, 0, 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("logits", ["random", "zeros"])
+def test_cuda_decode_output_matches_cpu(cuda, logits):
+    """SSD postprocessing of one raw head (8,732 priors, 21 classes,
+    batch 2) on the card and on the CPU: labels equal, scores and boxes
+    within 1e-5; all-zero logits tie every score, so the tie order is
+    the card's too."""
+    priors = torch.from_numpy(ssd_priors(300))
+    rng = np.random.default_rng(0)
+    out = (rng.normal(size=(2, priors.shape[0], 25)) if logits == "random"
+           else np.zeros((2, priors.shape[0], 25))).astype(np.float32)
+    out = torch.from_numpy(out)
+    ref = decode_output(out, priors, 21).numpy()
+    got = decode_output(out.to(cuda), priors.to(cuda), 21)
+    assert got.device.type == "cuda"
+    got = got.cpu().numpy()
+    np.testing.assert_array_equal(got[..., 0], ref[..., 0])
+    close(got[..., 1:], ref[..., 1:], 1e-5, 1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_decode_output_follows_the_model(cuda):
+    """``decode_output(det.predict(x), det.priors, n)``, predict's numpy
+    with the model's priors as the JAX package calls it, decodes on the
+    card, where the priors live, and equals the decode of the same head
+    handed over as a card tensor."""
+    det = ObjectDetector("ssd-vgg16-300", num_classes=4, seed=0)
+    assert det.priors.device.type == "cuda"
+    x = np.random.default_rng(0).uniform(0, 255, (1, 300, 300, 3)).astype(
+        np.float32)
+    raw = det.predict(x, batch_size=1)
+    assert isinstance(raw, np.ndarray)
+    got = decode_output(raw, det.priors, 4, conf_threshold=0.2)
+    assert got.device.type == "cuda"
+    ref = decode_output(torch.from_numpy(raw).to(cuda), det.priors, 4,
+                        conf_threshold=0.2)
+    np.testing.assert_array_equal(got.cpu().numpy(), ref.cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_cuda_neuralcf_steps_match_cpu(cuda):
+    """bench.py's NCF widths (6040 x 3706, 5 classes) at batch 256: 3
+    adam steps on the card and on the CPU from the same weights give
+    losses within 1e-5 (relative) and parameters within NCF_TOL of the
+    largest change the steps made (the embedding backward adds rows in
+    another order on the card)."""
+    rng = np.random.default_rng(0)
+    x = np.stack([rng.integers(1, 6041, 768), rng.integers(1, 3707, 768)],
+                 axis=1).astype(np.int32)
+    y = rng.integers(0, 5, 768).astype(np.int32)
+    runs = []
+    for dev in ("cpu", "cuda"):
+        m = NeuralCF(user_count=6040, item_count=3706, num_classes=5,
+                     device=dev)
+        if runs:
+            from_jax_params(m, runs[0][2])
+        init = m.get_weights()
+        m.compile({"name": "adam", "lr": 1e-3}, "class_nll")
+        loss = m.fit(x, y, batch_size=256, shuffle=False)["loss"]
+        runs.append((loss, m.get_weights(), init))
+    (l_ref, w_ref, init), (l, w, _) = runs
+    close(l, l_ref, 1e-5, 0)
+    err = rel_err(w, w_ref, init)
+    assert err <= NCF_TOL, err

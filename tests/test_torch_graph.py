@@ -248,8 +248,20 @@ def test_models_draw_from_their_seed():
 
 
 def test_variable_arithmetic_is_not_ported_yet():
+    """Variable arithmetic adds op nodes: each operator adds an OpLayer
+    node (ops/elementwise.py) with the JAX package's shape, and a model
+    over them runs (tests/test_torch_autograd.py holds the values).  The
+    name dates from when these operators raised; it stays so that the
+    test keeps its history."""
     x = tlayers.Input((3,))
     assert isinstance(x, Variable) and x.shape == (None, 3)
-    for op in (lambda: x + x, lambda: x * 2.0, lambda: -x, lambda: x[0]):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            op()
+    for op, shape in ((lambda: x + x, (None, 3)),
+                      (lambda: x * 2.0, (None, 3)),
+                      (lambda: -x, (None, 3)), (lambda: x[:, 0], (None,))):
+        v = op()
+        assert isinstance(v, Variable) and v.shape == shape
+        assert type(v.layer).__name__ == "OpLayer"
+    m = Model(input=x, output=-(x * 2.0) + x[:, :1], device="cpu")
+    xv = np.arange(6, dtype=np.float32).reshape(2, 3)
+    np.testing.assert_array_equal(m.predict(xv, batch_size=2),
+                                  -(xv * 2.0) + xv[:, :1])
