@@ -12,11 +12,12 @@ from .recommendation_utils import (categorical_from_vocab_list,
                                    get_wide_tensor, hash_bucket,
                                    row_to_feature, row_to_sample,
                                    to_user_item_feature)
+from .textclassification import TextClassifier
 from .textgeneration import TransformerLM
 
 __all__ = ["ColumnFeatureInfo", "ImageClassifier", "NeuralCF",
            "ObjectDetector", "Recommender", "ScaleDetection",
-           "TransformerLM", "UserItemFeature", "UserItemPrediction",
+           "TextClassifier", "TransformerLM", "UserItemFeature", "UserItemPrediction",
            "Visualizer", "WideAndDeep", "ZooModel",
            "categorical_from_vocab_list", "decode_output",
            "features_to_arrays", "from_jax_params", "get_boundaries",

@@ -10,7 +10,8 @@ in place.  The loop keeps every token on the device and reads nothing
 back to the host until the end.
 
 The decode math mirrors ``TransformerLM.forward`` (pre-norm blocks, gelu
-MLP, final LayerNorm and lm_head) and reads the parameters by layer name.
+MLP or Switch-MoE, final LayerNorm and lm_head) and reads the parameters
+by layer name; MoE blocks run drop-free, as the JAX package decodes.
 Beyond ``generate`` it holds what the serving engine
 (``pipeline/inference/decode.py``) steps with: the k-query
 ``_decode_window`` (speculative verify) and the prefix-conditioned
@@ -28,6 +29,7 @@ import numpy as np
 import torch
 
 from ..ops.attention import attention_bhsd
+from ..parallel.expert import switch_moe
 from ..pipeline.api.keras.activations import gelu
 from ..pipeline.api.keras.layers.normalization import layer_norm
 
@@ -37,6 +39,13 @@ def _layer_norm(ln, x, eps=1e-5):
 
 
 def _mlp(model, i, f):
+    if model.is_moe_block(i):
+        # drop-free (capacity = the token count), as the JAX package
+        # decodes: a step's few tokens must never lose their FFN output
+        flat = f.reshape(-1, f.shape[-1])
+        out, _ = switch_moe(flat, getattr(model, f"moe_{i}").moe_params(),
+                            capacity=flat.shape[0])
+        return out.reshape(f.shape)
     up = getattr(model, f"mlp_up_{i}")
     down = getattr(model, f"mlp_down_{i}")
     return gelu(f @ up.W + up.b) @ down.W + down.b

@@ -4,11 +4,14 @@ The JAX package keeps a model's parameters as a dict keyed by layer name,
 each a dict keyed by parameter name (``get_weights()``); a nested model
 (a Sequential inside a Sequential) is one more level, under its name.
 The port's layers carry the same names, parameter names, shapes and
-layouts (Dense ``W`` (in, out), convolution ``W`` HWIO), so the transfer
-is the identity on every leaf: numpy arrays in, numpy arrays out, and a
-round trip is bit-exact.  The layer state (BatchNormalization's moving
-statistics and ``count``) moves the same way, keyed as the JAX package's
-``trainer.state.model_state``.  A graph model (``Sequential``/``Model``)
+layouts (Dense ``W`` (in, out), convolution and ConvLSTM2D ``W`` HWIO,
+recurrent ``W``/``U``/``b``, SwitchMoE ``gate``/``w1``/``b1``/``w2``/
+``b2``), so the transfer is the identity on every leaf: numpy arrays in,
+numpy arrays out, and a round trip is bit-exact.  A wrapper layer's tree
+nests one level more (Bidirectional: ``{"forward": ..., "backward":
+...}``).  The layer state (BatchNormalization's moving statistics and
+``count``, WordEmbedding's ``table``, SwitchMoE's ``aux_loss``) moves the
+same way, keyed as the JAX package's ``trainer.state.model_state``.  A graph model (``Sequential``/``Model``)
 lists its layers in first-use order; any other model (``TransformerLM``)
 every ``Layer`` with parameters or state among its modules.  This module
 takes and returns numpy only; it imports nothing of JAX.
@@ -86,8 +89,9 @@ def _shapes(tree):
 
 
 def _load(model, tree, kind: str) -> None:
-    own_tree, leaves_of = ((weight_tree, Layer.params) if kind == "params"
-                           else (state_tree, Layer.state))
+    own_tree, leaves_of = ((weight_tree, lambda l: l.params())
+                           if kind == "params"
+                           else (state_tree, lambda l: l.state()))
     entries = _entries(model, kind)
     given = [(name, leaves) for name, leaves in tree.items() if leaves]
     names = [name for name, _ in entries]
@@ -110,18 +114,24 @@ def _load(model, tree, kind: str) -> None:
             if _is_graph(layer):
                 _load(layer, tree[name], kind)
                 continue
-            own = leaves_of(layer)
-            leaves = tree[name]
-            if set(leaves) != set(own):
-                raise KeyError(f"{name}: {kind} {sorted(leaves)} do not "
-                               f"match the model's {sorted(own)}")
-            for key, t in own.items():
-                arr = np.asarray(leaves[key])
-                if tuple(arr.shape) != tuple(t.shape):
-                    raise ValueError(
-                        f"{name}/{key}: shape {arr.shape} != "
-                        f"{tuple(t.shape)}")
-                t.copy_(torch.from_numpy(np.array(arr, copy=True)))
+            _copy_leaves(name, kind, leaves_of(layer), tree[name])
+
+
+def _copy_leaves(path: str, kind: str, own, leaves) -> None:
+    """Copy a layer's given leaves into its own tensors, recursing into
+    nested trees (Bidirectional's ``forward``/``backward``)."""
+    if set(leaves) != set(own):
+        raise KeyError(f"{path}: {kind} {sorted(leaves)} do not match the "
+                       f"model's {sorted(own)}")
+    for key, t in own.items():
+        if isinstance(t, dict):
+            _copy_leaves(f"{path}/{key}", kind, t, leaves[key])
+            continue
+        arr = np.asarray(leaves[key])
+        if tuple(arr.shape) != tuple(t.shape):
+            raise ValueError(f"{path}/{key}: shape {arr.shape} != "
+                             f"{tuple(t.shape)}")
+        t.copy_(torch.from_numpy(np.array(arr, copy=True)))
 
 
 def from_jax_params(model, params, state=None) -> None:

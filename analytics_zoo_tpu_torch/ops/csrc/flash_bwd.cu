@@ -20,7 +20,10 @@
 // and a key tile wholly at or past `len` writes zeros without looping.
 // Rows past sq get p = 0.  bf16 keeps the TPU kernels' rounding points:
 // ds is rounded to the input dtype before ds.k and ds^T.q, p before
-// p^T.do; sums are f32.
+// p^T.do; sums are f32.  At f32 each walked tile's products are summed
+// apart and added to dq, dk and dv with rounded adds (flash_mma.cuh
+// mma_pb): summed into them directly, the tensor core's cut sums bias a
+// long walk, and dk's sum over keys, exactly 0, by ~5e-3 of dk.
 //
 // What bounds it on the H100: operations.  Per valid (query, key) pair
 // and head-dim element, dq does 3 products and dk/dv 4, at 2 FLOP each;

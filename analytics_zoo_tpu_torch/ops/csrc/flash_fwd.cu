@@ -35,7 +35,9 @@
 //   summed per lane and reduced over the quad at the end.  p stays in the
 //   fragments and is the A operand of O += P.V (mma_pb); the f32
 //   accumulator O stays in registers for the whole key walk, and is
-//   rescaled only on tiles where a row's max moved.
+//   rescaled only on tiles where a row's max moved.  Each tile's P.V is
+//   summed apart and added to O with rounded adds (mma_pb says why: the
+//   tensor core's cut sums would bias O over a long walk).
 // - f32: Q is split once into its TF32 hi and lo parts in shared memory
 //   (split_tile), so that the key walk splits only K, V and p.  Hoisting
 //   Q's fragments into registers instead would take 64 registers a lane

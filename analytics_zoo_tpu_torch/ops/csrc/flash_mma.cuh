@@ -314,6 +314,15 @@ __device__ __forceinline__ void mma_abt_ldsm(float (&c)[N / 8][4], const T* A,
 // 8n..8n+7 make n-tile n of the result; n-tiles from `ntiles` on are
 // skipped.
 //
+// f32: c sums over a whole walk (O over every key tile, dq, dk and dv
+// over every walked tile), and the tensor core cuts every sum it writes
+// back towards zero: three cuts a depth step, which over a long walk of
+// terms of one sign (values or keys with a large mean over the sequence)
+// bias c by ~3e-5 of its size at 2,048 keys and throw the backward's
+// delta = rowsum(do * o) off the replayed p.dp.  So this call's N rows
+// are summed into accumulators of their own, n-chunk by n-chunk, and
+// added to c with one rounded add each.
+//
 // f32: P's C fragment holds columns 2t and 2t+1 where the A fragment wants
 // t and t+4.  Instead of moving P between lanes, the contraction index is
 // permuted: A's column t is P's column 2t, A's column t+4 is P's 2t+1, and
@@ -328,27 +337,33 @@ __device__ __forceinline__ void mma_pb(float (&c)[DP / 8][4],
                                        const T* B, int ntiles) {
   const int lane = threadIdx.x % WARP, g = lane >> 2, t = lane & 3;
   if constexpr (is_f32<T>) {
+    // n-tiles in chunks of at most 8, for the registers of B's parts and
+    // of the chunk's own sums
+    constexpr int CH = DP / 8 < 8 ? DP / 8 : 8;
 #pragma unroll
-    for (int kb = 0; kb < N / 8; ++kb) {
-      uint32_t ah[4], al[4];
-      split(p[kb][0], ah[0], al[0]);
-      split(p[kb][2], ah[1], al[1]);
-      split(p[kb][1], ah[2], al[2]);
-      split(p[kb][3], ah[3], al[3]);
-      const float* b = B + (8 * kb + 2 * t) * LDB + g;
-      // n-tiles in chunks of at most 8, for the registers of B's parts
-      constexpr int CH = DP / 8 < 8 ? DP / 8 : 8;
+    for (int n0 = 0; n0 < DP / 8; n0 += CH) {
+      if (n0 >= ntiles) break;
+      float sum[CH][4] = {};
 #pragma unroll
-      for (int n0 = 0; n0 < DP / 8; n0 += CH) {
-        if (n0 >= ntiles) break;
+      for (int kb = 0; kb < N / 8; ++kb) {
+        uint32_t ah[4], al[4];
+        split(p[kb][0], ah[0], al[0]);
+        split(p[kb][2], ah[1], al[1]);
+        split(p[kb][1], ah[2], al[2]);
+        split(p[kb][3], ah[3], al[3]);
+        const float* b = B + (8 * kb + 2 * t) * LDB + g;
         uint32_t bh[CH][2], bl[CH][2];
 #pragma unroll
         for (int n = 0; n < CH; ++n) {
           split(b[8 * (n0 + n)], bh[n][0], bl[n][0]);
           split(b[LDB + 8 * (n0 + n)], bh[n][1], bl[n][1]);
         }
-        mma_3xtf32<CH>(c + n0, ah, al, bh, bl, ntiles - n0);
+        mma_3xtf32<CH>(sum, ah, al, bh, bl, ntiles - n0);
       }
+#pragma unroll
+      for (int n = 0; n < CH; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) c[n0 + n][e] += sum[n][e];
     }
   } else {
     // lanes 0-7 address rows 0-7 of the depth step, 8-15 rows 8-15, at

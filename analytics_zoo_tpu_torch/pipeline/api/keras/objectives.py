@@ -5,12 +5,18 @@ the reference's thirteen Keras objectives and ``rank_hinge``, with the
 JAX package's clamps and epsilons, their names and aliases, and the
 class forms (``MeanSquaredError()`` is interchangeable with ``"mse"``).
 The trainer takes the mean over everything a loss returns, so sequence
-targets (batch, seq) give per-position losses.
+targets (batch, seq) give per-position losses.  Every clamp of a
+differentiated operand goes through ``activations.clip`` (``jnp.clip``'s
+``maximum``/``minimum`` form), so that a tie at a bound takes half the
+gradient, as in the JAX package; clamps of labels and counts stay
+``torch.clamp``.
 """
 
 from __future__ import annotations
 
 import torch
+
+from .activations import clip
 
 EPS = 1e-7
 
@@ -40,21 +46,21 @@ def mean_absolute_percentage_error(y_true, y_pred):
 
 
 def mean_squared_logarithmic_error(y_true, y_pred):
-    a = torch.log(y_pred.clamp_min(EPS) + 1.0)
-    b = torch.log(_like(y_true, y_pred).clamp_min(EPS) + 1.0)
+    a = torch.log(clip(y_pred, EPS) + 1.0)
+    b = torch.log(clip(_like(y_true, y_pred), EPS) + 1.0)
     return _batch_mean(torch.square(a - b))
 
 
 def binary_crossentropy(y_true, y_pred):
     y_true = _like(y_true, y_pred)
-    p = y_pred.clamp(EPS, 1.0 - EPS)
+    p = clip(y_pred, EPS, 1.0 - EPS)
     return _batch_mean(-(y_true * torch.log(p)
                          + (1.0 - y_true) * torch.log(1.0 - p)))
 
 
 def categorical_crossentropy(y_true, y_pred):
     """y_true one-hot, y_pred probabilities (post-softmax)."""
-    p = y_pred.clamp(EPS, 1.0)
+    p = clip(y_pred, EPS, 1.0)
     return -torch.sum(_like(y_true, y_pred) * torch.log(p), dim=-1)
 
 
@@ -84,7 +90,7 @@ def _guarded_label_pick(logp, labels):
 def sparse_categorical_crossentropy(y_true, y_pred):
     """y_true int labels (zero-based), y_pred probabilities."""
     labels = _align_labels(y_true, y_pred)
-    logp = torch.log(y_pred.clamp(EPS, 1.0))
+    logp = torch.log(clip(y_pred, EPS, 1.0))
     return _guarded_label_pick(logp, labels)
 
 
@@ -98,13 +104,12 @@ def class_nll(y_true, y_pred, zero_based_label=True):
 
 
 def hinge(y_true, y_pred):
-    return _batch_mean(
-        (1.0 - _like(y_true, y_pred) * y_pred).clamp_min(0.0))
+    return _batch_mean(clip(1.0 - _like(y_true, y_pred) * y_pred, 0.0))
 
 
 def squared_hinge(y_true, y_pred):
     return _batch_mean(torch.square(
-        (1.0 - _like(y_true, y_pred) * y_pred).clamp_min(0.0)))
+        clip(1.0 - _like(y_true, y_pred) * y_pred, 0.0)))
 
 
 def poisson(y_true, y_pred):
@@ -114,8 +119,8 @@ def poisson(y_true, y_pred):
 
 def kullback_leibler_divergence(y_true, y_pred):
     """Keras-1's sum over the distribution axis, not a mean."""
-    p = _like(y_true, y_pred).clamp(EPS, 1.0)
-    q = y_pred.clamp(EPS, 1.0)
+    p = clip(_like(y_true, y_pred), EPS, 1.0)
+    q = clip(y_pred, EPS, 1.0)
     return torch.sum(p * torch.log(p / q), dim=-1)
 
 
@@ -123,15 +128,15 @@ def cosine_proximity(y_true, y_pred):
     y_true = _like(y_true, y_pred)
     a = y_true / torch.linalg.vector_norm(
         y_true, dim=-1, keepdim=True).clamp_min(EPS)
-    b = y_pred / torch.linalg.vector_norm(
-        y_pred, dim=-1, keepdim=True).clamp_min(EPS)
+    b = y_pred / clip(torch.linalg.vector_norm(
+        y_pred, dim=-1, keepdim=True), EPS)
     return -torch.sum(a * b, dim=-1)
 
 
 def rank_hinge(y_true, y_pred, margin=1.0):
     """Pairwise rank hinge of the ranking examples: (positive, negative)
     pairs interleaved along the batch axis."""
-    loss = (margin - y_pred[0::2] + y_pred[1::2]).clamp_min(0.0)
+    loss = clip(margin - y_pred[0::2] + y_pred[1::2], 0.0)
     return torch.repeat_interleave(loss, 2, dim=0)
 
 

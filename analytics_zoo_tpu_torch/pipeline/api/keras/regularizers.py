@@ -5,7 +5,9 @@ Counterpart of ``analytics_zoo_tpu/pipeline/api/keras/regularizers.py``.
 A regularizer maps a weight tensor to a scalar penalty.  There a
 regularized layer surfaces its penalty in its state under ``aux_loss``;
 here the forward of a regularized layer appends its penalty to the
-collector that :func:`collect_penalties` opens, and nowhere else.  The
+collector that :func:`collect_penalties` opens, and nowhere else
+(SwitchMoE adds its load-balancing loss the same way,
+:func:`add_penalty`).  The
 trainer opens one around the differentiated forward (so the penalty
 reaches the weights) and around each evaluation batch (so validation
 losses include it, per sample, as the JAX package's do).  A layer called
@@ -141,6 +143,15 @@ class PenaltyCollector:
         return out
 
 
+def add_penalty(term) -> None:
+    """Add a differentiable scalar ``term`` (a SwitchMoE layer's aux
+    loss) to the collector the enclosing :func:`collect_penalties`
+    opened; outside one (``predict``) nothing is added."""
+    collector = _ACTIVE.get()
+    if collector is not None:
+        collector.terms.append(term)
+
+
 @contextlib.contextmanager
 def collect_penalties():
     """Collect the penalties of every regularized layer's forward inside
@@ -179,7 +190,7 @@ class RegularizedLayerMixin:
                 getattr(self, self._reg_w_key).float())
         if self.b_regularizer is not None and getattr(self, "bias", False):
             pen = pen + self.b_regularizer(self.b.float())
-        collector.terms.append(pen)
+        add_penalty(pen)
 
     def _regularizer_config(self) -> dict:
         return {"W_regularizer": to_config(self.W_regularizer),

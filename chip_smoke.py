@@ -96,15 +96,49 @@ Phases (any failure makes the exit code non-zero):
    ``predict_user_item_pair`` probabilities in [0, 1] and
    ``recommend_for_user`` sorted; ``WideAndDeep("wide_n_deep")`` through
    a fit and a predict (exp rows sum to 1 within 1e-5); a ``CustomLoss``
-   model of each form and a ``Parameter`` model through a fit step.
+   model of each form and a ``Parameter`` model through a fit step;
+14. textclass: ``TextClassifier`` at the upstream news20 example's
+   widths (20 classes, a ``WordEmbedding`` over a 5,000-word 200-d
+   GloVe-format file written from seed 0, sequence_length 500,
+   encoder_output_dim 256; token ids and labels from seed 0, batch 128,
+   adagrad 0.01) with the cnn, lstm and gru encoders, and the sentiment
+   app's BiLSTM model (Embedding(20000, 64), Bidirectional(LSTM(32)),
+   Dense(2); seq 200, batch 64, adam): a warm-up fit and 10 one-step
+   fits each, timed (ms a step, samples/s, kernels a step, peak GiB;
+   losses finite and falling), then an f32 copy on the CPU with the same
+   weights (dropout off on both): predictions within 1e-4 of the
+   largest entry, 3 steps, parameters within 1e-3 of the largest change
+   (the CPU's max pool taking the card's argmax picks, which rounding
+   can decide differently at a near-tie; the picks that differ are
+   counted);
+15. moe: the train phase's model and plan with every second MLP a
+   ``SwitchMoE`` of 8 experts at capacity factor 1.25 (6 MoE blocks,
+   ~334M parameters), f32: a warm-up fit and 4 one-step fits (ms,
+   tokens/s, peak GiB, each kernel launched 12 times a step, the share
+   of tokens dropped at capacity), gradients against blockwise attention
+   with no routing decision differing: each tensor within 1e-3 of its
+   largest entry of an f64 blockwise reference, or within twice an f32
+   blockwise reference's own distance from it (both references holding
+   the kernels' run's relu masks in the experts, which rounding can flip
+   at a kink; the flips are counted), the aux term (the
+   loss at aux weight 0.01 minus the loss at 0 equals the summed aux
+   within 1e-5), the index dispatch against the dense one-hot at (4096,
+   768) within 1e-5; ``generate`` (the path phase's plan) against a
+   drop-free forward's argmax; ``InferenceModel(decode_capacity=8)``
+   streaming 16 mixed requests (every token against the argmax, the
+   flash forward once a layer an admission, the captured decode step
+   equal to the eager one, a step_fuse=1 engine's streams equal); then
+   the same model at bf16 with ``accum_steps=2``: 24 bf16 launches of
+   each kernel a step, none at f32, losses within 0.05 of the f32 ones.
 
-The card's line, then ``resnet:``, ``detect:`` and ``recommend:``
-summary lines (each with the card's name and power limit) come near the
+The card's line, then ``resnet:``, ``detect:``, ``recommend:``,
+``textclass:`` and ``moe:`` summary lines (each with the card's name and power limit) come near the
 end; the line before the last is a JSON object with each kernel's
 numbers; the last line is ``{"ok": true, "device": {...}}``.  ResNet-50,
-the registry, SSD and the recommenders reach none of the port's CUDA
-kernels (BatchNorm's closed form, NMS and the gathers are torch ops):
-their launch counts stand beside the other paths'.
+the registry, SSD, the recommenders and the text classifiers reach none
+of the port's CUDA kernels (BatchNorm's closed form, NMS, the gathers
+and the recurrences are torch ops): their launch counts stand beside
+the other paths'.
 Without CUDA, or without the package beside it, the script exits
 non-zero and prints no result.
 """
@@ -208,6 +242,32 @@ NCF_OPTIMIZER = {"name": "adam", "lr": 1e-3}
 NCF_TOL = 1e-3      # parameters over the largest change, card vs CPU
                     # (read 1.7e-4 on an H100 80GB HBM3 at 700 W)
 WND_TOL = 1e-5      # WideAndDeep's probability rows sum to 1
+# the textclass phase: TextClassifier at the upstream news20 example's
+# widths (20 classes, GloVe 200-d) and the JAX package's defaults
+# (sequence_length 500, encoder_output_dim 256), a WordEmbedding over a
+# 5,000-word GloVe-format file written from seed 0, batch 128, adagrad
+# 0.01; then the sentiment app's --data model
+# (apps/sentiment-analysis/sentiment.py:113-124) on random ids
+TEXTCLASS = dict(classes=20, token_length=200, sequence_length=500,
+                 encoder_output_dim=256, words=5000, batch=128,
+                 timed_steps=10, check_steps=3,
+                 encoders=("cnn", "lstm", "gru"))
+TEXTCLASS_OPTIMIZER = {"name": "adagrad", "lr": 0.01}
+SENTIMENT = dict(vocab=20000, embed=64, units=32, seq=200, batch=64)
+# card against an f32 CPU copy: predictions over their largest entry,
+# parameters over the largest change the check's steps made
+TEXT_TOL = dict(predict=1e-4, change=1e-3)
+# the moe phase: the train phase's model and plan with the JAX package's
+# Switch-MoE defaults: every second block's MLP a SwitchMoE of 8 experts
+# at capacity factor 1.25 (6 MoE blocks), aux weight 0.01
+MOE = dict(moe_every=2, n_experts=8, capacity_factor=1.25)
+MOE_AUX = 0.01
+MOE_DISPATCH = (4096, 768)  # (tokens, d_model) of the dispatch check
+MOE_SERVE_REQUESTS = 16
+# the aux term against the loss difference (absolute), the index
+# dispatch against the dense one-hot (over the largest entry), the
+# graph-captured decode step's caches against the eager step's
+MOE_TOL = dict(aux=1e-5, dispatch=1e-5, cache=1e-5)
 #: the summary line printed near the end for each phase, and its keys
 SUMMARIES = {
     "resnet": ("step_ms", "images_per_s", "peak_gib", "flop_share_bf16",
@@ -216,6 +276,10 @@ SUMMARIES = {
                "peak_gib", "flop_share_f32", "batch", "card"),
     "recommend": ("step_ms", "steps_per_s", "samples_per_s",
                   "fit_ms_per_step", "peak_gib", "batch", "card"),
+    "textclass": ("summary", "card"),
+    "moe": ("step_ms", "tokens_per_s", "peak_gib", "dropped_share",
+            "launches_per_step", "bf16_step_ms", "generate_ms",
+            "serve_tokens_per_s", "card"),
 }
 KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "flash_fwd": ("analytics_zoo_tpu_torch/ops/csrc/flash_fwd.cu",
@@ -576,25 +640,30 @@ def phase_path(torch, TransformerLM, kernels):
         log(f"path: FAIL flash_fwd launched {counts['flash_fwd']} times, "
             f"expected >= {FULL['n_layers']}")
 
-    # oracle: token t of the stream is the argmax of the forward at the
-    # position before it; positions whose top two log-probs lie within
-    # 1e-4 are ties at f32 noise and are counted, not compared
-    ids = torch.as_tensor(out[:, :PROMPT + NEW - 1], device="cuda")
+    oracle = argmax_oracle(torch, model, out, PROMPT)
+    log("oracle:", json.dumps(oracle))
+    ok &= (oracle["finite"] and oracle["mismatched"] == 0
+           and oracle["checked"] >= oracle["total"] // 2)
+    return bool(ok), stats
+
+
+def argmax_oracle(torch, model, out, prompt_len):
+    """Token t of each greedy stream (``out``: prompts then continuations)
+    against the argmax of one full forward at the position before it;
+    positions whose top two log-probs lie within TIE are ties at f32
+    noise and are counted, not compared."""
+    ids = torch.as_tensor(out[:, :-1], device=model.device)
     with torch.no_grad():
-        logp = model(ids)[:, PROMPT - 1:]
+        logp = model(ids)[:, prompt_len - 1:]
     finite = bool(torch.isfinite(logp).all())
     top2 = logp.topk(2, dim=-1)
     margin = top2.values[..., 0] - top2.values[..., 1]
     expect = top2.indices[..., 0].cpu().numpy()
-    checked = (margin > 1e-4).cpu().numpy()
-    mismatched = int(((expect != out[:, PROMPT:]) & checked).sum())
-    oracle = dict(finite=finite, shape=list(logp.shape),
-                  checked=int(checked.sum()), total=int(checked.size),
-                  mismatched=mismatched)
-    log("oracle:", json.dumps(oracle))
-    ok &= (finite and mismatched == 0
-           and oracle["checked"] >= oracle["total"] // 2)
-    return bool(ok), stats
+    checked = (margin > TIE).cpu().numpy()
+    mismatched = int(((expect != out[:, prompt_len:]) & checked).sum())
+    return dict(finite=finite, shape=list(logp.shape),
+                checked=int(checked.sum()), total=int(checked.size),
+                mismatched=mismatched)
 
 
 def percentile(values, q):
@@ -646,10 +715,9 @@ def compare_streams(torch, model, prompts, a, b):
     return equal, tied, differing
 
 
-def mixed_requests(cfg, rng):
-    """The mixed stream's requests: SERVE["requests"] prompts of lengths
-    drawn from 16-512, max_new cycling SERVE["max_new"]."""
-    n = SERVE["requests"]
+def mixed_requests(cfg, rng, n=SERVE["requests"]):
+    """The mixed stream's requests: ``n`` prompts of lengths drawn from
+    16-512, max_new cycling SERVE["max_new"]."""
     lens = rng.integers(16, SERVE["buckets"][-1] + 1, n)
     prompts = [rng.integers(0, cfg["vocab_size"], int(L)) for L in lens]
     news = [SERVE["max_new"][i % len(SERVE["max_new"])] for i in range(n)]
@@ -1026,28 +1094,40 @@ def periodic_tokens(n, vocab, seq, seed):
     return toks[:, :-1].astype(np.int32), toks[:, 1:].astype(np.int32)
 
 
-def gradient_check(torch, model, objectives, x, y):
+def gradient_pairs(torch, model, objectives, x, y,
+                   impls=("flash", "blockwise")):
     """One backward through the kernels and one through blockwise
-    attention, same weights and batch: per parameter tensor
-    max|diff| / max|blockwise|."""
+    attention (each of ``impls``), same weights and batch: {parameter
+    name: (the gradient of each implementation, in order)}."""
     attns = [getattr(model, f"attn_{i}")
              for i in range(model.hyper["n_layers"])]
-    params = [p for p in model.parameters() if p.requires_grad]
+    named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
     ids = torch.as_tensor(x, device="cuda")
     labels = torch.as_tensor(y, device="cuda")
-    grads = {}
+    grads = []
     try:
-        for impl in ("flash", "blockwise"):
+        for impl in impls:
             for a in attns:
                 a.implementation = impl
             loss = objectives.class_nll(labels, model(ids)).mean()
-            grads[impl] = torch.autograd.grad(loss, params)
+            grads.append(torch.autograd.grad(loss, [p for _, p in named]))
             del loss
     finally:
         for a in attns:
             a.implementation = "auto"
-    return [float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
-            for a, b in zip(grads["flash"], grads["blockwise"])]
+    return {n: pair for (n, _), pair in zip(named, zip(*grads))}
+
+
+def max_entry_err(a, b):
+    """max|a - b| / max|b|."""
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def gradient_check(torch, model, objectives, x, y):
+    """Per parameter tensor, max|kernels - blockwise| / max|blockwise|
+    of :func:`gradient_pairs`."""
+    return [max_entry_err(a, b) for a, b in gradient_pairs(
+        torch, model, objectives, x, y).values()]
 
 
 def phase_train(torch, TransformerLM, kernels, objectives):
@@ -1874,6 +1954,629 @@ def phase_recommend(torch, models, keras, kernels):
     return bool(ok), stats
 
 
+def glove_file(directory, seed=0):
+    """A GloVe-format file of TEXTCLASS["words"] words (w1, w2, ...) with
+    TEXTCLASS["token_length"]-d vectors drawn from N(0, 0.5) at
+    ``seed``, written into ``directory``; returns its path."""
+    import numpy as np
+    T = TEXTCLASS
+    vecs = np.random.default_rng(seed).normal(
+        0, 0.5, (T["words"], T["token_length"]))
+    path = os.path.join(directory, "glove.txt")
+    with open(path, "w", encoding="utf-8") as f:
+        for i, v in enumerate(vecs):
+            f.write(f"w{i + 1} " + " ".join(f"{a:.5f}" for a in v) + "\n")
+    return path
+
+
+def textclass_data(seed=0):
+    """Token ids (batch, sequence_length) in [0, words] (0 pads) and
+    labels, from ``seed``."""
+    import numpy as np
+    T = TEXTCLASS
+    rng = np.random.default_rng(seed)
+    x = rng.integers(0, T["words"] + 1, (T["batch"], T["sequence_length"]))
+    return x.astype(np.int32), rng.integers(0, T["classes"],
+                                            T["batch"]).astype(np.int32)
+
+
+def build_textclass(models, encoder, path, device, seed=0):
+    T = TEXTCLASS
+    return models.TextClassifier(
+        class_num=T["classes"], token_length=T["token_length"],
+        sequence_length=T["sequence_length"], encoder=encoder,
+        encoder_output_dim=T["encoder_output_dim"], embedding_file=path,
+        device=device, seed=seed)
+
+
+def build_sentiment(keras, device, seed=0):
+    """The sentiment app's --data model: Embedding(20000, 64),
+    Bidirectional(LSTM(32)), Dense(2, softmax), built in a name scope so
+    that every build names its layers alike."""
+    from analytics_zoo_tpu_torch.core.module import name_scope
+    L, S = keras.layers, SENTIMENT
+    with name_scope("sentiment"):
+        model = keras.Sequential(name="sentiment_bilstm", device=device,
+                                 seed=seed)
+        model.add(L.Embedding(S["vocab"], S["embed"],
+                              input_shape=(S["seq"],)))
+        model.add(L.Bidirectional(L.LSTM(S["units"])))
+        model.add(L.Dense(2, activation="softmax"))
+    return model
+
+
+def two_level(tree):
+    """{layer: {name: array}} of a weight tree that may nest deeper
+    (Bidirectional's forward/backward), deeper keys joined by '/'."""
+    def leaves(t, prefix=""):
+        for k, v in t.items():
+            if isinstance(v, dict):
+                yield from leaves(v, f"{prefix}{k}/")
+            else:
+                yield prefix + k, v
+    return {layer: dict(leaves(sub)) for layer, sub in tree.items()}
+
+
+def one_step_fits(torch, model, x, y, steps):
+    """A warm-up fit, then ``steps`` synchronised one-step fits on (x,
+    y): the losses, each step's seconds, the peak GiB over them, and the
+    kernels the card runs for one more step."""
+    losses = model.fit(x, y, batch_size=len(x))["loss"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_s = []
+    for _ in range(steps):
+        t = time.perf_counter()
+        losses += model.fit(x, y, batch_size=len(x))["loss"]
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    launches = device_launches(torch, lambda: model.fit(
+        x, y, batch_size=len(x)))
+    return losses, step_s, peak, launches
+
+
+def text_vs_cpu(torch, models, build, weights, state, x, y, optimizer):
+    """The card and an f32 CPU copy from the same weights (and
+    WordEmbedding table), dropout off on both (their random streams
+    differ): predict on ``x`` (the largest difference over the CPU's
+    largest entry), then TEXTCLASS["check_steps"] epochs of one step on
+    (x, y): the losses of both, and the largest parameter difference
+    over the largest change the CPU's steps made.  A GlobalMaxPooling1D
+    sends each window's gradient to its argmax, and where two positions
+    tie within rounding the devices can pick differently, moving a whole
+    window's term; so the CPU copy's pools take the card's picks (the
+    picks it would have made otherwise are counted)."""
+    import numpy as np
+    runs, card_picks, differing = [], [], []
+    for dev in ("cuda", "cpu"):
+        m = build(dev)
+        models.from_jax_params(m, weights, state)
+        layers = m.to_graph().layers
+        for layer in layers:
+            if type(layer).__name__ == "Dropout":
+                layer.p = 0.0
+        pools = [l for l in layers if type(l).__name__ == "GlobalMaxPooling1D"]
+        if dev == "cuda":
+            for pool in pools:
+                pool.register_forward_hook(
+                    lambda mod, args, out: card_picks.append(
+                        args[0].argmax(dim=1).cpu()))
+        else:
+            picks = iter(card_picks)
+
+            def take_card_pick(x):
+                idx = next(picks)
+                differing.append(int((x.argmax(dim=1) != idx).sum()))
+                return x.gather(1, idx[:, None, :]).squeeze(1)
+
+            for pool in pools:
+                pool.forward = take_card_pick
+        pred = m.predict(x, batch_size=len(x))
+        m.compile(optimizer, "sparse_categorical_crossentropy")
+        losses = m.fit(x, y, batch_size=len(x),
+                       nb_epoch=TEXTCLASS["check_steps"],
+                       shuffle=False)["loss"]
+        runs.append((pred, losses, two_level(m.get_weights())))
+        del m
+    (p, losses, w), (p_ref, ref_losses, w_ref) = runs
+    base = two_level(weights)
+    return dict(
+        cpu_predict_rel_err=float(np.abs(p - p_ref).max()
+                                  / np.abs(p_ref).max()),
+        cpu_param_rel_err=rel_err(w, w_ref, base),
+        cpu_param_worst=worst_tensors(w, w_ref, base),
+        cpu_argmax_picks_differing=sum(differing),
+        card_check_losses=losses, cpu_check_losses=ref_losses)
+
+
+def phase_textclass(torch, models, keras, kernels):
+    """TextClassifier (TEXTCLASS) for each encoder: a warm-up fit and
+    TEXTCLASS["timed_steps"] synchronised one-step fits on one batch,
+    timed (ms a step, samples/s, kernels a step, peak GiB; losses finite
+    and falling), then the f32 CPU check of :func:`text_vs_cpu`; then
+    the sentiment model (SENTIMENT) the same way."""
+    import statistics
+    import tempfile
+    import numpy as np
+    T, S = TEXTCLASS, SENTIMENT
+    kernels.reset_launch_counts()
+    x, y = textclass_data()
+    stats, ok = {}, True
+    with tempfile.TemporaryDirectory() as d:
+        path = glove_file(d)
+        runs = [(enc, (lambda dev, enc=enc: build_textclass(
+            models, enc, path, dev)), x, y, TEXTCLASS_OPTIMIZER)
+            for enc in T["encoders"]]
+        rng = np.random.default_rng(1)
+        xs = rng.integers(0, S["vocab"], (S["batch"], S["seq"])).astype(
+            np.int32)
+        ys = rng.integers(0, 2, S["batch"]).astype(np.int32)
+        runs.append(("sentiment", lambda dev: build_sentiment(keras, dev),
+                     xs, ys, "adam"))
+        for name, build, bx, by, optimizer in runs:
+            model = build("cuda")
+            weights = model.get_weights()
+            state = models.to_jax_state(model)
+            model.compile(optimizer, "sparse_categorical_crossentropy")
+            losses, step_s, peak, launches = one_step_fits(
+                torch, model, bx, by, T["timed_steps"])
+            del model
+            torch.cuda.empty_cache()
+            check = text_vs_cpu(torch, models, build, weights, state, bx,
+                                by, optimizer)
+            step = statistics.median(step_s)
+            stats[name] = dict(
+                step_ms=step * 1e3, step_ms_all=[t * 1e3 for t in step_s],
+                samples_per_s=len(bx) / step, launches_per_step=launches,
+                peak_gib=peak, batch=len(bx), losses=losses, **check)
+            card_l = check["card_check_losses"]
+            finite = all(math.isfinite(v) for v in losses + card_l
+                         + check["cpu_check_losses"])
+            good = (finite and losses[-1] < losses[0]
+                    and card_l[-1] < card_l[0]
+                    and check["cpu_predict_rel_err"] <= TEXT_TOL["predict"]
+                    and check["cpu_param_rel_err"] <= TEXT_TOL["change"])
+            if not good:
+                log(f"textclass: FAIL {name}: {json.dumps(stats[name])}")
+            ok &= good
+    stats["summary"] = {k: {f: v[f] for f in ("step_ms", "samples_per_s",
+                                              "launches_per_step",
+                                              "peak_gib")}
+                        for k, v in stats.items()}
+    stats.update(launches=kernels.launch_counts(), card=smi_card(),
+                 sequence_length=T["sequence_length"])
+    log("textclass:", json.dumps(stats))
+    return bool(ok), stats
+
+
+def moe_layers(model):
+    return [getattr(model, f"moe_{i}")
+            for i in range(model.hyper["n_layers"]) if model.is_moe_block(i)]
+
+
+def record_routing(torch, model, routes):
+    """Forward hooks on ``model``'s SwitchMoE layers appending each call's
+    routing (expert ids, kept) to ``routes``; returns the handles."""
+    from analytics_zoo_tpu_torch.parallel import expert
+
+    def hook(layer, args, out):
+        with torch.no_grad():
+            flat = args[0].reshape(-1, args[0].shape[-1])
+            r = expert._route(flat, layer.gate, layer.n_experts,
+                              expert.expert_capacity(
+                                  flat.shape[0], layer.n_experts,
+                                  layer.capacity_factor))
+            routes.append((r.expert, r.keep))
+
+    return [m.register_forward_hook(hook) for m in moe_layers(model)]
+
+
+class ExpertMasks:
+    """Within ``record()``, each call of ``expert._apply_experts`` keeps
+    the relu mask of its hidden pre-activations; within ``replay()``,
+    each call applies the next kept mask instead of the sign of its own
+    pre-activations (the same function and gradient wherever the two
+    agree), and counts the entries where they differ."""
+
+    def __init__(self, torch, expert):
+        self.torch, self.expert = torch, expert
+        self.masks, self.differing = [], 0
+
+    def _swap(self, apply):
+        import contextlib
+        orig = self.expert._apply_experts
+
+        @contextlib.contextmanager
+        def swapped():
+            self.expert._apply_experts = apply
+            try:
+                yield self
+            finally:
+                self.expert._apply_experts = orig
+        return swapped()
+
+    def _pre(self, blocks, w1, b1):
+        return self.torch.bmm(blocks, w1) + b1[:, None, :]
+
+    def record(self):
+        def apply(blocks, w1, b1, w2, b2):
+            pre = self._pre(blocks, w1, b1)
+            self.masks.append(pre.detach() > 0)
+            return self.torch.bmm(self.torch.relu(pre), w2) + b2[:, None, :]
+        return self._swap(apply)
+
+    def replay(self):
+        masks = iter(self.masks)
+
+        def apply(blocks, w1, b1, w2, b2):
+            pre = self._pre(blocks, w1, b1)
+            mask = next(masks)
+            self.differing += int(((pre.detach() > 0) != mask).sum())
+            return self.torch.bmm(pre * mask, w2) + b2[:, None, :]
+        return self._swap(apply)
+
+
+def moe_gradient_check(torch, model, objectives, x, y):
+    """The kernels' gradients of the MoE model against blockwise
+    attention's, per tensor by the largest entry, with two references
+    held to the kernels' run's discrete decisions: blockwise at f32 (the
+    train phase's comparison) and blockwise at f64 (the exact gradient
+    to f32's eyes).  Where an expert's hidden pre-activation lies within
+    rounding of 0 the forwards can fall on either side of the relu's
+    kink, and that token and unit's term leaves or joins the gradient
+    (~1e-2 of ``w1``'s largest entry from a 1e-6 change of the input);
+    so both references take the kernels' run's relu masks (the entries
+    the f32 reference's own would have flipped are counted, and its
+    error without the masks reported).  No routing decision may differ;
+    every tensor's kernels' gradient lies within GRAD_TOL of the f64
+    reference, or within twice the f32 reference's own distance from
+    it (a gradient that is a small difference of large terms, such as
+    ``Wk``'s, carries f32 rounding of that size whatever computes it)."""
+    from analytics_zoo_tpu_torch.parallel import expert
+    routes = []
+    handles = record_routing(torch, model, routes)
+    masks = ExpertMasks(torch, expert)
+    try:
+        with masks.record():
+            flash = gradient_pairs(torch, model, objectives, x, y,
+                                   impls=("flash",))
+        free = gradient_pairs(torch, model, objectives, x, y,
+                              impls=("blockwise",))
+        with masks.replay():
+            held = gradient_pairs(torch, model, objectives, x, y,
+                                  impls=("blockwise",))
+        flips = masks.differing
+        model.double()
+        try:
+            with masks.replay():
+                exact = gradient_pairs(torch, model, objectives, x, y,
+                                       impls=("blockwise",))
+        finally:
+            model.float()
+    finally:
+        for h in handles:
+            h.remove()
+    n = len(moe_layers(model))
+    routing_flips = sum(int((a[0] != b[0]).sum())
+                        for a, b in zip(routes[:n], routes[n:2 * n]))
+
+    def errs(got, ref):
+        return {k: max_entry_err(got[k][0].double(), ref[k][0])
+                for k in flash}
+
+    def worst(e):
+        return sorted(e.items(), key=lambda kv: -kv[1])[:3]
+
+    vs_f32, vs_f64 = errs(flash, held), errs(flash, exact)
+    f32_vs_f64 = errs(held, exact)
+    unheld = errs(flash, free)
+    bad = [k for k in flash
+           if vs_f64[k] > max(GRAD_TOL, 2 * f32_vs_f64[k])]
+    stats = dict(
+        grad_max_rel_err=max(vs_f32.values()), grad_worst=worst(vs_f32),
+        grad_max_rel_err_vs_f64=max(vs_f64.values()),
+        grad_worst_vs_f64=worst(vs_f64),
+        grad_f32_reference_vs_f64=worst(f32_vs_f64),
+        grad_outside_bound=bad, routing_flips=routing_flips,
+        relu_kink_flips=flips,
+        grad_max_rel_err_unheld=max(unheld.values()),
+        grad_worst_unheld=worst(unheld), tensors=len(flash))
+    return routing_flips == 0 and not bad, stats
+
+
+def drop_free(model):
+    """Set every MoE layer's capacity factor to its expert count (capacity
+    = the token count: a full forward drops nothing, as decoding does);
+    returns the factors to restore."""
+    layers = moe_layers(model)
+    old = [m.capacity_factor for m in layers]
+    for m in layers:
+        m.capacity_factor = float(m.n_experts)
+    return old
+
+
+def restore_capacity(model, factors):
+    for m, f in zip(moe_layers(model), factors):
+        m.capacity_factor = f
+
+
+def moe_aux_check(torch, model, objectives, x, y):
+    """The trainer's loss on one batch at aux weight MOE_AUX minus the
+    loss at 0 (sgd at rate 0 leaves the weights where they are), against
+    the layers' summed aux_loss state."""
+    from analytics_zoo_tpu_torch.pipeline.api.keras import optimizers
+    from analytics_zoo_tpu_torch.train.trainer import (TrainState,
+                                                       build_train_step)
+    opt = optimizers.get({"name": "sgd", "lr": 0.0})
+    params = list(model.parameters())
+    ids = torch.as_tensor(x, device="cuda")
+    labels = torch.as_tensor(y, device="cuda")
+    losses, auxes = {}, {}
+    try:
+        for w in (MOE_AUX, 0.0):
+            for m in moe_layers(model):
+                m.aux_weight = w
+            step = build_train_step(model, objectives.class_nll, opt)
+            state = TrainState(params, {}, opt.init(params))
+            losses[w] = float(step(state, ids, labels))
+            auxes[w] = sum(float(m.aux_loss) for m in moe_layers(model))
+    finally:
+        for m in moe_layers(model):
+            m.aux_weight = MOE_AUX
+    diff = losses[MOE_AUX] - losses[0.0]
+    return dict(loss=losses[MOE_AUX], loss_no_aux=losses[0.0],
+                difference=diff, summed_aux=auxes[MOE_AUX],
+                summed_aux_at_0=auxes[0.0],
+                abs_err=abs(diff - auxes[MOE_AUX]))
+
+
+def moe_dispatch_check(torch):
+    """The index dispatch (switch_moe) against the dense one-hot
+    (switch_moe_plain) on the card at MOE_DISPATCH, seeded weights at
+    the train width: the largest difference over the largest entry, the
+    aux losses, and each one's ms."""
+    from analytics_zoo_tpu_torch.parallel import expert
+    t, d = MOE_DISPATCH
+    g = torch.Generator("cuda").manual_seed(0)
+    p = expert.init_moe_params(g, d, FULL["d_ff"], MOE["n_experts"])
+    x = torch.randn((t, d), generator=g, device="cuda")
+    with torch.no_grad():
+        out, aux = expert.switch_moe(x, p, MOE["capacity_factor"])
+        ref, aux_ref = expert.switch_moe_plain(x, p, MOE["capacity_factor"])
+        err = float((out - ref).abs().max() / ref.abs().max())
+        ms = cuda_ms(lambda: expert.switch_moe(x, p, MOE["capacity_factor"]),
+                     20)
+        plain_ms = cuda_ms(lambda: expert.switch_moe_plain(
+            x, p, MOE["capacity_factor"]), 20)
+    return dict(tokens=t, d_model=d, rel_err=err, aux=float(aux),
+                aux_plain=float(aux_ref), ms=ms, plain_ms=plain_ms)
+
+
+def graph_vs_eager_step(torch, engine):
+    """One replay of the engine's captured single step against the same
+    step run eagerly from the same slot state (the engine idle): whether
+    the selected tokens and positions are equal, and the largest K/V
+    cache difference over the largest cache entry."""
+    state = [engine._tok, engine._pos, engine._stepc]
+    caches = [c for kv in engine._caches for c in kv]
+    with engine._on_device():
+        saved = [t.clone() for t in state + caches]
+        engine._step_plan.graph.replay()
+        graph = [t.clone() for t in state + caches]
+        for t, v in zip(state + caches, saved):
+            t.copy_(v)
+        engine._step_body()
+        eager = [t.clone() for t in state + caches]
+        for t, v in zip(state + caches, saved):
+            t.copy_(v)
+        torch.cuda.synchronize()
+    n = len(state)
+    same = all(bool(torch.equal(a, b)) for a, b in zip(graph[:n], eager[:n]))
+    scale = max(float(c.abs().max()) for c in eager[n:]) or 1.0
+    cache_err = max(float((a - b).abs().max())
+                    for a, b in zip(graph[n:], eager[n:])) / scale
+    return same, cache_err
+
+
+def moe_serve(torch, model, kernels, inference):
+    """``InferenceModel(decode_capacity=8)`` serving MOE_SERVE_REQUESTS
+    mixed requests of the serve phase's shape from its threads: every
+    greedy token against a drop-free forward's argmax, the flash forward
+    once a layer an admission, no capture after warm-up; the graph step
+    against the eager step; the same requests through a step_fuse=1
+    engine, equal streams."""
+    import numpy as np
+    cfg = model.hyper
+    handle = inference.InferenceModel(
+        decode_capacity=SERVE["capacity"], decode_max_len=SERVE["max_len"],
+        decode_prompt_buckets=SERVE["buckets"])
+    stats, checks = {}, {}
+    try:
+        t = time.perf_counter()
+        handle.load_keras_net(model)
+        stats["warmup_s"] = time.perf_counter() - t
+        engine = handle.decode_engine
+        before = engine.stats()
+        prompts, news = mixed_requests(cfg, np.random.default_rng(2),
+                                       MOE_SERVE_REQUESTS)
+        kernels.reset_launch_counts()
+        outs, wall, ttft, itl, tpot = serve_stream(handle.generate_stream,
+                                                   prompts, news)
+        launches = kernels.launch_counts()
+        after = engine.stats()
+        admitted = after["admitted"] - before["admitted"]
+        stats.update(stream_metrics(outs, wall, ttft, itl, tpot))
+        same, cache_err = graph_vs_eager_step(torch, engine)
+        stats.update(step_times(torch, engine))
+        unfused = inference.DecodeEngine(
+            model, capacity=SERVE["capacity"], max_len=SERVE["max_len"],
+            prompt_buckets=SERVE["buckets"], step_fuse=1)
+        try:
+            unfused.warmup()
+            unfused_outs = unfused.generate(prompts, news, timeout=300)
+        finally:
+            unfused.close()
+    finally:
+        handle.close()
+    factors = drop_free(model)
+    try:
+        checked, ties, mismatched = greedy_oracle(torch, model, prompts,
+                                                  outs)
+        res = compare_streams(torch, model, prompts, outs, unfused_outs)
+    finally:
+        restore_capacity(model, factors)
+    tokens = sum(len(o) for o in outs)
+    stats.update(
+        oracle=dict(checked=checked, ties=ties, mismatched=mismatched),
+        admitted=admitted, launches=launches,
+        captures=after["captures"], captures_at_warmup=before["captures"],
+        fused_dispatches=(after["fused_dispatches"]
+                          - before["fused_dispatches"]),
+        graph_step_equals_eager=same, graph_step_cache_rel_err=cache_err,
+        fused_vs_unfused=dict(zip(("equal", "tied", "differing"), res)))
+    checks["stream"] = (all(len(o) == m for o, m in zip(outs, news))
+                        and mismatched == 0 and checked >= tokens // 2
+                        and launches["flash_fwd"]
+                        == cfg["n_layers"] * admitted
+                        and after["captures"] == before["captures"])
+    checks["graph"] = same and cache_err <= MOE_TOL["cache"]
+    checks["fused"] = res[2] == 0
+    stats["checks"] = checks
+    return all(checks.values()), stats
+
+
+def phase_moe(torch, TransformerLM, kernels, inference, objectives):
+    """TransformerLM with Switch-MoE blocks (MOE) on the train phase's
+    plan at f32: a warm-up fit and TRAIN_STEPS synchronised one-step
+    fits (ms, tokens/s, peak GiB, each kernel's launches: n_layers a
+    step), the share of tokens dropped at capacity, the gradients
+    against blockwise attention (:func:`moe_gradient_check`), the aux
+    term in the loss, the index
+    dispatch against the dense one-hot; then ``generate`` (the path
+    phase's prompts) against a drop-free forward's argmax and the
+    serving checks of :func:`moe_serve`; then the same model at bf16 with
+    MIXED_ACCUM microbatches: 2 x n_layers bf16 launches a step of each
+    kernel, none at f32, losses within MIXED_LOSS_TOL of the f32 ones."""
+    import gc
+    import statistics
+    import numpy as np
+    cfg = dict(FULL, seq_len=TRAIN_SEQ, **MOE)
+    n_layers, B = cfg["n_layers"], TRAIN_BATCH
+    x, y = periodic_tokens(B * (TRAIN_STEPS + 1), cfg["vocab_size"],
+                           TRAIN_SEQ, seed=1)
+    stats, checks = {}, {}
+
+    def train(model, **compile_args):
+        model.compile({"name": "adam", "lr": TRAIN_LR}, "class_nll",
+                      **compile_args)
+        model.fit(x[:B], y[:B], batch_size=B)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        losses, step_s, aux = [], [], []
+        for i in range(1, TRAIN_STEPS + 1):
+            rows = slice(i * B, (i + 1) * B)
+            t = time.perf_counter()
+            losses += model.fit(x[rows], y[rows], batch_size=B)["loss"]
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t)
+            aux.append(sum(float(m.aux_loss) for m in moe_layers(model)))
+        return (losses, aux, step_s, kernels.launch_counts_by_dtype(),
+                torch.cuda.max_memory_allocated() / 2 ** 30)
+
+    model = TransformerLM(**cfg, device="cuda", seed=0)
+    stats["parameters"] = sum(p.numel() for p in model.parameters())
+    losses, aux, step_s, counts, peak = train(model)
+    step = statistics.median(step_s)
+    per_step = {k: v / TRAIN_STEPS for k, v in counts.items() if v}
+    stats.update(step_ms=step * 1e3, step_ms_all=[t * 1e3 for t in step_s],
+                 tokens_per_s=B * TRAIN_SEQ / step, peak_gib=peak,
+                 losses=losses, summed_aux=aux, launches=counts,
+                 launches_per_step=per_step)
+    # no "falling" here: while the router rebalances from its seeded
+    # start, tokens that were dropped (passed through) reach untrained
+    # experts, and the first steps' losses may rise
+    checks["train"] = (all(math.isfinite(v) for v in losses + aux)
+                       and len(losses) == TRAIN_STEPS
+                       and all(counts[f"{k}[f32]"] == n_layers * TRAIN_STEPS
+                               for k in KERNELS))
+
+    routes = []
+    handles = record_routing(torch, model, routes)
+    try:
+        with torch.no_grad():
+            model(torch.as_tensor(x[:B], device="cuda"))
+    finally:
+        for h in handles:
+            h.remove()
+    kept = torch.cat([r[1] for r in routes])
+    stats["dropped_share"] = 1.0 - float(kept.float().mean())
+    del routes, kept
+    checks["gradients"], grads = moe_gradient_check(
+        torch, model, objectives, x[:2], y[:2])
+    stats.update(grads)
+    stats["aux"] = moe_aux_check(torch, model, objectives, x[B:2 * B],
+                                 y[B:2 * B])
+    checks["aux"] = (stats["aux"]["abs_err"] <= MOE_TOL["aux"]
+                     and stats["aux"]["summed_aux"] > 0
+                     and stats["aux"]["summed_aux_at_0"] == 0.0)
+    stats["dispatch"] = moe_dispatch_check(torch)
+    checks["dispatch"] = stats["dispatch"]["rel_err"] <= MOE_TOL["dispatch"]
+
+    # generate at the path phase's plan
+    model.eval()
+    prompt = torch.randint(0, cfg["vocab_size"], (BATCH, PROMPT),
+                           generator=torch.Generator().manual_seed(1)).numpy()
+    model.generate(prompt, 2)  # warm-up
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = model.generate(prompt, NEW)
+    gen_s = time.perf_counter() - t
+    gen_counts = kernels.launch_counts()
+    factors = drop_free(model)
+    try:
+        oracle = argmax_oracle(torch, model, out, PROMPT)
+    finally:
+        restore_capacity(model, factors)
+    stats.update(generate_ms=gen_s * 1e3, generate_tokens_per_s=BATCH * NEW
+                 / gen_s, generate_launches=gen_counts, oracle=oracle)
+    checks["generate"] = (out.shape == (BATCH, PROMPT + NEW)
+                          and oracle["finite"] and oracle["mismatched"] == 0
+                          and oracle["checked"] >= oracle["total"] // 2
+                          and gen_counts["flash_fwd"] == n_layers)
+    checks["serve"], stats["serve"] = moe_serve(torch, model, kernels,
+                                                inference)
+    stats["serve_tokens_per_s"] = stats["serve"]["tokens_per_s"]
+    del model
+    gc.collect()
+    torch._C._cuda_clearCublasWorkspaces()
+    torch.cuda.empty_cache()
+
+    bf = TransformerLM(**cfg, device="cuda", seed=0)
+    bf_losses, _, bf_s, bf_counts, bf_peak = train(
+        bf, compute_dtype=torch.bfloat16, accum_steps=MIXED_ACCUM)
+    del bf
+    torch.cuda.empty_cache()
+    stats.update(bf16_step_ms=statistics.median(bf_s) * 1e3,
+                 bf16_step_ms_all=[t * 1e3 for t in bf_s],
+                 bf16_peak_gib=bf_peak,
+                 bf16_losses=bf_losses, bf16_launches=bf_counts)
+    checks["bf16"] = (
+        all(math.isfinite(v) for v in bf_losses)
+        and np.allclose(bf_losses, losses, **MIXED_LOSS_TOL)
+        and all(bf_counts[f"{k}[bf16]"]
+                == n_layers * MIXED_ACCUM * TRAIN_STEPS
+                and not bf_counts[f"{k}[f32]"] for k in KERNELS))
+    stats.update(checks=checks, card=smi_card())
+    log("moe:", json.dumps(stats))
+    for name, good in checks.items():
+        if not good:
+            log(f"moe: FAIL {name}")
+    return all(checks.values()), stats
+
+
 def initial_weights(torch, TransformerLM, cfg):
     model = TransformerLM(**cfg, device="cuda", seed=0)
     return [p.detach().clone() for p in model.parameters()]
@@ -2062,6 +2765,10 @@ def main() -> int:
         ("detect", lambda: phase_detect(torch, models, kernels)),
         ("recommend", lambda: phase_recommend(torch, models, keras,
                                               kernels)),
+        ("textclass", lambda: phase_textclass(torch, models, keras,
+                                              kernels)),
+        ("moe", lambda: phase_moe(torch, TransformerLM, kernels, inference,
+                                  objectives)),
     ]
     results = {}
     for name, run in phases:
@@ -2089,7 +2796,13 @@ def main() -> int:
     path_launches = {
         path: (results.get(path) or {}).get("launches") or {}
         for path in ("path", "serve", "train", "graph", "mixed", "resnet",
-                     "registry", "detect", "recommend")}
+                     "registry", "detect", "recommend", "textclass")}
+    moe = results.get("moe") or {}
+    path_launches["moe"] = moe.get("launches") or {}
+    path_launches["moe_bf16"] = moe.get("bf16_launches") or {}
+    path_launches["moe_generate"] = moe.get("generate_launches") or {}
+    path_launches["moe_serve"] = (moe.get("serve") or {}).get(
+        "launches") or {}
 
     def timed_row(name, case, dtype, sq=None):
         row = next((r for r in results.get("kernels") or []
@@ -2121,7 +2834,14 @@ def main() -> int:
                      "resnet": path_launches["resnet"].get(name, 0),
                      "registry": path_launches["registry"].get(name, 0),
                      "detect": path_launches["detect"].get(name, 0),
-                     "recommend": path_launches["recommend"].get(name, 0)}}
+                     "recommend": path_launches["recommend"].get(name, 0),
+                     "textclass": path_launches["textclass"].get(name, 0),
+                     "moe": path_launches["moe"].get(f"{name}[f32]", 0),
+                     "moe_bf16": path_launches["moe_bf16"].get(
+                         f"{name}[bf16]", 0),
+                     "moe_generate": path_launches["moe_generate"].get(
+                         name, 0),
+                     "moe_serve": path_launches["moe_serve"].get(name, 0)}}
         entry.update(timed_row(name, "mixed", "bfloat16"))
         entry["f32"] = timed_row(name, "train", "float32")
         entry["bf16_batch8"] = timed_row(name, "train", "bfloat16")

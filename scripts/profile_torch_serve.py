@@ -3,6 +3,7 @@
 
     python3 scripts/profile_torch_serve.py [--new 64] [--capacity 8]
     python3 scripts/profile_torch_serve.py --mode detect
+    python3 scripts/profile_torch_serve.py --mode moe
 
 Builds TransformerLM at chip_smoke.py's full width (max_len 640) from
 seeded weights and a warmed ``DecodeEngine`` (prompt buckets 128/256/512),
@@ -17,7 +18,9 @@ then profiles under ``torch.profiler`` and prints one JSON object:
   graph, and 32 runs of the same step body eagerly, at full capacity:
   wall and device time per step and kernel launches per step.
 
-``--mode detect`` builds chip_smoke.py's detect phase instead
+``--mode moe`` does the same with chip_smoke.py's MoE blocks (every
+second MLP a SwitchMoE of 8 experts, decoded drop-free).  ``--mode
+detect`` builds chip_smoke.py's detect phase instead
 (SSD-VGG16-300, 21 classes, f32, batch 8 of 300x300 images from seed 0,
 TF32 off) and profiles ``predict`` (``predict``) and ``decode_output``
 on the card (``decode``), each after a warm-up call, with the same
@@ -91,7 +94,7 @@ def detect(torch) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--mode", choices=("decode", "detect"),
+    ap.add_argument("--mode", choices=("decode", "moe", "detect"),
                     default="decode", help="what to profile")
     ap.add_argument("--new", type=int, default=64,
                     help="tokens each request decodes in the engine run")
@@ -111,8 +114,9 @@ def main() -> int:
     from analytics_zoo_tpu_torch.pipeline.inference import DecodeEngine
     torch.backends.cuda.matmul.allow_tf32 = False
     _kernels.build()
-    model = TransformerLM(vocab_size=32000, seq_len=640, n_layers=12,
-                          d_model=768, n_heads=12, d_ff=3072, device="cuda",
+    from chip_smoke import FULL, MOE, smi_card
+    moe = MOE if args.mode == "moe" else {}
+    model = TransformerLM(**dict(FULL, seq_len=640, **moe), device="cuda",
                           seed=0).eval()
     engine = DecodeEngine(model, capacity=args.capacity, max_len=640,
                           prompt_buckets=(128, 256, 512))
@@ -124,7 +128,8 @@ def main() -> int:
                             generator=g).numpy()
     engine.generate(prompts, 4, timeout=120)  # the dispatcher's first run
     try:
-        out = {"card": smi_card(), "capacity": args.capacity,
+        out = {"card": smi_card(), "mode": args.mode,
+               "capacity": args.capacity,
                "new": args.new, "warmup_s": warm_s}
         before = engine.stats()
         out["engine"] = profiled(torch, lambda: engine.generate(

@@ -4,6 +4,8 @@
     python3 scripts/profile_torch_train.py [--model lenet] [--steps 2]
     python3 scripts/profile_torch_train.py --model resnet50 [--naive-bn]
     python3 scripts/profile_torch_train.py --model ncf [--steps 20]
+    python3 scripts/profile_torch_train.py --model textclass_lstm
+    python3 scripts/profile_torch_train.py --model transformer_lm_moe
 
 ``--model transformer_lm`` (the default) builds TransformerLM at
 chip_smoke.py's training width (12 layers, d_model 768, 12 heads, vocab
@@ -23,7 +25,16 @@ trains its BatchNormalization layers on the plain formulation
 closed form.  ``--model ncf`` builds chip_smoke.py's recommend phase
 (NeuralCF on the JAX bench's plan: 6040 users x 3706 items, 5 classes,
 batch 2800, adam 1e-3, class_nll, ids and labels from seed 0) and warms
-it up with one step.  Then ``--steps`` more one-step
+it up with one step.  ``--model textclass_{cnn,lstm,gru}`` builds
+chip_smoke.py's textclass phase for that encoder (TextClassifier: 20
+classes, a WordEmbedding over its 5,000-word 200-d GloVe file written
+from seed 0 into a temporary directory, sequence_length 500,
+encoder_output_dim 256, batch 128, adagrad 0.01) and warms it up with
+one step.  ``--model transformer_lm_moe`` is transformer_lm with
+chip_smoke.py's MOE blocks (every second MLP a SwitchMoE of 8 experts,
+capacity factor 1.25); its SwitchMoE forwards run inside a labelled
+span, so the JSON adds the device time of their kernels and the span
+they cover on the device.  Then ``--steps`` more one-step
 ``fit`` calls run under ``torch.profiler``, and one JSON object is
 printed: wall and device time per step, the device's idle share,
 launches per step, the device time of the GEMMs, the convolutions, each
@@ -32,7 +43,8 @@ optimizer's kernels), the optimizer update's kernel time and its span on
 the device (first to last kernel, gaps included), and the fifteen
 kernels that took the most device time; with BatchNormalization layers
 also the device time of the kernels launched inside their forward and
-inside the closed form's backward (labelled spans).  TF32 off, as
+inside the closed form's backward (labelled spans); with SwitchMoE layers
+the same for their forward.  TF32 off, as
 chip_smoke.py runs it.
 """
 
@@ -62,12 +74,13 @@ def kind(name: str) -> str:
     return "gemm" if GEMM.search(name) else "other"
 
 
-def transformer_lm(torch, steps, **compile_args):
-    """(model, x, y, batch) at chip_smoke's training width."""
+def transformer_lm(torch, steps, moe=None, **compile_args):
+    """(model, x, y, batch) at chip_smoke's training width, with the
+    Switch-MoE settings ``moe`` when given."""
     from analytics_zoo_tpu_torch.models import TransformerLM
     from chip_smoke import (FULL, TRAIN_BATCH, TRAIN_LR, TRAIN_SEQ,
                             periodic_tokens)
-    cfg = dict(FULL, seq_len=TRAIN_SEQ)
+    cfg = dict(FULL, seq_len=TRAIN_SEQ, **(moe or {}))
     model = TransformerLM(**cfg, device="cuda", seed=0)
     model.compile({"name": "adam", "lr": TRAIN_LR}, "class_nll",
                   **compile_args)
@@ -126,9 +139,35 @@ def ncf(torch, steps):
             np.concatenate([y] * (steps + 1)), NCF["batch"])
 
 
+def transformer_lm_moe(torch, steps):
+    """transformer_lm with chip_smoke's MoE blocks."""
+    from chip_smoke import MOE
+    return transformer_lm(torch, steps, moe=MOE)
+
+
+def textclass(encoder):
+    def build(torch, steps):
+        """(model, x, y, batch): chip_smoke's textclass phase for one
+        encoder; every step sees the same batch, as there."""
+        import tempfile
+        import numpy as np
+        from analytics_zoo_tpu_torch import models
+        from chip_smoke import (TEXTCLASS_OPTIMIZER, build_textclass,
+                                glove_file, textclass_data)
+        with tempfile.TemporaryDirectory() as d:
+            model = build_textclass(models, encoder, glove_file(d), "cuda")
+        model.compile(TEXTCLASS_OPTIMIZER, "sparse_categorical_crossentropy")
+        x, y = textclass_data()
+        return (model, np.concatenate([x] * (steps + 1)),
+                np.concatenate([y] * (steps + 1)), len(x))
+    return build
+
+
 MODELS = {"transformer_lm": transformer_lm,
-          "transformer_lm_mixed": transformer_lm_mixed, "lenet": lenet,
-          "resnet50": resnet50, "ncf": ncf}
+          "transformer_lm_mixed": transformer_lm_mixed,
+          "transformer_lm_moe": transformer_lm_moe, "lenet": lenet,
+          "resnet50": resnet50, "ncf": ncf,
+          **{f"textclass_{e}": textclass(e) for e in ("cnn", "lstm", "gru")}}
 
 
 def label(owner, attr, name, record_function):
@@ -169,7 +208,7 @@ def main() -> int:
     from analytics_zoo_tpu_torch.ops import _kernels
     from analytics_zoo_tpu_torch.ops import batchnorm as bn_ops
     from analytics_zoo_tpu_torch.pipeline.api.keras.layers import (
-        BatchNormalization)
+        BatchNormalization, SwitchMoE)
     bn_ops.set_naive_bn(args.naive_bn)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -181,6 +220,7 @@ def main() -> int:
     label(BatchNormalization, "forward", "zoo_batchnorm", record_function)
     label(bn_ops.BatchNormTrain, "backward", "zoo_batchnorm_backward",
           record_function)
+    label(SwitchMoE, "forward", "zoo_moe", record_function)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -195,11 +235,14 @@ def main() -> int:
     # the label shows twice: as a CPU op whose device time is that of the
     # kernels launched inside it, and as a device-side annotation spanning
     # them, idle gaps included; neither is a kernel
-    spans = ("zoo_optimizer", "zoo_batchnorm", "zoo_batchnorm_backward")
+    spans = ("zoo_optimizer", "zoo_batchnorm", "zoo_batchnorm_backward",
+             "zoo_moe")
     kernels = [e for e in events
                if e.device_type == cuda and e.key not in spans]
-    opt_span_us = sum(e.self_device_time_total for e in events
-                      if e.key == "zoo_optimizer" and e.device_type == cuda)
+
+    def span_on_device_ms(name):
+        return sum(e.self_device_time_total for e in events
+                   if e.key == name and e.device_type == cuda) / 1e3
     by_kind = {}
     for e in kernels:
         k = kind(e.key)
@@ -220,11 +263,15 @@ def main() -> int:
                                        for k, v in sorted(by_kind.items())},
         "optimizer_kernels_ms_per_step":
             span_ms(events, "zoo_optimizer", cuda) / n,
-        "optimizer_span_ms_per_step": opt_span_us / 1e3 / n,
+        "optimizer_span_ms_per_step":
+            span_on_device_ms("zoo_optimizer") / n,
         "batchnorm_forward_kernels_ms_per_step":
             span_ms(events, "zoo_batchnorm", cuda) / n,
         "batchnorm_backward_kernels_ms_per_step":
             span_ms(events, "zoo_batchnorm_backward", cuda) / n,
+        "moe_forward_kernels_ms_per_step":
+            span_ms(events, "zoo_moe", cuda) / n,
+        "moe_forward_span_ms_per_step": span_on_device_ms("zoo_moe") / n,
         "naive_bn": args.naive_bn,
         "top": [{"kernel": e.key[:90], "ms_per_step":
                  e.self_device_time_total / 1e3 / n,

@@ -7,8 +7,11 @@ and loaded on the card, BatchNorm's closed form and one ResNet-50
 training step against the CPU, and the serving plane: the decode
 engine's CUDA graphs, its admissions' kernel launches, coalesced
 predict, and the engine's and coalescer's streams waiting for the
-caller's writes. This
-file imports no jax (nor does anything it imports), so that it runs on a
+caller's writes; the kernels' sums over a long walk of keys that share
+a large mean against exact attention; recurrent layers against the CPU,
+the Switch-MoE index dispatch against its dense form, a MoE model's
+captured decode step against the eager one, and a MoE training step
+through the kernels. This file imports no jax (nor does anything it imports), so that it runs on a
 GPU host without the JAX package: ``python -m pytest --noconftest
 tests/test_torch_cuda.py -m cuda``. Without a card every test skips
 inside the ``cuda`` fixture.
@@ -158,6 +161,44 @@ def test_cuda_backward_kernels_match_plain(cuda, dtype, causal, sq, sk,
         err = float((a.double() - r.double()).abs().max()
                     / r.double().abs().max())
         assert err <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+def test_cuda_kernels_sum_long_walks_without_bias(cuda, d):
+    """At 2,048 causal keys whose keys and values share a large mean (as
+    deep layers' do), the kernels' sums over the walk stay unbiased: o
+    within 5e-6 of exact attention's largest entry, dq, dk and dv within
+    5e-5 of theirs, and dk's sum over keys (exactly 0) within 5e-4 of
+    dk's largest entry.  The tensor core cuts every sum it writes back
+    towards zero; summed into c over the whole walk, those cuts put o
+    ~3e-5 off and dk's key sum ~5e-3 off on these inputs."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    s, scale = 2048, d ** -0.5
+
+    def draw(mean):
+        return (torch.randn((4, s, d), generator=g, device=cuda) * 0.3
+                + mean * torch.randn((1, 1, d), generator=g, device=cuda))
+
+    q, k, v, do = draw(0.2), draw(1.0), draw(1.0), draw(0.0)
+    o, lse = _kernels.flash_fwd(q, k, v, None, True, scale)
+    delta = tattn._flash_delta(o, do)
+    args = (q, k, v, do, lse, delta, None, True, scale)
+    got = (_kernels.flash_bwd_dq(*args), *_kernels.flash_bwd_dkv(*args))
+    q64, k64, v64 = (t.double().requires_grad_(True) for t in (q, k, v))
+    sc = torch.einsum("bqd,bkd->bqk", q64, k64) * scale
+    causal = torch.ones((s, s), dtype=torch.bool, device=cuda).tril()
+    o64 = torch.softmax(sc.masked_fill(~causal, -float("inf")), -1) @ v64
+    ref = torch.autograd.grad(o64, (q64, k64, v64), do.double())
+
+    def err(a, b):
+        return float((a.double() - b).abs().max() / b.abs().max())
+
+    assert err(o, o64.detach()) <= 5e-6
+    for a, b in zip(got, ref):
+        assert err(a, b) <= 5e-5
+    dk = got[1].double()
+    assert float(dk.sum(1).abs().max() / dk.abs().max()) <= 5e-4
 
 
 @pytest.mark.cuda
@@ -666,3 +707,157 @@ def test_cuda_neuralcf_steps_match_cpu(cuda):
     close(l, l_ref, 1e-5, 0)
     err = rel_err(w, w_ref, init)
     assert err <= NCF_TOL, err
+
+
+def flat_weights(tree):
+    """{layer: {name: array}} of a weight tree that may nest deeper
+    (Bidirectional's forward/backward), deeper keys joined by '/'."""
+    def leaves(t, prefix=""):
+        for k, v in t.items():
+            if isinstance(v, dict):
+                yield from leaves(v, f"{prefix}{k}/")
+            else:
+                yield prefix + k, v
+    return {layer: dict(leaves(sub)) for layer, sub in tree.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell", ["LSTM", "GRU"])
+def test_cuda_recurrent_steps_match_cpu(cuda, f32_convs, cell):
+    """A Bidirectional recurrent Sequential (hard_sigmoid gates, seq 40)
+    takes 2 sgd steps at rate 1 (the weights move by the gradient; adam's
+    first step, lr * g / (|g| + eps), would amplify the rounding of
+    gradients near eps) on the card and on the CPU from the same
+    weights: predictions within 1e-5 before, losses within 1e-5
+    (relative) and parameters within 1e-3 of the largest change the
+    steps made."""
+    from analytics_zoo_tpu_torch.pipeline.api.keras import layers as L
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(32, 40, 16)).astype(np.float32)
+    y = rng.integers(0, 3, 32).astype(np.int32)
+    runs = []
+    for dev in ("cpu", "cuda"):
+        m = Sequential(device=dev, seed=1)
+        m.add(L.Bidirectional(getattr(L, cell)(24, return_sequences=True),
+                              input_shape=(40, 16), name="bi"))
+        m.add(getattr(L, cell)(24, go_backwards=True, name="rnn"))
+        m.add(Dense(3, activation="softmax", name="out"))
+        if runs:
+            from_jax_params(m, runs[0][3])
+        init = m.get_weights()
+        pred = m.predict(x, batch_size=32)
+        m.compile({"name": "sgd", "lr": 1.0},
+                  "sparse_categorical_crossentropy")
+        loss = m.fit(x, y, batch_size=16, shuffle=False)["loss"]
+        runs.append((pred, loss, flat_weights(m.get_weights()), init))
+    (p_ref, l_ref, w_ref, init), (p, l, w, _) = runs
+    close(p, p_ref, 1e-5, 1e-5)
+    close(l, l_ref, 1e-5, 0)
+    err = rel_err(w, w_ref, flat_weights(init))
+    assert err <= 1e-3, err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("capacity_factor", [1.25, 8.0])
+def test_cuda_switch_moe_index_dispatch_matches_dense(cuda, f32_convs,
+                                                      capacity_factor):
+    """The index dispatch against the dense one-hot einsums on the card
+    at (4096, 768) tokens, 8 experts of width 3072: outputs within 1e-5
+    of the largest entry, the aux loss equal, and the gradients of every
+    weight and of the tokens within 1e-5 of each tensor's largest
+    entry."""
+    from analytics_zoo_tpu_torch.parallel import expert
+    g = torch.Generator(device=cuda).manual_seed(0)
+    p = expert.MoEParams(*(t.requires_grad_(True) for t in
+                           expert.init_moe_params(g, 768, 3072, 8)))
+    x = torch.randn((4096, 768), generator=g, device=cuda,
+                    requires_grad=True)
+    w = torch.randn((4096, 768), generator=g, device=cuda)
+    grads = []
+    for fn in (expert.switch_moe, expert.switch_moe_plain):
+        out, aux = fn(x, p, capacity_factor)
+        grads.append((out.detach(), float(aux), torch.autograd.grad(
+            (out * w).sum() + aux, [x, *p])))
+    (out, aux, ga), (ref, aux_ref, gb) = grads
+    assert float((out - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+    assert aux == aux_ref
+    for a, b in zip(ga, gb):
+        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+
+
+def moe_lm(device, **kw):
+    cfg = dict(vocab_size=64, seq_len=48, n_layers=2, d_model=64, n_heads=2,
+               moe_every=2, n_experts=4, **kw)
+    return sharp_lm(cfg, device)
+
+
+@pytest.mark.cuda
+def test_cuda_moe_decode_graph_step_equals_eager(cuda, f32_convs):
+    """A MoE TransformerLM's engine captures its plans once; one replay
+    of the captured step equals the same step run eagerly from the same
+    slot state (tokens and positions equal, caches within 1e-6), and
+    the engine's greedy streams equal generate()'s."""
+    model = moe_lm("cuda")
+    engine = DecodeEngine(model, capacity=3, prompt_buckets=(16,))
+    try:
+        engine.warmup()
+        assert engine.stats()["captures"] == 3
+        rng = np.random.default_rng(0)
+        prompts = [rng.integers(0, 64, int(n)) for n in (3, 16, 7)]
+        news = [9, 4, 12]
+        outs = engine.generate(prompts, news, timeout=60)
+        for p, m, out in zip(prompts, news, outs):
+            ref = model.generate(p[None], m)
+            np.testing.assert_array_equal(out, ref[0, len(p):])
+        state = [engine._tok, engine._pos]
+        caches = [c for kv in engine._caches for c in kv]
+        with engine._on_device():
+            saved = [t.clone() for t in state + caches]
+            engine._step_plan.graph.replay()
+            graph = [t.clone() for t in state + caches]
+            for t, v in zip(state + caches, saved):
+                t.copy_(v)
+            engine._step_body()
+            torch.cuda.synchronize()
+        for a, b in zip(graph[:2], state):
+            assert torch.equal(a, b)
+        for a, b in zip(graph[2:], caches):
+            assert float((a - b).abs().max()) <= 1e-6 * max(
+                float(b.abs().max()), 1.0)
+        assert engine.stats()["captures"] == 3
+    finally:
+        engine.close()
+
+
+@pytest.mark.cuda
+def test_cuda_moe_lm_step_launches_the_three_kernels(cuda, f32_convs):
+    """One fit step of a MoE TransformerLM (flash attention) launches
+    each kernel once a layer at f32, and twice a layer at bf16 with two
+    microbatches; its f32 gradients match blockwise attention's within
+    1e-3 of each tensor's largest entry."""
+    from analytics_zoo_tpu_torch.pipeline.api.keras import objectives
+    rng = np.random.default_rng(1)
+    x = rng.integers(0, 64, (8, 48)).astype(np.int32)
+    y = rng.integers(0, 64, (8, 48)).astype(np.int32)
+    for dtype, accum, name in ((None, 1, "f32"), (torch.bfloat16, 2,
+                                                  "bf16")):
+        model = moe_lm("cuda", implementation="flash")
+        model.compile({"name": "adam", "lr": 1e-3}, "class_nll",
+                      compute_dtype=dtype, accum_steps=accum)
+        _kernels.reset_launch_counts()
+        loss = model.fit(x, y, batch_size=8)["loss"]
+        counts = _kernels.launch_counts_by_dtype()
+        assert np.isfinite(loss).all()
+        for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+            assert counts[f"{k}[{name}]"] == 2 * accum, counts
+    model = moe_lm("cuda", implementation="flash", capacity_factor=4.0)
+    params = list(model.parameters())
+    ids, labels = (torch.as_tensor(a, device=cuda) for a in (x, y))
+    grads = {}
+    for impl in ("flash", "blockwise"):
+        for i in range(2):
+            getattr(model, f"attn_{i}").implementation = impl
+        loss = objectives.class_nll(labels, model(ids)).mean()
+        grads[impl] = torch.autograd.grad(loss, params)
+    for a, b in zip(grads["flash"], grads["blockwise"]):
+        assert float((a - b).abs().max()) <= 1e-3 * float(b.abs().max())

@@ -143,8 +143,14 @@ def test_default_device_is_cuda_and_raises_without_it(monkeypatch):
 
 
 def test_moe_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="moe_every"):
-        TransformerLM(**SMALL, moe_every=2, device="cpu")
+    """Single-device Switch-MoE is ported (moe_every builds SwitchMoE
+    blocks); the expert-parallel moe_sharded is not yet and raises."""
+    from analytics_zoo_tpu_torch.parallel.expert import moe_sharded
+    lm = TransformerLM(**SMALL, moe_every=2, device="cpu")
+    assert [lm.is_moe_block(i) for i in range(SMALL["n_layers"])] == [
+        (i + 1) % 2 == 0 for i in range(SMALL["n_layers"])]
+    with pytest.raises(NotImplementedError, match="moe_sharded"):
+        moe_sharded(None, None, None)
 
 
 def _forbidden(module: str) -> bool:
