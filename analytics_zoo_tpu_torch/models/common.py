@@ -71,24 +71,48 @@ def parse_quantize_name(model_name: str):
 
 
 class QuantizedVariantMixin:
-    """Zoo models whose registry carries '<name>-quantize' variants.  The
-    int8 inference path needs the port of ``ops/quantize.py``: until
-    then a '-quantize' variant builds and trains, and its ``predict`` and
-    ``to_serving`` raise."""
+    """Zoo models whose registry carries '<name>-quantize' variants: such
+    a variant's ``predict`` runs the int8 net (:meth:`KerasNet.quantize`),
+    built from the current weights at the first call and cached; every
+    entry point that changes the weights drops the cache, so the int8
+    net never serves stale weights."""
 
-    def _refuse_int8(self):
-        if parse_quantize_name(self.hyper["model_name"])[1]:
-            raise NotImplementedError(
-                f"{self.hyper['model_name']!r}: the int8 ('-quantize') "
-                "inference path is not ported yet (see ROADMAP.md)")
+    _quantized_net = None
+
+    def _set_quantized(self, net):
+        # kept out of the module tree: the twin's int8 tensors are not
+        # this model's parameters
+        self.__dict__["_quantized_net"] = net
+
+    def _invalidate_quantized(self):
+        self._set_quantized(None)
+
+    def compile(self, *args, **kwargs):
+        self._invalidate_quantized()
+        return super().compile(*args, **kwargs)
+
+    def fit(self, *args, **kwargs):
+        self._invalidate_quantized()
+        return super().fit(*args, **kwargs)
+
+    def set_weights(self, params):
+        self._invalidate_quantized()
+        return super().set_weights(params)
+
+    def load_weights(self, directory: str, tag=None):
+        self._invalidate_quantized()
+        return super().load_weights(directory, tag)
+
+    def transfer_weights_from(self, other):
+        self._invalidate_quantized()
+        return super().transfer_weights_from(other)
 
     def predict(self, x, batch_size: int = 32):
-        self._refuse_int8()
+        if parse_quantize_name(self.hyper["model_name"])[1]:
+            if self._quantized_net is None:
+                self._set_quantized(self.quantize())
+            return self._quantized_net.predict(x, batch_size)
         return super().predict(x, batch_size)
-
-    def to_serving(self, *args, **kwargs):
-        self._refuse_int8()
-        return super().to_serving(*args, **kwargs)
 
 
 def register_zoo_model(cls):

@@ -8,11 +8,10 @@ package builds it (the same layer types, names, creation order and
 parameter shapes), so weights and BatchNormalization state move between
 the packages by name (``models/jax_params.py``).  Inputs are NHWC.  The
 architecture functions take the model's ``device`` (``"cuda"`` unless
-asked otherwise) and ``seed``.
-
-``predict_image_set`` (which needs the feature layer's ``ImageSet`` and
-the registry's ``ImageConfigure``) and the int8 '-quantize' variants are
-not ported yet (see ROADMAP.md).
+asked otherwise) and ``seed``.  ``predict_image_set`` takes an
+``ImageSet`` of raw images through the registry's ``ImageConfigure``;
+a '-quantize' name predicts through the int8 net
+(``models/common.py``).
 """
 
 from __future__ import annotations
@@ -451,10 +450,53 @@ class ImageClassifier(QuantizedVariantMixin, ZooModel):
             device=device, seed=seed)
 
     def predict_image_set(self, image_set, configure=None):
-        raise NotImplementedError(
-            "ImageClassifier.predict_image_set needs ImageSet and "
-            "ImageConfigure (the feature layer), which are not ported yet "
-            "(see ROADMAP.md)")
+        """Preprocess, predict, postprocess and attach the results to
+        ``image_set`` (the reference's ``predictImageSet``).
+        ``configure`` defaults to the model name's registry entry
+        (``ImageConfigure.parse``), preprocessing a copy of the images.
+
+        .. warning:: When ``configure`` is omitted, images whose shape
+           already equals the model's input are taken as model-ready and
+           skip the registry preprocessing: a raw image that happens to
+           be exactly ``input_shape`` would go in un-normalized.  Pass
+           ``configure=ImageConfigure.parse(model_name)`` to force the
+           canonical pipeline whatever the shape.  A model built at
+           another input size than the registry's skips the registry
+           preprocessing too (it would emit the wrong shape).
+        """
+        from .config import ImageConfigure
+        model_shape = tuple(self.hyper["input_shape"])
+        if configure is None:
+            shapes = {tuple(f["image"].shape) for f in image_set.features}
+            if shapes == {model_shape}:
+                configure = ImageConfigure()
+            else:
+                try:
+                    configure = ImageConfigure.parse(
+                        self.hyper["model_name"])
+                except ValueError:
+                    configure = ImageConfigure()
+                if configure.input_size is not None and (
+                        model_shape[0] != configure.input_size
+                        or model_shape[1] != configure.input_size):
+                    configure = ImageConfigure(
+                        label_map=configure.label_map,
+                        batch_per_partition=configure.batch_per_partition)
+        work = image_set
+        if configure.pre_processor is not None:
+            # a copy: the caller's raw images survive
+            work = image_set.copy().transform(configure.pre_processor)
+        probs = self.predict(
+            work.to_array(),
+            batch_size=max(configure.batch_per_partition, 1) * 8)
+        if configure.post_processor is not None:
+            probs = configure.post_processor(probs)
+        elif configure.label_map:
+            probs = label_output(
+                probs, [configure.label_map.get(i, str(i))
+                        for i in range(int(np.shape(probs)[-1]))])
+        image_set.set_predictions(probs)
+        return image_set
 
 
 def label_output(probs, labels: Optional[List[str]] = None, top_k: int = 5):

@@ -7,6 +7,9 @@ order, so weights move by name), the prior boxes, and the fixed-shape
 postprocessing: softmax, box decoding, per-class top-k, padded NMS and a
 (batch, max_detections, 6) output of [label, score, x1, y1, x2, y2]
 (normalised corners, padding rows all -1).  Class 0 is background.
+``predict_image_set`` runs an ``ImageSet`` through an optional
+``ImageConfigure``, the head and the decode on the model's device, and
+gives boxes in each image's original pixels.
 
 ``decode_output`` gives the JAX package's results, which come from a
 loop over classes of ``max_detections`` NMS iterations each, under
@@ -15,10 +18,6 @@ loop of ``max_detections`` iterations over (batch, classes - 1, top_k)
 tensors, three launches an iteration and no host sync inside it.  Ties
 break as ``lax.top_k``, ``jnp.argmax`` and ``jnp.argsort`` break them:
 the lower index first (a stable descending sort stands for top-k).
-
-``predict_image_set`` (which needs the feature layer's ``ImageSet`` and
-``ImageConfigure``) and the int8 '-quantize' variants are not ported
-yet (see ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -375,10 +374,25 @@ class ObjectDetector(QuantizedVariantMixin, ZooModel):
 
     def predict_image_set(self, image_set, batch_size: int = 8,
                           configure=None):
-        raise NotImplementedError(
-            "ObjectDetector.predict_image_set needs ImageSet and "
-            "ImageConfigure (the feature layer), which are not ported yet "
-            "(see ROADMAP.md)")
+        """Preprocess (with ``configure``'s pre_processor, e.g.
+        ``ImageConfigure.parse("ssd-vgg16-300")``, on a copy of the
+        images), predict, decode on the model's device and attach the
+        detections scaled back to each image's original size (the
+        reference's ``predictImageSet`` and ``ScaleDetection``)."""
+        h = self.hyper
+        heights = [f["image"].shape[0] for f in image_set.features]
+        widths = [f["image"].shape[1] for f in image_set.features]
+        work = image_set
+        if configure is not None and configure.pre_processor is not None:
+            # a copy: the original pixels survive for Visualizer to draw on
+            work = image_set.copy().transform(configure.pre_processor)
+        raw = self.predict(work.to_array(), batch_size=batch_size)
+        dets = decode_output(raw, self.priors, h["num_classes"],
+                             h["conf_threshold"], h["nms_threshold"],
+                             max_detections=h["max_detections"])
+        image_set.set_predictions(
+            ScaleDetection()(dets.cpu().numpy(), heights, widths))
+        return image_set
 
 
 def visualize(image: np.ndarray, detections: np.ndarray,

@@ -114,10 +114,10 @@ def _load(model, tree, kind: str) -> None:
             if _is_graph(layer):
                 _load(layer, tree[name], kind)
                 continue
-            _copy_leaves(name, kind, leaves_of(layer), tree[name])
+            copy_leaves(name, kind, leaves_of(layer), tree[name])
 
 
-def _copy_leaves(path: str, kind: str, own, leaves) -> None:
+def copy_leaves(path: str, kind: str, own, leaves) -> None:
     """Copy a layer's given leaves into its own tensors, recursing into
     nested trees (Bidirectional's ``forward``/``backward``)."""
     if set(leaves) != set(own):
@@ -125,7 +125,7 @@ def _copy_leaves(path: str, kind: str, own, leaves) -> None:
                        f"model's {sorted(own)}")
     for key, t in own.items():
         if isinstance(t, dict):
-            _copy_leaves(f"{path}/{key}", kind, t, leaves[key])
+            copy_leaves(f"{path}/{key}", kind, t, leaves[key])
             continue
         arr = np.asarray(leaves[key])
         if tuple(arr.shape) != tuple(t.shape):

@@ -116,9 +116,14 @@ def batch_norm_train_naive(x, gamma, beta, eps: float, ch_axis: int):
 
 def batch_norm_inference(x, gamma, beta, mean, var, eps: float,
                          ch_axis: int):
-    """Eval-mode batch norm with given (moving) statistics."""
+    """Eval-mode batch norm with given (moving) statistics.  The inverse
+    standard deviation is taken in f64 and rounded once to f32: the f32
+    ``rsqrt`` of CUDA and of the CPU each miss the correctly rounded
+    value for some inputs, and not for the same ones, so the card would
+    not give the CPU's bits (an int8 net downstream then rounds its
+    activations otherwise, and the difference grows layer by layer)."""
     dt, bshape = x.dtype, _bshape(x, ch_axis)
-    inv = torch.rsqrt(var.float() + eps).to(dt)
+    inv = torch.rsqrt((var.float() + eps).double()).to(dt)
     return (x - mean.to(dt).reshape(bshape)) \
         * (inv.reshape(bshape) * gamma.to(dt).reshape(bshape)) \
         + beta.to(dt).reshape(bshape)

@@ -18,8 +18,9 @@ checkpoint format;
 ``load_model`` rebuilds the model from it.  Layers freeze by name
 (``freeze``, ``freeze_up_to``, ``unfreeze``): the flags take effect at
 the next step and persist through ``save_model``.  ``to_serving`` wraps
-a model in an ``InferenceModel``.  Graph surgery beyond ``new_graph``
-and quantization are not ported yet (see ROADMAP.md).
+a model in an ``InferenceModel``; ``quantize`` gives its int8 inference
+twin (``ops/quantize.py``).  Graph surgery beyond ``new_graph`` is not
+ported yet (see ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -251,9 +252,27 @@ class KerasNet(Layer):
             max_batch_size=max_batch_size, coalescing=coalescing,
             max_wait_ms=max_wait_ms, replicas=replicas)
         im.load_keras_net(self, quantize=quantize)
-        if warmup_shapes is not None:
+        if warmup_shapes is not None and im._cache is not None:
+            # a quantized handle serves on the exact-shape path: no
+            # ladder to warm
             im.warmup(warmup_shapes)
         return im
+
+    def quantize(self) -> "Model":
+        """Post-training int8 quantization: an inference-only functional
+        ``Model`` named ``<name>_int8`` over this model's graph with its
+        Dense, convolution, Embedding and separable pointwise layers
+        swapped for int8 ones (per-output-channel weights, per-sample
+        activations, int32 accumulation); the other layers are copies of
+        this model's, their weights and state adopted as they are.  The
+        twin is a snapshot: training this model later leaves it as it
+        was."""
+        from ....ops.quantize import quantize_graph
+        qg, _, _ = quantize_graph(self.to_graph())
+        out = (qg.output_vars[0] if qg.single_output
+               else list(qg.output_vars))
+        return Model(input=list(qg.input_vars), output=out,
+                     name=f"{self.name}_int8", device=self.device)
 
     def predict_classes(self, x, batch_size: int = 32,
                         zero_based_label: bool = True):
@@ -276,6 +295,41 @@ class KerasNet(Layer):
         or by position when the names differ but every shape matches."""
         from ....models.jax_params import from_jax_params
         from_jax_params(self, params)
+
+    def load_weights(self, directory: str, tag=None):
+        """Load the weights and layer state of a checkpoint directory (a
+        ``set_checkpoint`` directory, or a saved model's ``weights``);
+        a compiled model restores its optimizer state and counters
+        too."""
+        if self.trainer is not None:
+            self.trainer.load_weights(directory, tag)
+        else:
+            from ....models.jax_params import model_tree
+            checkpoint_lib.restore_into(directory, model_tree(self), tag)
+        return self
+
+    def transfer_weights_from(self, other: "KerasNet") -> "KerasNet":
+        """Copy the weights and layer state of every layer that ``other``
+        shares with this model by name (transfer learning after graph
+        surgery); a shape that differs raises, and so does sharing no
+        layer."""
+        from ....models.jax_params import (copy_leaves, state_tree,
+                                           to_jax_params, to_jax_state,
+                                           weight_tree)
+        copied = []
+        for kind, mine, theirs in (
+                ("params", weight_tree(self), to_jax_params(other)),
+                ("state", state_tree(self), to_jax_state(other))):
+            for name, leaves in theirs.items():
+                if name in mine:
+                    with torch.no_grad():
+                        copy_leaves(name, kind, mine[name], leaves)
+                    copied.append(name)
+        if not copied:
+            raise ValueError(
+                "transfer_weights_from: no layer names in common; the "
+                "models do not share layers")
+        return self
 
     def summary(self) -> str:
         """Print and return each layer's name, class and parameter

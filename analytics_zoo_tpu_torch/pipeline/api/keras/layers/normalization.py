@@ -84,10 +84,9 @@ class BatchNormalization(Layer):
         cnt = self.count
         decay = torch.pow(self.momentum, cnt)
         denom = torch.clamp_min(1.0 - decay, 1e-12)
-        mean = torch.where(cnt > 0, self.moving_mean / denom,
-                           torch.zeros_like(self.moving_mean))
-        var = torch.where(cnt > 0, (self.moving_var - decay) / denom,
-                          torch.ones_like(self.moving_var))
+        seen = cnt > 0
+        mean = torch.where(seen, self.moving_mean / denom, 0.0)
+        var = torch.where(seen, (self.moving_var - decay) / denom, 1.0)
         return mean, var
 
     def get_config(self):

@@ -13,9 +13,11 @@ callers (``serving.RequestCoalescer``); ``generate`` and
 
 The handle serves on the device of the model it is given;
 :meth:`load` reads a saved model onto ``device`` (``"cuda"`` unless
-asked otherwise).  Replicas, hedging, sharded meshes, the executable
-store, quantized handles and the TF/graph/JAX import paths are not
-ported (see ROADMAP.md).
+asked otherwise).  A quantized handle (``quantize=True``, or a model
+named '<arch>-quantize') serves the model's int8 twin
+(:meth:`KerasNet.quantize`) on the exact-shape path, as the JAX package
+does.  Replicas, hedging, sharded meshes, the executable store and the
+TF/graph/JAX import paths are not ported (see ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -148,6 +150,7 @@ class InferenceModel:
         # (predict_fn, cache, coalescer, device) published as one tuple:
         # a predict() racing reload() takes one consistent path
         self._fastpath = None
+        self._quantize_flag: Optional[bool] = None
 
     # ---- loading ----
     def load(self, model_path: str, weight_path: Optional[str] = None,
@@ -156,7 +159,7 @@ class InferenceModel:
         format) onto this handle's device and serve it, with its layer
         state.  ``weight_path`` is a checkpoint directory (a saved model's
         ``weights``) whose final weights and state replace the saved
-        ones."""
+        ones.  ``quantize`` as :meth:`load_keras_net` takes it."""
         from ... import models  # noqa: F401  (registers the zoo's models)
         from ..api.keras.engine import KerasNet
         from ...common.context import resolve_device
@@ -170,18 +173,30 @@ class InferenceModel:
         return self.load_keras_net(net, quantize=quantize)
 
     def load_keras_net(self, net, quantize: Optional[bool] = None):
-        """Serve an in-memory KerasNet or zoo model on its device."""
-        if quantize:
-            raise _not_ported("quantize=True")
+        """Serve an in-memory KerasNet or zoo model on its device.
+        ``quantize=True`` serves its int8 twin; None keeps the handle's
+        last choice (so ``reload`` stays int8), and on a first load
+        follows a '-quantize' model name."""
+        if quantize is None:
+            quantize = self._quantize_flag
+        if quantize is None:
+            name = getattr(net, "hyper", {}).get("model_name", "")
+            quantize = isinstance(name, str) and name.endswith("-quantize")
+        if quantize and self._decode_capacity is not None:
+            raise ValueError("decode_capacity is not supported for "
+                             "quantized handles")
         if self._device is not None and torch.device(
                 self._device) != net.device:
             raise ValueError(f"the model is on {net.device}, the handle's "
                              f"device is {self._device}")
+        if quantize:
+            net = net.quantize()
         net.eval()
         # build and warm the decode engine before publishing anything: a
         # reload whose engine build fails leaves the handle on the old
         # version, both planes
         engine = self._build_decode_engine(net)
+        self._quantize_flag = bool(quantize)
         self._install(net)
         if self._decode_capacity is not None:
             old, self._decode_engine = self._decode_engine, engine
@@ -226,7 +241,9 @@ class InferenceModel:
             return net(list(x) if isinstance(x, tuple) else x)
 
         cache = coalescer = None
-        if self._bucketing:
+        # a quantized handle runs each batch at its own shape, as the
+        # JAX package's does
+        if self._bucketing and not self._quantize_flag:
             cache = BucketedExecutableCache(
                 predict_fn, max_batch=self.max_batch_size,
                 buckets=self._buckets, growth=self._bucket_growth,
@@ -326,7 +343,8 @@ class InferenceModel:
 
     def reload(self, model_path: str, weight_path: Optional[str] = None,
                quantize: Optional[bool] = None):
-        """Hot-swap the served model from a saved one."""
+        """Hot-swap the served model from a saved one; a quantized handle
+        stays quantized unless ``quantize=False``."""
         return self.load(model_path, weight_path, quantize=quantize)
 
     # ---- prediction ----

@@ -129,10 +129,29 @@ Phases (any failure makes the exit code non-zero):
    flash forward once a layer an admission, the captured decode step
    equal to the eager one, a step_fuse=1 engine's streams equal); then
    the same model at bf16 with ``accum_steps=2``: 24 bf16 launches of
-   each kernel a step, none at f32, losses within 0.05 of the f32 ones.
+   each kernel a step, none at f32, losses within 0.05 of the f32 ones;
+16. image: the image-inference path.  64 images of 180-500 px a side,
+   written from seed 0 as PNG (a standard-library encoder) into 4 class
+   folders, read back by the host's route (the port's native library,
+   built with g++ under ``build/native``; else PIL; else the written
+   arrays), pixels exact, and through ``ImageLoader.from_folder``;
+   ResNet-50 (224x224x3, 1000 classes, f32, seed 0) through
+   ``predict_image_set`` with ``ImageConfigure.parse("resnet-50")``
+   (host preprocessing, predict and end-to-end times, top-5; a CPU copy
+   on the same preprocessed tensors within 1e-4); ``resnet-50-quantize``
+   from the same weights (images/s, weights under a third of f32's,
+   probabilities within 0.05 of f32's, the int32 accumulators of the
+   stem, a 3x3 64->64 and a 1x1 256->64 convolution and the fc at
+   batches 1, 2 and 32 on the card equal to the CPU's); SSD-VGG16-300
+   with VOC's 21 classes through ``predict_image_set`` with its parsed
+   configure (boxes in each image's pixels, a CPU copy at 2 images
+   finding the same detections, the int8 variant's raw head within
+   0.12); ``InferenceModel(quantize=True)``
+   on a saved ResNet-50 from 4 threads, ``reload`` staying int8; a torch
+   CNN imported by ``load_torch_state_dict`` within 1e-5.
 
 The card's line, then ``resnet:``, ``detect:``, ``recommend:``,
-``textclass:`` and ``moe:`` summary lines (each with the card's name and power limit) come near the
+``textclass:``, ``moe:`` and ``image:`` summary lines (each with the card's name and power limit) come near the
 end; the line before the last is a JSON object with each kernel's
 numbers; the last line is ``{"ok": true, "device": {...}}``.  ResNet-50,
 the registry, SSD, the recommenders and the text classifiers reach none
@@ -268,6 +287,19 @@ MOE_SERVE_REQUESTS = 16
 # dispatch against the dense one-hot (over the largest entry), the
 # graph-captured decode step's caches against the eager step's
 MOE_TOL = dict(aux=1e-5, dispatch=1e-5, cache=1e-5)
+# the image phase: 64 images of 180-500 px a side from seed 0 in 4 class
+# folders, through ImageConfigure's registry preprocessing to ResNet-50
+# (f32 and int8) and SSD-VGG16-300; the CPU copies at cpu_rows images
+# (probabilities within prob_tol), the int8 model within the JAX
+# package's bounds of its f32 one (tests/test_quantize.py: probabilities
+# 0.05, SSD's raw head 0.12 of its largest entry), and a torch CNN
+# imported within import_tol; the int8 twin served from 4 threads
+IMAGE = dict(images=64, classes=4, sides=(180, 500), seed=0, cpu_rows=8,
+             prob_tol=1e-4, int8_prob_tol=0.05, int8_head_tol=0.12,
+             int8_cpu_tol=1e-5, int8_top1_floor=0.5, layer_tol=1e-5,
+             import_tol=1e-5,
+             fc_batches=(1, 2, 32),
+             threads=4, per_request=4, requests=96, passes=3)
 #: the summary line printed near the end for each phase, and its keys
 SUMMARIES = {
     "resnet": ("step_ms", "images_per_s", "peak_gib", "flop_share_bf16",
@@ -280,6 +312,9 @@ SUMMARIES = {
     "moe": ("step_ms", "tokens_per_s", "peak_gib", "dropped_share",
             "launches_per_step", "bf16_step_ms", "generate_ms",
             "serve_tokens_per_s", "card"),
+    "image": ("images", "decode_route", "resize_branch",
+              "host_preprocess_ms_per_image", "f32_images_per_s",
+              "int8_images_per_s", "card"),
 }
 KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "flash_fwd": ("analytics_zoo_tpu_torch/ops/csrc/flash_fwd.cu",
@@ -2577,6 +2612,557 @@ def phase_moe(torch, TransformerLM, kernels, inference, objectives):
     return all(checks.values()), stats
 
 
+def write_png(path, rgb):
+    """``rgb`` (h, w, 3) uint8 as an 8-bit RGB PNG, with the standard
+    library's zlib and struct only (no imaging package needed)."""
+    import struct
+    import zlib
+    import numpy as np
+    h, w, _ = rgb.shape
+    rows = np.concatenate([np.zeros((h, 1), np.uint8),
+                           rgb.reshape(h, w * 3)], axis=1)
+
+    def chunk(tag, data):
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xffffffff))
+
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n"
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
+                + chunk(b"IEND", b""))
+
+
+def image_folder(root):
+    """IMAGE["images"] smooth random RGB images of IMAGE["sides"] px a
+    side from IMAGE["seed"], written as PNG into IMAGE["classes"] class
+    folders; returns the folder and {path: rgb}."""
+    import numpy as np
+    I = IMAGE
+    rng = np.random.default_rng(I["seed"])
+    folder = os.path.join(root, "images")
+    written = {}
+    for i in range(I["images"]):
+        h, w = (int(v) for v in rng.integers(I["sides"][0],
+                                             I["sides"][1] + 1, 2))
+        # a coarse random field, upsampled: image-like gradients
+        coarse = rng.uniform(0, 255, (h // 16 + 2, w // 16 + 2, 3))
+        ys = np.linspace(0, coarse.shape[0] - 1.001, h)
+        xs = np.linspace(0, coarse.shape[1] - 1.001, w)
+        y0, x0 = ys.astype(int), xs.astype(int)
+        fy, fx = (ys - y0)[:, None, None], (xs - x0)[None, :, None]
+        c = coarse
+        img = ((c[y0][:, x0] * (1 - fx) + c[y0][:, x0 + 1] * fx) * (1 - fy)
+               + (c[y0 + 1][:, x0] * (1 - fx) + c[y0 + 1][:, x0 + 1] * fx)
+               * fy)
+        img = np.clip(img + rng.normal(0, 8, img.shape), 0, 255).astype(
+            np.uint8)
+        d = os.path.join(folder, f"class{i % I['classes']}")
+        os.makedirs(d, exist_ok=True)
+        path = os.path.join(d, f"img{i:03d}.png")
+        write_png(path, img)
+        written[path] = img
+    return folder, written
+
+
+def decode_images(torch, folder, written):
+    """The image set of ``folder`` by the route the host has: the port's
+    native library (libjpeg/libpng), else PIL through ``ImageSet.read``,
+    else ``ImageSet.from_arrays`` of the written pixels; the native and
+    PIL routes are held to the written pixels exactly (PNG is lossless).
+    Also ``ImageLoader.from_folder`` where a decoder exists.  Returns
+    the set and the route's numbers."""
+    import numpy as np
+    from analytics_zoo_tpu_torch import native
+    from analytics_zoo_tpu_torch.data.image_loader import ImageLoader
+    from analytics_zoo_tpu_torch.feature.image import ImageSet
+    try:
+        import PIL  # noqa: F401
+        has_pil = True
+    except ImportError:
+        has_pil = False
+    route = ("native" if native.available() else
+             "pil" if has_pil else "arrays")
+    out = dict(route=route, native_build_error=native.build_error(),
+               pil=has_pil)
+    log(f"image: decode route {route}; native build error: "
+        f"{native.build_error()}")
+    t = time.perf_counter()
+    if route == "arrays":
+        paths = sorted(written)
+        classes = sorted({os.path.basename(os.path.dirname(p))
+                          for p in paths})
+        iset = ImageSet.from_arrays(
+            [written[p][:, :, ::-1].astype(np.float32) for p in paths],
+            labels=np.asarray([[classes.index(os.path.basename(
+                os.path.dirname(p))) + 1] for p in paths], np.float32))
+        for f, p in zip(iset.features, paths):
+            f["uri"] = p
+    else:
+        iset = ImageSet.read(folder, with_label=True)
+    out["read_ms_per_image"] = (time.perf_counter() - t) * 1e3 / len(iset)
+    out["pixels_exact"] = all(
+        np.array_equal(f["image"][:, :, ::-1], written[f["uri"]])
+        for f in iset.features)
+    out["labels"] = sorted(set(iset.labels()[:, 0].tolist()))
+    if route != "arrays":
+        t = time.perf_counter()
+        loaded = ImageLoader.from_folder(
+            folder, batch_size=16, size=224, mean=(123.68, 116.779, 103.939),
+            num_threads=8).as_dataset()
+        out["loader_ms_per_image"] = (time.perf_counter() - t) * 1e3 \
+            / loaded.size
+        out["loader_shape"] = list(loaded.x.shape)
+    else:
+        out["loader_ms_per_image"] = None
+        log("image: ImageLoader skipped: no decoder on this host "
+            "(native build failed, PIL missing)")
+    return iset, out
+
+
+def int8_accumulators(torch, qmodel):
+    """conv_accumulate / int_matmul on the card against the CPU on the
+    same int8 operands (the model's int8 weights, activations quantized
+    from N(0, 1) at each layer's input shape): the stem convolution, a
+    3x3 64->64 and a 1x1 256->64 convolution, and the fc at batches 1, 2
+    and 32.  Returns {case: max |card - cpu|} (int32, so 0 when
+    equal)."""
+    from analytics_zoo_tpu_torch.ops import quantize as Q
+    g = torch.Generator().manual_seed(0)
+    convs = [l for l in qmodel.to_graph().layers
+             if isinstance(l, Q.QuantizedConv)]
+    fc = next(l for l in qmodel.to_graph().layers
+              if isinstance(l, Q.QuantizedDense))
+
+    def pick(kh, cin, cout):
+        return next(l for l in convs if tuple(l.Wq.shape) ==
+                    (kh, kh, cin, cout))
+
+    cases = {"stem 7x7 3->64 s2": (pick(7, 3, 64), 224),
+             "3x3 64->64": (pick(3, 64, 64), 56),
+             "1x1 256->64": (pick(1, 256, 64), 56)}
+    errs = {}
+    for name, (layer, size) in cases.items():
+        cin = layer.Wq.shape[2]
+        xq, _ = Q.dynamic_quantize(torch.randn(2, size, size, cin,
+                                               generator=g))
+        src = layer.src
+        pads = src._pads((size, size))
+        on_card = Q.conv_accumulate(xq.cuda(), layer.Wq, src.subsample,
+                                    pads, src.dilation)
+        on_cpu = Q.conv_accumulate(xq, layer.Wq.cpu(), src.subsample, pads,
+                                   src.dilation)
+        errs[name] = int((on_card.cpu().long() - on_cpu.long()).abs().max())
+    for rows in IMAGE["fc_batches"]:
+        xq, _ = Q.dynamic_quantize(torch.randn(rows, fc.Wq.shape[0],
+                                               generator=g))
+        on_card = Q.int_matmul(xq.cuda(), fc.Wq)
+        on_cpu = Q.int_matmul(xq, fc.Wq.cpu())
+        errs[f"fc 2048->1000 batch {rows}"] = int(
+            (on_card.cpu().long() - on_cpu.long()).abs().max())
+    return errs
+
+
+def int8_layers_vs_cpu(torch, card_net, cpu_net, x):
+    """Each layer of an int8 net on the card against the same layer of
+    its CPU copy, both given the card's own input to that layer
+    (captured by forward hooks over one predict of ``x``): how many int8
+    layers give the CPU's bits (every one whose activation does not sum,
+    when the quantize pass, the int32 product and the rescale agree),
+    and the largest |card - cpu| over max |cpu| of the int8 layers and
+    of the float ones (pooling and softmax sums)."""
+    from analytics_zoo_tpu_torch.ops.quantize import _QuantizedLayer
+    calls = []
+    hooks = [layer.register_forward_hook(
+        lambda m, args, out: calls.append((m.name, args[0], out)))
+        for layer in card_net.to_graph().layers]
+    try:
+        card_net.predict(x, batch_size=len(x))
+    finally:
+        for h in hooks:
+            h.remove()
+    cpu_of = {layer.name: layer for layer in cpu_net.to_graph().layers}
+    cpu_net.eval()
+    int8, exact, worst = 0, 0, {"int8": 0.0, "float": 0.0}
+    with torch.no_grad():
+        for name, ins, out in calls:
+            ref = cpu_of[name]([t.cpu() for t in ins]
+                               if isinstance(ins, list) else ins.cpu())
+            err = float((out.cpu() - ref).abs().max())
+            kind = ("int8" if isinstance(cpu_of[name], _QuantizedLayer)
+                    else "float")
+            if kind == "int8":
+                int8 += 1
+                exact += err == 0
+            worst[kind] = max(worst[kind],
+                              err / (float(ref.abs().max()) or 1.0))
+    return dict(layers=len(calls), int8_layers=int8, int8_exact=exact,
+                int8_max_rel_err=worst["int8"],
+                float_max_rel_err=worst["float"])
+
+
+def unmatched_detections(a, b, tol, scale):
+    """Rows of ``a`` ([label, score, x1, y1, x2, y2]) with no row of ``b``
+    of the same label, score within ``tol`` and box within ``tol *
+    scale``, each row of ``b`` used once: near-tied scores may list the
+    same detections in another order on another device."""
+    import numpy as np
+    free = list(range(len(b)))
+    missing = 0
+    for row in a:
+        hit = next((j for j in free if b[j, 0] == row[0]
+                    and abs(b[j, 1] - row[1]) <= tol
+                    and np.abs(b[j, 2:] - row[2:]).max() <= tol * scale),
+                   None)
+        if hit is None:
+            missing += 1
+        else:
+            free.remove(hit)
+    return missing
+
+
+def serve_image_requests(im, x, threads, per_request, requests):
+    """``requests`` requests of ``per_request`` rows of ``x`` (in turn,
+    wrapping round) sent to ``im.predict`` from ``threads`` threads.
+    Each thread makes one predict of its own first (its per-thread
+    library handles and workspaces), and the clock starts when all are
+    done; (each request's rows in order, requests/s)."""
+    import threading
+    import numpy as np
+    starts = [j * per_request % len(x) for j in range(requests)]
+    out, errors = [None] * requests, []
+    barrier = threading.Barrier(threads + 1)
+
+    def client(k):
+        try:
+            im.predict(x[:per_request])
+            barrier.wait()
+            for j in range(k, requests, threads):
+                out[j] = im.predict(x[starts[j]:starts[j] + per_request])
+        except Exception as e:  # re-raised below
+            errors.append(e)
+            barrier.abort()
+
+    workers = [threading.Thread(target=client, args=(k,))
+               for k in range(threads)]
+    for w in workers:
+        w.start()
+    try:
+        barrier.wait(300)
+    except threading.BrokenBarrierError:
+        pass  # a client failed: its error is raised below
+    t = time.perf_counter()
+    for w in workers:
+        w.join(600)
+    wall = time.perf_counter() - t
+    if errors:
+        raise errors[0]
+    return np.concatenate(out), requests / wall
+
+
+def torch_import_check(torch, models, keras):
+    """A plain torch.nn CNN from seed (Conv2d, BatchNorm2d, ReLU, Conv2d,
+    Flatten, Dropout, Linear; eval mode, moving statistics set) loaded
+    with ``load_torch_state_dict`` into the matching port Sequential on
+    the card: max |port - torch| over max |torch| at batch 8."""
+    import numpy as np
+    from analytics_zoo_tpu_torch.models.weight_loading import (
+        load_torch_state_dict)
+    from analytics_zoo_tpu_torch.pipeline.api.keras import layers as L
+    nn = torch.nn
+    torch.manual_seed(0)
+    tm = nn.Sequential(nn.Conv2d(3, 16, 3, padding=1), nn.BatchNorm2d(16),
+                       nn.ReLU(), nn.Conv2d(16, 8, 3), nn.Flatten(),
+                       nn.Dropout(0.5), nn.Linear(8 * 30 * 30, 10))
+    with torch.no_grad():
+        tm[1].running_mean.uniform_(-0.5, 0.5)
+        tm[1].running_var.uniform_(0.5, 1.5)
+    tm = tm.eval().cuda()
+    m = keras.Sequential(seed=0)
+    m.add(L.Convolution2D(16, 3, 3, border_mode="same",
+                          input_shape=(32, 32, 3)))
+    m.add(L.BatchNormalization(epsilon=1e-5))
+    m.add(L.Activation("relu"))
+    m.add(L.Convolution2D(8, 3, 3))
+    m.add(L.Flatten())
+    m.add(L.Dropout(0.5))
+    m.add(L.Dense(10))
+    load_torch_state_dict(m, tm.state_dict())
+    x = np.random.default_rng(0).uniform(0, 1, (8, 32, 32, 3)).astype(
+        np.float32)
+    with torch.no_grad():
+        want = tm(torch.from_numpy(x).cuda().permute(0, 3, 1, 2))
+    want = want.cpu().numpy()
+    got = m.predict(x, batch_size=8)
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+def phase_image(torch, models, keras, kernels, inference, tmp):
+    """The image-inference path (IMAGE): 64 PNG images of 180-500 px
+    written from seed 0 into 4 class folders and read back
+    (:func:`decode_images`); ResNet-50 (224x224x3, 1000 classes, f32,
+    seed 0) through ``predict_image_set`` with
+    ``ImageConfigure.parse("resnet-50")`` (host preprocessing ms, predict
+    ms, end-to-end images/s, top-5 by ``label_output``; a CPU copy on the
+    same preprocessed tensors: probabilities within 1e-4, top-1 equal
+    unless the CPU's top-2 gap is below that); ``resnet-50-quantize`` from
+    the same weights (images/s, weight bytes under a third of f32's,
+    probabilities within 0.05 of f32's with top-1 equal on at least
+    half; a CPU int8 copy on the first 8 images: probabilities within
+    1e-5, top-1 equal unless its top-2 gap is below that, and each layer
+    on the card equal to the copy's on the same input
+    (:func:`int8_layers_vs_cpu`, within 1e-5); the int32 accumulators on the card equal to the CPU's,
+    :func:`int8_accumulators`); SSD-VGG16-300
+    with VOC's 21 classes through ``predict_image_set`` with its parsed
+    configure (detections in each image's pixels; a CPU copy at 2 images
+    finding every detection, :func:`unmatched_detections` at 1e-4; the
+    '-quantize' raw head within 0.12 of f32's);
+    ``InferenceModel(quantize=True)`` on a ``save_model`` of the ResNet-50
+    from 4 threads, at a concurrency of 1 and of 4 (3 passes of 96
+    requests of 4 images each, each thread warmed first: requests/s of
+    each pass; ``reload`` stays int8); and a torch CNN imported by
+    ``load_torch_state_dict`` within 1e-5."""
+    import statistics
+    import numpy as np
+    from analytics_zoo_tpu_torch.feature.image import resize_branch
+    from analytics_zoo_tpu_torch.ops.quantize import (quantize_graph,
+                                                      quantized_size_bytes)
+    I = IMAGE
+    stats, ok = {}, True
+    kernels.reset_launch_counts()
+    folder, written = image_folder(tmp)
+    iset, stats["decode"] = decode_images(torch, folder, written)
+    d = stats["decode"]
+    ok = ok and d["pixels_exact"] and len(iset) == I["images"] \
+        and d["labels"] == list(range(1, I["classes"] + 1))
+    stats["resize_branch"] = resize_branch(iset.features[0]["image"])
+    log(f"image: {len(iset)} images, resize branch "
+        f"{stats['resize_branch']}, read {d['read_ms_per_image']:.2f} ms "
+        f"an image, ImageLoader {d['loader_ms_per_image']} ms an image")
+
+    # ---- ResNet-50, f32
+    cfg = models.ImageConfigure.parse("resnet-50")
+    net = models.ImageClassifier("resnet-50", seed=0)
+    t = time.perf_counter()
+    ready = iset.copy().transform(cfg.pre_processor).to_array()
+    prep_ms = (time.perf_counter() - t) * 1e3
+    batch = cfg.batch_per_partition * 8
+    net.predict(ready[:batch], batch_size=batch)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    probs, predict_s = timed(torch, lambda: net.predict(ready, batch), 3)
+    peak_f32 = torch.cuda.max_memory_allocated() / 2 ** 30
+    t = time.perf_counter()
+    net.predict_image_set(iset, configure=cfg)
+    e2e_s = time.perf_counter() - t
+    via_set = np.stack([p for _, p in iset.get_predicts()])
+    top5 = models.label_output(via_set[:1])[0]
+    launches_f32 = device_launches(torch, lambda: net.predict(
+        ready[:batch], batch))
+    cpu = models.ImageClassifier("resnet-50", device="cpu")
+    models.from_jax_params(cpu, net.get_weights(), models.to_jax_state(net))
+    rows = I["cpu_rows"]
+    cpu_probs = cpu.predict(ready[:rows], batch_size=rows)
+    # every input nudged up by one ulp, on the CPU: how far rounding
+    # noise alone moves this net's probabilities
+    nudged = np.nextafter(ready[:2], np.float32(np.inf))
+    ulp_f32 = float(np.abs(cpu.predict(nudged, batch_size=2)
+                           - cpu_probs[:2]).max())
+    del cpu
+    cpu_err = float(np.abs(probs[:rows] - cpu_probs).max())
+    srt = np.sort(cpu_probs, axis=-1)
+    gaps = srt[:, -1] - srt[:, -2]
+    top1_same = (np.argmax(probs[:rows], -1) == np.argmax(cpu_probs, -1))
+    ties = int((~top1_same & (gaps < I["prob_tol"])).sum())
+    stats["resnet50"] = dict(
+        images=len(iset), host_preprocess_ms=prep_ms,
+        host_preprocess_ms_per_image=prep_ms / len(iset),
+        predict_ms=min(predict_s) * 1e3,
+        predict_ms_all=[s * 1e3 for s in predict_s],
+        predict_images_per_s=len(ready) / min(predict_s),
+        end_to_end_ms=e2e_s * 1e3, end_to_end_images_per_s=len(iset) / e2e_s,
+        set_equals_predict=float(np.abs(via_set - probs).max()),
+        top5=top5, launches_per_batch=launches_f32, batch=batch,
+        peak_gib=peak_f32, cpu_rows=rows, cpu_prob_err=cpu_err,
+        cpu_top1_equal=int(top1_same.sum()), cpu_top1_ties=ties,
+        cpu_one_ulp_prob_change=ulp_f32)
+    ok = ok and cpu_err <= I["prob_tol"] and bool(
+        (top1_same | (gaps < I["prob_tol"])).all()) \
+        and stats["resnet50"]["set_equals_predict"] <= I["prob_tol"] \
+        and np.isfinite(probs).all() and probs.shape == (len(iset), 1000)
+    log("image: resnet-50 f32", json.dumps(stats["resnet50"]))
+
+    # ---- resnet-50-quantize
+    q = models.ImageClassifier("resnet-50-quantize", seed=0)
+    q.set_weights(net.get_weights())
+    q.predict(ready[:batch], batch_size=batch)  # builds the int8 twin
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    qprobs, q_s = timed(torch, lambda: q.predict(ready, batch), 3)
+    peak_q = torch.cuda.max_memory_allocated() / 2 ** 30
+    t = time.perf_counter()
+    qset = iset.copy()
+    q.predict_image_set(qset, configure=cfg)
+    q_e2e = time.perf_counter() - t
+    f32_bytes = quantized_size_bytes(models.to_jax_params(net))
+    _, qparams, _ = quantize_graph(net.to_graph())
+    q_bytes = quantized_size_bytes(qparams)
+    acc = int8_accumulators(torch, q._quantized_net)
+    launches_q = device_launches(torch, lambda: q.predict(ready[:batch],
+                                                          batch))
+    q_err = float(np.abs(qprobs - probs).max())
+    # the same int8 net on the CPU, from the card's weights and state,
+    # end to end and layer by layer on the card's own inputs; the
+    # one-ulp nudge shows how far a last-bit difference in a float
+    # layer carries (it flips int8 roundings, and the flips grow)
+    cq = models.ImageClassifier("resnet-50-quantize", device="cpu")
+    models.from_jax_params(cq, q.get_weights(), models.to_jax_state(q))
+    cq_probs = cq.predict(ready[:rows], batch_size=rows)
+    ulp_int8 = float(np.abs(cq.predict(nudged, batch_size=2)
+                            - cq_probs[:2]).max())
+    by_layer = int8_layers_vs_cpu(torch, q._quantized_net,
+                                  cq._quantized_net, ready[:2])
+    del cq
+    q_cpu_err = float(np.abs(qprobs[:rows] - cq_probs).max())
+    q_top1 = np.argmax(qprobs[:rows], -1) == np.argmax(cq_probs, -1)
+    srt = np.sort(cq_probs, axis=-1)
+    q_gaps = srt[:, -1] - srt[:, -2]
+    top1_vs_f32 = float((np.argmax(qprobs, -1)
+                         == np.argmax(probs, -1)).mean())
+    stats["resnet50_int8"] = dict(
+        predict_ms=min(q_s) * 1e3, predict_ms_all=[s * 1e3 for s in q_s],
+        predict_images_per_s=len(ready) / min(q_s),
+        f32_predict_images_per_s=len(ready) / min(predict_s),
+        end_to_end_images_per_s=len(iset) / q_e2e,
+        weight_bytes=q_bytes, f32_weight_bytes=f32_bytes,
+        bytes_ratio=q_bytes / f32_bytes, prob_err_vs_f32=q_err,
+        top1_agree_vs_f32=top1_vs_f32, cpu_rows=rows,
+        cpu_int8_prob_err=q_cpu_err, cpu_int8_top1_equal=int(q_top1.sum()),
+        cpu_int8_one_ulp_prob_change=ulp_int8, cpu_int8_by_layer=by_layer,
+        accumulators_card_vs_cpu=acc, launches_per_batch=launches_q,
+        peak_gib=peak_q)
+    ok = ok and q_bytes < f32_bytes / 3 and q_err <= I["int8_prob_tol"] \
+        and q_cpu_err <= I["int8_cpu_tol"] \
+        and bool((q_top1 | (q_gaps < I["int8_cpu_tol"])).all()) \
+        and top1_vs_f32 >= I["int8_top1_floor"] \
+        and by_layer["int8_layers"] > 0 \
+        and max(by_layer["int8_max_rel_err"],
+                by_layer["float_max_rel_err"]) <= I["layer_tol"] \
+        and all(v == 0 for v in acc.values()) and np.isfinite(qprobs).all()
+    log("image: resnet-50-quantize", json.dumps(stats["resnet50_int8"]))
+
+    # ---- SSD-VGG16-300, VOC
+    D = DETECT
+    det = models.ObjectDetector(D["name"], num_classes=D["classes"],
+                                conf_threshold=D["conf_threshold"],
+                                nms_threshold=D["nms_threshold"],
+                                max_detections=D["max_detections"], seed=0)
+    scfg = models.ImageConfigure.parse(D["name"])
+    sset = iset.copy()
+    det.predict_image_set(sset.copy(), batch_size=D["batch"],
+                          configure=scfg)  # warm-up
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    det.predict_image_set(sset, batch_size=D["batch"], configure=scfg)
+    torch.cuda.synchronize()
+    ssd_s = time.perf_counter() - t
+    dets = [np.asarray(p) for _, p in sset.get_predicts()]
+    inside = all(
+        ((d[d[:, 0] >= 0][:, [2, 4]] >= 0) & (d[d[:, 0] >= 0][:, [2, 4]]
+                                               <= f["image"].shape[1])).all()
+        and ((d[d[:, 0] >= 0][:, [3, 5]] >= 0)
+             & (d[d[:, 0] >= 0][:, [3, 5]] <= f["image"].shape[0])).all()
+        for d, f in zip(dets, sset.features))
+    untouched = all(np.array_equal(a["image"], b["image"])
+                    for a, b in zip(sset.features, iset.features))
+    srows = D["cpu_rows"]
+    from analytics_zoo_tpu_torch.feature.image import ImageSet
+    small = ImageSet.from_arrays([f["image"] for f in iset.features[:srows]])
+    cdet = models.ObjectDetector(D["name"], num_classes=D["classes"],
+                                 conf_threshold=D["conf_threshold"],
+                                 nms_threshold=D["nms_threshold"],
+                                 max_detections=D["max_detections"],
+                                 device="cpu")
+    models.from_jax_params(cdet, det.get_weights())
+    cdet.predict_image_set(small, batch_size=srows, configure=scfg)
+    del cdet
+    cpu_dets = [np.asarray(p) for _, p in small.get_predicts()]
+    unmatched = sum(unmatched_detections(a, b, DETECT_TOL,
+                                         max(f["image"].shape))
+                    for a, b, f in zip(dets, cpu_dets, iset.features))
+    in_order = all(np.array_equal(a[:, 0], b[:, 0])
+                   for a, b in zip(dets, cpu_dets))
+    qdet = models.ObjectDetector(D["name"] + "-quantize",
+                                 num_classes=D["classes"], seed=0)
+    qdet.set_weights(det.get_weights())
+    sready = iset.copy().transform(scfg.pre_processor).to_array()[:D["batch"]]
+    raw_f = det.predict(sready, batch_size=D["batch"])
+    raw_q = qdet.predict(sready, batch_size=D["batch"])
+    head_err = float(np.abs(raw_f - raw_q).max() / np.abs(raw_f).max())
+    stats["ssd"] = dict(
+        model=D["name"], classes=D["classes"], images=len(sset),
+        end_to_end_ms=ssd_s * 1e3, end_to_end_images_per_s=len(sset) / ssd_s,
+        detections=int(sum((d[:, 0] >= 0).sum() for d in dets)),
+        inside_original=bool(inside), originals_untouched=bool(untouched),
+        cpu_rows=srows, cpu_unmatched=unmatched,
+        cpu_labels_in_order=bool(in_order), int8_head_rel_err=head_err)
+    ok = ok and inside and untouched and unmatched == 0 \
+        and head_err < I["int8_head_tol"]
+    log("image: ssd", json.dumps(stats["ssd"]))
+    del det, qdet
+
+    # ---- serving the int8 ResNet-50 from 4 threads
+    path = os.path.join(tmp, "resnet50_image")
+    net.save_model(path)
+    rps, serve_err = {}, 0.0
+    want = np.concatenate([qprobs] * (I["requests"] * I["per_request"]
+                                      // len(qprobs)))
+    for concurrent in (1, I["threads"]):
+        im = inference.InferenceModel(supported_concurrent_num=concurrent
+                                      ).load(path, quantize=True)
+        try:
+            rps[concurrent] = []
+            for _ in range(I["passes"]):
+                served, r = serve_image_requests(
+                    im, ready, I["threads"], I["per_request"],
+                    I["requests"])
+                rps[concurrent].append(r)
+                serve_err = max(serve_err,
+                                float(np.abs(served - want).max()))
+            im.reload(path)
+            again = im.predict(ready[:I["per_request"]])
+            stays_int8 = bool(im._quantize_flag)
+        finally:
+            im.close()
+    reload_err = float(np.abs(again - served[:I["per_request"]]).max())
+    stats["serve"] = dict(requests=I["requests"], passes=I["passes"],
+                          rows_per_request=I["per_request"],
+                          threads=I["threads"],
+                          requests_per_s=statistics.median(
+                              rps[I["threads"]]),
+                          requests_per_s_passes=rps[I["threads"]],
+                          requests_per_s_concurrent_1=statistics.median(
+                              rps[1]),
+                          requests_per_s_concurrent_1_passes=rps[1],
+                          vs_predict_err=serve_err, reload_int8=stays_int8,
+                          reload_err=reload_err)
+    ok = ok and stays_int8 and serve_err <= I["prob_tol"] \
+        and reload_err <= I["prob_tol"]
+    log("image: serve", json.dumps(stats["serve"]))
+
+    stats["torch_import_rel_err"] = torch_import_check(torch, models, keras)
+    ok = ok and stats["torch_import_rel_err"] <= I["import_tol"]
+    stats.update(
+        images=len(iset), decode_route=d["route"],
+        resize_branch=stats["resize_branch"],
+        host_preprocess_ms_per_image=prep_ms / len(iset),
+        f32_images_per_s=stats["resnet50"]["end_to_end_images_per_s"],
+        int8_images_per_s=stats["resnet50_int8"]["end_to_end_images_per_s"],
+        launches=kernels.launch_counts(), card=smi_card())
+    log("image:", json.dumps(stats))
+    return bool(ok), stats
+
+
 def initial_weights(torch, TransformerLM, cfg):
     model = TransformerLM(**cfg, device="cuda", seed=0)
     return [p.detach().clone() for p in model.parameters()]
@@ -2769,6 +3355,8 @@ def main() -> int:
                                               kernels)),
         ("moe", lambda: phase_moe(torch, TransformerLM, kernels, inference,
                                   objectives)),
+        ("image", lambda: phase_image(torch, models, keras, kernels,
+                                      inference, tmp)),
     ]
     results = {}
     for name, run in phases:
@@ -2796,7 +3384,8 @@ def main() -> int:
     path_launches = {
         path: (results.get(path) or {}).get("launches") or {}
         for path in ("path", "serve", "train", "graph", "mixed", "resnet",
-                     "registry", "detect", "recommend", "textclass")}
+                     "registry", "detect", "recommend", "textclass",
+                     "image")}
     moe = results.get("moe") or {}
     path_launches["moe"] = moe.get("launches") or {}
     path_launches["moe_bf16"] = moe.get("bf16_launches") or {}
@@ -2841,7 +3430,8 @@ def main() -> int:
                          f"{name}[bf16]", 0),
                      "moe_generate": path_launches["moe_generate"].get(
                          name, 0),
-                     "moe_serve": path_launches["moe_serve"].get(name, 0)}}
+                     "moe_serve": path_launches["moe_serve"].get(name, 0),
+                     "image": path_launches["image"].get(name, 0)}}
         entry.update(timed_row(name, "mixed", "bfloat16"))
         entry["f32"] = timed_row(name, "train", "float32")
         entry["bf16_batch8"] = timed_row(name, "train", "bfloat16")

@@ -11,7 +11,11 @@ caller's writes; the kernels' sums over a long walk of keys that share
 a large mean against exact attention; recurrent layers against the CPU,
 the Switch-MoE index dispatch against its dense form, a MoE model's
 captured decode step against the eager one, and a MoE training step
-through the kernels. This file imports no jax (nor does anything it imports), so that it runs on a
+through the kernels; the int8 products (``torch._int_mm`` at the shapes
+it refuses unpadded) and convolutions against the CPU's accumulators,
+the quantize passes and eval BatchNorm bit for bit against the CPU, the
+native decode, and ``predict_image_set`` against the CPU. This file
+imports no jax (nor does anything it imports), so that it runs on a
 GPU host without the JAX package: ``python -m pytest --noconftest
 tests/test_torch_cuda.py -m cuda``. Without a card every test skips
 inside the ``cuda`` fixture.
@@ -21,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import unmatched_detections, write_png
 from analytics_zoo_tpu_torch.models import (ImageClassifier, NeuralCF,
                                             ObjectDetector, TransformerLM,
                                             decode_output, from_jax_params,
@@ -861,3 +866,147 @@ def test_cuda_moe_lm_step_launches_the_three_kernels(cuda, f32_convs):
         grads[impl] = torch.autograd.grad(loss, params)
     for a, b in zip(grads["flash"], grads["blockwise"]):
         assert float((a - b).abs().max()) <= 1e-3 * float(b.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [
+    (2, 64, 16), (16, 147, 64), (17, 64, 84), (5, 24, 126), (1, 2048, 1000),
+    (32, 2048, 1000), (100352, 576, 64)])
+def test_cuda_int_matmul_pads_to_exact_accumulators(cuda, m, k, n):
+    """torch._int_mm refuses rows <= 16 and a depth or width off a
+    multiple of 8 on the card: the padded product equals the CPU's int32
+    accumulators exactly (ResNet-50's stem depth 147, SSD's head widths
+    84 and 126, the fc at batch 1, a 3x3 64-channel layer at batch 32)."""
+    from analytics_zoo_tpu_torch.ops.quantize import int_matmul
+    g = torch.Generator().manual_seed(m + k + n)
+    a = torch.randint(-127, 128, (m, k), generator=g, dtype=torch.int8)
+    b = torch.randint(-127, 128, (k, n), generator=g, dtype=torch.int8)
+    got = int_matmul(a.to(cuda), b.to(cuda))
+    assert got.device.type == cuda.type and got.dtype == torch.int32
+    assert torch.equal(got.cpu(), int_matmul(a, b))
+
+
+@pytest.mark.cuda
+def test_cuda_quantize_passes_give_the_cpu_bits(cuda):
+    """The int8 weights and scales, the per-sample activation scales and
+    int8 values, and eval-mode BatchNorm's output are bit-equal on the
+    card and the CPU.  CUDA divides by a host scalar as a product with
+    its reciprocal and its ``rsqrt`` is approximate; either one shifts a
+    scale by a bit, flips int8 roundings, and the flips grow through a
+    deep int8 net (ResNet-50 0.009 apart in probability)."""
+    from analytics_zoo_tpu_torch.ops import batchnorm as B
+    from analytics_zoo_tpu_torch.ops import quantize as Q
+    g = torch.Generator().manual_seed(0)
+    w = torch.randn(3, 3, 256, 512, generator=g)
+    x = torch.randn(64, 14, 14, 256, generator=g) * 3
+    for name, got, want in (
+            ("weights", Q.quantize_per_channel(w.to(cuda)),
+             Q.quantize_per_channel(w)),
+            ("activations", Q.dynamic_quantize(x.to(cuda)),
+             Q.dynamic_quantize(x))):
+        for part, a, b in zip(("int8", "scale"), got, want):
+            assert torch.equal(a.cpu(), b), (name, part)
+    gamma, beta, mean = (torch.randn(256, generator=g) for _ in range(3))
+    var = torch.rand(256, generator=g) * 4
+    args = (gamma, beta, mean, var, 1e-3, 3)
+    got = B.batch_norm_inference(x.to(cuda), *(a.to(cuda) for a in args[:4]),
+                                 *args[4:]).cpu()
+    want = B.batch_norm_inference(x, *args)
+    assert torch.equal(got, want), float((got - want).abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,cin,cout,stride,padding", [
+    (7, 3, 64, 2, "SAME"), (3, 64, 64, 1, "SAME"), (1, 256, 64, 1, "VALID"),
+    (3, 512, 84, 1, "SAME"), (3, 256, 126, 1, "SAME")])
+def test_cuda_int8_conv_accumulators_match_cpu(cuda, kernel, cin, cout,
+                                               stride, padding):
+    from analytics_zoo_tpu_torch.ops import quantize as Q
+    g = torch.Generator().manual_seed(kernel * cin + cout)
+    xq, _ = Q.dynamic_quantize(torch.randn(2, 38, 38, cin, generator=g))
+    wq, _ = Q.quantize_per_channel(torch.randn(kernel, kernel, cin, cout,
+                                               generator=g))
+    args = ((stride, stride), padding)
+    got = Q.conv_accumulate(xq.to(cuda), wq.to(cuda), *args)
+    assert torch.equal(got.cpu(), Q.conv_accumulate(xq, wq, *args))
+
+
+def _png_folder(root, n=6):
+    """PNG class folders written with chip_smoke's standard-library
+    encoder (the card host may have no imaging package); returns {path:
+    rgb}."""
+    rng = np.random.default_rng(0)
+    written = {}
+    for i in range(n):
+        h, w = 40 + 7 * i, 64 - 5 * i
+        rgb = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+        d = root / f"c{i % 2}"
+        d.mkdir(exist_ok=True)
+        path = d / f"{i}.png"
+        write_png(path, rgb)
+        written[str(path)] = rgb
+    return written
+
+
+@pytest.mark.cuda
+def test_cuda_native_decode_reads_the_written_pixels(cuda, tmp_path):
+    """The port's native library decodes PNG class folders to the
+    written pixels (BGR), and its normalized batches go to the card."""
+    from analytics_zoo_tpu_torch import native
+    from analytics_zoo_tpu_torch.feature.image import ImageSet
+    if not native.available():
+        pytest.skip(f"native library not built here: {native.build_error()}")
+    written = _png_folder(tmp_path)
+    iset = ImageSet.read(str(tmp_path), with_label=True)
+    for f in iset.features:
+        np.testing.assert_array_equal(f["image"][:, :, ::-1],
+                                      written[f["uri"]])
+    batch = native.decode_resize_normalize_batch(
+        [open(p, "rb").read() for p in sorted(written)], 32)
+    assert torch.as_tensor(batch, device=cuda).shape == (6, 32, 32, 3)
+
+
+@pytest.mark.cuda
+def test_cuda_predict_image_set_matches_cpu(cuda, f32_convs, tmp_path):
+    """A classifier (squeezenet at 32x32 through a resize, crop and
+    normalize configure; f32 and -quantize) and a detector
+    (ssd-mobilenet-300 through its parsed configure) predict an image
+    set of raw sizes on the card as on the CPU: probabilities within
+    1e-5, and every detection found on the other device with its label,
+    its score within 1e-4 and its box within 1e-4 of the image size (in
+    any order among near-tied scores)."""
+    from analytics_zoo_tpu_torch.feature.image import (
+        ImageCenterCrop, ImageChannelNormalize, ImageResize, ImageSet)
+    from analytics_zoo_tpu_torch.models import ImageConfigure
+    raw = [np.asarray(v, np.float32)[:, :, ::-1]
+           for v in _png_folder(tmp_path).values()]
+    cfg = ImageConfigure(pre_processor=(
+        ImageResize(40, 40) >> ImageCenterCrop(32, 32)
+        >> ImageChannelNormalize(123.68, 116.779, 103.939, 58.4, 57.1,
+                                 57.4)))
+    weights = ImageClassifier("squeezenet", input_shape=(32, 32, 3),
+                              num_classes=5, device="cpu").get_weights()
+    for name in ("squeezenet", "squeezenet-quantize"):
+        out = {}
+        for dev in ("cuda", "cpu"):
+            m = ImageClassifier(name, input_shape=(32, 32, 3),
+                                num_classes=5, device=dev)
+            m.set_weights(weights)
+            iset = ImageSet.from_arrays(raw)
+            m.predict_image_set(iset, configure=cfg)
+            out[dev] = np.stack([p for _, p in iset.get_predicts()])
+        close(out["cuda"], out["cpu"], rtol=0, atol=1e-5)
+    src = ObjectDetector("ssd-mobilenet-300", num_classes=4, device="cpu")
+    dets = {}
+    for dev in ("cuda", "cpu"):
+        det = ObjectDetector("ssd-mobilenet-300", num_classes=4,
+                             max_detections=20, device=dev)
+        from_jax_params(det, src.get_weights(), to_jax_state(src))
+        iset = ImageSet.from_arrays(raw[:2])
+        det.predict_image_set(
+            iset, batch_size=2,
+            configure=ImageConfigure.parse("ssd-mobilenet-300"))
+        dets[dev] = np.stack([p for _, p in iset.get_predicts()])
+    for a, b in zip(dets["cuda"], dets["cpu"]):
+        assert unmatched_detections(a, b, tol=1e-4, scale=64) == 0
+

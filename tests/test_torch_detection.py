@@ -262,7 +262,7 @@ def test_object_detector_names_and_unported_paths():
     det = tdet.ObjectDetector("ssd-vgg16-300-quantize", num_classes=3,
                               device="cpu")
     assert det.priors.shape == (8732, 4) and det.image_size == 300
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        det.predict(np.zeros((1, 300, 300, 3), np.float32))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        det.predict_image_set(None)
+    # the int8 path is ported: a '-quantize' name predicts through it
+    assert det.predict(np.zeros((1, 300, 300, 3)).astype(np.float32)
+                       ).shape == (1, 8732, 7)
+    assert det._quantized_net is not None

@@ -335,10 +335,13 @@ def test_registry_errors():
         ImageClassifier("resnet-51", device="cpu")
     q = ImageClassifier("squeezenet-quantize", input_shape=SHAPE,
                         num_classes=CLASSES, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        q.predict(np.zeros((1,) + SHAPE, np.float32))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        q.predict_image_set(None)
+    # the int8 path and predict_image_set are ported
+    assert q.predict(np.zeros((1,) + SHAPE, np.float32)).shape == (
+        1, CLASSES)
+    from analytics_zoo_tpu_torch.feature.image import ImageSet
+    iset = q.predict_image_set(ImageSet.from_arrays(
+        np.zeros((2,) + SHAPE, np.float32)))
+    assert iset.get_predicts()[1][1].shape == (CLASSES,)
 
 
 def test_label_output_matches_jax():

@@ -451,9 +451,18 @@ def test_handle_device_must_match_the_model(closing):
 
 
 def test_quantized_handle_is_not_ported(closing):
+    """Ported since the int8 slice: a quantized handle serves the int8
+    twin on the exact-shape path.  ``2 * I`` quantizes exactly (scale
+    2/127, weights 127 on the diagonal), so predict is ``2 * x`` within
+    one activation step."""
     im = closing(InferenceModel())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        im.load_keras_net(dense_net(1.0), quantize=True)
+    im.load_keras_net(dense_net(2.0), quantize=True)
+    x = np.random.default_rng(0).normal(size=(5, 3)).astype(np.float32)
+    out = im.predict(x)
+    step = np.abs(x).max(axis=1, keepdims=True) / 127.0
+    assert np.all(np.abs(out - 2 * x) <= 2 * step * 0.5 + 1e-6)
+    assert im._quantize_flag is True
+    assert im.serving_stats()["buckets"] == ()
 
 
 # ------------------------------------------------------- JAX parity
