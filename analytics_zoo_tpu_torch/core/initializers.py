@@ -80,6 +80,14 @@ def ones(shape, generator, dtype=torch.float32):
     return torch.ones(tuple(shape), dtype=dtype, device=generator.device)
 
 
+def constant(value: float):
+    """An initializer filling its shape with ``value``."""
+    def init(shape, generator, dtype=torch.float32):
+        return torch.full(tuple(shape), value, dtype=dtype,
+                          device=generator.device)
+    return init
+
+
 def identity(shape, generator, dtype=torch.float32):
     if len(shape) != 2 or shape[0] != shape[1]:
         raise ValueError("identity init requires a square 2D shape")

@@ -234,6 +234,29 @@ class Layer(nn.Module):
         return layer
 
 
+class RandomLayer(Layer):
+    """Base of the layers that draw noise in training (Dropout, the noise
+    layers, RReLU, GaussianSampler).  Each draws from its own
+    ``torch.Generator``: the ``generator`` given at construction, else one
+    seeded, when the layer is built, from the generator that builds it.
+    In eval mode they draw nothing."""
+
+    needs_input_shape = False
+
+    def __init__(self, input_shape=None, name: Optional[str] = None,
+                 device=None, generator: Optional[torch.Generator] = None):
+        super().__init__(input_shape=input_shape, name=name, device=device,
+                         generator=generator)
+        self.generator = generator
+
+    def build_params(self, input_shape, generator):
+        if self.generator is None:
+            seed = int(torch.randint(0, 2 ** 62, (1,), generator=generator,
+                                     device=generator.device))
+            self.generator = torch.Generator(generator.device).manual_seed(
+                seed)
+
+
 def check_device(layer: nn.Module, device) -> None:
     """Raise when ``layer``'s parameters lie on another device type than
     ``device``: a model keeps all its weights on its own device."""

@@ -68,6 +68,17 @@ def conv_output_length(
     return result
 
 
+def deconv_output_length(
+    input_length: Optional[int], filter_size: int, border_mode: str, stride: int
+) -> Optional[int]:
+    if input_length is None:
+        return None
+    out = input_length * stride
+    if border_mode == "valid":
+        out += max(filter_size - stride, 0)
+    return out
+
+
 def pool_output_length(
     input_length: Optional[int], pool_size: int, border_mode: str, stride: int
 ) -> Optional[int]:

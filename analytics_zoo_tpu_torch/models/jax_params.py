@@ -9,7 +9,8 @@ recurrent ``W``/``U``/``b``, SwitchMoE ``gate``/``w1``/``b1``/``w2``/
 ``b2``), so the transfer is the identity on every leaf: numpy arrays in,
 numpy arrays out, and a round trip is bit-exact.  A wrapper layer's tree
 nests one level more (Bidirectional: ``{"forward": ..., "backward":
-...}``).  The layer state (BatchNormalization's moving statistics and
+...}``), except TimeDistributed's, which is its inner layer's, as in the
+JAX package.  The layer state (BatchNormalization's moving statistics and
 ``count``, WordEmbedding's ``table``, SwitchMoE's ``aux_loss``) moves the
 same way, keyed as the JAX package's ``trainer.state.model_state``.  A graph model (``Sequential``/``Model``)
 lists its layers in first-use order; any other model (``TransformerLM``)

@@ -74,14 +74,15 @@ class WordEmbedding(Layer):
     :meth:`get_word_index`); row 0 is the zero padding vector, as is
     every indexed word the file lacks.  The table goes into the config
     (``_table``), so ``from_config`` rebuilds the layer without the
-    file."""
+    file.  ``_output_dim`` is accepted and, as in the JAX package, not
+    used: the table's width is the output's."""
 
     needs_input_shape = False
     stateful = True
 
     def __init__(self, embedding_file=None, word_index=None, trainable=False,
                  input_length=None, input_shape=None, name=None,
-                 _table=None, device=None,
+                 _table=None, _output_dim=None, device=None,
                  generator: Optional[torch.Generator] = None):
         if input_length is not None and input_shape is None:
             input_shape = (input_length,)

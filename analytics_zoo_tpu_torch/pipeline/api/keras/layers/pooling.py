@@ -1,15 +1,14 @@
-"""Pooling: MaxPooling2D, AveragePooling2D and the global pools.
+"""Pooling: the max and average pools in 1-D, 2-D and 3-D and the
+global pools.
 
-Counterpart of ``_PoolND``, ``MaxPooling2D``, ``AveragePooling2D`` and
-``_GlobalPoolND`` with its six classes in
+Counterpart of every class of
 ``analytics_zoo_tpu/pipeline/api/keras/layers/pooling.py``.  The input is
 channels-last unless ``dim_ordering="th"``, as for the convolutions;
 ``border_mode="same"`` pads as XLA's ``SAME`` does (the odd element on
-the high side).  Max pooling pads with -inf, so a padded element never
-wins a window; average pooling divides each window's sum by the number
-of real (unpadded) elements in it, as the JAX package does, and by the
-window's size under ``valid``.  The 1-D and 3-D windowed pools are not
-ported yet (see ROADMAP.md).
+the high side, which can make the padding asymmetric).  Max pooling pads
+with -inf, so a padded element never wins a window; average pooling
+divides each window's sum by the number of real (unpadded) elements in
+it, as the JAX package does, and by the window's size under ``valid``.
 """
 
 from __future__ import annotations
@@ -25,8 +24,29 @@ from .convolutional import (channels_first_view, channels_last_shape,
                             from_channels_last, pad_spatial,
                             to_channels_last)
 
-_MAX_POOL = {1: F.max_pool1d, 2: F.max_pool2d}
-_AVG_POOL = {2: F.avg_pool2d}
+_MAX_POOL = {1: F.max_pool1d, 2: F.max_pool2d, 3: F.max_pool3d}
+_AVG_POOL = {1: F.avg_pool1d, 2: F.avg_pool2d, 3: F.avg_pool3d}
+
+
+def window_sums(x_cf, pool_size, strides):
+    """Each window's sum over the spatial axes of a channels-first
+    tensor (``avg_pool`` with divisor 1; 1-D as 2-D over a unit row,
+    since ``avg_pool1d`` takes no divisor)."""
+    if len(pool_size) == 1:
+        return F.avg_pool2d(x_cf.unsqueeze(2), (1,) + tuple(pool_size),
+                            (1,) + tuple(strides),
+                            divisor_override=1).squeeze(2)
+    return _AVG_POOL[len(pool_size)](x_cf, pool_size, strides,
+                                     divisor_override=1)
+
+
+def same_window_counts(spatial, pool_size, strides, pads, like):
+    """(1, 1, out...) count of real elements in each window of a
+    ``SAME``-padded input of ``spatial`` size."""
+    ones = torch.ones((1, 1) + tuple(spatial), dtype=like.dtype,
+                      device=like.device)
+    flat = [v for lo_hi in reversed(pads) for v in lo_hi]
+    return window_sums(F.pad(ones, flat), pool_size, strides)
 
 
 class _PoolND(Layer):
@@ -61,15 +81,12 @@ class _PoolND(Layer):
         else:
             # window sums over the zero-padded input, over the windows'
             # counts of real elements (a ones plane padded alike)
-            sums = _AVG_POOL[r](
+            sums = window_sums(
                 channels_first_view(pad_spatial(x_cl, pads), r),
-                self.pool_size, self.strides, divisor_override=1)
-            ones = torch.ones((1, 1) + tuple(x_cl.shape[1:1 + r]),
-                              dtype=x_cl.dtype, device=x_cl.device)
-            flat = [v for lo_hi in reversed(pads) for v in lo_hi]
-            counts = _AVG_POOL[r](F.pad(ones, flat), self.pool_size,
-                                  self.strides, divisor_override=1)
-            y = sums / counts
+                self.pool_size, self.strides)
+            y = sums / same_window_counts(x_cl.shape[1:1 + r],
+                                          self.pool_size, self.strides,
+                                          pads, x_cl)
         y = y.permute((0,) + tuple(range(2, 2 + r)) + (1,))
         return from_channels_last(y, self.data_format, r)
 
@@ -92,6 +109,35 @@ class _PoolND(Layer):
         return cfg
 
 
+class _Pool1D(_PoolND):
+    """1-D pools take the reference's Keras-1 names (``pool_length``,
+    ``stride``) and no ``dim_ordering``."""
+
+    rank = 1
+
+    def __init__(self, pool_length=2, stride=None, border_mode="valid",
+                 input_shape=None, name=None):
+        super().__init__(pool_size=pool_length, strides=stride,
+                         border_mode=border_mode, input_shape=input_shape,
+                         name=name)
+
+    def get_config(self):
+        cfg = Layer.get_config(self)
+        cfg.update(pool_length=self.pool_size[0], stride=self.strides[0],
+                   border_mode=self.border_mode)
+        return cfg
+
+
+@register_layer
+class MaxPooling1D(_Pool1D):
+    mode = "max"
+
+
+@register_layer
+class AveragePooling1D(_Pool1D):
+    mode = "avg"
+
+
 @register_layer
 class MaxPooling2D(_PoolND):
     rank, mode = 2, "max"
@@ -100,6 +146,26 @@ class MaxPooling2D(_PoolND):
 @register_layer
 class AveragePooling2D(_PoolND):
     rank, mode = 2, "avg"
+
+
+class _Pool3D(_PoolND):
+    rank = 3
+
+    def __init__(self, pool_size=(2, 2, 2), strides=None, border_mode="valid",
+                 dim_ordering=None, input_shape=None, name=None):
+        super().__init__(pool_size=pool_size, strides=strides,
+                         border_mode=border_mode, dim_ordering=dim_ordering,
+                         input_shape=input_shape, name=name)
+
+
+@register_layer
+class MaxPooling3D(_Pool3D):
+    mode = "max"
+
+
+@register_layer
+class AveragePooling3D(_Pool3D):
+    mode = "avg"
 
 
 class _GlobalPoolND(Layer):

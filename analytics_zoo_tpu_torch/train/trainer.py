@@ -30,9 +30,9 @@ import torch
 from torch.func import functional_call
 
 from ..common.prefetch import DeviceFeed, prefetch
+from ..core.module import RandomLayer
 from ..data.dataset import Dataset
 from ..pipeline.api.keras import metrics as metrics_lib
-from ..pipeline.api.keras.layers.core import Dropout
 from ..pipeline.api.keras.objectives import _batch_mean
 from ..pipeline.api.keras.regularizers import collect_penalties
 from . import checkpoint as checkpoint_lib
@@ -158,8 +158,9 @@ def build_train_step(model, loss_fn, optimizer, compute_dtype=None,
 
     ``accum_steps > 1``: the batch splits into that many equal
     microbatches; their gradients sum in f32 and scale by 1/accum, the
-    loss is the mean of theirs, and microbatch i draws its dropout from
-    generators seeded from (``seed``, step, i).  The microbatches run in
+    loss is the mean of theirs, and microbatch i draws its dropout (and
+    every random layer's noise) from generators seeded from (``seed``,
+    step, i).  The microbatches run in
     turn, so microbatch i+1 sees the layer state (BatchNormalization's
     moving statistics) that microbatch i left, as the JAX package's scan
     carries it.  ``accum_steps == 1`` is the single-shot step.
@@ -171,7 +172,7 @@ def build_train_step(model, loss_fn, optimizer, compute_dtype=None,
     Returns ``step(state, x, y) -> loss``, a device scalar."""
     accum = max(int(accum_steps), 1)
     names = [n for n, _ in model.named_parameters()]
-    dropouts = [m for m in model.modules() if isinstance(m, Dropout)]
+    dropouts = [m for m in model.modules() if isinstance(m, RandomLayer)]
 
     def forward_loss(params, x, y):
         with collect_penalties() as penalties:

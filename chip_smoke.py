@@ -148,16 +148,38 @@ Phases (any failure makes the exit code non-zero):
    finding the same detections, the int8 variant's raw head within
    0.12); ``InferenceModel(quantize=True)``
    on a saved ResNet-50 from 4 threads, ``reload`` staying int8; a torch
-   CNN imported by ``load_torch_state_dict`` within 1e-5.
+   CNN imported by ``load_torch_state_dict`` within 1e-5;
+17. layers: every class of the rest of the Keras layer set and of
+   ``keras2`` (advanced activations, noise, the 3-D, atrous, transposed
+   and locally connected convolutions, padding, cropping, upsampling,
+   bilinear resize up and down, the 1-D and 3-D pools, the rest of
+   core.py, the two LRNs, every Merge mode, the torch-style layers) on
+   the card against an f32 CPU copy with the same parameters, at batch
+   32 of 64x64x64 images, 16^3x16 volumes or 128x256 sequences: forward,
+   input and parameter gradients within 1e-5 of the largest entry (2e-5
+   for LRN2D, 1e-4 for the 3x3 stride-1 convolutions, whose weight
+   gradient cuDNN takes by Winograd), the pads, crops, permutes, the
+   upsampling forward and the mask bit for bit, the random layers in
+   eval mode; then the conv VAE of the reference's faces app
+   (``conv_vae``: 64x64x3, encoder widths 32 to 256, latent 128, a
+   ResizeBilinear decoder; vae.py's CustomLoss; adam 1e-3, batch 64 of
+   seeded images) at full width: 3 steps against a CPU copy given the
+   same sampler noise (losses within 1e-4), eval predictions against the
+   copy holding the card's weights and statistics (1e-5; from its own,
+   measured), 20 timed one-step fits (ms a step, images/s, peak GiB),
+   one profiled step (launches, device ms by kind, idle share), and a
+   save_model/load_model round trip on the card predicting the same
+   bits.
 
 The card's line, then ``resnet:``, ``detect:``, ``recommend:``,
-``textclass:``, ``moe:`` and ``image:`` summary lines (each with the card's name and power limit) come near the
-end; the line before the last is a JSON object with each kernel's
-numbers; the last line is ``{"ok": true, "device": {...}}``.  ResNet-50,
-the registry, SSD, the recommenders and the text classifiers reach none
-of the port's CUDA kernels (BatchNorm's closed form, NMS, the gathers
-and the recurrences are torch ops): their launch counts stand beside
-the other paths'.
+``textclass:``, ``moe:``, ``image:`` and ``layers:`` summary lines (each
+with the card's name and power limit) come near the end; the line
+before the last is a JSON object with each kernel's numbers; the last
+line is ``{"ok": true, "device": {...}}``.  ResNet-50, the registry,
+SSD, the recommenders, the text classifiers and the layer set reach
+none of the port's CUDA kernels (BatchNorm's closed form, NMS, the
+gathers and the recurrences are torch ops): their launch counts stand
+beside the other paths'.
 Without CUDA, or without the package beside it, the script exits
 non-zero and prints no result.
 """
@@ -315,6 +337,9 @@ SUMMARIES = {
     "image": ("images", "decode_route", "resize_branch",
               "host_preprocess_ms_per_image", "f32_images_per_s",
               "int8_images_per_s", "card"),
+    "layers": ("sweep_failed", "step_ms", "images_per_s", "peak_gib",
+               "launches_per_step", "idle_share", "loss_rel_err",
+               "predict_rel_err", "own_state_predict_rel_err", "card"),
 }
 KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "flash_fwd": ("analytics_zoo_tpu_torch/ops/csrc/flash_fwd.cu",
@@ -3163,6 +3188,469 @@ def phase_image(torch, models, keras, kernels, inference, tmp):
     return bool(ok), stats
 
 
+#: the conv VAE of the reference's faces app (apps/variational-
+#: autoencoder), at its widths: 64x64x3 images, a 4-block strided encoder,
+#: a 128-d latent, a 4-block resize-and-convolve decoder; adam 1e-3,
+#: batch 64 of seeded images in [0, 1]
+VAE = dict(size=64, widths=(32, 64, 128, 256), dec_widths=(128, 64, 32, 16),
+           latent=128, batch=64, lr=1e-3, timed_steps=20, check_steps=3)
+
+
+def conv_vae(L, A, Model, size, widths, dec_widths, latent, **model_kw):
+    """The conv VAE from a package's Keras layers ``L``, autograd ``A``
+    and ``Model`` (the port's or the JAX package's: the two share names
+    and signatures): per encoder width ``Convolution2D(f, 4, 4,
+    subsample=(2, 2), border_mode="same")``, ``BatchNormalization``,
+    ``LeakyReLU(0.2)``; ``Flatten``; ``Dense(latent)`` for the mean and
+    the log-variance; ``GaussianSampler``; ``Dense``, ``Reshape`` to the
+    encoder's last map; per decoder width ``ResizeBilinear`` to twice the
+    side, ``Convolution2D(f, 3, 3, border_mode="same")``,
+    ``BatchNormalization``, ``LeakyReLU(0.2)``; a sigmoid
+    ``Convolution2D(3, 3, 3)``.  One packed output ``[image | mean |
+    log_var]`` (vae.py's), so that one loss sees all three.
+
+    The convolutions before a BatchNormalization have no bias: the
+    normalization removes it, so its gradient is rounding noise, which
+    adam turns into steps of the learning rate's size in a direction
+    that differs between devices and packages (0.02 apart in eval
+    predictions after 3 steps, on the CPU between the two packages)."""
+    x = L.Input((size, size, 3))
+    h = x
+    for f in widths:
+        h = L.Convolution2D(f, 4, 4, subsample=(2, 2), border_mode="same",
+                            bias=False)(h)
+        h = L.LeakyReLU(0.2)(L.BatchNormalization()(h))
+    h = L.Flatten()(h)
+    mean, log_var = L.Dense(latent)(h), L.Dense(latent)(h)
+    z = L.GaussianSampler()([mean, log_var])
+    side = size // 2 ** len(widths)
+    d = L.Dense(side * side * widths[-1])(z)
+    d = L.Reshape((side, side, widths[-1]))(d)
+    for f in dec_widths:
+        side *= 2
+        d = L.ResizeBilinear(side, side)(d)
+        d = L.Convolution2D(f, 3, 3, border_mode="same", bias=False)(d)
+        d = L.LeakyReLU(0.2)(L.BatchNormalization()(d))
+    out = L.Convolution2D(3, 3, 3, border_mode="same",
+                          activation="sigmoid")(d)
+    packed = A.concat([L.Flatten()(out), mean, log_var], axis=1)
+    return Model(input=x, output=packed, **model_kw)
+
+
+def vae_loss(A, size, latent):
+    """vae.py's loss, a ``CustomLoss``: the summed squared error of the
+    image plus the KL term of the latent, each sample."""
+    n = size * size * 3
+
+    def loss(y_true, y_pred):
+        rec = A.sum(A.square(y_true[:, :n] - y_pred[:, :n]), axis=1)
+        mu = y_pred[:, n:n + latent]
+        lv = y_pred[:, n + latent:]
+        kl = -0.5 * A.sum(1 + lv - A.square(mu) - A.exp(lv), axis=1)
+        return rec + kl
+
+    return A.CustomLoss(loss)
+
+
+def vae_data(size, latent, batch, seed=0):
+    """A batch of seeded images in [0, 1] and its target, the image
+    padded to the packed width (the padding is ignored)."""
+    import numpy as np
+    x = np.random.default_rng(seed).random(
+        (batch, size, size, 3), dtype=np.float32)
+    y = np.concatenate([x.reshape(batch, -1),
+                        np.zeros((batch, 2 * latent), np.float32)], axis=1)
+    return x, y
+
+
+#: the sweep's per-sample input shapes (batch LAYER_BATCH): 64x64 images
+#: of 64 channels, 16^3 volumes of 16 channels, sequences of 128 x 256
+#: (``seq+`` positive, ``seq0`` with whole steps of zeros)
+LAYER_BATCH = 32
+LAYER_INPUTS = {"img": (64, 64, 64), "vol": (16, 16, 16, 16),
+                "seq": (128, 256), "seq+": (128, 256), "seq0": (128, 256),
+                "vec": (256,), "col": (128, 1, 256)}
+LAYER_TOL = 1e-5            # max |card - cpu| over max |cpu|, f32
+#: cuDNN takes a 3x3 stride-1 f32 convolution's weight gradient by
+#: Winograd: 3.6e-5 of an f64 reference where the CPU is within 3.2e-7
+#: (scripts/profile_torch_conv_precision.py, H100 at 700 W); the
+#: dilated, strided and 3-D ones stay within 6e-6
+LAYER_TOL_BY_CLASS = {"LRN2D": 2e-5, "ShareConvolution2D": 1e-4,
+                      "keras2.Conv2D": 1e-4}
+VAE_TOL = dict(losses=1e-4, predict=1e-5)
+
+
+def layer_sweep_specs(L, K2):
+    """(class name, factory, input kinds, exact) for every class the
+    layer set's last slice ported, at the sweep's sizes; ``exact`` where
+    the card must give the CPU's bits (pads, crops, permutes, the
+    upsampling forward, the mask).  The random layers run in eval
+    mode."""
+    steps, width = LAYER_INPUTS["seq"]
+    merges = [(f"Merge[{m}]", (lambda m=m: L.Merge(mode=m)), ("seq", "seq"),
+               False) for m in ("sum", "mul", "max", "min", "ave", "sub",
+                                "div", "concat", "dot", "cosine")]
+    return [
+        ("ELU", lambda: L.ELU(0.7), ("seq",), False),
+        ("LeakyReLU", lambda: L.LeakyReLU(0.2), ("seq",), False),
+        ("ThresholdedReLU", lambda: L.ThresholdedReLU(0.5), ("seq",),
+         False),
+        ("PReLU", lambda: L.PReLU(), ("seq",), False),
+        ("SReLU", lambda: L.SReLU(), ("seq",), False),
+        ("GaussianNoise", lambda: L.GaussianNoise(0.2), ("seq",), True),
+        ("GaussianDropout", lambda: L.GaussianDropout(0.2), ("seq",), True),
+        ("Convolution3D", lambda: L.Convolution3D(
+            16, 3, 3, 3, border_mode="same"), ("vol",), False),
+        ("AtrousConvolution1D", lambda: L.AtrousConvolution1D(
+            64, 3, atrous_rate=2), ("seq",), False),
+        ("AtrousConvolution2D", lambda: L.AtrousConvolution2D(
+            64, 3, 3, atrous_rate=(2, 2), border_mode="same"), ("img",),
+         False),
+        ("ShareConvolution2D", lambda: L.ShareConvolution2D(
+            64, 3, 3, border_mode="same"), ("img",), False),
+        ("Deconvolution2D", lambda: L.Deconvolution2D(
+            64, 4, 4, subsample=(2, 2), border_mode="same"), ("img",),
+         False),
+        ("LocallyConnected1D", lambda: L.LocallyConnected1D(64, 3),
+         ("seq",), False),
+        ("LocallyConnected2D", lambda: L.LocallyConnected2D(16, 3, 3),
+         ("img",), False),
+        ("ZeroPadding1D", lambda: L.ZeroPadding1D((2, 3)), ("seq",), True),
+        ("ZeroPadding3D", lambda: L.ZeroPadding3D((1, 2, 1)), ("vol",),
+         True),
+        ("Cropping1D", lambda: L.Cropping1D((3, 2)), ("seq",), True),
+        ("Cropping2D", lambda: L.Cropping2D(((2, 1), (0, 3))), ("img",),
+         True),
+        ("Cropping3D", lambda: L.Cropping3D(), ("vol",), True),
+        ("UpSampling1D", lambda: L.UpSampling1D(2), ("seq",), True),
+        ("UpSampling2D", lambda: L.UpSampling2D((2, 2)), ("img",), True),
+        ("UpSampling3D", lambda: L.UpSampling3D((2, 2, 2)), ("vol",), True),
+        ("ResizeBilinear[up]", lambda: L.ResizeBilinear(128, 128),
+         ("img",), False),
+        ("ResizeBilinear[down]", lambda: L.ResizeBilinear(24, 40),
+         ("img",), False),
+        ("MaxPooling1D", lambda: L.MaxPooling1D(3, 2, border_mode="same"),
+         ("seq",), False),
+        ("AveragePooling1D", lambda: L.AveragePooling1D(
+            3, 2, border_mode="same"), ("seq",), False),
+        ("MaxPooling3D", lambda: L.MaxPooling3D(
+            (3, 3, 3), (2, 2, 2), border_mode="same"), ("vol",), False),
+        ("AveragePooling3D", lambda: L.AveragePooling3D(
+            (3, 3, 3), (2, 2, 2), border_mode="same"), ("vol",), False),
+        ("SparseDense", lambda: L.SparseDense(256), ("seq",), False),
+        ("SpatialDropout1D", lambda: L.SpatialDropout1D(0.3), ("seq",),
+         True),
+        ("SpatialDropout2D", lambda: L.SpatialDropout2D(0.3), ("img",),
+         True),
+        ("SpatialDropout3D", lambda: L.SpatialDropout3D(0.3), ("vol",),
+         True),
+        ("Permute", lambda: L.Permute((2, 1)), ("seq",), True),
+        ("RepeatVector", lambda: L.RepeatVector(16), ("vec",), False),
+        ("Masking", lambda: L.Masking(0.0), ("seq0",), True),
+        ("Highway", lambda: L.Highway(), ("seq",), False),
+        ("MaxoutDense", lambda: L.MaxoutDense(256, 4), ("vec",), False),
+        ("TimeDistributed", lambda: L.TimeDistributed(L.Dense(256)),
+         ("seq",), False),
+        ("LRN2D", lambda: L.LRN2D(), ("img",), False),
+        ("WithinChannelLRN2D", lambda: L.WithinChannelLRN2D(), ("img",),
+         False),
+        *merges,
+        ("AddConstant", lambda: L.AddConstant(2.0), ("seq",), False),
+        ("MulConstant", lambda: L.MulConstant(-1.5), ("seq",), False),
+        ("BinaryThreshold", lambda: L.BinaryThreshold(0.1), ("seq",),
+         True),
+        ("Threshold", lambda: L.Threshold(0.1, -2.0), ("seq",), False),
+        ("HardShrink", lambda: L.HardShrink(0.4), ("seq",), False),
+        ("SoftShrink", lambda: L.SoftShrink(0.4), ("seq",), False),
+        ("HardTanh", lambda: L.HardTanh(-0.5, 0.7), ("seq",), False),
+        ("RReLU", lambda: L.RReLU(), ("seq",), False),
+        ("Exp", lambda: L.Exp(), ("seq",), False),
+        ("Log", lambda: L.Log(), ("seq+",), False),
+        ("Sqrt", lambda: L.Sqrt(), ("seq+",), False),
+        ("Square", lambda: L.Square(), ("seq",), False),
+        ("Negative", lambda: L.Negative(), ("seq",), True),
+        ("Identity", lambda: L.Identity(), ("seq",), True),
+        ("Power", lambda: L.Power(2.5, 0.5, 0.2), ("seq+",), False),
+        ("Mul", lambda: L.Mul(), ("seq",), False),
+        ("CAdd", lambda: L.CAdd([1, 1, width]), ("seq",), False),
+        ("CMul", lambda: L.CMul([1, steps, 1]), ("seq",), False),
+        ("Scale", lambda: L.Scale([1, 1, width]), ("seq",), False),
+        ("GaussianSampler", lambda: L.GaussianSampler(), ("seq", "seq"),
+         True),
+        ("KerasLayerWrapper", lambda: L.KerasLayerWrapper(
+            lambda x: x[:, 1:] * 2.0), ("seq",), False),
+        ("Narrow", lambda: L.Narrow(1, 3, steps // 2), ("seq",), True),
+        ("Select", lambda: L.Select(1, 5), ("seq",), True),
+        ("Squeeze", lambda: L.Squeeze(2), ("col",), True),
+        ("keras2.Dense", lambda: K2.Dense(256), ("seq",), False),
+        ("keras2.Dropout", lambda: K2.Dropout(0.3), ("seq",), True),
+        ("keras2.Conv1D", lambda: K2.Conv1D(64, 3, padding="same"),
+         ("seq",), False),
+        ("keras2.Conv2D", lambda: K2.Conv2D(64, 3, padding="same"),
+         ("img",), False),
+        ("keras2.Cropping1D", lambda: K2.Cropping1D((1, 2)), ("seq",),
+         True),
+        ("keras2.LocallyConnected1D", lambda: K2.LocallyConnected1D(64, 3),
+         ("seq",), False),
+        ("keras2.MaxPooling1D", lambda: K2.MaxPooling1D(2), ("seq",),
+         False),
+        ("keras2.AveragePooling1D", lambda: K2.AveragePooling1D(2),
+         ("seq",), False),
+        ("keras2.Maximum", lambda: K2.Maximum(), ("seq", "seq"), False),
+        ("keras2.Minimum", lambda: K2.Minimum(), ("seq", "seq"), False),
+        ("keras2.Average", lambda: K2.Average(), ("seq", "seq"), False),
+    ]
+
+
+def sweep_inputs(torch, kinds, g):
+    """The batch for each input kind, from the CPU generator ``g``; the
+    second of two inputs is positive (a ``div``'s divisor)."""
+    xs = []
+    for i, kind in enumerate(kinds):
+        x = torch.randn((LAYER_BATCH,) + LAYER_INPUTS[kind], generator=g)
+        if kind == "seq+" or i == 1:
+            x = x.abs() + 0.5
+        if kind == "seq0":
+            x[:, ::7] = 0.0  # whole steps of zeros: Masking's mask
+        xs.append(x)
+    return xs
+
+
+def sweep_one(torch, make, kinds, exact, g):
+    """One layer on the card and an f32 copy on the CPU with the same
+    parameters (perturbed from the init by a seeded draw), both in eval
+    mode: the forward, every input's gradient and every parameter's
+    gradient of sum(out * cot).  Returns the worst error over all of
+    them, max|card - cpu| over max|cpu| (an exact layer's forward and,
+    unless it upsamples, its gradients must be equal: their worst
+    absolute difference is returned, 0 or a failure)."""
+    shapes = [(None,) + LAYER_INPUTS[k] for k in kinds]
+    layers = []
+    for dev in ("cuda", "cpu"):
+        layer = make()
+        layer.build(shapes[0] if len(shapes) == 1 else shapes,
+                    torch.Generator(dev).manual_seed(0))
+        layer.eval()
+        layers.append(layer)
+    card, cpu = layers
+    with torch.no_grad():
+        for (name, p), q in zip(card.named_parameters(), cpu.parameters()):
+            p.add_(0.1 * torch.randn(p.shape, generator=g).to(p.device))
+            q.copy_(p.cpu())
+    xs = sweep_inputs(torch, kinds, g)
+    runs = []
+    for layer, dev in ((card, "cuda"), (cpu, "cpu")):
+        ins = [x.to(dev).requires_grad_() for x in xs]
+        out = layer(ins[0] if len(ins) == 1 else ins)
+        runs.append((layer, ins, out))
+    cot = torch.randn(runs[1][2].shape, generator=g)
+    grads = []
+    for layer, ins, out in runs:
+        wrt = ins + list(layer.parameters())
+        if out.requires_grad:
+            got = torch.autograd.grad((out * cot.to(out.device)).sum(), wrt,
+                                      allow_unused=True)
+        else:
+            got = [None] * len(wrt)
+        grads.append([None if t is None else t.detach().cpu() for t in got])
+    pairs = [(runs[0][2].detach().cpu(), runs[1][2].detach())]
+    pairs += [(a, b) for a, b in zip(*grads) if b is not None]
+    upsamples = type(card).__name__.startswith("UpSampling")
+    worst = 0.0
+    for i, (a, b) in enumerate(pairs):
+        if a is None:
+            return math.inf
+        diff = float((a - b).abs().max()) if a.numel() else 0.0
+        if exact and (i == 0 or not upsamples):
+            worst = max(worst, math.inf if diff else 0.0)
+            continue
+        scale = float(b.abs().max()) if b.numel() else 0.0
+        worst = max(worst, diff / scale if scale else diff)
+    return worst
+
+
+def vae_noise(model):
+    """The VAE's GaussianSampler."""
+    return next(l for l in model.to_graph().layers
+                if type(l).__name__ == "GaussianSampler")
+
+
+def vae_profile(torch, fn):
+    """One call of ``fn`` under ``torch.profiler``: its kernels, their
+    device ms in all and by kind (cuDNN convolutions, cuBLAS GEMMs, the
+    rest), the wall ms and the device's idle share of it."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    cuda = torch.autograd.DeviceType.CUDA
+    kernels = [e for e in prof.key_averages() if e.device_type == cuda
+               and not e.key.startswith(("Memcpy", "Memset"))]
+    by_kind = {}
+    for e in kernels:
+        kind = ("conv" if re.search(r"conv|fprop|dgrad|wgrad", e.key,
+                                    re.IGNORECASE)
+                else "gemm" if re.search(r"gemm|gemv|cutlass|xmma|nvjet",
+                                         e.key, re.IGNORECASE)
+                else "other")
+        by_kind[kind] = by_kind.get(kind, 0.0) + \
+            e.self_device_time_total / 1e3
+    device_ms = sum(by_kind.values())
+    return dict(launches=sum(e.count for e in kernels), device_ms=device_ms,
+                device_ms_by_kind=by_kind, wall_ms=wall * 1e3,
+                idle_share=1.0 - device_ms / (wall * 1e3))
+
+
+def vae_vs_cpu(torch, keras, A, card, weights, state, x, y):
+    """An f32 CPU copy of the VAE from the card model's initial weights
+    and state: the card model takes VAE["check_steps"] one-step fits with
+    its sampler's draws recorded, the copy the same steps with those
+    draws given to it.  Returns both losses and the eval predictions'
+    error (max|card - cpu| over max|cpu|) with the card's trained weights
+    and state loaded into the copy, and, as a measurement that checks
+    nothing, from each side's own weights and statistics: adam's first
+    steps move by the sign of each gradient entry, so entries near 0
+    part the two trajectories, and the debias at count 3 magnifies the
+    statistics' last bits."""
+    import numpy as np
+    from analytics_zoo_tpu_torch.models import (from_jax_params,
+                                                to_jax_state)
+    V = VAE
+    drawn = []
+    sampler = vae_noise(card)
+    draw = sampler.draw
+
+    def recording(like):
+        eps = draw(like)
+        drawn.append(eps.cpu())
+        return eps
+
+    sampler.draw = recording
+    try:
+        card_losses = []
+        for _ in range(V["check_steps"]):
+            card_losses += card.fit(x, y, batch_size=V["batch"],
+                                    shuffle=False)["loss"]
+    finally:
+        sampler.draw = draw
+    cpu = conv_vae(keras.layers, A, keras.Model, V["size"], V["widths"],
+                   V["dec_widths"], V["latent"], device="cpu")
+    from_jax_params(cpu, weights, state)
+    feed = iter(drawn)
+    vae_noise(cpu).draw = lambda like: next(feed).to(like)
+    cpu.compile({"name": "adam", "lr": V["lr"]},
+                vae_loss(A, V["size"], V["latent"]))
+    cpu_losses = []
+    for _ in range(V["check_steps"]):
+        cpu_losses += cpu.fit(x, y, batch_size=V["batch"],
+                              shuffle=False)["loss"]
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(card_losses,
+                                                       cpu_losses))
+
+    def predict_err():
+        got = card.predict(x, batch_size=V["batch"])
+        ref = cpu.predict(x, batch_size=V["batch"])
+        return float(np.abs(got - ref).max() / np.abs(ref).max())
+
+    own = predict_err()
+    from_jax_params(cpu, card.get_weights(), to_jax_state(card))
+    same = predict_err()
+    return dict(card_check_losses=card_losses, cpu_check_losses=cpu_losses,
+                loss_rel_err=loss_err, predict_rel_err=same,
+                own_state_predict_rel_err=own)
+
+
+def phase_layers(torch, keras, kernels, tmp):
+    """(a) Every class the layer set's last slice ported (LAYER_INPUTS'
+    sizes, batch 32) on the card against an f32 CPU copy: forward, input
+    and parameter gradients within LAYER_TOL of the largest entry
+    (LAYER_TOL_BY_CLASS), exact where nothing is summed.  (b) The conv
+    VAE (VAE) at full width on the card: VAE["check_steps"] adam steps
+    against a CPU copy given the same noise (losses within 1e-4), eval
+    predictions against the copy with the card's weights and state
+    (1e-5; from each side's own, measured), then a warm-up fit and
+    VAE["timed_steps"]
+    timed one-step fits (ms a step, images/s, peak GiB), one profiled
+    step (launches, device ms by kind, idle share), and a save_model/
+    load_model round trip on the card predicting the same bits."""
+    import statistics
+    import numpy as np
+    from analytics_zoo_tpu_torch.models import to_jax_state
+    from analytics_zoo_tpu_torch.pipeline.api import autograd as A
+    from analytics_zoo_tpu_torch.pipeline.api import keras2
+    kernels.reset_launch_counts()
+    g = torch.Generator().manual_seed(0)
+    sweep, failed = {}, []
+    for name, make, kinds, exact in layer_sweep_specs(keras.layers,
+                                                      keras2.layers):
+        err = sweep_one(torch, make, kinds, exact, g)
+        sweep[name] = err
+        tol = LAYER_TOL_BY_CLASS.get(name, LAYER_TOL)
+        if not err <= tol:  # an exact mismatch is inf
+            failed.append(name)
+        torch.cuda.empty_cache()
+    if failed:
+        log(f"layers: FAIL sweep {failed}: "
+            f"{json.dumps({k: sweep[k] for k in failed})}")
+
+    V = VAE
+    x, y = vae_data(V["size"], V["latent"], V["batch"])
+    model = conv_vae(keras.layers, A, keras.Model, V["size"], V["widths"],
+                     V["dec_widths"], V["latent"], seed=0)
+    weights, state = model.get_weights(), to_jax_state(model)
+    model.compile({"name": "adam", "lr": V["lr"]},
+                  vae_loss(A, V["size"], V["latent"]))
+    check = vae_vs_cpu(torch, keras, A, model, weights, state, x, y)
+    losses = model.fit(x, y, batch_size=V["batch"])["loss"]  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_s = []
+    for _ in range(V["timed_steps"]):
+        t = time.perf_counter()
+        losses += model.fit(x, y, batch_size=V["batch"])["loss"]
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    prof = vae_profile(torch, lambda: model.fit(x, y,
+                                                batch_size=V["batch"]))
+    step = statistics.median(step_s)
+    pred = model.predict(x, batch_size=V["batch"])
+    n = V["size"] ** 2 * 3
+    infer = model.new_graph([model.outputs[0].name])
+    path = os.path.join(tmp, "vae")
+    infer.save_model(path)
+    loaded = keras.load_model(path)
+    same_after_load = bool(np.array_equal(
+        loaded.predict(x, batch_size=V["batch"]), pred))
+    stats = dict(
+        sweep_worst_rel_err=sweep, sweep_failed=failed,
+        sweep_batch=LAYER_BATCH, sweep_inputs=LAYER_INPUTS,
+        step_ms=step * 1e3, step_ms_all=[t * 1e3 for t in step_s],
+        images_per_s=V["batch"] / step, peak_gib=peak,
+        launches_per_step=prof["launches"],
+        device_ms_per_step=prof["device_ms"],
+        device_ms_by_kind=prof["device_ms_by_kind"],
+        profiled_wall_ms=prof["wall_ms"], idle_share=prof["idle_share"],
+        batch=V["batch"], size=V["size"], latent=V["latent"],
+        losses=losses, **check, save_load_equal=same_after_load,
+        launches=kernels.launch_counts(), card=smi_card())
+    log("layers:", json.dumps(stats))
+    recon = pred[:, :n]
+    ok = (not failed and all(math.isfinite(v) for v in losses)
+          and losses[-1] < losses[0]
+          and check["loss_rel_err"] <= VAE_TOL["losses"]
+          and check["predict_rel_err"] <= VAE_TOL["predict"]
+          and pred.shape == (V["batch"], n + 2 * V["latent"])
+          and bool(np.isfinite(pred).all())
+          and float(recon.min()) >= 0.0 and float(recon.max()) <= 1.0
+          and same_after_load)
+    return bool(ok), stats
+
+
 def initial_weights(torch, TransformerLM, cfg):
     model = TransformerLM(**cfg, device="cuda", seed=0)
     return [p.detach().clone() for p in model.parameters()]
@@ -3357,6 +3845,7 @@ def main() -> int:
                                   objectives)),
         ("image", lambda: phase_image(torch, models, keras, kernels,
                                       inference, tmp)),
+        ("layers", lambda: phase_layers(torch, keras, kernels, tmp)),
     ]
     results = {}
     for name, run in phases:
@@ -3385,7 +3874,7 @@ def main() -> int:
         path: (results.get(path) or {}).get("launches") or {}
         for path in ("path", "serve", "train", "graph", "mixed", "resnet",
                      "registry", "detect", "recommend", "textclass",
-                     "image")}
+                     "image", "layers")}
     moe = results.get("moe") or {}
     path_launches["moe"] = moe.get("launches") or {}
     path_launches["moe_bf16"] = moe.get("bf16_launches") or {}
@@ -3431,7 +3920,8 @@ def main() -> int:
                      "moe_generate": path_launches["moe_generate"].get(
                          name, 0),
                      "moe_serve": path_launches["moe_serve"].get(name, 0),
-                     "image": path_launches["image"].get(name, 0)}}
+                     "image": path_launches["image"].get(name, 0),
+                     "layers": path_launches["layers"].get(name, 0)}}
         entry.update(timed_row(name, "mixed", "bfloat16"))
         entry["f32"] = timed_row(name, "train", "float32")
         entry["bf16_batch8"] = timed_row(name, "train", "bfloat16")

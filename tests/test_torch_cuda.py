@@ -14,7 +14,9 @@ captured decode step against the eager one, and a MoE training step
 through the kernels; the int8 products (``torch._int_mm`` at the shapes
 it refuses unpadded) and convolutions against the CPU's accumulators,
 the quantize passes and eval BatchNorm bit for bit against the CPU, the
-native decode, and ``predict_image_set`` against the CPU. This file
+native decode, and ``predict_image_set`` against the CPU; the
+BatchNorm debias bit for bit, and Deconvolution2D (same, stride 2) and
+ResizeBilinear (shrinking) against the CPU. This file
 imports no jax (nor does anything it imports), so that it runs on a
 GPU host without the JAX package: ``python -m pytest --noconftest
 tests/test_torch_cuda.py -m cuda``. Without a card every test skips
@@ -36,8 +38,8 @@ from analytics_zoo_tpu_torch.ops import batchnorm as tbn
 from analytics_zoo_tpu_torch.ops import attention as tattn
 from analytics_zoo_tpu_torch.pipeline.api.keras import Sequential, load_model
 from analytics_zoo_tpu_torch.pipeline.api.keras.layers import (
-    Convolution2D, Dense, Dropout, Flatten, MaxPooling2D,
-    MultiHeadSelfAttention)
+    BatchNormalization, Convolution2D, Deconvolution2D, Dense, Dropout,
+    Flatten, MaxPooling2D, MultiHeadSelfAttention, ResizeBilinear)
 from analytics_zoo_tpu_torch.pipeline.inference import DecodeEngine
 
 
@@ -1010,3 +1012,74 @@ def test_cuda_predict_image_set_matches_cpu(cuda, f32_convs, tmp_path):
     for a, b in zip(dets["cuda"], dets["cpu"]):
         assert unmatched_detections(a, b, tol=1e-4, scale=64) == 0
 
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("momentum,count", [(0.99, 3.0), (0.99, 5.0),
+                                            (0.9, 17.0), (0.99, 1000.0)])
+def test_cuda_batchnorm_debias_gives_the_cpu_bits(cuda, momentum, count):
+    """A BatchNormalization's debiased moving statistics (the f64
+    ``momentum ** count`` and its divisions) on the card equal the CPU's
+    bit for bit, at the counts of a short training: there the debias
+    magnifies a last-bit difference of its inputs 30-fold and more."""
+    g = torch.Generator().manual_seed(int(count))
+    state = {"moving_mean": 0.1 * torch.randn(256, generator=g),
+             "moving_var": 0.97 + 0.05 * torch.rand(256, generator=g),
+             "count": torch.tensor(count)}
+    out = {}
+    for dev in ("cuda", "cpu"):
+        bn = BatchNormalization(momentum=momentum, input_shape=(256,),
+                                device=dev)
+        with torch.no_grad():
+            for k, v in bn.state().items():
+                v.copy_(state[k])
+        out[dev] = [t.cpu() for t in bn.debiased_statistics()]
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert a.dtype == torch.float32
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [2, 3, 4])
+def test_cuda_deconvolution2d_same_stride2_matches_cpu(cuda, f32_convs, k):
+    """Deconvolution2D, border_mode same at stride 2 (XLA's padding,
+    asymmetric at an even kernel, cut from cuDNN's transposed
+    convolution) on the card against the CPU: forward, input and weight
+    gradients within 1e-5 of the largest entry."""
+    g = torch.Generator().manual_seed(k)
+    x = torch.randn(8, 17, 16, 32, generator=g)
+    cot = torch.randn(8, 34, 32, 24, generator=g)
+    layers = [Deconvolution2D(24, k, k, subsample=(2, 2), border_mode="same",
+                              input_shape=(17, 16, 32), device=dev)
+              for dev in ("cuda", "cpu")]
+    layers[0].load_state_dict(layers[1].state_dict())
+    res = []
+    for layer in layers:
+        xi = x.to(layer.W.device).requires_grad_()
+        out = layer(xi)
+        grads = torch.autograd.grad((out * cot.to(out.device)).sum(),
+                                    [xi, layer.W, layer.b])
+        res.append([t.detach().cpu() for t in (out,) + grads])
+    for a, b in zip(*res):
+        close(a, b, rtol=0, atol=1e-5 * float(b.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_hw", [(24, 40), (7, 13), (20, 70)])
+def test_cuda_resize_bilinear_down_matches_cpu(cuda, out_hw):
+    """ResizeBilinear shrinking (the antialiased filter the JAX package's
+    jax.image.resize applies) on the card against the CPU: forward and
+    input gradient within 1e-5 of the largest entry; the last case
+    shrinks one axis and grows the other."""
+    g = torch.Generator().manual_seed(sum(out_hw))
+    x = torch.randn(4, 64, 48, 16, generator=g)
+    cot = torch.randn((4,) + out_hw + (16,), generator=g)
+    res = []
+    for dev in ("cuda", "cpu"):
+        layer = ResizeBilinear(*out_hw)
+        xi = x.to(dev).requires_grad_()
+        out = layer(xi)
+        (gx,) = torch.autograd.grad((out * cot.to(dev)).sum(), [xi])
+        res.append((out.detach().cpu(), gx.cpu()))
+    for a, b in zip(*res):
+        close(a, b, rtol=0, atol=1e-5 * float(b.abs().max()))

@@ -4,8 +4,9 @@ parameters pinned across them.
 1. ``blockwise_attention`` at bf16 promotes ``v`` as ``jnp.einsum`` does:
    the output is f32, as the JAX package's, and its values agree with the
    JAX package's blockwise output within 1e-2.
-2. The layers take the reference's signatures and infer their widths
-   from the input shape.
+2. The layers take the reference's signatures (every class of the layer
+   set, pinned one by one) and infer their widths from the input
+   shape.
 3. Unnamed layers get unique names from per-class counters, and a weight
    tree with a duplicate layer name is refused instead of dropping one.
 """
@@ -59,7 +60,34 @@ def test_blockwise_attention_at_bf16_returns_jax_dtype_and_values(entry):
 #: the reference's layer signatures, which the port's begin with
 LAYERS = ["Dense", "Activation", "Dropout", "Flatten", "Embedding",
           "LayerNorm", "MultiHeadSelfAttention", "PositionalEmbedding",
-          "Convolution2D", "Convolution1D", "MaxPooling2D", "Merge"]
+          "Convolution2D", "Convolution1D", "MaxPooling2D", "Merge",
+          # ported by the earlier slices
+          "AveragePooling2D", "BatchNormalization", "Bidirectional",
+          "ConvLSTM2D", "GRU", "GlobalAveragePooling1D",
+          "GlobalAveragePooling2D", "GlobalAveragePooling3D",
+          "GlobalMaxPooling1D", "GlobalMaxPooling2D", "GlobalMaxPooling3D",
+          "LSTM", "Reshape", "SeparableConvolution2D", "SimpleRNN",
+          "SpaceToDepth2D", "SparseEmbedding", "SwitchMoE", "WordEmbedding",
+          "ZeroPadding2D",
+          # the rest of the layer set
+          "ELU", "LeakyReLU", "ThresholdedReLU", "PReLU", "SReLU",
+          "GaussianNoise", "GaussianDropout",
+          "Convolution3D", "AtrousConvolution1D", "AtrousConvolution2D",
+          "ShareConvolution2D", "Deconvolution2D", "LocallyConnected1D",
+          "LocallyConnected2D", "ZeroPadding1D", "ZeroPadding3D",
+          "Cropping1D", "Cropping2D", "Cropping3D", "UpSampling1D",
+          "UpSampling2D", "UpSampling3D", "ResizeBilinear",
+          "MaxPooling1D", "MaxPooling3D", "AveragePooling1D",
+          "AveragePooling3D",
+          "SparseDense", "SpatialDropout1D", "SpatialDropout2D",
+          "SpatialDropout3D", "Permute", "RepeatVector", "Masking",
+          "Highway", "MaxoutDense", "TimeDistributed",
+          "LRN2D", "WithinChannelLRN2D",
+          "AddConstant", "MulConstant", "BinaryThreshold", "Threshold",
+          "HardShrink", "SoftShrink", "HardTanh", "RReLU", "Exp", "Log",
+          "Sqrt", "Square", "Negative", "Identity", "Power", "Mul", "CAdd",
+          "CMul", "Scale", "GaussianSampler", "KerasLayerWrapper", "Narrow",
+          "Select", "Squeeze"]
 
 
 @pytest.mark.parametrize("name", LAYERS)
