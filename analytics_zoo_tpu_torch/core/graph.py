@@ -23,7 +23,8 @@ import torch
 from torch import nn
 
 from . import shapes as shape_utils
-from .module import Layer, Symbolic, fresh_name, register_layer
+from .module import (Layer, Symbolic, fresh_name, register_layer,
+                     remat_call)
 
 _NODE_IDS = itertools.count()
 
@@ -164,7 +165,9 @@ class GraphModule(Layer):
     """A Layer evaluating a Variable graph from ``inputs`` to ``outputs``.
 
     ``layers`` holds one entry per distinct layer instance, in first-use
-    order: weight sharing is calling one instance at several nodes."""
+    order: weight sharing is calling one instance at several nodes.  A
+    layer flagged ``remat`` recomputes in the backward pass
+    (``core.module.remat_call``)."""
 
     def __init__(self, inputs, outputs, name=None):
         super().__init__(name=name)
@@ -233,7 +236,7 @@ class GraphModule(Layer):
                 continue
             ins = ([values[p.node_id] for p in v.inputs]
                    if len(v.inputs) > 1 else values[v.inputs[0].node_id])
-            values[v.node_id] = v.layer(ins)
+            values[v.node_id] = remat_call(v.layer, ins)
         outs = [values[v.node_id] for v in self.output_vars]
         return outs[0] if self.single_output else outs
 

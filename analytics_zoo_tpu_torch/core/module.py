@@ -27,6 +27,7 @@ from typing import Dict, Optional
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as torch_checkpoint
 
 from ..common.context import resolve_device
 from . import initializers
@@ -137,6 +138,9 @@ class Layer(nn.Module):
         self.batch_input_shape = (shape_utils.to_batch_shape(input_shape)
                                   if input_shape else None)
         self._trainable = bool(trainable)
+        #: recompute this layer's internals in the backward pass instead
+        #: of keeping them (``remat_call``); the JAX package's flag
+        self.remat = False
         self._init_device = device
         self._init_generator = generator
         self.built = False
@@ -222,15 +226,18 @@ class Layer(nn.Module):
             cfg["input_shape"] = list(self.batch_input_shape[1:])
         if not self.trainable:
             cfg["trainable"] = False
+        if self.remat:
+            cfg["remat"] = True  # left out when False, as in the JAX package
         return cfg
 
     @classmethod
     def from_config(cls, config: dict) -> "Layer":
         config = dict(config)
         trainable = config.pop("trainable", True)
-        config.pop("remat", None)  # the JAX package's jax.checkpoint flag
+        remat = config.pop("remat", False)
         layer = cls(**config)
         layer._trainable = bool(trainable)
+        layer.remat = bool(remat)
         return layer
 
 
@@ -255,6 +262,50 @@ class RandomLayer(Layer):
                                      device=generator.device))
             self.generator = torch.Generator(generator.device).manual_seed(
                 seed)
+
+
+def remat_call(layer: Layer, inputs, force: bool = False):
+    """``layer(inputs)``, honouring its ``remat`` flag (or ``force``)
+    in training: under ``torch.utils.checkpoint`` (non-reentrant), so
+    the backward pass recomputes the layer's internals instead of
+    keeping them, as the JAX package's ``remat_apply`` does with
+    ``jax.checkpoint``.  The graph engine calls every node's layer
+    through here, and so do the wrappers (TimeDistributed,
+    Bidirectional) for their inner layers.  In eval, or without
+    gradients, the layer runs as it is.
+
+    The recompute must be the forward again: checkpointing restores the
+    default CPU and CUDA generators, and here the random layers' own
+    generators too (set back to their state before the forward, then
+    returned to where they were), and the layer's state (BatchNorm's
+    moving statistics, updated in place by the forward) is put back
+    after the recompute, so that it is updated once."""
+    if not ((force or layer.remat) and layer.training
+            and torch.is_grad_enabled()):
+        return layer(inputs)
+    gens = [m.generator for m in layer.modules()
+            if isinstance(m, RandomLayer) and m.generator is not None]
+    before = [g.get_state() for g in gens]
+    calls = []
+
+    def run(x):
+        if not calls:  # the forward
+            calls.append(1)
+            return layer(x)
+        now = [g.get_state() for g in gens]
+        kept = [b.clone() for b in layer.buffers()]
+        for g, st in zip(gens, before):
+            g.set_state(st)
+        try:
+            return layer(x)
+        finally:
+            for g, st in zip(gens, now):
+                g.set_state(st)
+            with torch.no_grad():
+                for b, k in zip(layer.buffers(), kept):
+                    b.copy_(k)
+
+    return torch_checkpoint.checkpoint(run, inputs, use_reentrant=False)
 
 
 def check_device(layer: nn.Module, device) -> None:

@@ -13,9 +13,12 @@ optimizer state and step count.  Models that share layer instances
 
 A KerasNet is a Layer, so a model nests in another
 (``Sequential.add(Sequential)``).  ``save_model`` writes the reference's
-``architecture.json`` and the weights and layer state in the flat
-checkpoint format;
-``load_model`` rebuilds the model from it.  Layers freeze by name
+``architecture.json`` and, as the JAX package does, the training state
+(weights, layer state and, when compiled, the optimizer state under
+optax's leaf names) in the sharded checkpoint format; ``load_model``
+rebuilds the model from it, and reads the JAX package's saves and the
+port's earlier flat ones too.  ``fit(resume=True)`` restores the newest
+snapshot of the ``set_checkpoint`` directory first.  Layers freeze by name
 (``freeze``, ``freeze_up_to``, ``unfreeze``): the flags take effect at
 the next step and persist through ``save_model``.  ``to_serving`` wraps
 a model in an ``InferenceModel``; ``quantize`` gives its int8 inference
@@ -36,7 +39,7 @@ from torch import nn
 from ....common.context import resolve_device
 from ....core.graph import GraphModule, Input, InputLayer, Variable
 from ....core.module import (Layer, get_layer_class, register_layer,
-                             serial_class_name)
+                             remat_call, serial_class_name)
 from ....data.dataset import Dataset
 from ....train import checkpoint as checkpoint_lib
 from ....train import triggers as trigger_lib
@@ -60,6 +63,7 @@ class KerasNet(Layer):
         self._compile_args: Optional[dict] = None
         self._tensorboard: Optional[tuple] = None
         self._checkpoint: Optional[tuple] = None
+        self._summary_triggers: Dict[str, object] = {}
         self._clip_norm = None
         self._clip_value = None
 
@@ -93,6 +97,7 @@ class KerasNet(Layer):
                                accum_steps=accum_steps)
         if self._tensorboard:
             self.trainer.set_tensorboard(*self._tensorboard)
+            self._apply_summary_triggers()
         if self._checkpoint:
             self.trainer.set_checkpoint(*self._checkpoint)
         self._compile_args = {"optimizer": optimizer, "loss": loss,
@@ -105,6 +110,21 @@ class KerasNet(Layer):
         self._tensorboard = (log_dir, app_name)
         if self.trainer is not None:
             self.trainer.set_tensorboard(log_dir, app_name)
+            self._apply_summary_triggers()
+
+    def set_summary_trigger(self, tag: str, trigger):
+        """Write the summary scalar ``tag`` only when ``trigger`` fires
+        (BigDL setSummaryTrigger); before or after compile and
+        ``set_tensorboard``."""
+        self._summary_triggers[tag] = trigger
+        if self.train_summary is not None:
+            self.train_summary.set_summary_trigger(tag, trigger)
+        return self
+
+    def _apply_summary_triggers(self):
+        if self.train_summary is not None:
+            for tag, trig in self._summary_triggers.items():
+                self.train_summary.set_summary_trigger(tag, trig)
 
     @property
     def train_summary(self):
@@ -208,11 +228,24 @@ class KerasNet(Layer):
 
     def fit(self, x, y=None, batch_size: int = 32, nb_epoch: int = 1,
             validation_data=None, shuffle: bool = True,
-            verbose: bool = False):
+            verbose: bool = False, resume: bool = False):
         """Train for ``nb_epoch`` more epochs on ``x``/``y`` (arrays or a
         Dataset); batches go to the model's device.  Returns the history
-        ``{"loss": [...], "val": [...]}``."""
+        ``{"loss": [...], "val": [...]}``.
+
+        ``resume=True``: when the ``set_checkpoint`` directory holds a
+        complete snapshot, the training state is restored from the
+        newest one first, and ``nb_epoch`` more epochs run from there; a
+        first run (no snapshot yet) starts as usual, so the same script
+        survives a crash unchanged."""
         self._require_compiled()
+        if resume:
+            if not self._checkpoint:
+                raise ValueError(
+                    "fit(resume=True) needs set_checkpoint(path) first")
+            ckpt_dir = self._checkpoint[0]
+            if checkpoint_lib.latest_tag(ckpt_dir) is not None:
+                self.trainer.load_weights(ckpt_dir)
         ds = x if isinstance(x, Dataset) else Dataset.from_ndarray(x, y)
         val_ds = None
         if validation_data is not None:
@@ -349,9 +382,10 @@ class KerasNet(Layer):
     # ---- persistence ----
     def save_model(self, path: str, over_write: bool = True):
         """``architecture.json`` (``{"class_name", "config"}``, the
-        reference's schema) and the weights with the layer state
-        (``{"params", "model_state"}``), as the flat checkpoint
-        ``weights/ckpt_final``."""
+        reference's schema) and, under ``weights``, the tag ``final`` in
+        the sharded format: the trainer's whole state when compiled (as
+        the JAX package's ``save_model``), else the weights and layer
+        state."""
         os.makedirs(path, exist_ok=True)
         arch_path = os.path.join(path, "architecture.json")
         if os.path.exists(arch_path) and not over_write:
@@ -359,15 +393,20 @@ class KerasNet(Layer):
         with open(arch_path, "w") as f:
             json.dump({"class_name": type(self).__name__,
                        "config": self.get_config()}, f)
-        from ....models.jax_params import model_tree
-        checkpoint_lib.save_checkpoint(os.path.join(path, "weights"), "final",
-                                       model_tree(self))
+        weights = os.path.join(path, "weights")
+        if self.trainer is not None:
+            self.trainer.save_weights(weights)
+        else:
+            from ....models.jax_params import model_tree
+            checkpoint_lib.save_sharded(weights, "final", model_tree(self))
 
     @staticmethod
     def load_model(path: str, device=None) -> "KerasNet":
-        """Rebuild a model saved by :meth:`save_model` on ``device``
-        (``"cuda"`` unless asked otherwise), load its weights and layer
-        state and, when it was compiled, compile it again."""
+        """Rebuild a model saved by :meth:`save_model` (of either
+        package) on ``device`` (``"cuda"`` unless asked otherwise),
+        compile it again when it was compiled, and restore the weights,
+        the layer state and, when compiled, the optimizer state and
+        counters the save holds."""
         with open(os.path.join(path, "architecture.json")) as f:
             arch = json.load(f)
         cls = _MODEL_CLASSES.get(arch["class_name"])
@@ -376,13 +415,11 @@ class KerasNet(Layer):
                 f"unknown model class {arch['class_name']!r}: a zoo model "
                 "registers when analytics_zoo_tpu_torch.models is imported")
         model = cls.from_config(arch["config"], device=device)
-        weights_dir = os.path.join(path, "weights")
-        if os.path.isdir(weights_dir):
-            from ....models.jax_params import model_tree
-            checkpoint_lib.restore_into(weights_dir, model_tree(model),
-                                        "final")
         if model._compile_args is not None:
             model.compile(**model._compile_args)
+        weights_dir = os.path.join(path, "weights")
+        if os.path.isdir(weights_dir):
+            model.load_weights(weights_dir)
         return model
 
     # ---- as a layer of another model ----
@@ -443,7 +480,7 @@ class Sequential(KerasNet):
 
     def forward(self, x):
         for layer in self.stack:
-            x = layer(x)
+            x = remat_call(layer, x)
         return x
 
     def to_graph(self) -> GraphModule:

@@ -19,7 +19,8 @@ import torch
 from .....core import initializers
 from .....core import shapes as shape_utils
 from .....core.module import (Layer, RandomLayer, get_layer_class, promote,
-                              register_layer, serial_class_name)
+                              register_layer, remat_call,
+                              serial_class_name)
 from .. import activations
 from ..regularizers import RegularizedLayerMixin
 
@@ -386,7 +387,7 @@ class TimeDistributed(Layer):
 
     def forward(self, x):
         b, t = x.shape[0], x.shape[1]
-        out = self.layer(x.reshape((b * t,) + tuple(x.shape[2:])))
+        out = remat_call(self.layer, x.reshape((b * t,) + tuple(x.shape[2:])))
         return out.reshape((b, t) + tuple(out.shape[1:]))
 
     def compute_output_shape(self, input_shape):

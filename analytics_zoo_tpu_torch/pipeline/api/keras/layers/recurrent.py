@@ -38,7 +38,8 @@ import torch.nn.functional as F
 
 from .....core import shapes as shape_utils
 from .....core.module import (Layer, get_layer_class, promote,
-                              register_layer, serial_class_name)
+                              register_layer, remat_call,
+                              serial_class_name)
 from .. import activations
 
 
@@ -315,8 +316,9 @@ class Bidirectional(Layer):
                 "backward": self.backward_layer.params()}
 
     def forward(self, x):
-        fwd = self.layer(x)
-        bwd = self.backward_layer(x)
+        fwd = remat_call(self.layer, x)
+        # the user's flag on the forward layer remats the clone too
+        bwd = remat_call(self.backward_layer, x, force=self.layer.remat)
         if self.layer.return_sequences:
             bwd = torch.flip(bwd, (1,))  # back into step order
         if self.merge_mode == "concat":

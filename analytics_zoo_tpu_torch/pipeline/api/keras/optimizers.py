@@ -79,6 +79,9 @@ class Trace:
     def init(self, params):
         return [torch.zeros_like(p) for p in params]
 
+    def fields(self, state, count):
+        return {"trace": state}
+
     def update(self, grads, state, count, params):
         out = []
         for g, t in zip(grads, state):
@@ -100,6 +103,9 @@ class ScaleByAdam:
     def init(self, params):
         return {"mu": [torch.zeros_like(p) for p in params],
                 "nu": [torch.zeros_like(p) for p in params]}
+
+    def fields(self, state, count):
+        return {"count": count, "mu": state["mu"], "nu": state["nu"]}
 
     def update(self, grads, state, count, params):
         c1 = _correction(self.b1, count)
@@ -125,6 +131,9 @@ class ScaleByAdamax:
         return {"mu": [torch.zeros_like(p) for p in params],
                 "nu": [torch.zeros_like(p) for p in params]}
 
+    def fields(self, state, count):
+        return {"count": count, "mu": state["mu"], "nu": state["nu"]}
+
     def update(self, grads, state, count, params):
         c1 = _correction(self.b1, count)
         out = []
@@ -148,6 +157,9 @@ class ScaleByRss:
     def init(self, params):
         return [torch.full_like(p, self.initial) for p in params]
 
+    def fields(self, state, count):
+        return {"sum_of_squares": state}
+
     def update(self, grads, state, count, params):
         out = []
         for g, t in zip(grads, state):
@@ -170,6 +182,9 @@ class ScaleByRms:
     def init(self, params):
         return [torch.full_like(p, self.initial) for p in params]
 
+    def fields(self, state, count):
+        return {"nu": state}
+
     def update(self, grads, state, count, params):
         out = []
         for g, nu in zip(grads, state):
@@ -189,6 +204,9 @@ class ScaleByAdadelta:
     def init(self, params):
         return {"e_g": [torch.zeros_like(p) for p in params],
                 "e_x": [torch.zeros_like(p) for p in params]}
+
+    def fields(self, state, count):
+        return {"e_g": state["e_g"], "e_x": state["e_x"]}
 
     def update(self, grads, state, count, params):
         out = []
@@ -239,13 +257,20 @@ class ScaleByTrustRatio:
 
 
 class ScaleByLearningRate:
-    """``optax.scale_by_learning_rate``: the update times -lr(count)."""
+    """``optax.scale_by_learning_rate``: the update times -lr(count).
+    ``scheduled`` (a rate with a decay) is optax's ``scale_by_schedule``,
+    whose state keeps the update count."""
 
-    def __init__(self, lr_fn: Callable[[int], float]):
+    def __init__(self, lr_fn: Callable[[int], float],
+                 scheduled: bool = False):
         self.lr_fn = lr_fn
+        self.scheduled = bool(scheduled)
 
     def init(self, params):
         return None
+
+    def fields(self, state, count):
+        return {"count": count} if self.scheduled else {}
 
     def update(self, grads, state, count, params):
         step = -self.lr_fn(count)
@@ -264,11 +289,20 @@ class ZooOptimizer:
     """A chain of gradient transforms plus the learning-rate schedule
     ``lr_fn(step)`` (the rate the step numbered ``step``, from 0, used).
     A transform never writes to the update tensors it is given; only its
-    own state changes in place."""
+    own state changes in place.
 
-    def __init__(self, transforms: List, lr_fn: Callable[[int], float]):
+    ``slots`` places each transform where optax keeps its state: the
+    key path of its state in the JAX package's ``opt_state`` tree (the
+    transform's index in optax's chain, under the clipping chain's index
+    when clipping is composed in front), so :meth:`state_tree` names
+    every leaf as optax does."""
+
+    def __init__(self, transforms: List, lr_fn: Callable[[int], float],
+                 slots: Optional[Sequence[tuple]] = None):
         self.transforms = list(transforms)
         self.lr_fn = lr_fn
+        self.slots = ([tuple(s) for s in slots] if slots is not None
+                      else [(str(i),) for i in range(len(self.transforms))])
 
     def init(self, params) -> OptState:
         return OptState([t.init(params) for t in self.transforms])
@@ -288,6 +322,33 @@ class ZooOptimizer:
                 p.add_(u)
         state.count += 1
 
+    def state_tree(self, state: OptState, paths: Sequence[tuple]) -> dict:
+        """The state as optax's tree in the JAX package's checkpoints:
+        ``{slot: {".<field>": {layer: {param: tensor}}}}``, where a
+        per-parameter field nests by ``paths`` (each parameter's key path
+        in the params tree) and ``.count`` is an int32 scalar.  The
+        tensors are the state's own."""
+        tree: dict = {}
+        for t, s, slot in zip(self.transforms, state.states, self.slots):
+            fields = t.fields(s, state.count) if hasattr(t, "fields") \
+                else {}
+            if not fields:
+                continue
+            node = tree
+            for key in slot:
+                node = node.setdefault(key, {})
+            for name, value in fields.items():
+                if name == "count":
+                    node[".count"] = np.int32(value)
+                    continue
+                sub = node.setdefault("." + name, {})
+                for path, tensor in zip(paths, value):
+                    leaf = sub
+                    for key in path[:-1]:
+                        leaf = leaf.setdefault(key, {})
+                    leaf[path[-1]] = tensor
+        return tree
+
 
 def _schedule(lr, spec) -> Optional[Callable[[int], float]]:
     """lr, or the BigDL hyperbolic decay lr / (1 + decay * step)."""
@@ -303,52 +364,59 @@ def _take(spec: dict, *keys) -> dict:
     return {k: spec.pop(k) for k in keys if k in spec}
 
 
-def _decay(spec: dict) -> list:
-    """optax's add_decayed_weights, left out at weight_decay 0 (it adds
-    0 * param)."""
+def _decay(spec: dict, slot: int) -> list:
+    """optax's add_decayed_weights at its chain index ``slot``, left out
+    at weight_decay 0 (it adds 0 * param)."""
     wd = spec.pop("weight_decay", 0.0)
-    return [AddDecayedWeights(wd)] if wd else []
+    return [(slot, AddDecayedWeights(wd))] if wd else []
 
 
 def _base_chain(name: str, spec: dict, rate: ScaleByLearningRate) -> list:
     """The transforms of the optax alias ``name``, in its order, with
-    its defaults; its options are taken out of ``spec``.  (With a rate
-    given, ``decay`` was taken as the rate's decay, as in the JAX
-    package; without one it reaches rmsprop as its own decay.)"""
+    its defaults, each with its index in optax's chain (where optax
+    keeps a stateless ``identity`` or a zero decay that the port leaves
+    out, the indices skip it); its options are taken out of ``spec``.
+    (With a rate given, ``decay`` was taken as the rate's decay, as in
+    the JAX package; without one it reaches rmsprop as its own
+    decay.)"""
     if name == "sgd":
         momentum = spec.pop("momentum", 0.0) or None
         nesterov = spec.pop("nesterov", False)
-        return ([] if momentum is None else [Trace(momentum, nesterov)]) \
-            + [rate]
+        return ([] if momentum is None
+                else [(0, Trace(momentum, nesterov))]) + [(1, rate)]
     if name in ("adam", "adamw", "lamb"):
         opts = {"eps": 1e-6} if name == "lamb" else {}
         adam = ScaleByAdam(**{**opts, **_take(spec, "b1", "b2", "eps",
                                               "eps_root")})
         if name == "adam":
-            return [adam, rate]
+            return [(0, adam), (1, rate)]
         if name == "adamw":
             spec.setdefault("weight_decay", 1e-4)
-            return [adam, *_decay(spec), rate]
-        return [adam, *_decay(spec), ScaleByTrustRatio(), rate]
+            return [(0, adam), *_decay(spec, 1), (2, rate)]
+        return [(0, adam), *_decay(spec, 1), (2, ScaleByTrustRatio()),
+                (3, rate)]
     if name == "adamax":
-        return [ScaleByAdamax(**_take(spec, "b1", "b2", "eps")), rate]
+        return [(0, ScaleByAdamax(**_take(spec, "b1", "b2", "eps"))),
+                (1, rate)]
     if name == "adagrad":
-        return [ScaleByRss(**_take(spec, "initial_accumulator_value",
-                                   "eps")), rate]
+        return [(0, ScaleByRss(**_take(spec, "initial_accumulator_value",
+                                       "eps"))), (1, rate)]
     if name == "adadelta":
-        return [*_decay(spec), ScaleByAdadelta(**_take(spec, "rho", "eps")),
-                rate]
+        return [*_decay(spec, 0),
+                (1, ScaleByAdadelta(**_take(spec, "rho", "eps"))),
+                (2, rate)]
     if name == "rmsprop":
         rms = ScaleByRms(**_take(spec, "decay", "eps", "initial_scale"))
         momentum = spec.pop("momentum", None)
         nesterov = spec.pop("nesterov", False)
-        return [rms, rate] + ([] if momentum is None
-                              else [Trace(momentum, nesterov)])
+        return [(0, rms), (1, rate)] + (
+            [] if momentum is None else [(2, Trace(momentum, nesterov))])
     # lars: trust ratio at coefficient 1e-3, the rate, then momentum 0.9
     trust = ScaleByTrustRatio(**{"trust_coefficient": 1e-3,
                                  **_take(spec, "trust_coefficient", "eps")})
-    return [*_decay(spec), trust, rate,
-            Trace(spec.pop("momentum", 0.9), spec.pop("nesterov", False))]
+    return [*_decay(spec, 0), (1, trust), (2, rate),
+            (3, Trace(spec.pop("momentum", 0.9),
+                      spec.pop("nesterov", False)))]
 
 
 def get(optimizer, clip_norm: Optional[float] = None,
@@ -370,12 +438,16 @@ def get(optimizer, clip_norm: Optional[float] = None,
         if name not in DEFAULTS:
             raise ValueError(f"Unknown optimizer {name!r}")
         lr = spec.pop("lr", spec.pop("learning_rate", None))
+        scheduled = lr is not None and bool(
+            spec.get("decay") or spec.get("learning_rate_decay"))
         lr_fn = _schedule(lr, spec) or (
             lambda step, _lr=DEFAULTS[name]: _lr)
-        base = _base_chain(name, spec, ScaleByLearningRate(lr_fn))
+        base = _base_chain(name, spec,
+                           ScaleByLearningRate(lr_fn, scheduled))
         if spec:
             raise TypeError(f"{name}: unknown options {sorted(spec)}")
-        opt = ZooOptimizer(base, lr_fn)
+        opt = ZooOptimizer([t for _, t in base], lr_fn,
+                           slots=[(str(i),) for i, _ in base])
     chain = []
     if clip_value is not None:
         chain.append(Clip(max(abs(clip_value[0]), abs(clip_value[1]))))
@@ -383,4 +455,7 @@ def get(optimizer, clip_norm: Optional[float] = None,
         chain.append(ClipByGlobalNorm(clip_norm))
     if not chain:
         return opt
-    return ZooOptimizer(chain + opt.transforms, opt.lr_fn)
+    # optax.chain(clips..., opt): opt's states nest under its index
+    return ZooOptimizer(chain + opt.transforms, opt.lr_fn,
+                        slots=[(str(i),) for i in range(len(chain))]
+                        + [(str(len(chain)),) + s for s in opt.slots])

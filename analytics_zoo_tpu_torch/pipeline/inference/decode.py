@@ -138,6 +138,7 @@ def skeleton_draft(model):
                         device=model.device)
     for name in ("tok_embed", "pos_embed", "ln_final", "lm_head"):
         setattr(draft, name, getattr(model, name))
+    draft.rewire()
     return draft.eval()
 
 

@@ -8,11 +8,16 @@ penalties, backward, optimizer update), with mixed precision
 the padded, masked tail, and ``predict``, each fed by a prefetch thread
 (``common/prefetch.py``); freezing (a layer's ``trainable`` flag, read at
 every step, over an optimizer state that always covers every parameter);
-TensorBoard scalars and epoch-triggered checkpoints in the flat format.
-The JAX package compiles the step with ``jit``; here it runs eagerly,
-with the model's parameters updated in place.  Iteration-triggered and
-sharded checkpoints, resuming, the step profiler, fault injection and
-sharding are not ported yet (see ROADMAP.md).
+TensorBoard scalars; checkpoints in the JAX package's sharded format and
+leaf names (``set_checkpoint`` with an epoch or iteration trigger), with
+the resume of a supervised restart (``ZOO_RESUME``: the newest complete
+snapshot, then a fast-forward into the epoch) and the supervisor's
+heartbeat and fault hooks (``train/faults.py``).  The JAX package
+compiles the step with ``jit``; here it runs eagerly, with the model's
+parameters updated in place.  Dropout draws from generators seeded from
+(seed, step, microbatch, layer) at every step, so a resumed run draws
+the masks of the uninterrupted one.  The step profiler and sharding are
+not ported yet (see ROADMAP.md).
 
 Losses stay on the device during an epoch and are read back in one
 transfer at its end, as in the JAX package: a step makes no host sync.
@@ -20,7 +25,8 @@ transfer at its end, as in the JAX package: a step makes no host sync.
 
 from __future__ import annotations
 
-import os
+import itertools
+import logging
 import time
 import warnings
 from typing import Callable, Dict, List, Optional, Sequence
@@ -29,13 +35,17 @@ import numpy as np
 import torch
 from torch.func import functional_call
 
+from .. import envcontract
 from ..common.prefetch import DeviceFeed, prefetch
 from ..core.module import RandomLayer
 from ..data.dataset import Dataset
+from ..parallel import distributed as dist_lib
 from ..pipeline.api.keras import metrics as metrics_lib
 from ..pipeline.api.keras.objectives import _batch_mean
 from ..pipeline.api.keras.regularizers import collect_penalties
 from . import checkpoint as checkpoint_lib
+from . import faults
+from . import metrics as train_metrics
 from . import triggers as trigger_lib
 from .summary import TrainSummary, ValidationSummary
 
@@ -44,20 +54,19 @@ from .summary import TrainSummary, ValidationSummary
 ENV_ACCUM = "ZOO_TRAIN_ACCUM"
 ENV_DTYPE = "ZOO_TRAIN_DTYPE"
 
+_log = logging.getLogger("analytics_zoo_tpu_torch.train")
+
 
 def _accum_from_env() -> int:
     """``ZOO_TRAIN_ACCUM`` as an int; unset, empty or not a number: 1."""
-    try:
-        return int(os.environ.get(ENV_ACCUM) or 1)
-    except ValueError:
-        return 1
+    return envcontract.env_int(ENV_ACCUM, 1)
 
 
 def _dtype_from_env() -> Optional[torch.dtype]:
     """``ZOO_TRAIN_DTYPE`` as a compute dtype (None: full f32).  An
     unknown name trains in f32 with a warning, as in the JAX package:
     an operator's typo must not stop a worker."""
-    name = (os.environ.get(ENV_DTYPE) or "").strip().lower()
+    name = (envcontract.env_str(ENV_DTYPE) or "").strip().lower()
     if not name:
         return None
     if name in ("bf16", "bfloat16"):
@@ -123,21 +132,39 @@ class TrainState:
     state's layout), the model's state (its stateful layers' buffers,
     as the JAX package's ``model_state`` tree: {layer: {name: tensor}};
     the layers update them in place in training mode), the optimizer
-    state and the step and epoch counters."""
+    state and the step and epoch counters.  ``paths`` is each
+    parameter's key path in the params tree."""
 
     def __init__(self, params, model_state, opt_state, step: int = 0,
-                 epoch: int = 0):
+                 epoch: int = 0, paths=None):
         self.params = params
         self.model_state = model_state
         self.opt_state = opt_state
         self.step = step
         self.epoch = epoch
+        self.paths = paths
 
-    def opt_tree(self) -> dict:
-        """The optimizer state as a tree of its tensors (for
-        checkpoints): the update count and each transform's state."""
-        return {"count": np.int64(self.opt_state.count),
-                "states": self.opt_state.states}
+
+def param_paths(model, params) -> List[tuple]:
+    """Each of ``params``' key path in the model's params tree (the
+    JAX package's ``{layer: {name: ...}}``, one level more per nested
+    model)."""
+    from ..models.jax_params import weight_tree
+    where = {}
+
+    def walk(tree, prefix):
+        for key, sub in tree.items():
+            if isinstance(sub, dict):
+                walk(sub, prefix + (key,))
+            else:
+                where[id(sub)] = prefix + (key,)
+
+    walk(weight_tree(model), ())
+    missing = [i for i, p in enumerate(params) if id(p) not in where]
+    if missing:
+        raise ValueError(f"parameters {missing} of the model are in no "
+                         "layer's params tree")
+    return [where[id(p)] for p in params]
 
 
 def build_train_step(model, loss_fn, optimizer, compute_dtype=None,
@@ -156,11 +183,16 @@ def build_train_step(model, loss_fn, optimizer, compute_dtype=None,
     f32 before the loss; gradients return in f32 through the casts'
     backward, so the master weights and the optimizer's state stay f32.
 
+    Every step reseeds the random layers' generators (dropout and
+    every noise layer) from (``seed``, step, microbatch, layer), as the
+    JAX package draws from ``fold_in(rng, step)``: the masks of a step
+    do not depend on what the process drew before, so a run resumed at
+    step k draws what the uninterrupted run drew there.
+
     ``accum_steps > 1``: the batch splits into that many equal
     microbatches; their gradients sum in f32 and scale by 1/accum, the
-    loss is the mean of theirs, and microbatch i draws its dropout (and
-    every random layer's noise) from generators seeded from (``seed``,
-    step, i).  The microbatches run in
+    loss is the mean of theirs, and microbatch i draws from generators
+    seeded with i.  The microbatches run in
     turn, so microbatch i+1 sees the layer state (BatchNormalization's
     moving statistics) that microbatch i left, as the JAX package's scan
     carries it.  ``accum_steps == 1`` is the single-shot step.
@@ -209,6 +241,7 @@ def build_train_step(model, loss_fn, optimizer, compute_dtype=None,
         model.train()
         try:
             if accum == 1:
+                seed_dropout(state.step, 0)
                 loss = forward_loss(state.params, x, y)
                 grads = gradients(loss, state.params, trainable)
             else:
@@ -293,7 +326,8 @@ class Trainer:
             from ..models.jax_params import state_tree
             params = list(self.model.parameters())
             self.state = TrainState(params, state_tree(self.model),
-                                    self.optimizer.init(params))
+                                    self.optimizer.init(params),
+                                    paths=param_paths(self.model, params))
 
     def refresh_optimizer(self):
         """Take up changed ``trainable`` flags (the JAX package re-masks
@@ -302,44 +336,111 @@ class Trainer:
         nothing is rebuilt and the statistics stay as they are:
         still-training layers keep their moments bit for bit."""
 
+    def _maybe_auto_resume(self):
+        """The supervised restart: under ``ZOO_RESUME`` a checkpointing
+        fit restores the newest complete snapshot before it trains.  No
+        complete snapshot, or one that cannot be read (a crash during
+        the first save leaves a directory without commits): a cold
+        start, never a raise, or every resumed incarnation would crash
+        in turn.  An explicit ``load_weights`` still raises."""
+        if (self._ckpt_path is None or not faults.resume_requested()
+                or self._auto_resumed or self.state.step
+                or self.state.epoch):
+            return
+        self._auto_resumed = True
+        try:
+            self.load_weights(self._ckpt_path)
+        except FileNotFoundError:
+            train_metrics.record_ckpt_restore("cold_start")
+            _log.warning("ZOO_RESUME set but no complete checkpoint in %s:"
+                         " cold start", self._ckpt_path)
+            return
+        except Exception as e:
+            train_metrics.record_ckpt_restore("cold_start")
+            _log.error("ZOO_RESUME restore from %s failed (%s: %s): cold "
+                       "start", self._ckpt_path, type(e).__name__, e,
+                       exc_info=True)
+            return
+        _log.info("resumed from %s at epoch %d step %d (epoch step %d)",
+                  self._ckpt_path, self.state.epoch, self.state.step,
+                  self._resume_epoch_step)
+
+    def _iteration_checkpoint(self, epoch_step: int):
+        st = self.state
+        save = (checkpoint_lib.save_sharded if faults.sync_checkpoints()
+                else checkpoint_lib.async_save_sharded)
+        save(self._ckpt_path, st.step, self.state_tree(),
+             meta={"step": st.step, "epoch": st.epoch,
+                   "epoch_step": epoch_step})
+
     def fit(self, dataset: Dataset, batch_size: int, end_trigger=None,
             validation_data: Optional[Dataset] = None,
             validation_trigger=None, validation_batch_size: int = None,
             shuffle: bool = True, verbose: bool = False) -> Dict[str, List]:
         """Run the loop until ``end_trigger`` fires (default: one more
         epoch).  Successive calls continue the epoch count.  Returns
-        ``{"loss": [per-step losses], "val": [per-epoch results]}``."""
+        ``{"loss": [per-step losses], "val": [per-epoch results]}``.
+        With a checkpoint directory, ``fit`` returns once its snapshots
+        are on disk."""
         if batch_size % self.accum_steps:
             raise ValueError(
                 f"batch_size ({batch_size}) must be divisible by "
                 f"accum_steps ({self.accum_steps}): every microbatch has "
                 "the same size")
+        device = _model_device(self.model)
+        dist_lib.maybe_initialize_distributed(device)
         self.ensure_initialized()
+        faults.refresh()
+        faults.heartbeat()
+        self._maybe_auto_resume()
+        # an iteration-trigger snapshot lands mid-epoch: skip the batches
+        # the restored position already consumed (the epoch's order is
+        # fixed by (seed, epoch)), so the replayed steps are the
+        # uninterrupted run's
+        resume_skip = int(self._resume_epoch_step or 0)
+        self._resume_epoch_step = 0
         if self._train_step is None:
             self._train_step = build_train_step(
                 self.model, self.loss_fn, self.optimizer,
                 compute_dtype=self.compute_dtype,
                 accum_steps=self.accum_steps, seed=self.seed)
         st = self.state
-        feed = DeviceFeed(_model_device(self.model))
+        feed = DeviceFeed(device)
         end_trigger = end_trigger or trigger_lib.MaxEpoch(st.epoch + 1)
         validation_trigger = validation_trigger or trigger_lib.EveryEpoch()
+        ckpt_trigger = self._ckpt_trigger or trigger_lib.EveryEpoch()
+        per_epoch_ckpt = isinstance(ckpt_trigger, trigger_lib.EveryEpoch)
+        lr_fn = getattr(self.optimizer, "lr_fn", None)
         history: Dict[str, List] = {"loss": [], "val": []}
         stop = False
         while not (stop or end_trigger({"epoch": st.epoch,
                                         "iteration": st.step})):
             epoch_losses = []
             epoch_start = time.perf_counter()
-            with prefetch(dataset.batches(batch_size, shuffle=shuffle,
-                                          seed=self.seed, epoch=st.epoch),
-                          transform=feed) as batches:
-                for item in batches:
+            epoch_start_step = st.step - resume_skip
+            batches = dataset.batches(batch_size, shuffle=shuffle,
+                                      seed=self.seed, epoch=st.epoch)
+            if resume_skip:
+                batches = itertools.islice(batches, resume_skip, None)
+                resume_skip = 0
+            with prefetch(batches, transform=feed) as items:
+                for item in items:
                     bx, by = feed.ready(item)
                     loss = self._train_step(st, bx, by)
                     st.step += 1
+                    faults.heartbeat()
+                    train_metrics.record_step()
+                    # an injected fault lands before the checkpoint: a
+                    # crash at step k never leaves a tag k
+                    faults.maybe_fault(st.step)
                     epoch_losses.append(loss)
-                    if end_trigger({"epoch": st.epoch, "iteration": st.step,
-                                    "loss": loss}):
+                    record = {"epoch": st.epoch, "iteration": st.step,
+                              "loss": loss}
+                    if self._ckpt_path and not per_epoch_ckpt \
+                            and ckpt_trigger(record):
+                        self._iteration_checkpoint(st.step
+                                                   - epoch_start_step)
+                    if end_trigger(record):
                         stop = True
                         break
             st.epoch += 1
@@ -349,9 +450,14 @@ class Trainer:
             history["loss"].extend(losses)
             if self.train_summary is not None:
                 elapsed = max(time.perf_counter() - epoch_start, 1e-9)
+                base = st.step - len(losses)
                 for i, lossf in enumerate(losses):
-                    self.train_summary.add_scalar(
-                        "Loss", lossf, st.step - len(losses) + i + 1)
+                    self.train_summary.add_scalar("Loss", lossf,
+                                                  base + i + 1)
+                    if lr_fn is not None:
+                        self.train_summary.add_scalar(
+                            "LearningRate", float(lr_fn(base + i)),
+                            base + i + 1)
                 self.train_summary.add_scalar(
                     "Throughput", len(losses) * batch_size / elapsed, st.step)
                 self.train_summary.flush()
@@ -359,8 +465,10 @@ class Trainer:
                             "epoch_finished": True,
                             "loss": losses[-1] if losses else None}
             if verbose:
+                # a resume that sat on the epoch's end replays no batch
+                lossf = epoch_record["loss"]
                 print(f"[zoo-torch] epoch {st.epoch} step {st.step} loss "
-                      f"{epoch_record['loss']}")
+                      f"{'n/a' if lossf is None else lossf}")
             if validation_data is not None and validation_trigger(
                     epoch_record):
                 results = self.evaluate(validation_data,
@@ -372,8 +480,17 @@ class Trainer:
                     self.val_summary.flush()
                 if verbose:
                     print(f"[zoo-torch]   validation: {results}")
-            if self._ckpt_path:
-                self.save_weights(self._ckpt_path, f"epoch{st.epoch}")
+            faults.heartbeat()
+            if self._ckpt_path and per_epoch_ckpt:
+                checkpoint_lib.async_save_sharded(
+                    self._ckpt_path, f"epoch{st.epoch}", self.state_tree(),
+                    meta={"step": st.step, "epoch": st.epoch,
+                          "epoch_step": 0})
+        if self._ckpt_path:
+            # fit returning means the snapshots are on disk, on every
+            # process of the pod
+            checkpoint_lib.wait_pending(self._ckpt_path)
+            dist_lib.barrier("zoo_fit_ckpt_done")
         return history
 
     def evaluate(self, dataset: Dataset, batch_size: int,
@@ -440,43 +557,81 @@ class Trainer:
     val_summary: Optional[ValidationSummary] = None
     _ckpt_path: Optional[str] = None
     _ckpt_overwrite = True
+    _ckpt_trigger = None
+    _auto_resumed = False
+    _resume_epoch_step = 0
 
     def set_tensorboard(self, log_dir: str, app_name: str):
-        """Loss per step and Throughput (samples/s) per epoch under
-        ``<log_dir>/<app_name>/train``, each validation result per epoch
-        under ``.../validation``."""
+        """Loss and LearningRate per step and Throughput (samples/s) per
+        epoch under ``<log_dir>/<app_name>/train``, each validation
+        result per epoch under ``.../validation``."""
         self.train_summary = TrainSummary(log_dir, app_name)
         self.val_summary = ValidationSummary(log_dir, app_name)
 
-    def set_checkpoint(self, path: str, over_write: bool = True):
-        """Save the training state at the end of every epoch, as
-        ``ckpt_epoch<n>`` under ``path``."""
+    def set_checkpoint(self, path: str, over_write: bool = True,
+                       trigger=None):
+        """Snapshot the training state under ``path``: at the end of
+        every epoch as ``ckpt_epoch<n>`` (the default ``EveryEpoch``
+        trigger), or when ``trigger`` fires on a step's record
+        (``SeveralIteration(k)``) as ``ckpt_<step>``, asynchronously
+        (synchronously under ``ZOO_CKPT_SYNC``)."""
         self._ckpt_path = path
         self._ckpt_overwrite = over_write
+        self._ckpt_trigger = trigger or trigger_lib.EveryEpoch()
 
     def state_tree(self) -> dict:
-        """The model's weights ({layer: {param: tensor}}), its layer state
-        and the optimizer state, as the JAX package's
-        ``TrainState.as_tree``."""
+        """The JAX package's ``TrainState.as_tree()``: the weights
+        ({layer: {param: tensor}}), the layer state and the optimizer
+        state under optax's leaf names (``opt_state/0/.mu/<layer>/W``,
+        ``opt_state/0/.count``, ...).  The tensors are the live ones."""
         from ..models.jax_params import weight_tree
         self.ensure_initialized()
+        st = self.state
         return {"params": weight_tree(self.model),
-                "model_state": self.state.model_state,
-                "opt_state": self.state.opt_tree()}
+                "model_state": st.model_state,
+                "opt_state": self.optimizer.state_tree(st.opt_state,
+                                                       st.paths)}
 
     def save_weights(self, directory: str, tag="final"):
+        """The training state in the sharded format (every process of a
+        pod calls this), with the step and epoch."""
         self.ensure_initialized()
-        checkpoint_lib.save_checkpoint(
+        checkpoint_lib.save_sharded(
             directory, tag, self.state_tree(),
             overwrite=self._ckpt_overwrite,
             meta={"step": self.state.step, "epoch": self.state.epoch})
 
     def load_weights(self, directory: str, tag=None):
         """Restore weights, layer state, optimizer state and counters
-        from a checkpoint of this model (the newest tag when None)."""
+        from a checkpoint of either package, in either format (the
+        newest complete tag when None), matched by leaf name.  An
+        iteration-trigger snapshot makes the next ``fit`` fast-forward
+        into its epoch."""
         self.ensure_initialized()
-        pairs = checkpoint_lib.restore_into(directory, self.state_tree(), tag)
-        self.state.opt_state.count = int(dict(pairs)["opt_state/count"])
+        st = self.state
+        template = self.state_tree()
+        names = checkpoint_lib.saved_names(directory, tag)
+        legacy = any(n.startswith(("opt_state/states/", "opt_state/count"))
+                     for n in names)
+        if legacy:
+            # the port's earlier flat saves named the optimizer's leaves
+            # by position
+            template["opt_state"] = {"count": np.int64(st.opt_state.count),
+                                     "states": st.opt_state.states}
+        elif names and not any(n.startswith("opt_state/") for n in names):
+            # a save of weights and layer state only
+            template.pop("opt_state")
+        tree = checkpoint_lib.restore_sharded(directory, template, tag)
+        checkpoint_lib.copy_tree_into(template, tree)
         meta = checkpoint_lib.read_meta(directory, tag)
-        self.state.step = int(meta.get("step", self.state.step))
-        self.state.epoch = int(meta.get("epoch", self.state.epoch))
+        st.step = int(meta.get("step", st.step))
+        st.epoch = int(meta.get("epoch", st.epoch))
+        if "opt_state" in template:
+            # optax keeps the update count in the states that use it
+            # (adam's, a scheduled rate's); where none does, the updates
+            # made are the steps taken
+            counts = [v for n, v in checkpoint_lib.flatten(
+                tree["opt_state"]) if n.split("/")[-1] in (".count",
+                                                           "count")]
+            st.opt_state.count = int(counts[0]) if counts else st.step
+        self._resume_epoch_step = int(meta.get("epoch_step", 0))

@@ -67,3 +67,23 @@ class MinLoss(Trigger):
     def __call__(self, record):
         loss = record.get("loss")
         return loss is not None and bool(loss <= self.min_loss)
+
+
+class And(Trigger):
+    """Fires when every one of ``triggers`` fires."""
+
+    def __init__(self, *triggers):
+        self.triggers = triggers
+
+    def __call__(self, record):
+        return all(t(record) for t in self.triggers)
+
+
+class Or(Trigger):
+    """Fires when any one of ``triggers`` fires."""
+
+    def __init__(self, *triggers):
+        self.triggers = triggers
+
+    def __call__(self, record):
+        return any(t(record) for t in self.triggers)

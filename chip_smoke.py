@@ -169,10 +169,36 @@ Phases (any failure makes the exit code non-zero):
    measured), 20 timed one-step fits (ms a step, images/s, peak GiB),
    one profiled step (launches, device ms by kind, idle share), and a
    save_model/load_model round trip on the card predicting the same
-   bits.
+   bits;
+18. resume: fault-tolerant training at full width, through the
+   supervisor's environment contract, with this script as the
+   supervisor (one card holds no two-rank pod): the train phase's model
+   and plan with dropout 0.1 (adam 3e-4, seq 2048, batch 8, 6 batches an
+   epoch, 8 steps) run in worker processes (``RESUME_WORKER``, written
+   under ``build/chip_smoke``): two uninterrupted runs (their final
+   weights and adam moments compared: the spread); an incarnation with
+   ``SeveralIteration(2)`` snapshots under ``ZOO_CKPT_SYNC``,
+   ``ZOO_FAULT_CORRUPT_TAG=6`` and ``ZOO_FAULT_CRASH_STEP=7``, which must
+   die by SIGKILL after step 7; a second under ``ZOO_RESUME=1``, which
+   must discard tag 6 on its checksum, restore tag 4 (epoch step 4),
+   replay steps 5-8 across the epoch's end and end on the uninterrupted
+   state bit for bit (or within the two runs' spread, when they differ);
+   every kernel at least 12 times a step in each run; the recovery
+   seconds (import, build, restore with its deep verify, first step);
+   then 8 steps with asynchronous ``SeveralIteration(4)`` snapshots
+   against 8 without (step ms, the ms the copy to the host blocks, the
+   writer's and the commit's seconds, bytes a snapshot, a deep verify);
+   then one forward and backward with and without remat on every
+   attention and MLP sublayer (dropout 0, same weights and batch): peak
+   GiB, ms, flash_fwd 24 launches against 12, gradients within rtol
+   2e-4, atol 2e-5.
+
+``python3 chip_smoke.py --phases train,resume`` runs only the named
+phases (after the build), for a short call.
 
 The card's line, then ``resnet:``, ``detect:``, ``recommend:``,
-``textclass:``, ``moe:``, ``image:`` and ``layers:`` summary lines (each
+``textclass:``, ``moe:``, ``image:``, ``layers:`` and ``resume:``
+summary lines (each
 with the card's name and power limit) come near the end; the line
 before the last is a JSON object with each kernel's numbers; the last
 line is ``{"ok": true, "device": {...}}``.  ResNet-50, the registry,
@@ -340,6 +366,8 @@ SUMMARIES = {
     "layers": ("sweep_failed", "step_ms", "images_per_s", "peak_gib",
                "launches_per_step", "idle_share", "loss_rel_err",
                "predict_rel_err", "own_state_predict_rel_err", "card"),
+    "resume": ("resumed_vs_uninterrupted", "uninterrupted_runs_differ",
+               "incarnation2", "async", "card"),
 }
 KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "flash_fwd": ("analytics_zoo_tpu_torch/ops/csrc/flash_fwd.cu",
@@ -3760,6 +3788,407 @@ def phase_mixed(torch, TransformerLM, kernels, f32_losses):
     return bool(ok and accum_ok), stats
 
 
+# the resume phase: the train phase's model and plan with dropout 0.1,
+# 6 batches an epoch, 8 steps; snapshots every 2 steps, tag 6 corrupted
+# after its commit and a SIGKILL after step 7 in the first incarnation
+RESUME = dict(batch=8, batches_per_epoch=6, steps=8, lr=3e-4, dropout=0.1,
+              every=2, corrupt_tag=6, crash_step=7, async_every=4,
+              restore_tag=4)
+REMAT_TOL = dict(rtol=2e-4, atol=2e-5)  # tests/test_remat.py's
+
+#: the worker of the resume phase, run as its own process (the
+#: supervisor's incarnations): ``python worker.py REPO MODE OUT``
+RESUME_WORKER = r"""
+import json, os, sys, time
+t_script = time.time()
+repo, mode, out = sys.argv[1:4]
+sys.path.insert(0, repo)
+import torch
+from analytics_zoo_tpu_torch.data.dataset import Dataset
+from analytics_zoo_tpu_torch.models import TransformerLM
+from analytics_zoo_tpu_torch.ops import _kernels
+from analytics_zoo_tpu_torch.train import checkpoint, faults, triggers
+from chip_smoke import FULL, RESUME, TRAIN_SEQ, periodic_tokens
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+t_import = time.time()
+R = RESUME
+cfg = dict(FULL, seq_len=TRAIN_SEQ, dropout=R["dropout"])
+lm = TransformerLM(**cfg, device="cuda", seed=0)
+lm.compile({"name": "adam", "lr": R["lr"]}, "class_nll")
+tr = lm.trainer
+tr.ensure_initialized()
+x, y = periodic_tokens(R["batch"] * R["batches_per_epoch"],
+                       cfg["vocab_size"], TRAIN_SEQ, seed=2)
+ds = Dataset.from_ndarray(x, y)
+torch.cuda.synchronize()
+t_built = time.time()
+timing = {"restore_s": 0.0, "verify_s": 0.0, "copy_s": [], "write_s": [],
+          "commit_s": []}
+
+
+def timed(key, fn, append=False):
+    def wrapped(*a, **k):
+        t = time.perf_counter()
+        try:
+            return fn(*a, **k)
+        finally:
+            dt = time.perf_counter() - t
+            if append:
+                timing[key].append(dt)
+            else:
+                timing[key] += dt
+    return wrapped
+
+
+def deep_only(fn):
+    def wrapped(d, tag, deep=False):
+        if not deep:
+            return fn(d, tag, deep)
+        t = time.perf_counter()
+        try:
+            return fn(d, tag, deep)
+        finally:
+            timing["verify_s"] += time.perf_counter() - t
+    return wrapped
+
+
+checkpoint.verify_commit = deep_only(checkpoint.verify_commit)
+checkpoint._snapshot_shards = timed("copy_s", checkpoint._snapshot_shards,
+                                    True)
+checkpoint._write_shards = timed("write_s", checkpoint._write_shards, True)
+checkpoint._commit_sharded = timed("commit_s", checkpoint._commit_sharded,
+                                   True)
+tr.load_weights = timed("restore_s", tr.load_weights)
+
+
+real_fault = faults.maybe_fault
+
+
+def reporting_fault(step):
+    # each completed step, reported before the fault hook may kill us
+    torch.cuda.synchronize()
+    print("STEP", json.dumps({"step": step,
+                              "launches": _kernels.launch_counts()}),
+          flush=True)
+    real_fault(step)
+
+
+faults.maybe_fault = reporting_fault
+
+
+class Clock(triggers.Trigger):
+    # an end trigger that stops at ``last`` and stamps each step's end
+    def __init__(self, last):
+        self.last, self.stamps = last, []
+
+    def __call__(self, record):
+        if "loss" in record:
+            torch.cuda.synchronize()
+            self.stamps.append((record["iteration"], time.time()))
+        return record["iteration"] >= self.last
+
+
+def fit(last):
+    clock = Clock(last)
+    t = time.time()
+    tr.fit(ds, R["batch"], end_trigger=clock)
+    torch.cuda.synchronize()
+    return t, clock.stamps
+
+
+res = {"mode": mode, "import_s": t_import - t_script,
+       "build_s": t_built - t_import, "t_script": t_script}
+if mode == "async":
+    fit(1)  # warm-up
+    for every in (None, R["async_every"]):
+        if every:
+            tr.set_checkpoint(out, trigger=triggers.SeveralIteration(every))
+        start = tr.state.step
+        _kernels.reset_launch_counts()
+        t0, stamps = fit(start + R["steps"])
+        checkpoint.wait_pending(out)
+        times = [b - a for a, b in zip([t0] + [t for _, t in stamps],
+                                       [t for _, t in stamps])]
+        key = "async" if every else "none"
+        res[key] = {"step_s": times, "steps": [s for s, _ in stamps],
+                    "launches": _kernels.launch_counts()}
+    tag = tr.state.step - tr.state.step % R["async_every"]  # the last
+    t = time.perf_counter()
+    ok, why = checkpoint.verify_commit(out, tag, deep=True)
+    res["deep_verify_s"] = time.perf_counter() - t
+    res["deep_verify_ok"] = ok
+    res["snapshot_bytes"] = sum(
+        os.path.getsize(os.path.join(out, f)) for f in os.listdir(out)
+        if f.startswith(f"ckpt_{tag}."))
+else:
+    if mode in ("crash", "resume"):
+        tr.set_checkpoint(out, trigger=triggers.SeveralIteration(R["every"]))
+    _kernels.reset_launch_counts()
+    t0, stamps = fit(R["steps"])
+    res.update(steps=[s for s, _ in stamps], t_fit=t0,
+               t_first_step=stamps[0][1] if stamps else None,
+               launches=_kernels.launch_counts(), final_step=tr.state.step)
+    if mode == "full":
+        tr.save_weights(out, "final")
+    from analytics_zoo_tpu_torch.train import metrics
+    res["ckpt_restores"] = metrics.snapshot()["ckpt_restores"]
+res.update(timing)
+print("RESUME_WORKER", json.dumps(res), flush=True)
+"""
+
+
+def run_worker(tmp, mode, out, env=None, timeout=600):
+    """One incarnation of the resume worker: (returncode, its result or
+    None, its last STEP record, wall s from its start)."""
+    path = os.path.join(tmp, "resume_worker.py")
+    with open(path, "w") as f:
+        f.write(RESUME_WORKER)
+    repo = os.path.dirname(os.path.abspath(__file__))
+    full_env = {k: v for k, v in os.environ.items()
+                if not k.startswith(("ZOO_RESUME", "ZOO_FAULT_",
+                                     "ZOO_CKPT_SYNC", "ZOO_RESTART"))}
+    full_env["PYTHONPATH"] = repo
+    full_env.update(env or {})
+    t = time.time()
+    proc = subprocess.run([sys.executable, path, repo, mode, out],
+                          env=full_env, capture_output=True, text=True,
+                          timeout=timeout)
+    result, last_step = None, None
+    for line in proc.stdout.splitlines():
+        if line.startswith("RESUME_WORKER "):
+            result = json.loads(line[len("RESUME_WORKER "):])
+        elif line.startswith("STEP "):
+            last_step = json.loads(line[len("STEP "):])
+    if proc.returncode not in (0, -9) or result is None and \
+            proc.returncode == 0:
+        log(f"resume: worker {mode} rc {proc.returncode}\n"
+            f"{proc.stderr[-3000:]}")
+    if result is not None:
+        result["t_spawn"] = t
+    return proc.returncode, result, last_step, time.time() - t
+
+
+def state_diff(dir_a, tag_a, dir_b, tag_b):
+    """Two saved training states (sharded, one process) leaf by leaf:
+    (leaves that differ, largest |a - b| over the largest |a| of its
+    leaf, names compared)."""
+    import numpy as np
+
+    def load(d, tag):
+        with open(os.path.join(d, f"ckpt_{tag}.json")) as f:
+            names = json.load(f)["names"]
+        return names, np.load(os.path.join(d, f"ckpt_{tag}.shard-p0.npz"))
+
+    na, fa = load(dir_a, tag_a)
+    nb, fb = load(dir_b, tag_b)
+    ia = {n: i for i, n in enumerate(na)}
+    ib = {n: i for i, n in enumerate(nb)}
+    keys_a = {int(k.split("|")[0]): k for k in fa.files}
+    keys_b = {int(k.split("|")[0]): k for k in fb.files}
+    differ, worst = [], 0.0
+    try:
+        for name in sorted(set(ia) | set(ib)):
+            if name not in ia or name not in ib:
+                differ.append(name)
+                worst = math.inf
+                continue
+            a = fa[keys_a[ia[name]]]
+            b = fb[keys_b[ib[name]]]
+            if not np.array_equal(a, b):
+                differ.append(name)
+                scale = float(np.abs(a.astype(np.float64)).max()) or 1.0
+                worst = max(worst, float(np.abs(
+                    a.astype(np.float64) - b).max()) / scale)
+    finally:
+        fa.close()
+        fb.close()
+    return differ, worst, len(set(ia) | set(ib))
+
+
+def remat_check(torch, TransformerLM, kernels):
+    """One forward and backward of the full-width train model with and
+    without remat on every attention and MLP sublayer, same weights and
+    batch, dropout 0: peak GiB, ms, flash_fwd launches, and the largest
+    gradient difference."""
+    import numpy as np
+    cfg = dict(FULL, seq_len=TRAIN_SEQ)
+    x, y = periodic_tokens(RESUME["batch"], cfg["vocab_size"], TRAIN_SEQ,
+                           seed=3)
+    ids = torch.as_tensor(x, device="cuda")
+    labels = torch.as_tensor(y, device="cuda")
+    from analytics_zoo_tpu_torch.pipeline.api.keras import objectives
+    out, grads = {}, {}
+    for remat in (False, True):
+        model = TransformerLM(**cfg, remat=remat, device="cuda",
+                              seed=0).train()
+        params = list(model.parameters())
+
+        def step():
+            loss = objectives.class_nll(labels, model(ids)).mean()
+            return torch.autograd.grad(loss, params)
+
+        step()  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t = time.perf_counter()
+        g = step()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        key = "remat" if remat else "plain"
+        out[key] = dict(step_ms=ms,
+                        peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                        launches=kernels.launch_counts())
+        grads[key] = [t.detach().cpu().numpy() for t in g]
+        del model, params, g
+        torch.cuda.empty_cache()
+    worst, bad = 0.0, 0
+    for a, b in zip(grads["plain"], grads["remat"]):
+        d = np.abs(a - b)
+        worst = max(worst, float(d.max()))
+        bad += int(not np.all(d <= REMAT_TOL["atol"]
+                              + REMAT_TOL["rtol"] * np.abs(a)))
+    out.update(grad_max_abs_diff=worst, grad_tensors_off_tol=bad,
+               grad_tensors=len(grads["plain"]))
+    return out
+
+
+def phase_resume(torch, TransformerLM, kernels, tmp):
+    """Crash and resume at full width through the supervisor's
+    environment contract; the cost of asynchronous snapshots; remat."""
+    import gc
+    import signal
+    R = RESUME
+    n_layers = FULL["n_layers"]
+    stats = {"card": smi_card()}
+    ok = True
+    gc.collect()
+    torch.cuda.empty_cache()
+    root = os.path.join(tmp, "resume")
+    dirs = {k: os.path.join(root, k) for k in ("full_a", "full_b", "ckpt",
+                                               "async")}
+    try:
+        runs = {}
+        for key in ("full_a", "full_b"):
+            rc, res, _, wall = run_worker(tmp, "full", dirs[key])
+            runs[key] = res
+            ok &= rc == 0 and res is not None
+            if not ok:
+                return False, stats
+        differ, spread, n = state_diff(dirs["full_a"], "final",
+                                       dirs["full_b"], "final")
+        stats["uninterrupted_runs_differ"] = len(differ)
+        stats["uninterrupted_spread"] = spread
+        shutil.rmtree(dirs["full_b"])
+        env1 = {"ZOO_CKPT_SYNC": "1",
+                "ZOO_FAULT_CORRUPT_TAG": str(R["corrupt_tag"]),
+                "ZOO_FAULT_CRASH_STEP": str(R["crash_step"]),
+                "ZOO_FAULT_CRASH_RANK": "0"}
+        rc1, res1, last1, wall1 = run_worker(tmp, "crash", dirs["ckpt"],
+                                             env1)
+        killed = rc1 == -signal.SIGKILL
+        stats["incarnation1"] = dict(rc=rc1, last_step=(last1 or {}).get(
+            "step"), launches=(last1 or {}).get("launches"), wall_s=wall1,
+            tags=sorted(f for f in os.listdir(dirs["ckpt"])
+                        if f.endswith(".commit.json")))
+        if not killed or (last1 or {}).get("step") != R["crash_step"]:
+            log(f"resume: FAIL incarnation 1 ended rc {rc1} after step "
+                f"{(last1 or {}).get('step')}, expected SIGKILL after "
+                f"{R['crash_step']}")
+            ok = False
+        env2 = {"ZOO_CKPT_SYNC": "1", "ZOO_RESUME": "1",
+                "ZOO_RESTART_COUNT": "1"}
+        rc2, res2, _, wall2 = run_worker(tmp, "resume", dirs["ckpt"], env2)
+        if rc2 != 0 or res2 is None:
+            log(f"resume: FAIL incarnation 2 rc {rc2}")
+            return False, stats
+        to_script = res2["t_script"] - res2["t_spawn"]
+        restore_s = res2["restore_s"]
+        first_step = res2["t_first_step"] - res2["t_fit"] - restore_s
+        stats["incarnation2"] = dict(
+            rc=rc2, steps=res2["steps"], replayed=len(res2["steps"]),
+            final_step=res2["final_step"], launches=res2["launches"],
+            restores=res2["ckpt_restores"], wall_s=wall2,
+            spawn_to_script_s=to_script, import_s=res2["import_s"],
+            build_s=res2["build_s"], restore_s=restore_s,
+            deep_verify_s=res2["verify_s"], first_step_s=first_step,
+            to_first_resumed_step_s=res2["t_first_step"] - res2["t_spawn"])
+        want_steps = list(range(R["restore_tag"] + 1, R["steps"] + 1))
+        if res2["steps"] != want_steps or res2["ckpt_restores"] != {
+                "corrupt_discarded": 1, "ok": 1}:
+            log(f"resume: FAIL incarnation 2 replayed {res2['steps']} "
+                f"(expected {want_steps}) with restores "
+                f"{res2['ckpt_restores']}")
+            ok = False
+        differ, err, n = state_diff(dirs["full_a"], "final", dirs["ckpt"],
+                                    R["steps"])
+        stats["resumed_vs_uninterrupted"] = dict(
+            leaves=n, differ=len(differ), max_rel_err=err)
+        if differ and not (stats["uninterrupted_runs_differ"]
+                           and err <= 2 * stats["uninterrupted_spread"]):
+            log(f"resume: FAIL the resumed state differs from the "
+                f"uninterrupted run in {len(differ)} of {n} leaves "
+                f"(max rel err {err:.3g}; two uninterrupted runs: "
+                f"{stats['uninterrupted_runs_differ']} leaves, "
+                f"{stats['uninterrupted_spread']:.3g})")
+            ok = False
+        launch_runs = {"uninterrupted": runs["full_a"]["launches"],
+                       "incarnation1": stats["incarnation1"]["launches"]
+                       or {}, "incarnation2": res2["launches"]}
+        for run, counts in launch_runs.items():
+            steps = (R["steps"] if run == "uninterrupted"
+                     else R["crash_step"] if run == "incarnation1"
+                     else len(want_steps))
+            for name in KERNELS:
+                if counts.get(name, 0) < n_layers * steps:
+                    log(f"resume: FAIL {run}: {name} launched "
+                        f"{counts.get(name, 0)} times in {steps} steps")
+                    ok = False
+        stats["launches"] = launch_runs
+        shutil.rmtree(dirs["full_a"])
+        shutil.rmtree(dirs["ckpt"])
+
+        rc3, res3, _, _ = run_worker(tmp, "async", dirs["async"])
+        if rc3 != 0 or res3 is None:
+            log(f"resume: FAIL async worker rc {rc3}")
+            return False, stats
+        import statistics
+        none_ms = [t * 1e3 for t in res3["none"]["step_s"]]
+        async_ms = [t * 1e3 for t in res3["async"]["step_s"]]
+        snap_steps = [i for i, s in enumerate(res3["async"]["steps"])
+                      if s % R["async_every"] == 0]
+        stats["async"] = dict(
+            step_ms_none=statistics.median(none_ms),
+            step_ms_async=statistics.median(async_ms),
+            step_ms_none_all=none_ms, step_ms_async_all=async_ms,
+            snapshot_step_ms=[async_ms[i] for i in snap_steps],
+            copy_block_ms=[t * 1e3 for t in res3["copy_s"]],
+            write_s=res3["write_s"], commit_s=res3["commit_s"],
+            snapshot_bytes=res3["snapshot_bytes"],
+            deep_verify_s=res3["deep_verify_s"])
+        ok &= bool(res3["deep_verify_ok"])
+        shutil.rmtree(dirs["async"])
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    stats["remat"] = remat_check(torch, TransformerLM, kernels)
+    rm = stats["remat"]
+    fwd = rm["remat"]["launches"]["flash_fwd"]
+    if fwd != 2 * n_layers or rm["plain"]["launches"]["flash_fwd"] != \
+            n_layers:
+        log(f"resume: FAIL flash_fwd launched {fwd} times a remat step "
+            f"(expected {2 * n_layers})")
+        ok = False
+    if rm["grad_tensors_off_tol"]:
+        log(f"resume: FAIL {rm['grad_tensors_off_tol']} remat gradients "
+            f"off the plain ones beyond {REMAT_TOL}")
+        ok = False
+    log("resume:", json.dumps(stats))
+    return bool(ok), stats
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3846,7 +4275,12 @@ def main() -> int:
         ("image", lambda: phase_image(torch, models, keras, kernels,
                                       inference, tmp)),
         ("layers", lambda: phase_layers(torch, keras, kernels, tmp)),
+        ("resume", lambda: phase_resume(torch, TransformerLM, kernels,
+                                        tmp)),
     ]
+    if sys.argv[1:2] == ["--phases"]:  # e.g. --phases kernels,resume
+        wanted = sys.argv[2].split(",")
+        phases = [p for p in phases if p[0] in wanted]
     results = {}
     for name, run in phases:
         t = time.perf_counter()
@@ -3881,6 +4315,13 @@ def main() -> int:
     path_launches["moe_generate"] = moe.get("generate_launches") or {}
     path_launches["moe_serve"] = (moe.get("serve") or {}).get(
         "launches") or {}
+    resume = results.get("resume") or {}
+    path_launches["resume"] = (resume.get("launches") or {}).get(
+        "incarnation2") or {}
+    path_launches["resume_uninterrupted"] = (resume.get("launches")
+                                             or {}).get("uninterrupted") or {}
+    path_launches["resume_remat"] = ((resume.get("remat") or {}).get(
+        "remat") or {}).get("launches") or {}
 
     def timed_row(name, case, dtype, sq=None):
         row = next((r for r in results.get("kernels") or []
@@ -3921,7 +4362,12 @@ def main() -> int:
                          name, 0),
                      "moe_serve": path_launches["moe_serve"].get(name, 0),
                      "image": path_launches["image"].get(name, 0),
-                     "layers": path_launches["layers"].get(name, 0)}}
+                     "layers": path_launches["layers"].get(name, 0),
+                     "resume": path_launches["resume"].get(name, 0),
+                     "resume_uninterrupted": path_launches[
+                         "resume_uninterrupted"].get(name, 0),
+                     "resume_remat": path_launches["resume_remat"].get(
+                         name, 0)}}
         entry.update(timed_row(name, "mixed", "bfloat16"))
         entry["f32"] = timed_row(name, "train", "float32")
         entry["bf16_batch8"] = timed_row(name, "train", "bfloat16")

@@ -16,12 +16,17 @@ it refuses unpadded) and convolutions against the CPU's accumulators,
 the quantize passes and eval BatchNorm bit for bit against the CPU, the
 native decode, and ``predict_image_set`` against the CPU; the
 BatchNorm debias bit for bit, and Deconvolution2D (same, stride 2) and
-ResizeBilinear (shrinking) against the CPU. This file
+ResizeBilinear (shrinking) against the CPU; an asynchronous snapshot
+holding the weights of its step after the next in-place step, remat
+through the flash kernels giving the non-remat gradients, and a corrupt
+snapshot tag falling back on the card. This file
 imports no jax (nor does anything it imports), so that it runs on a
 GPU host without the JAX package: ``python -m pytest --noconftest
 tests/test_torch_cuda.py -m cuda``. Without a card every test skips
 inside the ``cuda`` fixture.
 """
+
+import os
 
 import numpy as np
 import pytest
@@ -1083,3 +1088,93 @@ def test_cuda_resize_bilinear_down_matches_cpu(cuda, out_hw):
         res.append((out.detach().cpu(), gx.cpu()))
     for a, b in zip(*res):
         close(a, b, rtol=0, atol=1e-5 * float(b.abs().max()))
+
+
+# ---- fault-tolerant training on the card ----------------------------------
+
+def _card_lm(cuda, **kw):
+    return TransformerLM(vocab_size=64, seq_len=128, n_layers=2,
+                         d_model=64, n_heads=2, implementation="flash",
+                         device=cuda, seed=0, **kw)
+
+
+@pytest.mark.cuda
+def test_cuda_async_save_copies_before_the_next_in_place_step(cuda,
+                                                              tmp_path):
+    """An asynchronous snapshot taken between two in-place optimizer
+    steps holds the weights of the first: the copy to the host is made,
+    on the caller's stream, before ``async_save_sharded`` returns."""
+    from analytics_zoo_tpu_torch.train import checkpoint as ckpt
+    from analytics_zoo_tpu_torch.train import triggers
+    from analytics_zoo_tpu_torch.data.dataset import Dataset
+    lm = _card_lm(cuda)
+    lm.compile({"name": "adam", "lr": 1e-2}, "class_nll")
+    rng = np.random.default_rng(0)
+    x = rng.integers(0, 64, (16, 128)).astype(np.int32)
+    ds = Dataset.from_ndarray(x, (x + 1) % 64)
+    lm.trainer.fit(ds, 8, end_trigger=triggers.MaxIteration(1))
+    want = {n: p.detach().cpu().clone() for n, p in lm.named_parameters()}
+    tree = lm.trainer.state_tree()
+    ckpt.async_save_sharded(str(tmp_path), 1, tree)
+    lm.trainer.fit(ds, 8, end_trigger=triggers.MaxIteration(2))
+    ckpt.wait_pending(str(tmp_path))
+    got = ckpt.restore_sharded(str(tmp_path), tree, 1)["params"]
+    moved = 0
+    for layer, params in to_jax_params(lm).items():
+        for name in params:
+            saved = got[layer][name]
+            key = f"{layer}.{name}"
+            np.testing.assert_array_equal(saved, want[key].numpy())
+            moved += int(not np.array_equal(saved, params[name]))
+    assert moved  # the second step did move the live weights
+
+
+@pytest.mark.cuda
+def test_cuda_remat_with_flash_kernels_gives_the_gradients(cuda):
+    """remat on every attention and MLP sublayer recomputes through the
+    flash forward kernel in the backward (twice the forward launches)
+    and gives the non-remat gradients (the kernels are deterministic)."""
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.integers(0, 64, (4, 128))).to(cuda)
+    grads, fwd = [], []
+    for remat in (False, True):
+        lm = _card_lm(cuda, remat=remat).train()
+        before = _kernels.flash_fwd.launches
+        loss = lm(x)[..., 0].sum()
+        grads.append(torch.autograd.grad(loss, list(lm.parameters())))
+        fwd.append(_kernels.flash_fwd.launches - before)
+    assert fwd == [2, 4]
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, rtol=2e-4, atol=2e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_corrupt_tag_falls_back(cuda, tmp_path, monkeypatch):
+    """ZOO_FAULT_CORRUPT_TAG on the card: the resumed trainer discards
+    the corrupt newest tag and restores the one before it, onto the
+    card, to the weights an uninterrupted run had there."""
+    from analytics_zoo_tpu_torch.train import triggers
+    from analytics_zoo_tpu_torch.data.dataset import Dataset
+    rng = np.random.default_rng(2)
+    x = rng.integers(0, 64, (32, 128)).astype(np.int32)
+    ds = Dataset.from_ndarray(x, (x + 1) % 64)
+    monkeypatch.setenv("ZOO_CKPT_SYNC", "1")
+    monkeypatch.setenv("ZOO_FAULT_CORRUPT_TAG", "4")
+    lm = _card_lm(cuda)
+    lm.compile("adam", "class_nll")
+    lm.trainer.set_checkpoint(str(tmp_path),
+                              trigger=triggers.SeveralIteration(2))
+    lm.trainer.fit(ds, 8, end_trigger=triggers.MaxIteration(2))
+    want = [p.detach().cpu().clone() for p in lm.parameters()]
+    lm.trainer.fit(ds, 8, end_trigger=triggers.MaxIteration(4))
+    monkeypatch.setenv("ZOO_RESUME", "1")
+    res = _card_lm(cuda)
+    res.compile("adam", "class_nll")
+    res.trainer.set_checkpoint(str(tmp_path),
+                               trigger=triggers.SeveralIteration(2))
+    res.trainer.fit(ds, 8, end_trigger=triggers.MaxIteration(2))
+    assert res.trainer.state.step == 2
+    assert not any(f.startswith("ckpt_4") for f in os.listdir(tmp_path))
+    for p, w in zip(res.parameters(), want):
+        assert p.device.type == "cuda"
+        assert torch.equal(p.detach().cpu(), w)

@@ -273,7 +273,10 @@ def test_dropout_only_in_fit():
     x, y = periodic_tokens(n=16)
     lm = TransformerLM(**SMALL, dropout=0.5, device="cpu")
     modes = []
-    lm.drop.register_forward_hook(lambda m, i, o: modes.append(m.training))
+    drops = [m for m in lm.modules() if type(m).__name__ == "Dropout"]
+    assert len(drops) == 2 * SMALL["n_layers"]  # after each sublayer
+    for d in drops:
+        d.register_forward_hook(lambda m, i, o: modes.append(m.training))
     lm.compile("adam", "class_nll", metrics=["accuracy"])
     lm.fit(x, y, batch_size=8, nb_epoch=1)
     assert modes and all(modes)
