@@ -22,7 +22,11 @@ nothing reads back to the host, so a decode step through it can be
 captured in a CUDA graph.  :func:`switch_moe_plain` is the dense
 formulation, the plain version the tests hold it to.
 
-Expert parallelism (``moe_sharded``) is not ported yet.
+Expert parallelism (:func:`moe_sharded`): experts split over the
+``expert`` mesh axis, tokens too; each rank routes its tokens against
+every expert, an all_to_all ships the dispatched blocks to the experts'
+owners, the local experts run, and a second all_to_all brings the
+results home.
 """
 
 from __future__ import annotations
@@ -33,6 +37,8 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..core.module import promote
+from ._compat import (all_gather, all_to_all, axis_size, axis_slice, pmean,
+                      pvary)
 
 
 class MoEParams(NamedTuple):
@@ -128,18 +134,9 @@ def switch_moe(x, params: MoEParams, capacity_factor: float = 1.25,
     c = _capacity(t, n_experts, capacity_factor, capacity)
     r = _route(x, params.gate, n_experts, c)
     aux = n_experts * torch.sum(r.f * r.p)
-    rows = n_experts * c
-    slot = r.expert * c + r.position
-    # dispatch: kept tokens to their rows, dropped ones to a discard row
-    blocks = x.new_zeros((rows + 1, d)).index_copy(
-        0, torch.where(r.keep, slot, rows), x)
-    outs = _apply_experts(blocks[:rows].view(n_experts, c, d), params.w1,
+    outs = _apply_experts(_dispatch(x, r, n_experts, c), params.w1,
                           params.b1, params.w2, params.b2)
-    # combine: each token's row, scaled by its gate (0 when dropped)
-    picked = outs.reshape(rows, d).index_select(
-        0, torch.where(r.keep, slot, 0))
-    scale = torch.where(r.keep, r.gate, 0.0).to(picked.dtype)
-    return picked * scale[:, None], aux
+    return _combine(outs, r, c), aux
 
 
 def switch_moe_plain(x, params: MoEParams, capacity_factor: float = 1.25,
@@ -163,8 +160,85 @@ def switch_moe_plain(x, params: MoEParams, capacity_factor: float = 1.25,
     return torch.einsum("tec,ecd->td", combine, outs), aux
 
 
-def moe_sharded(*args, **kwargs):
-    """Expert-parallel switch MoE over a device mesh: not ported yet."""
-    raise NotImplementedError(
-        "moe_sharded (experts sharded over a mesh axis) is not ported yet: "
-        "it comes with the parallel strategies, ROADMAP.md Queue 1 item 8")
+def _dispatch(x, r: Routing, n_experts: int, capacity: int):
+    """(E, C, d) expert blocks of the kept tokens, by index."""
+    rows = n_experts * capacity
+    slot = r.expert * capacity + r.position
+    blocks = x.new_zeros((rows + 1, x.shape[1])).index_copy(
+        0, torch.where(r.keep, slot, rows), x)
+    return blocks[:rows].view(n_experts, capacity, x.shape[1])
+
+
+def _combine(outs, r: Routing, capacity: int):
+    """Each token's row of the (E, C, d) expert outputs, scaled by its
+    gate (0 when dropped)."""
+    d = outs.shape[-1]
+    slot = r.expert * capacity + r.position
+    picked = outs.reshape(-1, d).index_select(
+        0, torch.where(r.keep, slot, 0))
+    scale = torch.where(r.keep, r.gate, 0.0).to(picked.dtype)
+    return picked * scale[:, None]
+
+
+def _moe_local(x, params: MoEParams, n_experts: int, capacity: int,
+               axis_name: str, mesh=None):
+    """One rank's part (the JAX body under ``shard_map``): ``x`` this
+    rank's token block, ``params.gate`` every expert's gate columns and
+    ``w1``/``b1``/``w2``/``b2`` this rank's experts."""
+    n = axis_size(axis_name, mesh)
+    e_local = n_experts // n
+    r = _route(x, params.gate, n_experts, capacity)
+    # the aux loss of the GLOBAL routing statistics (means over the axis
+    # before the product), as one device would see them
+    f = pmean(r.f, axis_name, mesh=mesh)
+    p = pmean(r.p, axis_name, mesh=mesh)
+    aux = n_experts * torch.sum(f * p)
+    d = x.shape[-1]
+    blocks = _dispatch(x, r, n_experts, capacity).reshape(
+        n, e_local, capacity, d)
+    # to the experts' owners; axis 0 is then the SOURCE rank, folded
+    # into each local expert's queue
+    blocks = all_to_all(blocks, axis_name, 0, 0, mesh=mesh)
+    blocks = blocks.transpose(0, 1).reshape(e_local, n * capacity, d)
+    outs = _apply_experts(blocks, params.w1, params.b1, params.w2,
+                          params.b2)
+    outs = outs.reshape(e_local, n, capacity, d).transpose(0, 1)
+    outs = all_to_all(outs, axis_name, 0, 0, mesh=mesh)
+    # axis 0 is the expert's owner: global expert = owner * E_local + e
+    outs = outs.reshape(n_experts, capacity, d)
+    return _combine(outs, r, capacity), aux
+
+
+def moe_sharded(x, params: MoEParams, mesh, axis_name: str = "expert",
+                capacity_factor: float = 1.25):
+    """Expert-parallel switch MoE: tokens and experts split over
+    ``axis_name`` (the experts along ``w1``/``b1``/``w2``/``b2``'s
+    leading dim), the gate replicated.
+
+    ``x`` (tokens, d_model) and ``params`` are GLOBAL: every rank of the
+    axis passes them whole.  Each rank takes its token block and its
+    experts, with the capacity of a LOCAL token block (the same queue
+    depth on every rank).  Returns ``(out, aux)``: the whole (tokens,
+    d_model) output and the aux loss, on every rank, as the JAX function
+    returns its global arrays; gradients reach ``x`` and ``params`` whole
+    on every rank."""
+    from .mesh import axis_sizes
+    n = axis_sizes(mesh).get(axis_name, 1)
+    t = x.shape[0]
+    n_experts = params.gate.shape[-1]
+    if n_experts % n:
+        raise ValueError(
+            f"n_experts ({n_experts}) is not divisible by the "
+            f"{axis_name!r} axis size ({n})")
+    if t % n:
+        raise ValueError(
+            f"tokens ({t}) are not divisible by the {axis_name!r} "
+            f"axis size ({n})")
+    capacity = expert_capacity(t // n, n_experts, capacity_factor)
+    local = MoEParams(
+        gate=pvary(params.gate, axis_name, mesh=mesh),
+        **{k: axis_slice(getattr(params, k), axis_name, dim=0, mesh=mesh)
+           for k in ("w1", "b1", "w2", "b2")})
+    y, aux = _moe_local(axis_slice(x, axis_name, dim=0, mesh=mesh), local,
+                        n_experts, capacity, axis_name, mesh=mesh)
+    return all_gather(y, axis_name, dim=0, mesh=mesh), aux

@@ -76,8 +76,9 @@ class KerasNet(Layer):
         return self._device
 
     def compile(self, optimizer, loss, metrics: Sequence = (),
-                seed: int = 0, compute_dtype=None,
-                accum_steps: Optional[int] = None):
+                mesh=None, strategy: Optional[str] = None, seed: int = 0,
+                compute_dtype=None, accum_steps: Optional[int] = None,
+                tp_rules: Optional[Dict[str, int]] = None):
         """Resolve the loss, the optimizer (with the clipping set before
         compile) and the metrics; string metrics inherit the loss's
         ``zero_based_label``.  ``seed`` orders the shuffled batches.
@@ -85,7 +86,11 @@ class KerasNet(Layer):
         master weights and moments) and ``accum_steps`` (microbatches a
         batch) go to the :class:`Trainer`, which falls back to
         ``ZOO_TRAIN_DTYPE`` and ``ZOO_TRAIN_ACCUM`` for either not
-        given."""
+        given.  ``mesh`` (``parallel.mesh.create_mesh``), ``strategy``
+        (``replicate`` | ``fsdp`` | ``tp`` | ``fsdp_tp``, else
+        ``ZOO_TRAIN_STRATEGY``) and ``tp_rules`` train sharded: ``fit``'s
+        ``batch_size`` is then the global batch, of which each rank feeds
+        its rows."""
         loss_fn = objectives_lib.get(loss)
         opt = optimizers_lib.get(optimizer, clip_norm=self._clip_norm,
                                  clip_value=self._clip_value)
@@ -94,7 +99,8 @@ class KerasNet(Layer):
                        for m in metrics]
         self.trainer = Trainer(self, loss_fn, opt, metrics=metric_objs,
                                seed=seed, compute_dtype=compute_dtype,
-                               accum_steps=accum_steps)
+                               accum_steps=accum_steps, mesh=mesh,
+                               strategy=strategy, tp_rules=tp_rules)
         if self._tensorboard:
             self.trainer.set_tensorboard(*self._tensorboard)
             self._apply_summary_triggers()

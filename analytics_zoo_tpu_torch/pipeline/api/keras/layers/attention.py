@@ -5,6 +5,14 @@ attention.py``.  q/k/v are projected straight into (batch, heads, seq,
 head_dim) with ``einsum("bse,ehd->bhsd")``, so the flash kernel's
 (batch*heads, seq, head_dim) fold is a free reshape.  The products
 promote mixed dtypes as ``jnp`` does.
+
+``implementation="ring"`` runs ring attention
+(``parallel/ring_attention.py``) on the active mesh's ``seq`` axis, as
+the JAX layer does.  Under a tensor-parallel plan whose rules split
+``Wq``/``Wk``/``Wv`` on their head axis and ``Wo`` on its head axis, the
+sharded trainer hands the layer its head blocks and sets
+``_tensor_split`` to the mesh: the kernels then run on the local heads
+and the output projection's partial sums are added over ``tensor``.
 """
 
 from __future__ import annotations
@@ -15,6 +23,7 @@ import torch
 
 from .....core.module import Layer, promote, register_layer
 from .....ops.attention import attention_bhsd
+from .....parallel._compat import psum, pvary
 
 
 def _x_shape(input_shape):
@@ -37,15 +46,16 @@ class MultiHeadSelfAttention(Layer):
     ``"flash"``, ``"blockwise"`` or ``"naive"``.  Pass ``[x, lengths]``
     to mask keys past each row's (batch,) length."""
 
+    #: the mesh while the sharded trainer runs this layer on its
+    #: tensor-axis head blocks (``parallel/placement.py``), else None
+    _tensor_split = None
+
     def __init__(self, n_heads, head_dim=None, causal=True,
                  implementation="auto", init="glorot_uniform",
                  input_shape=None, name=None, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__(input_shape=input_shape, name=name, device=device,
                          generator=generator)
-        if implementation == "ring":
-            raise NotImplementedError(
-                "ring attention is not ported yet (see ROADMAP.md)")
         self.n_heads = int(n_heads)
         self.head_dim = None if head_dim is None else int(head_dim)
         self.causal = bool(causal)
@@ -78,14 +88,46 @@ class MultiHeadSelfAttention(Layer):
             lengths = torch.as_tensor(lengths, device=inputs.device)
             if lengths.dim() == 2 and lengths.shape[-1] == 1:
                 lengths = lengths[:, 0]  # accept (batch, 1) columns
+        split = self._tensor_split
+        if split is not None:
+            inputs = pvary(inputs, "tensor", mesh=split)
         x, wq, wk, wv = promote(inputs, self.Wq, self.Wk, self.Wv)
-        q = torch.einsum("bse,ehd->bhsd", x, wq)
-        k = torch.einsum("bse,ehd->bhsd", x, wk)
-        v = torch.einsum("bse,ehd->bhsd", x, wv)
-        o = attention_bhsd(q, k, v, causal=self.causal,
-                           implementation=self.implementation,
-                           kv_lengths=lengths)
-        return torch.einsum("bhsd,hde->bse", *promote(o, self.Wo))
+        if self.implementation == "ring":
+            out = self._ring(x, wq, wk, wv, lengths)
+        else:
+            q = torch.einsum("bse,ehd->bhsd", x, wq)
+            k = torch.einsum("bse,ehd->bhsd", x, wk)
+            v = torch.einsum("bse,ehd->bhsd", x, wv)
+            o = attention_bhsd(q, k, v, causal=self.causal,
+                               implementation=self.implementation,
+                               kv_lengths=lengths)
+            out = torch.einsum("bhsd,hde->bse", *promote(o, self.Wo))
+        if split is not None:
+            out = psum(out, "tensor", mesh=split)
+        return out
+
+    def _ring(self, x, wq, wk, wv, lengths):
+        """Sequence parallelism on the active mesh's ``seq`` axis, the
+        q/k/v projected straight into the ring's (b, s, h, d)."""
+        from .....parallel.mesh import axis_sizes, get_active_mesh
+        from .....parallel.ring_attention import ring_attention_sharded
+        mesh = get_active_mesh()
+        if mesh is None or "seq" not in (
+                getattr(mesh, "mesh_dim_names", None) or ()):
+            raise ValueError(
+                "implementation='ring' needs the active mesh to "
+                "carry a 'seq' axis (create_mesh({'seq': n, ...}))")
+        seq_size = axis_sizes(mesh)["seq"]
+        if x.shape[-2] % seq_size:
+            raise ValueError(
+                f"sequence length {x.shape[-2]} is not divisible by the "
+                f"mesh's seq axis ({seq_size})")
+        q = torch.einsum("bse,ehd->bshd", x, wq)
+        k = torch.einsum("bse,ehd->bshd", x, wk)
+        v = torch.einsum("bse,ehd->bshd", x, wv)
+        o = ring_attention_sharded(q, k, v, mesh, causal=self.causal,
+                                   kv_lengths=lengths)
+        return torch.einsum("bshd,hde->bse", *promote(o, self.Wo))
 
     def compute_output_shape(self, input_shape):
         return _x_shape(input_shape)

@@ -31,6 +31,10 @@ class Dense(RegularizedLayerMixin, Layer):
     input width is the last axis of the input shape.  The product
     promotes mixed dtypes as ``jnp`` does."""
 
+    #: set by the sharded trainer while the layer computes on its
+    #: tensor-axis block (``parallel/placement.py``), else None
+    _tensor_split = None
+
     def __init__(self, output_dim, init="glorot_uniform", activation=None,
                  W_regularizer=None, b_regularizer=None, bias=True,
                  input_dim=None, input_shape=None, name=None,
@@ -57,6 +61,8 @@ class Dense(RegularizedLayerMixin, Layer):
 
     def forward(self, x):
         self._add_penalty()
+        if self._tensor_split is not None:
+            return self._tensor_split(self, x)
         x, w = promote(x, self.W)
         y = x @ w
         if self.bias:

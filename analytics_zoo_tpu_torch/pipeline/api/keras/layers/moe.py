@@ -1,11 +1,15 @@
 """SwitchMoE: a switch-routed mixture-of-experts FFN as a Keras layer.
 
-Counterpart of ``analytics_zoo_tpu/pipeline/api/keras/layers/moe.py`` on
-one device: the functional block of ``parallel/expert.py``
-(:func:`switch_moe`, experts replicated) with capacity
-``expert_capacity(tokens, n_experts, capacity_factor)`` for the tokens of
-each call, so under ``accum_steps`` it follows each microbatch's token
-count.  Input (batch, seq, d_model) or (batch, d_model); the output has
+Counterpart of ``analytics_zoo_tpu/pipeline/api/keras/layers/moe.py``:
+the functional block of ``parallel/expert.py`` (:func:`switch_moe`,
+experts replicated) with capacity ``expert_capacity(tokens, n_experts,
+capacity_factor)`` for the tokens of each call, so under
+``accum_steps`` it follows each microbatch's token count.  When the
+active mesh (the one ``compile(mesh=...)`` hands the trainer) has an
+``expert`` axis of size > 1 that divides the expert and token counts,
+the layer runs expert-parallel (:func:`moe_sharded`); an expert axis it
+cannot use is recorded in :data:`EXPERT_FALLBACKS` with the reason, and
+the layer runs replicated.  Input (batch, seq, d_model) or (batch, d_model); the output has
 its shape, with the input added when ``residual`` (so dropped tokens
 pass through unchanged).
 
@@ -15,12 +19,12 @@ the forward adds it to the penalty collector the trainer opens around
 the differentiated forward and around each evaluation batch
 (``regularizers.add_penalty``).  In training mode the layer also keeps
 its last value in the state buffer ``aux_loss``, as the JAX package's
-layer state holds it.  The expert-mesh branch (``moe_sharded``) is not
-ported yet.
+layer state holds it.
 """
 
 from __future__ import annotations
 
+import logging
 from typing import Optional
 
 import torch
@@ -28,8 +32,26 @@ from torch import nn
 
 from .....core.module import Layer, register_layer
 from .....parallel.expert import (MoEParams, expert_capacity,
-                                  init_moe_params, switch_moe)
+                                  init_moe_params, moe_sharded, switch_moe)
 from ..regularizers import add_penalty
+
+#: layer name -> reason, for every SwitchMoE that ran replicated although
+#: the active mesh has an expert axis (a silent cost otherwise); the
+#: strategy report shows it, ``clear_fallback_log`` resets it
+EXPERT_FALLBACKS: dict = {}
+_log = logging.getLogger("analytics_zoo_tpu_torch.moe")
+
+
+def clear_fallback_log():
+    EXPERT_FALLBACKS.clear()
+
+
+def _note_fallback(name: str, reason: str):
+    if name not in EXPERT_FALLBACKS:
+        _log.warning("SwitchMoE %s: expert mesh axis present but not "
+                     "usable (%s): running replicated, every rank "
+                     "computes every expert", name, reason)
+    EXPERT_FALLBACKS[name] = reason
 
 
 @register_layer
@@ -66,10 +88,25 @@ class SwitchMoE(Layer):
         return MoEParams(*(getattr(self, k) for k in MoEParams._fields))
 
     def forward(self, x):
+        from .....parallel.mesh import axis_sizes, get_active_mesh
         flat = x.reshape(-1, x.shape[-1])
-        cap = expert_capacity(flat.shape[0], self.n_experts,
-                              self.capacity_factor)
-        out, aux = switch_moe(flat, self.moe_params(), capacity=cap)
+        mesh = get_active_mesh()
+        esize = axis_sizes(mesh).get("expert", 1)
+        if esize > 1 and self.n_experts % esize == 0 \
+                and flat.shape[0] % esize == 0:
+            out, aux = moe_sharded(flat, self.moe_params(), mesh,
+                                   capacity_factor=self.capacity_factor)
+        else:
+            if esize > 1:
+                _note_fallback(
+                    self.name,
+                    f"expert count {self.n_experts} is not divisible by "
+                    f"the axis size {esize}" if self.n_experts % esize
+                    else f"token count {flat.shape[0]} is not divisible "
+                    f"by the axis size {esize}")
+            cap = expert_capacity(flat.shape[0], self.n_experts,
+                                  self.capacity_factor)
+            out, aux = switch_moe(flat, self.moe_params(), capacity=cap)
         aux = self.aux_weight * aux
         add_penalty(aux)
         if self.training:

@@ -51,9 +51,18 @@ class Clip:
         return [g.clamp(-self.max_delta, self.max_delta) for g in grads]
 
 
+def local_sq_sums(tensors) -> list:
+    """Each tensor's sum of squares: the norms of whole leaves.  A
+    sharded trainer passes its own, which add a block's sum over the
+    ranks holding the leaf's other blocks."""
+    return [torch.sum(t * t) for t in tensors]
+
+
 class ClipByGlobalNorm:
     """``optax.clip_by_global_norm``: scale every gradient by
     max_norm / norm when the global norm reaches max_norm."""
+
+    uses_norms = True
 
     def __init__(self, max_norm: float):
         self.max_norm = float(max_norm)
@@ -61,8 +70,8 @@ class ClipByGlobalNorm:
     def init(self, params):
         return None
 
-    def update(self, grads, state, count, params):
-        norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+    def update(self, grads, state, count, params, sq_sums=local_sq_sums):
+        norm = torch.sqrt(sum(sq_sums(grads)))
         keep = norm < self.max_norm
         return [torch.where(keep, g, (g / norm) * self.max_norm)
                 for g in grads]
@@ -237,6 +246,8 @@ class ScaleByTrustRatio:
     * |param| / (|update| + eps) (Frobenius norms), or 1 where either
     norm is 0."""
 
+    uses_norms = True
+
     def __init__(self, trust_coefficient: float = 1.0, eps: float = 0.0):
         self.trust_coefficient = float(trust_coefficient)
         self.eps = float(eps)
@@ -244,11 +255,15 @@ class ScaleByTrustRatio:
     def init(self, params):
         return None
 
-    def update(self, grads, state, count, params):
+    def update(self, grads, state, count, params, sq_sums=None):
+        if sq_sums is None:
+            p_norms = [torch.linalg.vector_norm(p) for p in params]
+            u_norms = [torch.linalg.vector_norm(u) for u in grads]
+        else:
+            p_norms = [torch.sqrt(s) for s in sq_sums(params)]
+            u_norms = [torch.sqrt(s) for s in sq_sums(grads)]
         out = []
-        for u, p in zip(grads, params):
-            p_norm = torch.linalg.vector_norm(p)
-            u_norm = torch.linalg.vector_norm(u)
+        for u, p_norm, u_norm in zip(grads, p_norms, u_norms):
             ratio = self.trust_coefficient * p_norm / (u_norm + self.eps)
             ratio = torch.where((p_norm == 0.0) | (u_norm == 0.0), 1.0,
                                 ratio)
@@ -309,14 +324,22 @@ class ZooOptimizer:
 
     @torch.no_grad()
     def apply(self, params, grads, state: OptState,
-              frozen: Optional[Sequence[bool]] = None) -> None:
+              frozen: Optional[Sequence[bool]] = None,
+              sq_sums=None) -> None:
         """One update: params <- params + chain(grads), in place.  A
         parameter flagged in ``frozen`` is not moved (its update is
         dropped), whatever the chain computed for it; its statistics
-        still advance on the gradient given, which the trainer zeroes."""
+        still advance on the gradient given, which the trainer zeroes.
+        ``sq_sums(tensors)``: the whole leaves' squared sums when
+        ``params`` are blocks of them (the norm-taking transforms use
+        it)."""
         updates = list(grads)
         for t, s in zip(self.transforms, state.states):
-            updates = t.update(updates, s, state.count, params)
+            if sq_sums is not None and getattr(t, "uses_norms", False):
+                updates = t.update(updates, s, state.count, params,
+                                   sq_sums=sq_sums)
+            else:
+                updates = t.update(updates, s, state.count, params)
         for i, (p, u) in enumerate(zip(params, updates)):
             if not (frozen and frozen[i]):
                 p.add_(u)

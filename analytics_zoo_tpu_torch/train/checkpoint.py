@@ -11,10 +11,12 @@ other's saves.
 * Sharded (``save_sharded``): every process writes
   ``ckpt_<tag>.shard-p<rank>.npz``, keyed ``"<leaf index>|<global
   index>"``, and rank 0 the manifest ``ckpt_<tag>.json`` with ``format``,
-  ``n_processes``, ``names``, ``shapes`` and ``dtypes``.  In the port
-  every leaf is whole on every rank, so rank 0 writes each leaf once (the
-  JAX package's ``replica_id == 0`` rule) and every other rank an empty
-  shard file; the commit waits for all of them.
+  ``n_processes``, ``names``, ``shapes`` and ``dtypes``.  A DTensor leaf
+  (a sharded trainer's weights and moments) is written block by block,
+  each block by the one rank that is its first replica (coordinate 0 on
+  every mesh axis that does not split it: the JAX package's
+  ``replica_id == 0`` rule); any other leaf is whole on every rank and
+  rank 0 writes it.  The commit waits for every rank's file.
 
 A tree is nested dicts (flattened in sorted key order, as
 ``jax.tree_util`` flattens them) and lists or tuples of tensors, arrays
@@ -26,9 +28,10 @@ next complete one taken.  A crash may cost steps, never a torn restore.
 Restore matches leaves by name (auto-numbers stripped, then shape), so a
 renamed layer (``register_restore_rename``) or a leaf added since the
 save (``register_restore_default``) is bridged, and anything else fails
-loudly.  Restore returns host arrays; the trainer copies them into its
-tensors on their device.  Placing leaves onto a mesh layout waits for
-the parallel strategies (see ROADMAP.md).
+loudly.  Restore returns host arrays, or, for the leaves that
+``shardings`` places, DTensors holding this rank's blocks; the trainer
+copies them into its tensors on their device.  The format keeps global
+indices, so a save from one mesh shape restores onto any other.
 """
 
 from __future__ import annotations
@@ -550,9 +553,9 @@ register_restore_default(
 
 # ----------------------------------------------------------- sharded ----
 
-def _encode_index(shape) -> str:
-    """The global index of a whole leaf: 'start:stop,...' per axis."""
-    return ",".join(f"0:{d}" for d in shape)
+def _encode_index(index) -> str:
+    """A block's global index (slices): 'start:stop,...' per axis."""
+    return ",".join(f"{sl.start}:{sl.stop}" for sl in index)
 
 
 def _decode_index(text):
@@ -568,10 +571,26 @@ def _dtype_name(leaf) -> str:
     return str(np.asarray(leaf).dtype)
 
 
+def _dtensor_block(leaf):
+    """(global index, host array) of this rank's block of a DTensor, or
+    None when another rank is its first replica."""
+    from torch.distributed.tensor import Shard
+    from ..parallel.sharding import block_index, dtensor_sharding
+    mesh = leaf.device_mesh
+    for name, pl in zip(mesh.mesh_dim_names, leaf.placements):
+        if not isinstance(pl, Shard) and mesh.get_local_rank(name) != 0:
+            return None
+    spec = dtensor_sharding(leaf).spec
+    index = block_index(spec, mesh, tuple(leaf.shape))
+    return index, _host(leaf.to_local())
+
+
 def _snapshot_shards(tree):
     """This process's shards on the host, copied now: (names, shapes,
-    dtypes, {key: array}).  Rank 0 holds every leaf once; every other
-    rank, whose leaves are the same replicated values, none."""
+    dtypes, {key: array}).  A DTensor leaf gives this rank's block when
+    the rank is its first replica; any other leaf is whole on rank 0
+    (every rank holds the same replicated value)."""
+    from torch.distributed.tensor import DTensor
     names, leaves = _flatten(tree, none_leaves=True)
     mine = dist_lib.process_index() == 0
     arrays, shapes, dtypes = {}, [], []
@@ -583,8 +602,13 @@ def _snapshot_shards(tree):
         shape = tuple(np.shape(leaf))
         shapes.append(list(shape))
         dtypes.append(_dtype_name(leaf))
-        if mine:
-            arrays[f"{i}|{_encode_index(shape)}"] = _host(leaf)
+        if isinstance(leaf, DTensor):
+            block = _dtensor_block(leaf)
+            if block is not None:
+                arrays[f"{i}|{_encode_index(block[0])}"] = block[1]
+        elif mine:
+            whole = tuple(slice(0, d) for d in shape)
+            arrays[f"{i}|{_encode_index(whole)}"] = _host(leaf)
     return names, shapes, dtypes, arrays
 
 
@@ -692,12 +716,44 @@ def restore_sharded(directory: str, template, tag: Any = None,
                     shardings=None):
     """Assemble every leaf of ``template`` from the shard files of
     ``tag`` (the newest complete tag when None) as host arrays, matched
-    by name.  A flat checkpoint restores through here too.  Placing
-    onto a layout (``shardings``) is not ported yet."""
-    if shardings is not None:
-        raise NotImplementedError(
-            "restore onto a sharding layout waits for the port's "
-            "parallel strategies (ROADMAP Queue 1 item 8)")
+    by name, and place them under ``shardings``: a tree of
+    ``parallel.mesh.NamedSharding`` (or None) with ``template``'s
+    structure, a placed leaf becoming a DTensor of this rank's block on
+    the sharding's mesh (a tensor of the template's dtype).  None leaves,
+    or ``shardings=None``, stay host arrays.  A flat checkpoint restores
+    through here too."""
+    tree = _restore_host(directory, template, tag)
+    return tree if shardings is None else _place_tree(tree, template,
+                                                      shardings)
+
+
+def _place_tree(tree, template, shardings):
+    """Host leaves placed under their shardings (see
+    :func:`restore_sharded`)."""
+    from ..parallel.mesh import device_of
+    from ..parallel.sharding import local_shard, to_dtensor
+    leaves = _flatten(tree, none_leaves=True)[1]
+    t_leaves = _flatten(template, none_leaves=True)[1]
+    s_leaves = _flatten(shardings, none_leaves=True)[1]
+    if len(s_leaves) != len(leaves):
+        raise ValueError(
+            f"shardings tree has {len(s_leaves)} leaves, value tree has "
+            f"{len(leaves)}: structures must match")
+    placed = []
+    for buf, tmpl, sh in zip(leaves, t_leaves, s_leaves):
+        if sh is None or buf is None:
+            placed.append(buf)
+            continue
+        mesh, spec = sh.mesh, tuple(sh.spec)
+        full = torch.as_tensor(np.asarray(buf))
+        if isinstance(tmpl, torch.Tensor):
+            full = full.to(tmpl.dtype)
+        placed.append(to_dtensor(
+            local_shard(full, spec, mesh).to(device_of(mesh)), spec, mesh))
+    return _unflatten(tree, placed, none_leaves=True)
+
+
+def _restore_host(directory: str, template, tag: Any = None):
     tag = _resolve_tag(directory, tag)
     manifest = {}
     manifest_path = os.path.join(directory, f"ckpt_{tag}.json")
@@ -805,7 +861,11 @@ def restore_into(directory: str, template, tag: Any = None):
 @torch.no_grad()
 def copy_tree_into(template, tree) -> None:
     """Copy the host arrays of ``tree`` into the tensors of ``template``
-    (same structure), each on its own device."""
+    (same structure), each on its own device; a DTensor of ``template``
+    takes its block from the DTensor ``restore_sharded`` placed."""
+    from torch.distributed.tensor import DTensor
     for dst, src in zip(_flatten(template)[1], _flatten(tree)[1]):
-        if isinstance(dst, torch.Tensor):
+        if isinstance(dst, DTensor):
+            dst.to_local().copy_(src.to_local())
+        elif isinstance(dst, torch.Tensor):
             dst.copy_(torch.as_tensor(np.asarray(src)).to(dst.device))

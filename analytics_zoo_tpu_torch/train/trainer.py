@@ -1,7 +1,7 @@
-"""Trainer: the single-device training loop.
+"""Trainer: the training loop, on one device or sharded over a mesh.
 
-Counterpart of ``analytics_zoo_tpu/train/trainer.py``, reduced to one
-device: ``build_train_step`` (forward, mean loss plus the regularizers'
+Counterpart of ``analytics_zoo_tpu/train/trainer.py``:
+``build_train_step`` (forward, mean loss plus the regularizers'
 penalties, backward, optimizer update), with mixed precision
 (``compute_dtype``) and gradient accumulation (``accum_steps``);
 ``Trainer.fit`` with its epoch/step loop and triggers, ``evaluate`` with
@@ -16,8 +16,27 @@ heartbeat and fault hooks (``train/faults.py``).  The JAX package
 compiles the step with ``jit``; here it runs eagerly, with the model's
 parameters updated in place.  Dropout draws from generators seeded from
 (seed, step, microbatch, layer) at every step, so a resumed run draws
-the masks of the uninterrupted one.  The step profiler and sharding are
-not ported yet (see ROADMAP.md).
+the masks of the uninterrupted one.  The step profiler is not ported
+yet (see ROADMAP.md).
+
+Sharded training (``mesh=``, ``strategy=``, ``tp_rules=``; the strategy
+falls back to ``ZOO_TRAIN_STRATEGY``): one process a device, each rank
+of the mesh running the step on its own rows.  ``batch_size`` is the
+GLOBAL batch; each rank feeds ``batch_size // dp_size(mesh)`` rows of
+its own data (the rows of its data shard, ``mesh.data_index``; ranks
+that differ only on the other axes feed the same rows).  The parameters
+and the optimizer's moments are placed by the rule tables
+(``parallel/placement.py``): gradients are averaged over the data axes,
+the update runs on each rank's blocks, and the module's tensors are
+refilled from them.  ``evaluate`` and ``predict`` round the per-rank
+batch and mask the filler rows as the JAX package does, the metrics
+added over the data axes; ``save_weights`` writes each rank's own
+blocks in the JAX package's sharded format and ``load_weights`` places a
+snapshot of any mesh shape under this trainer's plan.  In a pod of
+several processes a Trainer with no mesh trains data-parallel over every
+rank, as the JAX package's default mesh does.  A model's layer state
+(BatchNormalization's moving statistics) follows each rank's own rows;
+rank 0's is the one saved.
 
 Losses stay on the device during an epoch and are read back in one
 transfer at its end, as in the JAX package: a step makes no host sync.
@@ -25,6 +44,7 @@ transfer at its end, as in the JAX package: a step makes no host sync.
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import logging
 import time
@@ -40,6 +60,7 @@ from ..common.prefetch import DeviceFeed, prefetch
 from ..core.module import RandomLayer
 from ..data.dataset import Dataset
 from ..parallel import distributed as dist_lib
+from ..parallel import mesh as mesh_lib
 from ..pipeline.api.keras import metrics as metrics_lib
 from ..pipeline.api.keras.objectives import _batch_mean
 from ..pipeline.api.keras.regularizers import collect_penalties
@@ -53,6 +74,7 @@ from .summary import TrainSummary, ValidationSummary
 #: dtype (the JAX package's env-contract knobs); arguments win
 ENV_ACCUM = "ZOO_TRAIN_ACCUM"
 ENV_DTYPE = "ZOO_TRAIN_DTYPE"
+ENV_STRATEGY = "ZOO_TRAIN_STRATEGY"
 
 _log = logging.getLogger("analytics_zoo_tpu_torch.train")
 
@@ -126,6 +148,33 @@ def _split(batch, accum: int):
     return list(batch.chunk(accum))
 
 
+def _sum_over(group, tree):
+    """``tree`` (nested dicts, lists and tuples of numbers and tensors)
+    with every leaf added over the ranks of ``group``: one all-reduce of
+    the leaves flattened in f64; each leaf keeps its type."""
+    import torch.distributed as dist
+    from ..parallel.sharding import flatten_with_path, unflatten
+    leaves = [l for _, l in flatten_with_path(tree)]
+    device = next((l.device for l in leaves
+                   if isinstance(l, torch.Tensor)), torch.device("cpu"))
+    if dist.get_backend(group) == "nccl" and device.type != "cuda":
+        device = torch.device("cuda", torch.cuda.current_device())
+    flat = torch.cat([torch.as_tensor(l, dtype=torch.float64,
+                                      device=device).reshape(-1)
+                      for l in leaves])
+    dist.all_reduce(flat, group=group)
+    out, at = [], 0
+    for l in leaves:
+        if isinstance(l, torch.Tensor):
+            out.append(flat[at:at + l.numel()].view(l.shape).to(
+                l.dtype).to(l.device))
+            at += l.numel()
+        else:
+            out.append(float(flat[at]))
+            at += 1
+    return unflatten(tree, out)
+
+
 class TrainState:
     """Every parameter of the model (its own tensors, updated in place;
     frozen ones too, so that freezing never changes the optimizer
@@ -136,13 +185,16 @@ class TrainState:
     parameter's key path in the params tree."""
 
     def __init__(self, params, model_state, opt_state, step: int = 0,
-                 epoch: int = 0, paths=None):
+                 epoch: int = 0, paths=None, plan=None):
         self.params = params
         self.model_state = model_state
         self.opt_state = opt_state
         self.step = step
         self.epoch = epoch
         self.paths = paths
+        #: the mesh placement (``parallel.placement.StatePlan``) of a
+        #: sharded trainer: the optimizer updates its masters
+        self.plan = plan
 
 
 def param_paths(model, params) -> List[tuple]:
@@ -168,7 +220,7 @@ def param_paths(model, params) -> List[tuple]:
 
 
 def build_train_step(model, loss_fn, optimizer, compute_dtype=None,
-                     accum_steps: int = 1, seed: int = 0):
+                     accum_steps: int = 1, seed: int = 0, plan=None):
     """The training iteration: forward in training mode, the mean of the
     per-sample loss plus the penalties of the regularized layers,
     gradients by ``torch.autograd.grad`` (nothing is left in ``.grad``)
@@ -201,15 +253,24 @@ def build_train_step(model, loss_fn, optimizer, compute_dtype=None,
     place on the model's own buffers (``functional_call`` is given the
     parameters only).
 
+    ``plan`` (a ``parallel.placement.StatePlan``): the sharded step.
+    The layers that compute on tensor-axis blocks take them through
+    ``functional_call``; the gradients are averaged over the data axes
+    and cut to the masters' blocks, which the optimizer updates (its
+    norms counted over the whole leaves), and the module's tensors are
+    refilled from them.  The loss returned is the global batch's.
+
     Returns ``step(state, x, y) -> loss``, a device scalar."""
     accum = max(int(accum_steps), 1)
     names = [n for n, _ in model.named_parameters()]
     dropouts = [m for m in model.modules() if isinstance(m, RandomLayer)]
 
-    def forward_loss(params, x, y):
+    def forward_loss(params, x, y, overrides=()):
         with collect_penalties() as penalties:
             if compute_dtype is None:
-                y_pred = model(x)
+                y_pred = (functional_call(
+                    model, {names[i]: params[i] for i in overrides}, (x,))
+                    if overrides else model(x))
             else:
                 copies = {n: p.to(compute_dtype) if p.is_floating_point()
                           else p for n, p in zip(names, params)}
@@ -237,20 +298,26 @@ def build_train_step(model, loss_fn, optimizer, compute_dtype=None,
 
     def train_step(state: TrainState, x, y):
         trainable = [p.requires_grad for p in state.params]
+        use = plan.use_tensors() if plan is not None else {}
+        params = [use.get(i, p) for i, p in enumerate(state.params)]
         was_training = model.training
         model.train()
+        scope = (plan.tensor_layers if plan is not None
+                 else contextlib.nullcontext)
         try:
             if accum == 1:
                 seed_dropout(state.step, 0)
-                loss = forward_loss(state.params, x, y)
-                grads = gradients(loss, state.params, trainable)
+                with scope():
+                    loss = forward_loss(params, x, y, use)
+                grads = gradients(loss, params, trainable)
             else:
                 grads = loss = None
                 for i, (xi, yi) in enumerate(zip(_split(x, accum),
                                                  _split(y, accum))):
                     seed_dropout(state.step, i)
-                    mloss = forward_loss(state.params, xi, yi)
-                    g = gradients(mloss, state.params, trainable)
+                    with scope():
+                        mloss = forward_loss(params, xi, yi, use)
+                    g = gradients(mloss, params, trainable)
                     if grads is None:
                         grads, loss = g, mloss.detach()
                     else:
@@ -260,9 +327,16 @@ def build_train_step(model, loss_fn, optimizer, compute_dtype=None,
                 loss = loss * (1.0 / accum)
         finally:
             model.train(was_training)
-        optimizer.apply(state.params, grads, state.opt_state,
-                        frozen=[not t for t in trainable])
-        return loss.detach()
+        frozen = [not t for t in trainable]
+        if plan is None:
+            optimizer.apply(state.params, grads, state.opt_state,
+                            frozen=frozen)
+            return loss.detach()
+        optimizer.apply(plan.masters, plan.reduce_grads(grads),
+                        state.opt_state, frozen=frozen,
+                        sq_sums=plan.sq_sums)
+        plan.refresh_module()
+        return plan.mean_loss(loss.detach())
 
     return train_step
 
@@ -293,7 +367,7 @@ def predict_batches(model, x, batch_size: int = 32):
 
 
 class Trainer:
-    """Single-device trainer of an ``nn.Module`` whose ``forward`` maps a
+    """Trainer of an ``nn.Module`` whose ``forward`` maps a
     batch to predictions; ``loss_fn(y_true, y_pred)`` gives per-sample
     (or per-position) losses; ``optimizer`` is a
     :class:`~analytics_zoo_tpu_torch.pipeline.api.keras.optimizers.
@@ -304,11 +378,19 @@ class Trainer:
     back to its environment knob (``ZOO_TRAIN_DTYPE``,
     ``ZOO_TRAIN_ACCUM``) when not given.  ``evaluate`` and ``predict``
     run in f32 and in eval mode (BatchNormalization on its moving
-    statistics)."""
+    statistics).
+
+    ``mesh`` (a ``DeviceMesh`` of ``parallel.mesh.create_mesh``),
+    ``strategy`` (``replicate`` | ``fsdp`` | ``tp`` | ``fsdp_tp``, else
+    ``ZOO_TRAIN_STRATEGY``, else ``replicate``) and ``tp_rules`` (leaf
+    path regex -> the dimension split over ``tensor``) train sharded (see
+    the module docstring)."""
 
     def __init__(self, model, loss_fn: Callable, optimizer,
                  metrics: Sequence = (), seed: int = 0,
-                 compute_dtype=None, accum_steps: Optional[int] = None):
+                 compute_dtype=None, accum_steps: Optional[int] = None,
+                 mesh=None, strategy: Optional[str] = None,
+                 tp_rules: Optional[Dict[str, int]] = None):
         self.model = model
         self.loss_fn = loss_fn
         self.optimizer = optimizer
@@ -318,16 +400,41 @@ class Trainer:
                               else _dtype_from_env())
         self.accum_steps = max(int(accum_steps) if accum_steps is not None
                                else _accum_from_env(), 1)
+        self.mesh = mesh
+        self.strategy = strategy or envcontract.env_str(ENV_STRATEGY,
+                                                        "replicate")
+        self.tp_rules = dict(tp_rules) if tp_rules else None
         self.state: Optional[TrainState] = None
         self._train_step = None
 
     def ensure_initialized(self):
         if self.state is None:
             from ..models.jax_params import state_tree
+            device = _model_device(self.model)
+            dist_lib.maybe_initialize_distributed(device)
+            if self.mesh is None and dist_lib.process_count() > 1:
+                # a pod trains data-parallel, as the JAX package's default
+                # mesh puts every device on ``data``
+                self.mesh = mesh_lib.get_default_mesh(device)
             params = list(self.model.parameters())
-            self.state = TrainState(params, state_tree(self.model),
-                                    self.optimizer.init(params),
-                                    paths=param_paths(self.model, params))
+            paths = param_paths(self.model, params)
+            plan = None
+            if self.mesh is not None:
+                from ..parallel.placement import StatePlan
+                plan = StatePlan(self.model, params, paths, self.mesh,
+                                 self.strategy, tp_rules=self.tp_rules)
+            self.state = TrainState(
+                params, state_tree(self.model),
+                self.optimizer.init(plan.masters if plan else params),
+                paths=paths, plan=plan)
+
+    def _dp(self) -> int:
+        return mesh_lib.dp_size(self.mesh) if self.mesh is not None else 1
+
+    def _rank_batch(self, batch_size: int) -> int:
+        """The rows a rank feeds of a global batch in evaluate and
+        predict (at least 1)."""
+        return max(batch_size // self._dp(), 1)
 
     def refresh_optimizer(self):
         """Take up changed ``trainable`` flags (the JAX package re-masks
@@ -382,14 +489,20 @@ class Trainer:
         ``{"loss": [per-step losses], "val": [per-epoch results]}``.
         With a checkpoint directory, ``fit`` returns once its snapshots
         are on disk."""
+        device = _model_device(self.model)
+        self.ensure_initialized()
+        if self.state.plan is not None:
+            # weights set on the model since the last step reach the
+            # masters (a no-op when they are the last step's)
+            self.state.plan.pull_module()
+        from ..data.dataset import check_batch_divisibility
+        check_batch_divisibility(batch_size, self._dp())
+        batch_size //= self._dp()  # this rank's rows of the global batch
         if batch_size % self.accum_steps:
             raise ValueError(
                 f"batch_size ({batch_size}) must be divisible by "
                 f"accum_steps ({self.accum_steps}): every microbatch has "
                 "the same size")
-        device = _model_device(self.model)
-        dist_lib.maybe_initialize_distributed(device)
-        self.ensure_initialized()
         faults.refresh()
         faults.heartbeat()
         self._maybe_auto_resume()
@@ -403,7 +516,17 @@ class Trainer:
             self._train_step = build_train_step(
                 self.model, self.loss_fn, self.optimizer,
                 compute_dtype=self.compute_dtype,
-                accum_steps=self.accum_steps, seed=self.seed)
+                accum_steps=self.accum_steps, seed=self.seed,
+                plan=self.state.plan)
+        with mesh_lib.active_mesh(self.mesh):
+            return self._fit(dataset, batch_size, end_trigger,
+                             validation_data, validation_trigger,
+                             validation_batch_size, shuffle, verbose,
+                             resume_skip, device)
+
+    def _fit(self, dataset, batch_size, end_trigger, validation_data,
+             validation_trigger, validation_batch_size, shuffle, verbose,
+             resume_skip, device):
         st = self.state
         feed = DeviceFeed(device)
         end_trigger = end_trigger or trigger_lib.MaxEpoch(st.epoch + 1)
@@ -459,7 +582,8 @@ class Trainer:
                             "LearningRate", float(lr_fn(base + i)),
                             base + i + 1)
                 self.train_summary.add_scalar(
-                    "Throughput", len(losses) * batch_size / elapsed, st.step)
+                    "Throughput", len(losses) * batch_size * self._dp()
+                    / elapsed, st.step)
                 self.train_summary.flush()
             epoch_record = {"epoch": st.epoch, "iteration": st.step,
                             "epoch_finished": True,
@@ -472,7 +596,8 @@ class Trainer:
             if validation_data is not None and validation_trigger(
                     epoch_record):
                 results = self.evaluate(validation_data,
-                                        validation_batch_size or batch_size)
+                                        validation_batch_size
+                                        or batch_size * self._dp())
                 history["val"].append({"epoch": st.epoch, **results})
                 if self.val_summary is not None:
                     for k, v in results.items():
@@ -498,7 +623,17 @@ class Trainer:
         """Metrics and mean loss over the whole dataset, in f32.  The tail
         batch is zero-padded to ``batch_size`` and masked out, as in the
         JAX package, so every sample counts once.  ``metrics`` overrides
-        the compiled set for this call."""
+        the compiled set for this call.
+
+        Sharded: ``batch_size`` is global, each rank evaluates its own
+        data in batches of ``batch_size // dp`` rows, rows flagged
+        False in ``dataset.valid`` (``shard_by_process``'s fillers) are
+        masked out, and the metrics are added over the data axes."""
+        if self.mesh is not None or dist_lib.cluster_env_present():
+            self.ensure_initialized()
+        batch_size = self._rank_batch(batch_size)
+        valid = getattr(dataset, "valid", None)
+        offset = 0
         if metrics is None:
             use_metrics = self.metrics
         else:
@@ -511,8 +646,11 @@ class Trainer:
             bx, by = batch
             first = bx[0] if isinstance(bx, (tuple, list)) else bx
             n_real = len(first)
+            nonlocal offset
             mask = np.zeros((batch_size,), np.float32)
-            mask[:n_real] = 1.0
+            mask[:n_real] = (1.0 if valid is None else
+                             valid[offset:offset + n_real])
+            offset += n_real
             pad = batch_size - n_real
             return feed((_pad_tail(bx, pad), _pad_tail(by, pad), mask))
 
@@ -521,7 +659,7 @@ class Trainer:
         was_training = self.model.training
         self.model.eval()
         try:
-            with torch.no_grad(), prefetch(
+            with torch.no_grad(), mesh_lib.active_mesh(self.mesh), prefetch(
                     dataset.batches(batch_size, shuffle=False,
                                     drop_remainder=False),
                     transform=padded) as batches:
@@ -544,13 +682,21 @@ class Trainer:
                         loss_n = loss_n + torch.sum(mask)
         finally:
             self.model.train(was_training)
+        plan = self.state.plan if self.state is not None else None
+        if plan is not None and plan.dp_group is not None:
+            accs, loss_sum, loss_n = _sum_over(plan.dp_group,
+                                               (accs, loss_sum, loss_n))
         results = {m.name: m.result(a) for m, a in zip(use_metrics, accs)}
         if self.loss_fn is not None and float(loss_n) > 0:
             results["loss"] = float(loss_sum) / float(loss_n)
         return results
 
     def predict(self, x, batch_size: int = 32):
-        return predict_batches(self.model, x, batch_size)
+        """Forward ``x``; sharded, ``batch_size`` is global and each rank
+        forwards its own rows in batches of ``batch_size // dp``."""
+        with mesh_lib.active_mesh(self.mesh):
+            return predict_batches(self.model, x,
+                                   self._rank_batch(batch_size))
 
     # ---- summaries and checkpoints ----
     train_summary: Optional[TrainSummary] = None
@@ -583,18 +729,24 @@ class Trainer:
         """The JAX package's ``TrainState.as_tree()``: the weights
         ({layer: {param: tensor}}), the layer state and the optimizer
         state under optax's leaf names (``opt_state/0/.mu/<layer>/W``,
-        ``opt_state/0/.count``, ...).  The tensors are the live ones."""
+        ``opt_state/0/.count``, ...).  The tensors are the live ones;
+        sharded, the weights and moments are DTensors over this rank's
+        blocks, placed as the rule tables say."""
         from ..models.jax_params import weight_tree
         self.ensure_initialized()
         st = self.state
+        opt = self.optimizer.state_tree(st.opt_state, st.paths)
+        if st.plan is not None:
+            return {"params": st.plan.params_tree(),
+                    "model_state": st.model_state,
+                    "opt_state": st.plan.opt_tree(opt)}
         return {"params": weight_tree(self.model),
-                "model_state": st.model_state,
-                "opt_state": self.optimizer.state_tree(st.opt_state,
-                                                       st.paths)}
+                "model_state": st.model_state, "opt_state": opt}
 
     def save_weights(self, directory: str, tag="final"):
         """The training state in the sharded format (every process of a
-        pod calls this), with the step and epoch."""
+        pod calls this), with the step and epoch: each rank writes its
+        own blocks, a replicated leaf once."""
         self.ensure_initialized()
         checkpoint_lib.save_sharded(
             directory, tag, self.state_tree(),
@@ -606,7 +758,8 @@ class Trainer:
         from a checkpoint of either package, in either format (the
         newest complete tag when None), matched by leaf name.  An
         iteration-trigger snapshot makes the next ``fit`` fast-forward
-        into its epoch."""
+        into its epoch.  Sharded, each leaf is placed under this
+        trainer's plan, whatever mesh the snapshot came from."""
         self.ensure_initialized()
         st = self.state
         template = self.state_tree()
@@ -621,8 +774,15 @@ class Trainer:
         elif names and not any(n.startswith("opt_state/") for n in names):
             # a save of weights and layer state only
             template.pop("opt_state")
-        tree = checkpoint_lib.restore_sharded(directory, template, tag)
+        shardings = None
+        if st.plan is not None:
+            from ..parallel.sharding import dtensor_sharding, tree_map
+            shardings = tree_map(dtensor_sharding, template)
+        tree = checkpoint_lib.restore_sharded(directory, template, tag,
+                                              shardings=shardings)
         checkpoint_lib.copy_tree_into(template, tree)
+        if st.plan is not None:
+            st.plan.refresh_module()
         meta = checkpoint_lib.read_meta(directory, tag)
         st.step = int(meta.get("step", st.step))
         st.epoch = int(meta.get("epoch", st.epoch))

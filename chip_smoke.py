@@ -191,14 +191,31 @@ Phases (any failure makes the exit code non-zero):
    then one forward and backward with and without remat on every
    attention and MLP sublayer (dropout 0, same weights and batch): peak
    GiB, ms, flash_fwd 24 launches against 12, gradients within rtol
-   2e-4, atol 2e-5.
+   2e-4, atol 2e-5;
+19. parallel: the parallel strategies on a world of one (one card holds
+   no two-rank NCCL group; the ranks' arithmetic is the gloo tests'): an
+   NCCL process group and a mesh naming all six axes (each of size 1, so
+   every rule table replicates every leaf, which the phase reports),
+   then the train phase's model and plan (seq 2048, batch 8, adam 3e-4,
+   f32, dropout 0) compiled under ``strategy="fsdp_tp"`` with the
+   per-layer tensor rules: a warm-up fit and 4 one-step fits through all
+   three kernels (12 launches of each a step), losses and final weights
+   bit for bit against the plain Trainer from the same weights (step ms,
+   peak GiB and launches of each); ``save_weights`` and a restore onto
+   the mesh through ``restore_sharded(shardings=...)`` (DTensor leaves
+   placed as the rule tables say, every leaf bit for bit); a
+   ``MultiHeadSelfAttention(implementation="ring")`` layer at d 768,
+   seq 2048, batch 2 on the ``seq`` axis against the same weights
+   through the flash kernels (values within 1e-5, gradients within 1e-4
+   of their largest entry); ``moe_sharded`` on an ``expert`` axis of one
+   against ``switch_moe`` (equal).
 
 ``python3 chip_smoke.py --phases train,resume`` runs only the named
 phases (after the build), for a short call.
 
 The card's line, then ``resnet:``, ``detect:``, ``recommend:``,
-``textclass:``, ``moe:``, ``image:``, ``layers:`` and ``resume:``
-summary lines (each
+``textclass:``, ``moe:``, ``image:``, ``layers:``, ``resume:`` and
+``parallel:`` summary lines (each
 with the card's name and power limit) come near the end; the line
 before the last is a JSON object with each kernel's numbers; the last
 line is ``{"ok": true, "device": {...}}``.  ResNet-50, the registry,
@@ -348,6 +365,13 @@ IMAGE = dict(images=64, classes=4, sides=(180, 500), seed=0, cpu_rows=8,
              import_tol=1e-5,
              fc_batches=(1, 2, 32),
              threads=4, per_request=4, requests=96, passes=3)
+# the parallel phase: the train plan under fsdp_tp with the per-layer
+# tensor rules (the port's TransformerLM leaf paths, the JAX package's);
+# the ring layer against the flash kernels (over the largest entry)
+PARALLEL_RULES = {r"attn_\d+/W[qkv]$": 1, r"attn_\d+/Wo$": 0,
+                  r"mlp_up_\d+/W$": 1, r"mlp_down_\d+/W$": 0}
+PARALLEL = dict(ring_batch=2, moe_tokens=4096, moe_experts=8)
+PARALLEL_TOL = dict(ring=1e-5, ring_grad=1e-4)
 #: the summary line printed near the end for each phase, and its keys
 SUMMARIES = {
     "resnet": ("step_ms", "images_per_s", "peak_gib", "flop_share_bf16",
@@ -368,6 +392,11 @@ SUMMARIES = {
                "predict_rel_err", "own_state_predict_rel_err", "card"),
     "resume": ("resumed_vs_uninterrupted", "uninterrupted_runs_differ",
                "incarnation2", "async", "card"),
+    "parallel": ("backend", "mesh", "split_leaves", "fit_bitwise",
+                 "sharded_step_ms", "plain_step_ms", "step_ratio",
+                 "sharded_peak_gib", "plain_peak_gib", "restore_bitwise",
+                 "ring_rel_err", "ring_grad_rel_err", "moe_equal",
+                 "card"),
 }
 KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "flash_fwd": ("analytics_zoo_tpu_torch/ops/csrc/flash_fwd.cu",
@@ -4189,6 +4218,179 @@ def phase_resume(torch, TransformerLM, kernels, tmp):
     return bool(ok), stats
 
 
+def parallel_fit(torch, TransformerLM, kernels, x, y, **compile_kw):
+    """The train plan from seed 0: a warm-up fit and TRAIN_STEPS
+    one-step fits, each synchronised; (model, losses, step seconds,
+    launches over the timed steps, peak GiB)."""
+    cfg = dict(FULL, seq_len=TRAIN_SEQ)
+    model = TransformerLM(**cfg, device="cuda", seed=0)
+    model.compile({"name": "adam", "lr": TRAIN_LR}, "class_nll",
+                  **compile_kw)
+    losses = model.fit(x[:TRAIN_BATCH], y[:TRAIN_BATCH],
+                       batch_size=TRAIN_BATCH)["loss"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    step_s = []
+    for i in range(1, TRAIN_STEPS + 1):
+        rows = slice(i * TRAIN_BATCH, (i + 1) * TRAIN_BATCH)
+        t = time.perf_counter()
+        losses += model.fit(x[rows], y[rows], batch_size=TRAIN_BATCH)["loss"]
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+    return (model, losses, step_s, kernels.launch_counts(),
+            torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
+def phase_parallel(torch, TransformerLM, kernels, tmp):
+    """The parallel strategies on a world of one: an NCCL group and a
+    six-axis mesh, the train plan under fsdp_tp against the plain
+    Trainer (bit for bit), the sharded save restored onto the mesh, the
+    ring layer against the flash kernels, moe_sharded against
+    switch_moe."""
+    import statistics
+    import numpy as np
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from analytics_zoo_tpu_torch.parallel import mesh as mesh_lib
+    from analytics_zoo_tpu_torch.parallel.expert import (
+        init_moe_params, moe_sharded, switch_moe)
+    from analytics_zoo_tpu_torch.parallel.sharding import spec_to_placements
+    from analytics_zoo_tpu_torch.pipeline.api.keras.layers import (
+        MultiHeadSelfAttention)
+    from analytics_zoo_tpu_torch.train import checkpoint
+
+    stats = dict(card=smi_card())
+    mesh = mesh_lib.create_mesh({a: 1 for a in mesh_lib.AXES},
+                                device="cuda")
+    try:
+        probe = torch.ones(4, device="cuda")
+        dist.all_reduce(probe)
+        torch.cuda.synchronize()
+        stats["backend"] = dist.get_backend()
+        stats["mesh"] = mesh_lib.axis_sizes(mesh)
+        ok = (stats["backend"] == "nccl" and float(probe.sum()) == 4.0
+              and tuple(mesh.mesh_dim_names) == mesh_lib.AXES)
+        x, y = periodic_tokens(TRAIN_BATCH * (TRAIN_STEPS + 1),
+                               FULL["vocab_size"], TRAIN_SEQ, seed=1)
+        plain, plain_losses, plain_s, plain_counts, plain_peak = \
+            parallel_fit(torch, TransformerLM, kernels, x, y)
+        plain_w = {n: p.detach().cpu() for n, p in plain.named_parameters()}
+        del plain
+        torch.cuda.empty_cache()
+        model, losses, step_s, counts, peak = parallel_fit(
+            torch, TransformerLM, kernels, x, y, mesh=mesh,
+            strategy="fsdp_tp", tp_rules=PARALLEL_RULES)
+        plan = model.trainer.state.plan
+        stats["split_leaves"] = sum(any(e is not None for e in s)
+                                    for s in plan.specs)
+        log(f"parallel: {len(plan.specs)} leaves under fsdp_tp on "
+            f"{stats['mesh']}: every axis has size 1, so every rule table "
+            f"replicates every leaf ({stats['split_leaves']} split)")
+        same_w = [n for n, p in model.named_parameters()
+                  if torch.equal(p.detach().cpu(), plain_w[n])]
+        stats["fit_bitwise"] = (losses == plain_losses
+                                and len(same_w) == len(plain_w))
+        stats.update(
+            losses=losses, plain_losses=plain_losses,
+            weights_equal=f"{len(same_w)}/{len(plain_w)}",
+            sharded_step_ms=statistics.median(step_s) * 1e3,
+            plain_step_ms=statistics.median(plain_s) * 1e3,
+            sharded_step_ms_all=[t * 1e3 for t in step_s],
+            plain_step_ms_all=[t * 1e3 for t in plain_s],
+            sharded_peak_gib=peak, plain_peak_gib=plain_peak,
+            launches=counts, plain_launches=plain_counts)
+        stats["step_ratio"] = (stats["sharded_step_ms"]
+                               / stats["plain_step_ms"])
+        ok &= stats["fit_bitwise"]
+        for name in KERNELS:
+            if counts[name] != FULL["n_layers"] * TRAIN_STEPS:
+                ok = False
+                log(f"parallel: FAIL {name} launched {counts[name]} times "
+                    f"in {TRAIN_STEPS} sharded steps, expected "
+                    f"{FULL['n_layers']} a step")
+        # the sharded save, restored onto the mesh into a fresh model
+        ckpt = os.path.join(tmp, "parallel_ckpt")
+        model.trainer.save_weights(ckpt)
+        other = TransformerLM(**dict(FULL, seq_len=TRAIN_SEQ),
+                              device="cuda", seed=1)
+        other.compile({"name": "adam", "lr": TRAIN_LR}, "class_nll",
+                      mesh=mesh, strategy="fsdp_tp",
+                      tp_rules=PARALLEL_RULES)
+        other.trainer.load_weights(ckpt)
+        want = checkpoint.flatten(model.trainer.state_tree())
+        got = checkpoint.flatten(other.trainer.state_tree())
+        placed = [l for _, l in got if isinstance(l, DTensor)]
+        specs = {tuple(spec_to_placements(s, mesh)) for s in plan.specs}
+        equal = sum(
+            (a.to_local().equal(b.to_local()) if isinstance(a, DTensor)
+             else bool(np.array_equal(np.asarray(a), np.asarray(b))))
+            for (_, a), (_, b) in zip(got, want))
+        stats["restore_bitwise"] = equal == len(want)
+        stats["restore"] = dict(leaves=len(want), equal=equal,
+                                dtensor_leaves=len(placed),
+                                placements_as_rules=all(
+                                    tuple(l.placements) in specs
+                                    for l in placed))
+        ok &= (stats["restore_bitwise"] and len(placed) > 0
+               and stats["restore"]["placements_as_rules"]
+               and other.trainer.state.step == model.trainer.state.step)
+        del model, other
+        torch.cuda.empty_cache()
+        ok &= parallel_ring(torch, MultiHeadSelfAttention, mesh_lib, mesh,
+                            stats)
+        # moe_sharded on an expert axis of one is switch_moe
+        g = torch.Generator("cuda").manual_seed(0)
+        d = FULL["d_model"]
+        params = init_moe_params(g, d, 4 * d, PARALLEL["moe_experts"])
+        xt = torch.randn((PARALLEL["moe_tokens"], d), generator=g,
+                         device="cuda")
+        got_moe, want_moe = moe_sharded(xt, params, mesh), switch_moe(
+            xt, params)
+        stats["moe_equal"] = bool(torch.equal(got_moe[0], want_moe[0])
+                                  and torch.equal(got_moe[1], want_moe[1]))
+        ok &= stats["moe_equal"]
+    finally:
+        mesh_lib.set_default_mesh(None)
+        dist.destroy_process_group()
+    log("parallel:", json.dumps(stats))
+    return bool(ok), stats
+
+
+def parallel_ring(torch, MultiHeadSelfAttention, mesh_lib, mesh, stats):
+    """The ring layer on the seq axis against the same weights through
+    the flash kernels: values and input and weight gradients over their
+    largest entry."""
+    d, heads = FULL["d_model"], FULL["n_heads"]
+    shape = (PARALLEL["ring_batch"], TRAIN_SEQ, d)
+    g = torch.Generator("cuda").manual_seed(2)
+    x = torch.randn(shape, generator=g, device="cuda")
+    w = torch.randn(shape, generator=g, device="cuda")
+    layers = [MultiHeadSelfAttention(heads, causal=True, implementation=impl,
+                                     input_shape=shape[1:], device="cuda",
+                                     generator=torch.Generator(
+                                         "cuda").manual_seed(3))
+              for impl in ("ring", "flash")]
+    outs, grads = [], []
+    with mesh_lib.active_mesh(mesh):
+        for layer in layers:
+            xi = x.clone().requires_grad_(True)
+            out = layer(xi)
+            params = [xi] + [getattr(layer, n) for n in ("Wq", "Wk", "Wv",
+                                                          "Wo")]
+            grads.append(torch.autograd.grad((out * w).sum(), params))
+            outs.append(out.detach())
+    stats["ring_rel_err"] = max_entry_err(outs[0], outs[1])
+    stats["ring_grad_rel_err"] = max(max_entry_err(a, b)
+                                     for a, b in zip(*grads))
+    log(f"parallel: ring layer against flash, values "
+        f"{stats['ring_rel_err']:.3g} (tol {PARALLEL_TOL['ring']}), "
+        f"gradients {stats['ring_grad_rel_err']:.3g} "
+        f"(tol {PARALLEL_TOL['ring_grad']})")
+    return (stats["ring_rel_err"] <= PARALLEL_TOL["ring"]
+            and stats["ring_grad_rel_err"] <= PARALLEL_TOL["ring_grad"])
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4277,6 +4479,8 @@ def main() -> int:
         ("layers", lambda: phase_layers(torch, keras, kernels, tmp)),
         ("resume", lambda: phase_resume(torch, TransformerLM, kernels,
                                         tmp)),
+        ("parallel", lambda: phase_parallel(torch, TransformerLM, kernels,
+                                            tmp)),
     ]
     if sys.argv[1:2] == ["--phases"]:  # e.g. --phases kernels,resume
         wanted = sys.argv[2].split(",")
@@ -4322,6 +4526,8 @@ def main() -> int:
                                              or {}).get("uninterrupted") or {}
     path_launches["resume_remat"] = ((resume.get("remat") or {}).get(
         "remat") or {}).get("launches") or {}
+    path_launches["parallel"] = (results.get("parallel") or {}).get(
+        "launches") or {}
 
     def timed_row(name, case, dtype, sq=None):
         row = next((r for r in results.get("kernels") or []
@@ -4367,7 +4573,8 @@ def main() -> int:
                      "resume_uninterrupted": path_launches[
                          "resume_uninterrupted"].get(name, 0),
                      "resume_remat": path_launches["resume_remat"].get(
-                         name, 0)}}
+                         name, 0),
+                     "parallel": path_launches["parallel"].get(name, 0)}}
         entry.update(timed_row(name, "mixed", "bfloat16"))
         entry["f32"] = timed_row(name, "train", "float32")
         entry["bf16_batch8"] = timed_row(name, "train", "bfloat16")

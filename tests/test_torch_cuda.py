@@ -18,8 +18,9 @@ native decode, and ``predict_image_set`` against the CPU; the
 BatchNorm debias bit for bit, and Deconvolution2D (same, stride 2) and
 ResizeBilinear (shrinking) against the CPU; an asynchronous snapshot
 holding the weights of its step after the next in-place step, remat
-through the flash kernels giving the non-remat gradients, and a corrupt
-snapshot tag falling back on the card. This file
+through the flash kernels giving the non-remat gradients, a corrupt
+snapshot tag falling back on the card, and a world of one over NCCL
+training under fsdp bit for bit with the plain Trainer. This file
 imports no jax (nor does anything it imports), so that it runs on a
 GPU host without the JAX package: ``python -m pytest --noconftest
 tests/test_torch_cuda.py -m cuda``. Without a card every test skips
@@ -1178,3 +1179,43 @@ def test_cuda_corrupt_tag_falls_back(cuda, tmp_path, monkeypatch):
     for p, w in zip(res.parameters(), want):
         assert p.device.type == "cuda"
         assert torch.equal(p.detach().cpu(), w)
+
+
+@pytest.mark.cuda
+def test_cuda_fsdp_fit_on_a_world_of_one_matches_plain(cuda):
+    """A world of one over NCCL: a mesh naming the six axes, and a small
+    TransformerLM trained under fsdp (its weights and adam moments
+    DTensors on the mesh) through the kernels, against the plain Trainer
+    from the same weights: losses and weights bit for bit, 2 launches of
+    each kernel a step."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from analytics_zoo_tpu_torch.parallel import mesh as mesh_lib
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dict(vocab_size=61, seq_len=64, n_layers=2, d_model=64, n_heads=2)
+    rng = np.random.default_rng(0)
+    x = rng.integers(0, 61, (16, 64)).astype(np.int32)
+    y = np.roll(x, -1, axis=1)
+    mesh = mesh_lib.create_mesh(device="cuda")
+    try:
+        assert dist.get_backend() == "nccl"
+        assert mesh.mesh_dim_names == mesh_lib.AXES
+        runs = []
+        for kw in ({}, dict(mesh=mesh, strategy="fsdp")):
+            m = TransformerLM(**cfg, device="cuda", seed=0)
+            m.compile({"name": "adam", "lr": 3e-3}, "class_nll", **kw)
+            _kernels.reset_launch_counts()
+            loss = m.fit(x, y, batch_size=8, shuffle=False)["loss"]
+            counts = _kernels.launch_counts()
+            runs.append((loss, [p.detach().cpu() for p in m.parameters()]))
+            assert all(c == 2 * len(loss) for c in counts.values())
+        tree = m.trainer.state_tree()
+        assert isinstance(tree["params"]["attn_0"]["Wq"], DTensor)
+        assert isinstance(tree["opt_state"]["0"][".mu"]["attn_0"]["Wq"],
+                          DTensor)
+        assert runs[0][0] == runs[1][0]
+        for a, b in zip(runs[0][1], runs[1][1]):
+            assert torch.equal(a, b)
+    finally:
+        mesh_lib.set_default_mesh(None)
+        dist.destroy_process_group()

@@ -8,10 +8,11 @@ once; a stale heartbeat is SIGKILLed and relaunched; a spent restart
 budget surfaces the worker's exit code; the coordinator's bind race is
 retried on a fresh port.  Counterparts of ``tests/test_launcher.py``:
 a single process, pod mode's required coordinator, the shell.  And one
-drill on a real two-rank gloo group: rank 1 SIGKILLs itself after step
-6 of 12, the supervisor reaps and relaunches the pod, both ranks resume
-from the newest complete snapshot (tag 4: rank 0's tag 6 never
-committed) and finish bit for bit on an uninterrupted run's weights.
+drill on a real two-rank gloo group training data-parallel (each rank
+its half of the data): rank 1 SIGKILLs itself after step 6 of 12, the
+supervisor reaps and relaunches the pod, both ranks resume from the
+newest complete snapshot (tag 4: rank 0's tag 6 never committed) and
+finish bit for bit on an uninterrupted pod's weights.
 """
 
 import json
@@ -208,8 +209,11 @@ TRAIN_DEMO = textwrap.dedent("""
     if ckpt_dir != "-":
         m.trainer.set_checkpoint(ckpt_dir,
                                  trigger=triggers.SeveralIteration(2))
-    m.trainer.fit(Dataset.from_ndarray(x, y), batch_size=16,
-                  end_trigger=triggers.MaxEpoch(3))
+    # a pod trains data-parallel: each rank feeds its half of the data,
+    # 8 rows of every global batch of 16
+    distributed.maybe_initialize_distributed("cpu")
+    m.trainer.fit(Dataset.from_ndarray(x, y).shard_by_process(),
+                  batch_size=16, end_trigger=triggers.MaxEpoch(3))
     rank = distributed.process_index()
     np.savez(f"{out}.p{rank}.npz",
              *[p.detach().numpy() for p in m.parameters()])
@@ -223,10 +227,12 @@ TRAIN_DEMO = textwrap.dedent("""
 def test_supervisor_recovers_sigkilled_gloo_rank_mid_epoch(tmp_path):
     script = tmp_path / "train_demo.py"
     script.write_text(TRAIN_DEMO)
-    ref = subprocess.run([sys.executable, str(script), "-",
-                          str(tmp_path / "ref")], env=_env(), cwd=REPO,
-                         capture_output=True, text=True, timeout=120)
-    assert "RESULT proc=0/1 step=12" in ref.stdout, ref.stderr[-2000:]
+    ref = subprocess.run(
+        [sys.executable, "-m", "analytics_zoo_tpu_torch.launcher",
+         "--num-processes", "2", str(script), "-", str(tmp_path / "ref")],
+        env=_env(), cwd=REPO, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True, timeout=120)
+    assert "RESULT proc=0/2 step=12" in ref.stdout, ref.stdout[-2000:]
     summary = tmp_path / "summary.json"
     proc = subprocess.run(
         [sys.executable, "-m", "analytics_zoo_tpu_torch.launcher",

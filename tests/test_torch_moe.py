@@ -153,9 +153,17 @@ def test_index_dispatch_equals_dense_one_hot(setup, capacity):
 
 
 def test_moe_sharded_is_not_ported_yet(setup):
+    """moe_sharded is ported: its validation errors are the JAX
+    package's, and on an expert axis of one it is switch_moe at the
+    capacity of the whole token block."""
     params, x = setup
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        expert.moe_sharded(x, params, None)
+    with pytest.raises(ValueError, match="n_experts .* not divisible"):
+        expert.moe_sharded(x, params, {"expert": 3})
+    with pytest.raises(ValueError, match="tokens .* not divisible"):
+        expert.moe_sharded(x[:-1], params, {"expert": 2})
+    got = expert.moe_sharded(x, params, {"expert": 1})
+    ref = switch_moe(x, params)
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
 
 
 def test_torch_switch_moe_keras_layer(tmp_path):

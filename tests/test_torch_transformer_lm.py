@@ -143,14 +143,17 @@ def test_default_device_is_cuda_and_raises_without_it(monkeypatch):
 
 
 def test_moe_is_not_ported_yet():
-    """Single-device Switch-MoE is ported (moe_every builds SwitchMoE
-    blocks); the expert-parallel moe_sharded is not yet and raises."""
+    """Switch-MoE is ported (moe_every builds SwitchMoE blocks), and so
+    is the expert-parallel moe_sharded: it checks its axis as the JAX
+    package's does."""
     from analytics_zoo_tpu_torch.parallel.expert import moe_sharded
     lm = TransformerLM(**SMALL, moe_every=2, device="cpu")
     assert [lm.is_moe_block(i) for i in range(SMALL["n_layers"])] == [
         (i + 1) % 2 == 0 for i in range(SMALL["n_layers"])]
-    with pytest.raises(NotImplementedError, match="moe_sharded"):
-        moe_sharded(None, None, None)
+    moe = getattr(lm, "moe_1")
+    x = torch.zeros(6, SMALL["d_model"])
+    with pytest.raises(ValueError, match="tokens"):
+        moe_sharded(x, moe.moe_params(), {"expert": 4})
 
 
 def _forbidden(module: str) -> bool:
