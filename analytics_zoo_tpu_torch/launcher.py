@@ -24,14 +24,23 @@ complete snapshot.  Relaunches back off exponentially from
 ``--restart-backoff`` (at most 30 s).  Worker 0 failing to bind the
 coordinator's port at start-up is retried on a fresh port without
 spending the restart budget.  ``--summary-json`` writes the restarts,
-their reasons, the exit code and the supervisor's counters.
-See ``train/faults.py`` for the worker's side of the contract.
+their reasons, the exit code, the post-mortems and the supervisor's
+counters.  See ``train/faults.py`` for the worker's side of the
+contract.
+
+Every worker records its black box under the pod's flight-recorder
+directory (``ZOO_FLIGHTREC_DIR``: a value set before the launch wins,
+else ``<run_dir>/flightrec``; ``observability/flightrec.py``).  After a
+crash or a hang the supervisor harvests them into
+``pod_postmortem.json`` (each rank's last completed step, heartbeats,
+spans and log tail, with the exit codes and heartbeat ages only the
+supervisor saw) and merges their metric snapshots into
+``pod_metrics.prom`` (``observability/aggregate.py``) before it
+relaunches; a run with a post-mortem keeps its run directory.
 
 ``--devices-per-process`` and ``--platform`` configure the JAX package's
 virtual CPU devices and platform; they are accepted and ignored here
-(a worker runs on the device its model was built on).  The harvest of
-the workers' flight recorders into a pod post-mortem waits for the
-port's observability modules (see ROADMAP.md).
+(a worker runs on the device its model was built on).
 
 Examples:
   python -m analytics_zoo_tpu_torch.launcher train.py --epochs 10
@@ -45,7 +54,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import logging
 import os
 import re
 import runpy
@@ -57,11 +65,14 @@ import tempfile
 import time
 from typing import List, Optional
 
+from . import envcontract
+from .observability import flightrec
+from .observability.log import get_logger
 from .parallel.distributed import ENV_COORD, ENV_NPROC, ENV_PID
 from .train import faults
 from .train import metrics as train_metrics
 
-log = logging.getLogger("analytics_zoo_tpu_torch.launcher")
+log = get_logger("analytics_zoo_tpu_torch.launcher")
 
 
 def _free_port() -> int:
@@ -137,6 +148,14 @@ def main(argv: Optional[List[str]] = None) -> int:
     return _run_supervised(args)
 
 
+def _flight_dir(run_dir: str) -> str:
+    """The pod's flight-recorder directory: a ``ZOO_FLIGHTREC_DIR`` set
+    before the launch wins (a drill harvests it itself), else it lives
+    with the other supervision files."""
+    return (envcontract.env_str(flightrec.ENV_DIR)
+            or os.path.join(run_dir, "flightrec"))
+
+
 def _spawn_pod(args, coordinator: str, run_dir: str, incarnation: int,
                resume: bool):
     """Start every worker of one incarnation.  Each worker's stderr goes
@@ -148,6 +167,7 @@ def _spawn_pod(args, coordinator: str, run_dir: str, incarnation: int,
         env[ENV_COORD] = coordinator
         env[ENV_NPROC] = str(args.num_processes)
         env[ENV_PID] = str(pid)
+        env[flightrec.ENV_DIR] = _flight_dir(run_dir)
         env[faults.ENV_RESTART_COUNT] = str(incarnation)
         # a fresh heartbeat file per incarnation: an old mtime must not
         # hide a hang; ZOO_RESUME only on relaunches
@@ -243,9 +263,11 @@ def _run_supervised(args) -> int:
     run_dir = tempfile.mkdtemp(prefix="zoo-pod-")
     coordinator = args.coordinator or f"localhost:{_free_port()}"
     reasons: List[str] = []
+    postmortems: List[str] = []
     rc = 1
     try:
-        rc = _supervision_loop(args, run_dir, coordinator, reasons)
+        rc = _supervision_loop(args, run_dir, coordinator, reasons,
+                               postmortems)
     finally:
         if args.summary_json:
             with open(args.summary_json, "w") as f:
@@ -254,13 +276,63 @@ def _run_supervised(args) -> int:
                                            for r in reasons),
                            "port_retries": reasons.count("port"),
                            "reasons": reasons,
+                           "postmortems": postmortems,
                            "metrics": train_metrics.snapshot()}, f)
-        shutil.rmtree(run_dir, ignore_errors=True)
+        if rc == 0 and not postmortems:
+            shutil.rmtree(run_dir, ignore_errors=True)
+        else:
+            # an incident, even one the pod recovered from, is worth
+            # reading: the post-mortem, heartbeats, stderr and black boxes
+            log.info("supervision files kept", run_dir=run_dir, rc=rc,
+                     postmortems=postmortems)
     return rc
 
 
+def _write_pod_postmortem(run_dir: str, outcome: str,
+                          rank: Optional[int], incarnation: int,
+                          procs: list, hb_ages: dict,
+                          stale_ranks: Optional[List[int]] = None
+                          ) -> Optional[str]:
+    """Harvest every worker's flight recorder into the pod post-mortem
+    (``flightrec.write_postmortem``: each rank's last steps, heartbeats,
+    spans and log tail) with the evidence only the supervisor has (exit
+    codes and heartbeat-file ages at the reap), and merge the ranks'
+    metric snapshots into ``pod_metrics.prom`` beside it.  Best effort:
+    a failed post-mortem never stops the restart."""
+    supervisor = {
+        r: {"rc": p.returncode, "heartbeat_age_s": hb_ages.get(r)}
+        for r, p in enumerate(procs)}
+    path = os.path.join(run_dir, f"pod_postmortem.i{incarnation}.json")
+    try:
+        pm = flightrec.write_postmortem(
+            _flight_dir(run_dir), path, reason=outcome, failed_rank=rank,
+            incarnation=incarnation, supervisor=supervisor,
+            # a hung collective stalls every participant's heartbeat: the
+            # whole stale set is the evidence, the convicted rank the one
+            # the watchdog found first
+            extra=({"stale_ranks": stale_ranks}
+                   if stale_ranks is not None else None))
+        flightrec.atomic_write(os.path.join(run_dir, "pod_postmortem.json"),
+                               json.dumps(pm, indent=2, default=str))
+    except Exception as e:
+        log.error("could not write the pod post-mortem", run_dir=run_dir,
+                  error=f"{type(e).__name__}: {e}")
+        return None
+    try:
+        from .observability import aggregate
+        flightrec.atomic_write(os.path.join(run_dir, "pod_metrics.prom"),
+                               aggregate.aggregate_dir(_flight_dir(run_dir)))
+    except Exception:
+        pass  # no snapshot yet is a legal post-mortem state
+    failed = pm.get("ranks", {}).get(str(rank), {})
+    log.error("pod post-mortem written", path=path, reason=outcome,
+              failed_rank=rank, last_step=failed.get("last_step"),
+              heartbeat_age_s=failed.get("heartbeat_age_s"))
+    return path
+
+
 def _supervision_loop(args, run_dir: str, coordinator: str,
-                      reasons: List[str]) -> int:
+                      reasons: List[str], postmortems: List[str]) -> int:
     restarts = port_retries = incarnation = 0
     while True:
         started = time.time()
@@ -278,6 +350,19 @@ def _supervision_loop(args, run_dir: str, coordinator: str,
         if outcome == "ok":
             _replay_stderr(err_paths)
             return 0
+        # heartbeat ages at detection (the reap takes up to its grace
+        # period); stale ranks are the live workers past the window
+        now = time.time()
+        hb_ages, stale_ranks = {}, []
+        for r, hb in enumerate(hb_paths):
+            try:
+                hb_ages[r] = round(now - os.path.getmtime(hb), 3)
+            except OSError:
+                hb_ages[r] = None  # died before its first heartbeat
+            if (outcome == "watchdog" and procs[r].poll() is None
+                    and hb_ages[r] is not None
+                    and hb_ages[r] > args.watchdog_sec):
+                stale_ranks.append(r)
         failed_rc = procs[rank].returncode if outcome == "exit" else None
         _reap_pod(procs, grace_s=5.0,
                   kill_first=rank if outcome == "watchdog" else None)
@@ -292,12 +377,20 @@ def _supervision_loop(args, run_dir: str, coordinator: str,
             train_metrics.record_restart("port")
             coordinator = f"localhost:{_free_port()}"
             log.warning("coordinator port collision: relaunching the pod "
-                        "on %s (retry %d)", coordinator, port_retries)
+                        "on a fresh port", retry=port_retries,
+                        coordinator=coordinator)
             continue
+        # a real incident (not a bind race): harvest the black boxes now,
+        # before the next incarnation writes beside them
+        pm = _write_pod_postmortem(
+            run_dir, outcome, rank, incarnation - 1, procs, hb_ages,
+            stale_ranks=stale_ranks if outcome == "watchdog" else None)
+        if pm:
+            postmortems.append(pm)
         if restarts >= args.max_restarts:
-            log.error("pod failed (%s, rank %s, rc %s) and the restart "
-                      "budget (%d) is spent", outcome, rank, failed_rc,
-                      args.max_restarts)
+            log.error("pod failed and the restart budget is spent",
+                      reason=outcome, rank=rank, rc=failed_rc,
+                      max_restarts=args.max_restarts)
             if failed_rc is None or failed_rc == 0:
                 return 1
             # a death by signal N gives the shell's 128 + N
@@ -307,9 +400,10 @@ def _supervision_loop(args, run_dir: str, coordinator: str,
         train_metrics.record_restart(outcome)
         backoff = min(args.restart_backoff * (2 ** (restarts - 1)),
                       _MAX_BACKOFF_S)
-        log.warning("pod worker failed (%s, rank %s, rc %s): relaunch %d "
-                    "of %d with ZOO_RESUME in %.3f s", outcome, rank,
-                    failed_rc, restarts, args.max_restarts, backoff)
+        log.warning("pod worker failed: relaunching with ZOO_RESUME",
+                    reason=outcome, rank=rank, rc=failed_rc,
+                    restart=restarts, max_restarts=args.max_restarts,
+                    backoff_s=round(backoff, 3))
         time.sleep(backoff)
 
 

@@ -7,7 +7,8 @@ checkout, keyed by a hash of the sources, the headers they include
 (``csrc/*.cuh``) and the compiler flags, so an edited source or header
 rebuilds and an unchanged one is reused.  Importing this
 module builds nothing and needs no ``nvcc``: the build runs on the first
-launch, or when :func:`build` is called.
+launch, or when :func:`build` is called.  A build that runs ``nvcc``
+is reported to ``observability/profile.py`` as a compile.
 
 A wrapper checks device, dtype, shape and contiguity, allocates its
 outputs with ``torch.empty``, launches on the current CUDA stream, raises
@@ -23,9 +24,12 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 
 import torch
+
+from ..observability import profile
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -84,6 +88,7 @@ class KernelLibrary:
             return self._fns
         out = _build_dir()
         out.mkdir(parents=True, exist_ok=True)
+        t0 = time.perf_counter()
         procs, logs = {}, []
         for name in sorted(_SIGNATURES):
             lib = out / (Path(name).stem + ".so")
@@ -105,6 +110,11 @@ class KernelLibrary:
         self.build_log = "\n".join(logs)
         if failed:
             raise RuntimeError(f"nvcc failed for {failed}:\n{self.build_log}")
+        if procs:
+            # the port's compile: counted by the profile hooks and put on
+            # the span of the step or request that paid for it
+            profile.note_compile(time.perf_counter() - t0,
+                                 "nvcc:" + ",".join(sorted(procs)))
         fns = {}
         for name, symbols in _SIGNATURES.items():
             lib = ctypes.CDLL(str(out / (Path(name).stem + ".so")))

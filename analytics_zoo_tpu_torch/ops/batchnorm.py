@@ -15,7 +15,17 @@ code that XLA compiles, not a Pallas kernel):
   ``dx = inv*gamma*(dy - mean(dy) - xhat*mean(dy*xhat))``.
 
 The returned batch ``mean`` and ``var`` (f32) feed the moving-statistics
-update and get no gradient.  Neither ``F.batch_norm`` nor
+update and get no gradient.
+
+``group`` (a process group, passed while the Trainer's plan splits the
+batch over the data axes; ``parallel.mesh.batch_group``): the statistics
+are the global batch's, as the JAX package's are under ``jit`` over a
+sharded batch.  The forward all-reduces ``sum(x)``, ``sum(x*x)`` and the
+row count, the backward ``sum(dy)`` and ``sum(dy*xhat)`` before they are
+divided by the global count; ``dgamma`` and ``dbeta`` stay this rank's
+sums, which the trainer's gradient mean over the ranks completes.
+Every rank then holds the same moving statistics.  Without a group no
+collective runs.  Neither ``F.batch_norm`` nor
 ``nn.BatchNorm2d`` computes this function: their running variance is the
 unbiased one and their momentum weighs the batch, not the average.
 """
@@ -23,6 +33,8 @@ unbiased one and their momentum weighs the batch, not the average.
 from __future__ import annotations
 
 import torch
+
+from ..parallel._compat import group_sum
 
 
 def _axes_and_count(x, ch_axis: int):
@@ -39,26 +51,33 @@ def _bshape(x, ch_axis: int):
     return shape
 
 
-def _bn_forward(x, gamma, beta, eps: float, ch_axis: int):
+def _bn_forward(x, gamma, beta, eps: float, ch_axis: int, group=None):
     axes, n = _axes_and_count(x, ch_axis)
     x32 = x.float()
     s1 = torch.sum(x32, dim=axes)
     s2 = torch.sum(x32 * x32, dim=axes)
+    if group is not None:
+        # one all-reduce of both sums and the row count
+        c = s1.numel()
+        s1, s2, n = group_sum(torch.cat(
+            [s1, s2, s1.new_full((1,), float(n))]), group).split([c, c, 1])
     mean = s1 / n
     var = torch.clamp_min(s2 / n - mean * mean, 0.0)
     inv = torch.rsqrt(var + eps)
     dt, bshape = x.dtype, _bshape(x, ch_axis)
     xhat = (x - mean.to(dt).reshape(bshape)) * inv.to(dt).reshape(bshape)
     out = xhat * gamma.to(dt).reshape(bshape) + beta.to(dt).reshape(bshape)
-    return out, mean, var, xhat, inv
+    return out, mean, var, xhat, inv, n
 
 
 class BatchNormTrain(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, gamma, beta, eps, ch_axis):
-        out, mean, var, xhat, inv = _bn_forward(x, gamma, beta, eps, ch_axis)
+    def forward(ctx, x, gamma, beta, eps, ch_axis, group=None):
+        out, mean, var, xhat, inv, n = _bn_forward(x, gamma, beta, eps,
+                                                   ch_axis, group)
         ctx.save_for_backward(xhat, inv, gamma)
         ctx.ch_axis = ch_axis
+        ctx.group, ctx.n = group, n
         ctx.mark_non_differentiable(mean, var)
         return out, mean, var
 
@@ -66,25 +85,31 @@ class BatchNormTrain(torch.autograd.Function):
     def backward(ctx, dy, _dmean, _dvar):
         xhat, inv, gamma = ctx.saved_tensors
         ch_axis = ctx.ch_axis
-        axes, n = _axes_and_count(xhat, ch_axis)
+        axes, _ = _axes_and_count(xhat, ch_axis)
         dy32 = dy.float()
         s_dy = torch.sum(dy32, dim=axes)
         s_dyx = torch.sum(dy32 * xhat.float(), dim=axes)
+        g_dy, g_dyx = ((s_dy, s_dyx) if ctx.group is None else
+                       group_sum(torch.stack([s_dy, s_dyx]),
+                                 ctx.group).unbind(0))
         dt, bshape = dy.dtype, _bshape(dy, ch_axis)
-        mean_dy = (s_dy / n).to(dt).reshape(bshape)
-        mean_dyx = (s_dyx / n).to(dt).reshape(bshape)
+        mean_dy = (g_dy / ctx.n).to(dt).reshape(bshape)
+        mean_dyx = (g_dyx / ctx.n).to(dt).reshape(bshape)
         scale = (inv.to(dt).reshape(bshape)
                  * gamma.to(dt).reshape(bshape))
         dx = scale * (dy - mean_dy - xhat * mean_dyx)
-        return dx, s_dyx.to(gamma.dtype), s_dy.to(gamma.dtype), None, None
+        return (dx, s_dyx.to(gamma.dtype), s_dy.to(gamma.dtype), None, None,
+                None)
 
 
-def batch_norm_train(x, gamma, beta, eps: float, ch_axis: int):
+def batch_norm_train(x, gamma, beta, eps: float, ch_axis: int, group=None):
     """Train-mode batch norm over every axis but ``ch_axis`` (a
-    non-negative int).  Returns ``(out, mean, var)``: ``mean`` and
-    ``var`` are the f32 per-channel batch statistics, without
-    gradient."""
-    return BatchNormTrain.apply(x, gamma, beta, float(eps), int(ch_axis))
+    non-negative int), with the statistics of the global batch when
+    ``group`` is given (module docstring).  Returns ``(out, mean,
+    var)``: ``mean`` and ``var`` are the f32 per-channel batch
+    statistics, without gradient."""
+    return BatchNormTrain.apply(x, gamma, beta, float(eps), int(ch_axis),
+                                group)
 
 
 #: the A/B switch of the profile script: when True, BatchNormalization
@@ -98,14 +123,22 @@ def set_naive_bn(flag: bool):
     USE_NAIVE = bool(flag)
 
 
-def batch_norm_train_naive(x, gamma, beta, eps: float, ch_axis: int):
+def batch_norm_train_naive(x, gamma, beta, eps: float, ch_axis: int,
+                           group=None):
     """The plain formulation (mean and variance of an f32 copy, autograd
-    backward): the reference the closed form is held to."""
-    axes, _ = _axes_and_count(x, ch_axis)
+    backward): the reference the closed form is held to.  With a
+    ``group``, the two-pass sums are added over its ranks."""
+    axes, n = _axes_and_count(x, ch_axis)
     bshape = _bshape(x, ch_axis)
     x32 = x.float()
-    mean = torch.mean(x32, dim=axes)
-    var = torch.var(x32, dim=axes, unbiased=False)
+    if group is None:
+        mean = torch.mean(x32, dim=axes)
+        var = torch.var(x32, dim=axes, unbiased=False)
+    else:
+        n = group_sum(x32.new_full((1,), float(n)), group)
+        mean = group_sum(torch.sum(x32, dim=axes), group) / n
+        centred = x32 - mean.reshape(bshape)
+        var = group_sum(torch.sum(centred * centred, dim=axes), group) / n
     dt = x.dtype
     inv = gamma.to(dt).reshape(bshape) * (
         1.0 / torch.sqrt(var.to(dt).reshape(bshape) + eps))

@@ -206,6 +206,22 @@ def pvary(x: torch.Tensor, axis_name: str, mesh=None) -> torch.Tensor:
     return x if group is None else _PVary.apply(x, group)
 
 
+def group_sum(x: torch.Tensor, group, scale: float = 1.0) -> torch.Tensor:
+    """The sum (times ``scale``) over the ranks of a process ``group``
+    of an ``x`` each rank computed from its own rows of a split batch,
+    on every rank: ``psum`` of ``pvary``, so the backward adds the ranks'
+    cotangents (times ``scale``), and the trainer's gradient mean over
+    the ranks gives the global batch's gradient."""
+    return _PSum.apply(_PVary.apply(x, group), group, scale)
+
+
+def group_mean(x: torch.Tensor, group) -> torch.Tensor:
+    """:func:`group_sum` over the group's size: the mean over its ranks,
+    whose backward is the mean of the ranks' cotangents."""
+    import torch.distributed as dist
+    return group_sum(x, group, 1.0 / dist.get_world_size(group))
+
+
 def _gather(x, group, n: int, dim: int):
     import torch.distributed as dist
     x = x.contiguous()
@@ -270,4 +286,5 @@ def axis_slice(x: torch.Tensor, axis_name: str, dim: int = 0,
 
 
 __all__ = ["axis_size", "axis_index", "ppermute", "all_to_all", "psum",
-           "pmean", "pvary", "all_gather", "axis_slice"]
+           "pmean", "pvary", "group_sum", "group_mean", "all_gather",
+           "axis_slice"]

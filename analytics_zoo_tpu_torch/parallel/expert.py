@@ -22,6 +22,18 @@ nothing reads back to the host, so a decode step through it can be
 captured in a CUDA graph.  :func:`switch_moe_plain` is the dense
 formulation, the plain version the tests hold it to.
 
+Data parallelism (``group``, the process group of the data axes while
+the Trainer's plan splits the batch): the experts are replicated and
+no token moves, but routing is the global batch's, as the JAX package
+routes the whole batch under ``jit``.  Each rank all-gathers its
+per-expert token counts (E integers); a token is kept when its
+rank-major global position in its expert's queue (the earlier ranks'
+counts plus its own position) is below the capacity of the global token
+count, the order :func:`switch_moe` gives the concatenated batch.  The
+aux loss takes ``f`` and ``p`` as means over the ranks before their
+product; ``p``'s backward is the mean of the ranks' cotangents, so that
+the trainer's gradient mean gives the global loss's gradient.
+
 Expert parallelism (:func:`moe_sharded`): experts split over the
 ``expert`` mesh axis, tokens too; each rank routes its tokens against
 every expert, an all_to_all ships the dispatched blocks to the experts'
@@ -37,8 +49,8 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..core.module import promote
-from ._compat import (all_gather, all_to_all, axis_size, axis_slice, pmean,
-                      pvary)
+from ._compat import (all_gather, all_to_all, axis_size, axis_slice,
+                      group_mean, pmean, pvary)
 
 
 class MoEParams(NamedTuple):
@@ -97,7 +109,22 @@ class Routing(NamedTuple):
     p: torch.Tensor
 
 
-def _route(x, gate_w, n_experts: int, capacity: int) -> Routing:
+def _queue_offsets(counts, group):
+    """Each expert's tokens on the ranks before this one (rank-major over
+    ``group``): an all-gather of every rank's (E,) counts."""
+    import torch.distributed as dist
+    every = [torch.empty_like(counts)
+             for _ in range(dist.get_world_size(group))]
+    dist.all_gather(every, counts, group=group)
+    me = dist.get_group_rank(group, dist.get_rank())
+    offset = torch.zeros_like(counts)
+    for c in every[:me]:
+        offset = offset + c
+    return offset
+
+
+def _route(x, gate_w, n_experts: int, capacity: int,
+           group=None) -> Routing:
     a, w = promote(x, gate_w)
     probs = torch.softmax((a @ w).float(), dim=-1)          # (T, E)
     expert = torch.argmax(probs, dim=-1)                    # (T,)
@@ -106,10 +133,17 @@ def _route(x, gate_w, n_experts: int, capacity: int) -> Routing:
     # queue positions in exact integer arithmetic
     position = (torch.cumsum(one_hot, dim=0) - 1).gather(
         1, expert[:, None])[:, 0]
-    return Routing(expert=expert, position=position,
-                   keep=position < capacity,
-                   gate=probs.gather(1, expert[:, None])[:, 0],
-                   f=one_hot.float().mean(dim=0), p=probs.mean(dim=0))
+    f, p = one_hot.float().mean(dim=0), probs.mean(dim=0)
+    if group is None:
+        keep = position < capacity
+    else:
+        # the position in the global batch's queue decides; the local
+        # one stays the token's row in this rank's expert blocks
+        offset = _queue_offsets(one_hot.sum(dim=0), group)
+        keep = position + offset.gather(0, expert) < capacity
+        f, p = group_mean(f, group), group_mean(p, group)
+    return Routing(expert=expert, position=position, keep=keep,
+                   gate=probs.gather(1, expert[:, None])[:, 0], f=f, p=p)
 
 
 def _apply_experts(blocks, w1, b1, w2, b2):
@@ -126,13 +160,20 @@ def _capacity(t: int, n_experts: int, capacity_factor: float,
 
 
 def switch_moe(x, params: MoEParams, capacity_factor: float = 1.25,
-               capacity: Optional[int] = None):
+               capacity: Optional[int] = None, group=None):
     """x (tokens, d_model) -> (out, aux_loss), dispatched by index.
-    Dropped (over-capacity) tokens give 0: add the residual outside."""
+    Dropped (over-capacity) tokens give 0: add the residual outside.
+    ``group``: ``x`` is this rank's block of a batch split over the
+    group's ranks, each holding as many tokens; routing, capacity and
+    the aux loss are the global batch's (module docstring)."""
     t, d = x.shape
     n_experts = params.gate.shape[-1]
+    if capacity is None and group is not None:
+        import torch.distributed as dist
+        capacity = expert_capacity(t * dist.get_world_size(group),
+                                   n_experts, capacity_factor)
     c = _capacity(t, n_experts, capacity_factor, capacity)
-    r = _route(x, params.gate, n_experts, c)
+    r = _route(x, params.gate, n_experts, c, group)
     aux = n_experts * torch.sum(r.f * r.p)
     outs = _apply_experts(_dispatch(x, r, n_experts, c), params.w1,
                           params.b1, params.w2, params.b2)

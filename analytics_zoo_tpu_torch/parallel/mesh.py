@@ -234,3 +234,36 @@ def get_default_mesh(device=None):
     if _DEFAULT_MESH is None:
         _DEFAULT_MESH = create_mesh(device=device)
     return _DEFAULT_MESH
+
+
+_BATCH_GROUP = None
+
+
+class batch_split:
+    """Context manager marking that the model runs on this rank's rows of
+    a batch split over ``group`` (the process group of the data axes; the
+    Trainer's step, ``evaluate`` and ``predict`` set it while their plan
+    splits the batch).  The layers whose result depends on the whole
+    batch reduce over it, as the JAX package's do under ``jit`` on the
+    global batch: BatchNormalization's training statistics and
+    SwitchMoE's routing.  ``None`` (one device, or no plan): no
+    collective."""
+
+    def __init__(self, group):
+        self.group = group
+
+    def __enter__(self):
+        global _BATCH_GROUP
+        self._prev = _BATCH_GROUP
+        _BATCH_GROUP = self.group
+        return self.group
+
+    def __exit__(self, *exc):
+        global _BATCH_GROUP
+        _BATCH_GROUP = self._prev
+        return False
+
+
+def batch_group():
+    """The process group the running batch is split over, or None."""
+    return _BATCH_GROUP

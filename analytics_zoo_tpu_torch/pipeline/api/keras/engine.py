@@ -110,12 +110,18 @@ class KerasNet(Layer):
                               "metrics": list(metrics)}
         return self
 
-    def set_tensorboard(self, log_dir: str, app_name: str):
+    def set_tensorboard(self, log_dir: str, app_name: str,
+                        profile: bool = False, profile_steps: int = 10):
         """Write training and validation scalars under
-        ``<log_dir>/<app_name>``; takes effect now or at compile."""
-        self._tensorboard = (log_dir, app_name)
+        ``<log_dir>/<app_name>``; ``profile=True`` also captures one
+        ``torch.profiler`` trace a fit, of its first ``profile_steps``
+        steps (``Trainer.set_tensorboard``).  Takes effect now or at
+        compile."""
+        self._tensorboard = (log_dir, app_name, profile, profile_steps)
         if self.trainer is not None:
-            self.trainer.set_tensorboard(log_dir, app_name)
+            self.trainer.set_tensorboard(log_dir, app_name,
+                                         profile=profile,
+                                         profile_steps=profile_steps)
             self._apply_summary_triggers()
 
     def set_summary_trigger(self, tag: str, trigger):
@@ -274,7 +280,12 @@ class KerasNet(Layer):
 
     def predict(self, x, batch_size: int = 32):
         """Forward ``x`` in batches without dropout; numpy out (a list for
-        several outputs).  Needs no compile."""
+        several outputs).  Needs no compile.  A model compiled on a mesh
+        predicts through its trainer (``Trainer.predict``: ``batch_size``
+        is global, and the layers that see the whole batch see the
+        global one, as in the JAX package)."""
+        if self.trainer is not None and self.trainer.mesh is not None:
+            return self.trainer.predict(x, batch_size)
         return predict_batches(self, x, batch_size)
 
     def to_serving(self, supported_concurrent_num: int = 1,
@@ -384,6 +395,38 @@ class KerasNet(Layer):
         text = "\n".join(lines)
         print(text)
         return text
+
+    def save_graph_topology(self, log_path: str) -> str:
+        """Write the model's graph topology under ``log_path`` (the
+        reference's ``saveGraphTopology``, Topology.scala:536-546):
+        ``graph_topology.txt`` (each node and its inputs, with shapes, in
+        topological order) and ``graph_topology.dot`` (Graphviz; render
+        with ``dot -Tpng``), as the JAX package writes them.  Returns
+        ``log_path``."""
+        graph = self.to_graph()
+        os.makedirs(log_path, exist_ok=True)
+
+        def _label(v):
+            kind = ("Input" if isinstance(v.layer, InputLayer)
+                    else type(v.layer).__name__)
+            return f"{v.name} [{kind}] {tuple(v.shape) if v.shape else ''}"
+
+        lines = [f"model: {self.name}", ""]
+        for v in graph.nodes:
+            src = ", ".join(i.name for i in v.inputs) or "(graph input)"
+            lines.append(f"{_label(v)}  <-  {src}")
+        with open(os.path.join(log_path, "graph_topology.txt"), "w") as f:
+            f.write("\n".join(lines) + "\n")
+        dot = ["digraph model {", "  rankdir=TB;",
+               '  node [shape=box, fontsize=10];']
+        for v in graph.nodes:
+            dot.append(f'  n{v.node_id} [label="{_label(v)}"];')
+            for i in v.inputs:
+                dot.append(f"  n{i.node_id} -> n{v.node_id};")
+        dot.append("}")
+        with open(os.path.join(log_path, "graph_topology.dot"), "w") as f:
+            f.write("\n".join(dot) + "\n")
+        return log_path
 
     # ---- persistence ----
     def save_model(self, path: str, over_write: bool = True):

@@ -9,7 +9,11 @@ active mesh (the one ``compile(mesh=...)`` hands the trainer) has an
 ``expert`` axis of size > 1 that divides the expert and token counts,
 the layer runs expert-parallel (:func:`moe_sharded`); an expert axis it
 cannot use is recorded in :data:`EXPERT_FALLBACKS` with the reason, and
-the layer runs replicated.  Input (batch, seq, d_model) or (batch, d_model); the output has
+the layer runs replicated.  Replicated while the Trainer's plan splits
+the batch over the data axes (``parallel.mesh.batch_group``), the
+capacity, the routing and the aux loss are the global batch's, as the
+JAX package routes the whole batch under ``jit``; no token moves
+between ranks.  Input (batch, seq, d_model) or (batch, d_model); the output has
 its shape, with the input added when ``residual`` (so dropped tokens
 pass through unchanged).
 
@@ -24,7 +28,6 @@ layer state holds it.
 
 from __future__ import annotations
 
-import logging
 from typing import Optional
 
 import torch
@@ -34,12 +37,13 @@ from .....core.module import Layer, register_layer
 from .....parallel.expert import (MoEParams, expert_capacity,
                                   init_moe_params, moe_sharded, switch_moe)
 from ..regularizers import add_penalty
+from .....observability.log import get_logger
 
 #: layer name -> reason, for every SwitchMoE that ran replicated although
 #: the active mesh has an expert axis (a silent cost otherwise); the
 #: strategy report shows it, ``clear_fallback_log`` resets it
 EXPERT_FALLBACKS: dict = {}
-_log = logging.getLogger("analytics_zoo_tpu_torch.moe")
+_log = get_logger("analytics_zoo_tpu_torch.moe")
 
 
 def clear_fallback_log():
@@ -48,9 +52,9 @@ def clear_fallback_log():
 
 def _note_fallback(name: str, reason: str):
     if name not in EXPERT_FALLBACKS:
-        _log.warning("SwitchMoE %s: expert mesh axis present but not "
-                     "usable (%s): running replicated, every rank "
-                     "computes every expert", name, reason)
+        _log.warning("SwitchMoE: expert mesh axis present but not usable: "
+                     "running replicated, every rank computes every "
+                     "expert", layer=name, reason=reason)
     EXPERT_FALLBACKS[name] = reason
 
 
@@ -88,7 +92,8 @@ class SwitchMoE(Layer):
         return MoEParams(*(getattr(self, k) for k in MoEParams._fields))
 
     def forward(self, x):
-        from .....parallel.mesh import axis_sizes, get_active_mesh
+        from .....parallel.mesh import (axis_sizes, batch_group,
+                                        get_active_mesh)
         flat = x.reshape(-1, x.shape[-1])
         mesh = get_active_mesh()
         esize = axis_sizes(mesh).get("expert", 1)
@@ -104,9 +109,15 @@ class SwitchMoE(Layer):
                     f"the axis size {esize}" if self.n_experts % esize
                     else f"token count {flat.shape[0]} is not divisible "
                     f"by the axis size {esize}")
-            cap = expert_capacity(flat.shape[0], self.n_experts,
-                                  self.capacity_factor)
-            out, aux = switch_moe(flat, self.moe_params(), capacity=cap)
+            group = batch_group()
+            if group is None:
+                cap = expert_capacity(flat.shape[0], self.n_experts,
+                                      self.capacity_factor)
+                out, aux = switch_moe(flat, self.moe_params(), capacity=cap)
+            else:
+                out, aux = switch_moe(flat, self.moe_params(),
+                                      capacity_factor=self.capacity_factor,
+                                      group=group)
         aux = self.aux_weight * aux
         add_penalty(aux)
         if self.training:

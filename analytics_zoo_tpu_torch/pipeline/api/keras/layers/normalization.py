@@ -6,7 +6,9 @@ normalization.py``.
 
 BatchNormalization keeps its moving statistics and their update count as
 layer state (buffers ``moving_mean``, ``moving_var``, ``count``, f32 at
-any compute dtype).  In training mode it normalizes with the batch
+any compute dtype).  While the Trainer's plan splits the batch over the
+data axes, the training statistics are the global batch's
+(``parallel.mesh.batch_group``), so every rank's state is the same.  In training mode it normalizes with the batch
 statistics of :func:`~analytics_zoo_tpu_torch.ops.batchnorm.
 batch_norm_train` (closed-form backward) and updates the state in place:
 ``moving = momentum*moving + (1-momentum)*batch`` with the biased
@@ -38,6 +40,7 @@ import torch.nn.functional as F
 from .....core import shapes as shape_utils
 from .....core.module import Layer, register_layer
 from .....ops import batchnorm as bn_ops
+from .....parallel.mesh import batch_group
 from .convolutional import channels_first_view, pad_spatial
 from .pooling import same_window_counts, window_sums
 
@@ -80,7 +83,7 @@ class BatchNormalization(Layer):
             bn_fn = (bn_ops.batch_norm_train_naive if bn_ops.USE_NAIVE
                      else bn_ops.batch_norm_train)
             out, mean, var = bn_fn(x, self.gamma, self.beta, self.epsilon,
-                                   ch_axis)
+                                   ch_axis, group=batch_group())
             m = self.momentum
             with torch.no_grad():
                 self.moving_mean.copy_(m * self.moving_mean + (1 - m) * mean)

@@ -47,6 +47,16 @@ request never waits on a long neighbour.
   verifies the proposals with a k-query ``_decode_window``; accepted
   proposals emit up to ``spec_tokens`` tokens a dispatch.
 
+* **Tracing.**  A request submitted with a span (``observability/
+  trace.py``) carries it to the dispatcher thread: ``decode_wait``
+  opens on the caller's thread, the dispatcher marks ``prefill`` at
+  admission (activating the span there, so that a kernel build lands in
+  its trace) and ``decode_step`` from then until eviction, and labels
+  ``decode_bucket`` and ``decode_slot`` from the host integers it holds.
+  Phases are marked around graph replays, never inside a capture, and
+  nothing waits for the device to fill them.  Every capture is reported
+  to ``observability/profile.py`` as a compile.
+
 The decode math is :mod:`analytics_zoo_tpu_torch.models.generation`'s.
 """
 
@@ -66,6 +76,8 @@ import torch
 from ...models.generation import (_decode_step, _decode_window,
                                   _embed_token, _head_logits, _prefill,
                                   _prefill_ext)
+from ...observability import profile as _profile
+from ...observability import trace as _trace
 from .serving import bucket_ladder
 
 _M32 = 0xFFFFFFFF
@@ -217,14 +229,17 @@ class TokenStream:
 
 class _DecodeRequest:
     # ``scheduled`` counts tokens covered by dispatched (possibly not yet
-    # processed) steps: the pipelined loop plans fused windows from it
+    # processed) steps: the pipelined loop plans fused windows from it.
+    # ``span`` is the explicit cross-thread trace handoff (as the
+    # coalescer's _Request): the dispatcher marks its phases directly
     __slots__ = ("prompt", "length", "bucket", "max_new", "eos_id",
-                 "stream", "produced", "scheduled", "temperature", "top_k",
-                 "top_p", "seed")
+                 "stream", "span", "produced", "scheduled", "temperature",
+                 "top_k", "top_p", "seed")
 
     def __init__(self, prompt: np.ndarray, length: int, bucket: int,
                  max_new: int, eos_id: Optional[int], stream: TokenStream,
-                 temperature: float = 0.0, top_k: Optional[int] = None,
+                 span=None, temperature: float = 0.0,
+                 top_k: Optional[int] = None,
                  top_p: Optional[float] = None, seed: int = 0):
         self.prompt = prompt
         self.length = length
@@ -232,6 +247,7 @@ class _DecodeRequest:
         self.max_new = max_new
         self.eos_id = eos_id
         self.stream = stream
+        self.span = span
         self.produced = 0
         self.scheduled = 0
         self.temperature = temperature
@@ -590,8 +606,12 @@ class DecodeEngine:
     def _make_plan(self, body, outputs) -> _Plan:
         plan = _Plan(body, outputs)
         if self._cuda:
+            t0 = time.perf_counter()
             plan.build(self._pool, self._stream)
             self._counters["captures"] += 1
+            # the port's compile: counted by the profile hooks
+            _profile.note_compile(time.perf_counter() - t0,
+                                  "cuda_graph_capture")
         self._counters["plans_built"] += 1
         return plan
 
@@ -850,15 +870,17 @@ class DecodeEngine:
         return prompt, L, self.bucket_for(L), max_new, samp
 
     def submit(self, prompt_ids, max_new_tokens: int,
-               eos_id: Optional[int] = None, temperature: float = 0.0,
-               top_k: Optional[int] = None, top_p: Optional[float] = None,
+               eos_id: Optional[int] = None, span=None,
+               temperature: float = 0.0, top_k: Optional[int] = None,
+               top_p: Optional[float] = None,
                seed: int = 0) -> TokenStream:
         """Queue one prompt (1-D ids, or a (1, L) row); returns its
         :class:`TokenStream` at once.  Decoding stops at EOS (``eos_id``
         overrides the engine's; included in the stream) or after
         ``max_new_tokens``.  ``temperature`` > 0 samples (top-k/top-p
         cut) from the request's (seed, token index) stream: the same
-        request replays the same tokens at any occupancy."""
+        request replays the same tokens at any occupancy.  ``span`` (the
+        request's trace span) rides the request to the dispatcher."""
         prompt, L, bucket, max_new, samp = self._validate(
             prompt_ids, max_new_tokens, temperature, top_k, top_p, seed)
         padded = np.zeros((1, bucket), np.int32)
@@ -867,10 +889,14 @@ class DecodeEngine:
             self._next_id += 1
             rid = self._next_id
         stream = TokenStream(rid)
+        if span is not None:
+            # opened on the caller's thread: the queue, until the
+            # dispatcher starts this request's prefill
+            span.phase_start("decode_wait")
         req = _DecodeRequest(padded, L, bucket, max_new,
                              self.eos_id if eos_id is None else eos_id,
-                             stream, temperature=samp[0], top_k=samp[1],
-                             top_p=samp[2], seed=samp[3])
+                             stream, span, temperature=samp[0],
+                             top_k=samp[1], top_p=samp[2], seed=samp[3])
         with self._submit_lock:
             if self.closed:
                 raise DecodeEngineClosedError(
@@ -885,14 +911,16 @@ class DecodeEngine:
         return stream
 
     def generate(self, prompts, max_new_tokens, eos_id=None,
-                 timeout: Optional[float] = None,
+                 timeout: Optional[float] = None, span=None,
                  temperature: float = 0.0, top_k: Optional[int] = None,
                  top_p: Optional[float] = None,
                  seed=0) -> List[np.ndarray]:
         """Blocking :meth:`submit` of a batch (a (B, L) array, or a list
         of ragged 1-D rows): each row's continuation (1-D int32).
         ``max_new_tokens`` and ``seed`` may be per row.  Every row is
-        validated before the first is queued."""
+        validated before the first is queued.  ``span`` rides the
+        request when there is exactly one row (a span has one owner at a
+        time; several rows would interleave its phases)."""
         rows = ([np.asarray(prompts[i]) for i in range(len(prompts))]
                 if isinstance(prompts, (list, tuple))
                 else [r for r in np.asarray(prompts)])
@@ -915,6 +943,7 @@ class DecodeEngine:
         for r, m, s in zip(rows, max_news, seeds):
             self._validate(r, m, temperature, top_k, top_p, s)
         streams = [self.submit(r, m, eos_id=eos_id,
+                               span=span if len(rows) == 1 else None,
                                temperature=temperature, top_k=top_k,
                                top_p=top_p, seed=s)
                    for (r, m, s) in zip(rows, max_news, seeds)]
@@ -949,6 +978,8 @@ class DecodeEngine:
             while True:
                 r = self._q.get_nowait()
                 if r is not _SHUTDOWN:
+                    if r.span is not None:
+                        r.span.phase_end()
                     r.stream._finish(exc)
         except queue.Empty:
             pass
@@ -972,11 +1003,18 @@ class DecodeEngine:
         """Admit one queued request into ``slot``: prefill (pooled when
         eligible), stream the first token, and activate the slot, or
         finish the request at once when that token ends it."""
-        if (self._prefix_pool is not None
-                and req.length >= self.prompt_buckets[0]):
-            tok0 = self._admit_prefix(req, slot)
-        else:
-            tok0 = self._admit_monolithic(req, slot)
+        span = req.span
+        if span is not None:
+            span.phase_start("prefill")
+        # the span is active across the prefill, so that a kernel build
+        # there lands in its trace
+        with (_trace.activate(span) if span is not None
+              else contextlib.nullcontext()):
+            if (self._prefix_pool is not None
+                    and req.length >= self.prompt_buckets[0]):
+                tok0 = self._admit_prefix(req, slot)
+            else:
+                tok0 = self._admit_monolithic(req, slot)
         self._counters["prefills"] += 1
         self._counters["admitted"] += 1
         self._counters["tokens"] += 1
@@ -985,12 +1023,20 @@ class DecodeEngine:
         req.produced = 1
         req.scheduled = 1
         req.stream._push(tok0)
+        if span is not None:
+            span.set_label("decode_bucket", req.bucket)
+            span.set_label("decode_slot", slot)
         if (req.produced >= req.max_new
                 or (req.eos_id is not None and tok0 == req.eos_id)):
+            if span is not None:
+                span.phase_end()
             self._counters["evicted"] += 1
             req.stream._finish()
             self._free.append(slot)
             return
+        if span is not None:
+            # one phase for the whole shared-step participation
+            span.phase_start("decode_step")
         self._slots[slot] = req
         self._occupancy += 1
 
@@ -1062,6 +1108,8 @@ class DecodeEngine:
                 if (req.produced >= req.max_new
                         or (req.eos_id is not None
                             and tok == req.eos_id)):
+                    if req.span is not None:
+                        req.span.phase_end()
                     self._counters["evicted"] += 1
                     self._occupancy -= 1
                     req.stream._finish()
@@ -1105,6 +1153,8 @@ class DecodeEngine:
             self._flush_queue(e)
             for slot, req in enumerate(self._slots):
                 if req is not None:
+                    if req.span is not None:
+                        req.span.phase_end()
                     req.stream._finish(e)
                     self._slots[slot] = None
             self._occupancy = 0

@@ -18,6 +18,13 @@ named '<arch>-quantize') serves the model's int8 twin
 (:meth:`KerasNet.quantize`) on the exact-shape path, as the JAX package
 does.  Replicas, hedging, sharded meshes, the executable store and the
 TF/graph/JAX import paths are not ported (see ROADMAP.md).
+
+Tracing: ``predict``, ``generate`` and ``generate_stream`` read the
+caller's current span once (``observability.trace.current_span``; one
+flag check while nothing traces) and hand it on: the exact path marks
+``device_put -> execute``, the bucketed path ``pad -> device_put ->
+execute -> depad`` (after ``coalesce_wait`` through the coalescer), and
+the decode engine's thread ``decode_wait -> prefill -> decode_step``.
 """
 
 from __future__ import annotations
@@ -28,6 +35,8 @@ from typing import Any, Optional, Sequence
 import numpy as np
 import torch
 
+from ...observability import profile as _profile
+from ...observability import trace as _trace
 from .decode import DecodeEngine
 from .serving import (BucketedExecutableCache, CoalescerClosedError,
                       RequestCoalescer, _rows, fetch_rows, to_device)
@@ -320,7 +329,8 @@ class InferenceModel:
         ``max_new_tokens`` and ``seed`` may be per row."""
         return self._require_engine().generate(
             prompt_ids, max_new_tokens, eos_id=eos_id, timeout=timeout,
-            temperature=temperature, top_k=top_k, top_p=top_p, seed=seed)
+            span=_trace.current_span(), temperature=temperature,
+            top_k=top_k, top_p=top_p, seed=seed)
 
     def generate_stream(self, prompt_ids, max_new_tokens: int,
                         eos_id: Optional[int] = None,
@@ -332,7 +342,8 @@ class InferenceModel:
         ``.result()`` for the whole continuation."""
         return self._require_engine().submit(
             prompt_ids, max_new_tokens, eos_id=eos_id,
-            temperature=temperature, top_k=top_k, top_p=top_p, seed=seed)
+            span=_trace.current_span(), temperature=temperature,
+            top_k=top_k, top_p=top_p, seed=seed)
 
     def close(self):
         """Stop the coalescer and decode dispatcher threads."""
@@ -356,21 +367,32 @@ class InferenceModel:
         if fastpath is None:
             raise RuntimeError("InferenceModel: no model loaded")
         predict_fn, cache, coalescer, device = fastpath
+        # the whole cost of tracing when off is this one read; every
+        # phase call below checks span is None
+        span = _trace.current_span()
         batched, single, jtensor = self._normalize(inputs)
         if cache is None:
             with self._semaphore, torch.no_grad():
-                dev = predict_fn(to_device(batched, device))
+                if span is not None:
+                    span.phase_start("device_put")
+                xb = to_device(batched, device)
+                _profile.note_transfer("h2d")
+                if span is not None:
+                    span.phase_start("execute")
+                dev = predict_fn(xb)
             out = fetch_rows(dev, _rows(batched))
+            if span is not None:
+                span.phase_end()
         else:
             out = None
             if (coalescer is not None and not coalescer.closed
                     and _rows(batched) <= cache.max_batch):
                 try:
-                    out = coalescer.submit(batched).result()
+                    out = coalescer.submit(batched, span=span).result()
                 except CoalescerClosedError:
                     out = None  # closed between the check and the submit
             if out is None:
-                out = cache.run(batched, sem=self._semaphore)
+                out = cache.run(batched, sem=self._semaphore, span=span)
         if jtensor:
             tensors = [JTensor.from_ndarray(o) for o in out]
             return tensors[0] if single else tensors

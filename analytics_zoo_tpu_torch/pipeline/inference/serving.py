@@ -17,6 +17,17 @@ Counterpart of the single-device part of
   (``_StagingArena``), pinned on a CUDA device so that the upload is a
   non-blocking copy.
 
+Tracing (``observability/trace.py``): a request's span, when it has one,
+records ``pad -> device_put -> execute -> depad`` (once per chunk of an
+oversized batch) and, through the coalescer, ``coalesce_wait`` first;
+the coalescer's pending request carries the span across to the
+dispatcher thread, which activates the group's lead span around a
+bucket's first run so that a compile-like event there (a kernel build)
+lands in that request's trace.  The phases time the host: ``execute``
+runs from the dispatch to the end of the blocking fetch.  Without a span
+each site costs one ``None`` check; nothing waits for the device to fill
+a phase or a label.
+
 Padding safety: rows are independent in an inference forward (no batch
 statistics, row-wise softmax), so filler rows cannot perturb real rows,
 and a coalesced row equals a solo row run at the same bucket bit for
@@ -38,6 +49,13 @@ import numpy as np
 import torch
 
 from ...common.context import resolve_device
+from ...common.utils import pad_leading
+from ...observability import profile as _profile
+from ...observability import trace as _trace
+
+
+#: the context of a dispatch that activates no span (reusable)
+_UNTRACED = contextlib.nullcontext()
 
 
 def bucket_ladder(max_batch: int, growth: float = 2.0,
@@ -71,21 +89,6 @@ def _rows(batched) -> int:
 
 def _slice_rows(tree, start: int, stop: int):
     return _map(lambda a: a[start:stop], tree)
-
-
-def _pad_rows(batch, pad: int):
-    """Zero-pad the leading axis of every array of ``batch`` by ``pad``
-    rows, keeping the dtype (integer ids stay integer)."""
-    if pad == 0:
-        return batch
-
-    def one(a):
-        a = np.asarray(a)
-        return np.pad(a, [(0, pad)] + [(0, 0)] * (a.ndim - 1))
-
-    if isinstance(batch, (tuple, list)):
-        return tuple(one(a) for a in batch)
-    return one(batch)
 
 
 def _concat_trees(trees: Sequence):
@@ -188,14 +191,28 @@ class BucketedExecutableCache:
                 self.stats.hits[bucket] = self.stats.hits.get(bucket, 0) + 1
         return fresh
 
-    def _dispatch(self, batched, bucket: int):
+    def _dispatch(self, batched, bucket: int, spans: Sequence = ()):
         """Run one exactly-bucket-sized padded host batch; returns the
         device results without fetching them.  A bucket's first run is
-        its build: it is synchronised and timed."""
+        its build: it is synchronised and timed.  ``spans`` (the riders'
+        trace spans) get the bucket as a label and the ``device_put ->
+        execute`` phases; ``execute`` stays open until the owner's
+        ``depad``."""
         fresh = self._note_lookup(bucket, batch_signature(batched))
+        for s in spans:
+            s.set_label("bucket", bucket)
+            s.phase_start("device_put")
         t0 = time.perf_counter()
-        with torch.no_grad():
-            out = self._fn(to_device(batched, self.device))
+        batched = to_device(batched, self.device)
+        _profile.note_transfer("h2d")
+        for s in spans:
+            s.phase_start("execute")
+        # the dispatcher thread has no span of its own: a bucket's first
+        # run activates the lead span, so that a build there lands in the
+        # trace of the request that paid for it
+        with torch.no_grad(), (_trace.activate(spans[0])
+                               if fresh and spans else _UNTRACED):
+            out = self._fn(batched)
         if fresh:
             if self.device.type == "cuda":
                 torch.cuda.current_stream(self.device).synchronize()
@@ -205,19 +222,23 @@ class BucketedExecutableCache:
                     self.stats.build_time_s.get(bucket, 0.0) + secs
         return out
 
-    def run(self, batched, sem: Optional[threading.Semaphore] = None):
+    def run(self, batched, sem: Optional[threading.Semaphore] = None,
+            span=None):
         """Serve one host batch of any row count; returns host numpy
         results with the padding rows removed.  ``sem`` (the owner's
-        device-concurrency bound) is held around the dispatch only."""
+        device-concurrency bound) is held around the dispatch only.
+        ``span`` (the request's trace span) records ``pad -> device_put
+        -> execute -> depad``, once per chunk of an oversized batch."""
         guard = sem if sem is not None else contextlib.nullcontext()
+        spans = (span,) if span is not None else ()
         n = _rows(batched)
         if n == 0:
             # run the smallest bucket and keep zero rows: the output
             # structure holds for empty inputs too
             with guard:
-                out = self._dispatch(_pad_rows(batched, self.buckets[0]),
-                                     self.buckets[0])
-            return fetch_rows(out, 0)
+                out = self._dispatch(pad_leading(batched, self.buckets[0]),
+                                     self.buckets[0], spans)
+            return fetch_rows(out, 0, span=span)
         outs = []
         start = 0
         while start < n:
@@ -225,24 +246,31 @@ class BucketedExecutableCache:
             chunk = _slice_rows(batched, start, start + take) \
                 if (start or take < n) else batched
             bucket = self.bucket_for(take)
+            if span is not None:
+                span.phase_start("pad")
+            padded = pad_leading(chunk, bucket - take)
             with guard:
-                out = self._dispatch(_pad_rows(chunk, bucket - take), bucket)
-            outs.append(fetch_rows(out, take))
+                out = self._dispatch(padded, bucket, spans)
+            outs.append(fetch_rows(out, take, span=span))
             start += take
         return _concat_trees(outs)
 
-    def dispatch_padded(self, batched):
+    def dispatch_padded(self, batched, spans: Sequence = ()):
         """Pad to the bucket and dispatch, returning the device results
         without fetching them (the card computes while the caller
         gathers the next batch; :func:`fetch_rows` later).  One bucket
-        only: rows must fit ``max_batch``."""
+        only: rows must fit ``max_batch``.  ``spans`` get the ``pad``
+        phase and :meth:`_dispatch`'s."""
         n = _rows(batched)
         if n > self.max_batch:
             raise ValueError(
                 f"dispatch_padded: {n} rows exceed the top bucket "
                 f"{self.max_batch}; use run() for chunked serving")
         bucket = self.bucket_for(max(n, 1))
-        return self._dispatch(_pad_rows(batched, bucket - n), bucket)
+        for s in spans:
+            s.phase_start("pad")
+        return self._dispatch(pad_leading(batched, bucket - n), bucket,
+                              spans)
 
     def warmup(self, sample_shapes, dtypes=None) -> float:
         """Run every bucket of the ladder once for one input signature:
@@ -266,13 +294,21 @@ class BucketedExecutableCache:
         return time.perf_counter() - t0
 
 
-def fetch_rows(device_tree, n: int):
+def fetch_rows(device_tree, n: int, span=None):
     """Fetch dispatched device results to the host (the blocking copy
     waits for the computation) and strip the padding rows.  CPU results
-    are copied: they may alias a staging buffer that is reused."""
+    are copied: they may alias a staging buffer that is reused.  With a
+    ``span`` the fetch closes the open ``execute`` phase: ``depad``
+    starts once the bytes are on the host."""
     host = _map(lambda t: (t.cpu() if t.is_cuda else t.clone()).numpy(),
                 device_tree)
-    return _slice_rows(host, 0, n)
+    _profile.note_transfer("d2h")
+    if span is not None:
+        span.phase_start("depad")
+    out = _slice_rows(host, 0, n)
+    if span is not None:
+        span.phase_end()
+    return out
 
 
 class _StagingArena:
@@ -352,13 +388,17 @@ class _StagingArena:
 
 
 class _Request:
-    __slots__ = ("batched", "n", "sig", "future")
+    # ``span`` is the explicit cross-thread trace handoff: contextvars do
+    # not reach the dispatcher thread (started before this request
+    # existed), so the pending request carries its span
+    __slots__ = ("batched", "n", "sig", "future", "span")
 
-    def __init__(self, batched, n, sig):
+    def __init__(self, batched, n, sig, span=None):
         self.batched = batched
         self.n = n
         self.sig = sig
         self.future: Future = Future()
+        self.span = span
 
 
 _SHUTDOWN = object()
@@ -436,13 +476,19 @@ class RequestCoalescer:
         with self._out_lock:
             return self._outstanding
 
-    def submit(self, batched) -> Future:
+    def submit(self, batched, span=None) -> Future:
+        """Queue one request; its Future resolves to its rows.  ``span``
+        (the request's trace span) opens ``coalesce_wait`` here, on the
+        caller's thread: the queue and the gathering, until the
+        dispatcher starts the group's ``pad``."""
         n = _rows(batched)
         if n > self.max_batch:
             raise ValueError(
                 f"coalesced request of {n} rows exceeds max_batch "
                 f"{self.max_batch}; send it through the solo path")
-        req = _Request(batched, n, batch_signature(batched))
+        if span is not None:
+            span.phase_start("coalesce_wait")
+        req = _Request(batched, n, batch_signature(batched), span)
         with self._submit_lock:
             if self.closed:
                 raise CoalescerClosedError(
@@ -559,12 +605,15 @@ class RequestCoalescer:
         (group, rows, device results) or None when the dispatch failed
         (its callers already failed)."""
         try:
+            spans = tuple(r.span for r in group if r.span is not None)
+            for s in spans:
+                s.phase_start("pad")  # ends coalesce_wait; the staging
             n = sum(r.n for r in group)
             bucket = self._cache.bucket_for(max(n, 1))
             batched = self._arena.pack(group, bucket)
             self._acquire_slot(inflight)
             try:
-                dev = self._cache.dispatch_padded(batched)
+                dev = self._cache.dispatch_padded(batched, spans)
             except BaseException:
                 if self._sem is not None:
                     self._sem.release()
@@ -595,13 +644,24 @@ class RequestCoalescer:
         try:
             off = 0
             for r in group:
+                if r.span is not None:
+                    if err is None:
+                        r.span.phase_start("depad")
+                    else:
+                        r.span.phase_end()
+                if err is None:
+                    rows = _slice_rows(out, off, off + r.n)
+                    off += r.n
+                    if r.span is not None:
+                        # closed before the caller wakes: the wake-up
+                        # reads as the span's tail, not as depad
+                        r.span.phase_end()
                 if r.future.done():  # close() may have raced us
                     continue
                 if err is None:
-                    r.future.set_result(_slice_rows(out, off, off + r.n))
+                    r.future.set_result(rows)
                 else:
                     r.future.set_exception(err)
-                off += r.n
         finally:
             if self._sem is not None:
                 self._sem.release()

@@ -39,7 +39,6 @@ from __future__ import annotations
 import atexit
 import hashlib
 import json
-import logging
 import os
 import re
 import threading
@@ -49,11 +48,12 @@ from typing import Any, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..observability.log import get_logger
 from ..parallel import distributed as dist_lib
 from . import faults
 from . import metrics as train_metrics
 
-_log = logging.getLogger("analytics_zoo_tpu_torch.train.checkpoint")
+_log = get_logger("analytics_zoo_tpu_torch.train.checkpoint")
 
 
 # ------------------------------------------------------------- trees ----
@@ -345,8 +345,8 @@ def _resolve_tag(directory: str, tag: Any):
         ok, why = verify_commit(directory, t, deep=True)
         if ok:
             return t
-        _log.warning("discarding corrupt checkpoint %s in %s: %s", t,
-                     directory, why)
+        _log.warning("discarding corrupt checkpoint", tag=t, reason=why,
+                     directory=directory)
         train_metrics.record_ckpt_restore("corrupt_discarded")
         condemned.add(t)
         discard_tag(directory, t)
@@ -652,8 +652,9 @@ def _commit_sharded(directory: str, tag: Any, n_processes: int,
         if not missing:
             break
         if time.monotonic() > deadline:
-            _log.error("checkpoint %s: commit timed out waiting for %s; "
-                       "the tag stays uncommitted", tag, missing)
+            _log.error("checkpoint commit timed out waiting for shards: "
+                       "the tag stays uncommitted", tag=str(tag),
+                       missing=missing)
             return False
         time.sleep(0.05)
     _write_commit(directory, tag, covered, n_processes)

@@ -86,6 +86,10 @@ def refresh() -> None:
     _hb_path = envcontract.env_str(ENV_HEARTBEAT)
     _crash_step = None
     _hang_step = None
+    # the structured logger stamps rank and incarnation from the same
+    # contract: re-read it alongside
+    from ..observability import log as _log
+    _log.refresh_identity()
     if resume_requested():
         return  # the hooks are one-shot: disarmed on a resumed pod
     rank = _rank()

@@ -4,22 +4,34 @@ commits and restores.
 Counterpart of ``analytics_zoo_tpu/train/metrics.py``: process-local
 counters (the supervisor and each worker count their own process's
 events).  ``snapshot`` reads them as a dict; the launcher writes it into
-its ``--summary-json``.  ``train_families``, which renders them as
-Prometheus families, waits for the port's ``observability/metrics.py``
-(see ROADMAP.md).
+its ``--summary-json``.  :func:`train_families` renders them as
+Prometheus families (a ``MetricsRegistry`` collector; the flight
+recorder snapshots them):
 
-* steps: completed ``Trainer.fit`` steps;
-* restarts by reason: ``exit`` (a worker exited non-zero), ``watchdog``
-  (a stale heartbeat; the worker was SIGKILLed), ``port`` (the
-  coordinator's port race, retried on a fresh port);
-* checkpoint saves by format (``flat``, ``sharded``), commits, and
-  restores by outcome (``ok``, ``corrupt_discarded``, ``cold_start``).
+``zoo_train_steps_total``
+    Worker-side: completed ``Trainer.fit`` steps; the pod aggregator's
+    join and straggler key (per-rank series sum to the pod total).
+``zoo_train_restarts_total{reason}``
+    Supervisor-side: pod relaunches, by reason: ``exit`` (a worker
+    exited non-zero), ``watchdog`` (a stale heartbeat; the worker was
+    SIGKILLed), ``port`` (the coordinator's port race, retried on a
+    fresh port).
+``zoo_ckpt_saves_total{format}``
+    Worker-side: checkpoint writes, by format (``flat``, ``sharded``).
+``zoo_ckpt_commits_total``
+    Worker-side (rank 0): commit manifests written.
+``zoo_ckpt_restores_total{outcome}``
+    Worker-side: ``ok``, ``corrupt_discarded`` (a tag failed its commit
+    checksums and was deleted) or ``cold_start`` (a resume was asked
+    for and no complete checkpoint existed).
 """
 
 from __future__ import annotations
 
 import threading
-from typing import Dict
+from typing import Dict, List
+
+from ..observability.metrics import Family
 
 _lock = threading.Lock()
 _restarts: Dict[str, int] = {}
@@ -72,3 +84,35 @@ def reset() -> None:
         _restores.clear()
         _commits = 0
         _steps = 0
+
+
+def train_families() -> List[Family]:
+    """Current counters as exposition families (a registry collector)."""
+    with _lock:
+        fams = []
+        if _steps:
+            fams.append(Family(
+                "counter", "zoo_train_steps_total",
+                "Completed training steps in this process",
+                [({}, _steps)]))
+        if _restarts:
+            fams.append(Family(
+                "counter", "zoo_train_restarts_total",
+                "Supervised pod relaunches by reason",
+                [({"reason": r}, v) for r, v in sorted(_restarts.items())]))
+        if _saves:
+            fams.append(Family(
+                "counter", "zoo_ckpt_saves_total",
+                "Checkpoint writes by on-disk format",
+                [({"format": f}, v) for f, v in sorted(_saves.items())]))
+        if _commits:
+            fams.append(Family(
+                "counter", "zoo_ckpt_commits_total",
+                "Checkpoint commit manifests durably written",
+                [({}, _commits)]))
+        if _restores:
+            fams.append(Family(
+                "counter", "zoo_ckpt_restores_total",
+                "Checkpoint restore attempts by outcome",
+                [({"outcome": o}, v) for o, v in sorted(_restores.items())]))
+        return fams

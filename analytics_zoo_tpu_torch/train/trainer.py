@@ -16,8 +16,18 @@ heartbeat and fault hooks (``train/faults.py``).  The JAX package
 compiles the step with ``jit``; here it runs eagerly, with the model's
 parameters updated in place.  Dropout draws from generators seeded from
 (seed, step, microbatch, layer) at every step, so a resumed run draws
-the masks of the uninterrupted one.  The step profiler is not ported
-yet (see ROADMAP.md).
+the masks of the uninterrupted one.
+
+Observability, armed at ``fit`` entry as in the JAX package: the flight
+recorder (``ZOO_FLIGHTREC_DIR``: a liveness record a step, the metric
+families snapshotted every 16th step at most every 2 s), the step
+profiler (``enable_step_profiler`` or ``ZOO_STEP_PROFILE`` /
+``ZOO_STEP_TIMELINE``: a span a step over ``data_wait -> h2d ->
+grad_accum -> step_compute -> ckpt_save``, the upload and the
+microbatch split timed on the prefetch thread) and one ``torch.profiler``
+trace a fit (``set_tensorboard(..., profile=True)``).  Absent, each costs
+one ``None`` check a step; present, none reads anything back from the
+device.
 
 Sharded training (``mesh=``, ``strategy=``, ``tp_rules=``; the strategy
 falls back to ``ZOO_TRAIN_STRATEGY``): one process a device, each rank
@@ -35,8 +45,10 @@ blocks in the JAX package's sharded format and ``load_weights`` places a
 snapshot of any mesh shape under this trainer's plan.  In a pod of
 several processes a Trainer with no mesh trains data-parallel over every
 rank, as the JAX package's default mesh does.  A model's layer state
-(BatchNormalization's moving statistics) follows each rank's own rows;
-rank 0's is the one saved.
+(BatchNormalization's moving statistics) is computed from the global
+batch's statistics, all-reduced over the data axes while the plan splits
+the batch, so every rank holds the same state and rank 0's save is the
+pod's.  SwitchMoE routes the global batch the same way.
 
 Losses stay on the device during an epoch and are read back in one
 transfer at its end, as in the JAX package: a step makes no host sync.
@@ -46,7 +58,7 @@ from __future__ import annotations
 
 import contextlib
 import itertools
-import logging
+import os
 import time
 import warnings
 from typing import Callable, Dict, List, Optional, Sequence
@@ -57,8 +69,12 @@ from torch.func import functional_call
 
 from .. import envcontract
 from ..common.prefetch import DeviceFeed, prefetch
+from ..common.utils import pad_leading
 from ..core.module import RandomLayer
 from ..data.dataset import Dataset
+from ..observability import flightrec
+from ..observability import trace as trace_lib
+from ..observability.log import get_logger
 from ..parallel import distributed as dist_lib
 from ..parallel import mesh as mesh_lib
 from ..pipeline.api.keras import metrics as metrics_lib
@@ -67,6 +83,7 @@ from ..pipeline.api.keras.regularizers import collect_penalties
 from . import checkpoint as checkpoint_lib
 from . import faults
 from . import metrics as train_metrics
+from . import stepprof
 from . import triggers as trigger_lib
 from .summary import TrainSummary, ValidationSummary
 
@@ -76,7 +93,7 @@ ENV_ACCUM = "ZOO_TRAIN_ACCUM"
 ENV_DTYPE = "ZOO_TRAIN_DTYPE"
 ENV_STRATEGY = "ZOO_TRAIN_STRATEGY"
 
-_log = logging.getLogger("analytics_zoo_tpu_torch.train")
+_log = get_logger("analytics_zoo_tpu_torch.train")
 
 
 def _accum_from_env() -> int:
@@ -101,21 +118,6 @@ def _dtype_from_env() -> Optional[torch.dtype]:
     return None
 
 
-def _pad_tail(batch, pad: int):
-    """Zero-pad the leading axis of an array (or tuple of arrays) by
-    ``pad`` rows, keeping its dtype."""
-    if pad == 0:
-        return batch
-
-    def one(a):
-        a = np.asarray(a)
-        return np.pad(a, [(0, pad)] + [(0, 0)] * (a.ndim - 1))
-
-    if isinstance(batch, (tuple, list)):
-        return tuple(one(a) for a in batch)
-    return one(batch)
-
-
 def _to_host(y):
     if isinstance(y, (list, tuple)):
         return [t.cpu() for t in y]
@@ -135,10 +137,31 @@ def _cast_floating(x, dtype):
     return x.to(dtype) if x.is_floating_point() else x
 
 
+class _Microbatches(tuple):
+    """A batch already split into its microbatches (on the host, by the
+    step profiler's prefetch transform): :func:`_split` takes it as it
+    is."""
+
+
+def _split_host(batch, accum: int):
+    """:func:`_split` of a host batch (numpy arrays, or a tuple or list
+    of them): ``accum`` tuples of row views."""
+    if isinstance(batch, (tuple, list)):
+        parts = [_split_host(b, accum) for b in batch]
+        return tuple(type(batch)(p[i] for p in parts) for i in range(accum))
+    batch = np.asarray(batch)
+    if batch.shape[0] % accum:
+        raise ValueError(f"batch ({batch.shape[0]}) must divide "
+                         f"accum_steps ({accum})")
+    return tuple(np.split(batch, accum))
+
+
 def _split(batch, accum: int):
     """``accum`` equal microbatches of a batch (a tensor or a tuple or
     list of tensors): row views, microbatch i the i-th run of rows, as
     the JAX package's (accum, micro, ...) reshape."""
+    if isinstance(batch, _Microbatches):
+        return list(batch)
     if isinstance(batch, (tuple, list)):
         parts = [_split(b, accum) for b in batch]
         return [type(batch)(p[i] for p in parts) for i in range(accum)]
@@ -258,11 +281,17 @@ def build_train_step(model, loss_fn, optimizer, compute_dtype=None,
     ``functional_call``; the gradients are averaged over the data axes
     and cut to the masters' blocks, which the optimizer updates (its
     norms counted over the whole leaves), and the module's tensors are
-    refilled from them.  The loss returned is the global batch's.
+    refilled from them.  The loss returned is the global batch's.  While
+    the plan splits the batch over the data axes, the layers that depend
+    on the whole batch (BatchNormalization's statistics, SwitchMoE's
+    routing) reduce over those ranks (``parallel.mesh.batch_split``).
 
     Returns ``step(state, x, y) -> loss``, a device scalar."""
     accum = max(int(accum_steps), 1)
     names = [n for n, _ in model.named_parameters()]
+    # the data axes' group while the plan splits the batch: BatchNorm's
+    # statistics and SwitchMoE's routing are then the global batch's
+    split = plan.dp_group if plan is not None else None
     dropouts = [m for m in model.modules() if isinstance(m, RandomLayer)]
 
     def forward_loss(params, x, y, overrides=()):
@@ -305,19 +334,21 @@ def build_train_step(model, loss_fn, optimizer, compute_dtype=None,
         scope = (plan.tensor_layers if plan is not None
                  else contextlib.nullcontext)
         try:
+            # the backward too runs under the plan's layer scope and the
+            # batch split: a remat layer recomputes its forward there
             if accum == 1:
                 seed_dropout(state.step, 0)
-                with scope():
+                with scope(), mesh_lib.batch_split(split):
                     loss = forward_loss(params, x, y, use)
-                grads = gradients(loss, params, trainable)
+                    grads = gradients(loss, params, trainable)
             else:
                 grads = loss = None
                 for i, (xi, yi) in enumerate(zip(_split(x, accum),
                                                  _split(y, accum))):
                     seed_dropout(state.step, i)
-                    with scope():
+                    with scope(), mesh_lib.batch_split(split):
                         mloss = forward_loss(params, xi, yi, use)
-                    g = gradients(mloss, params, trainable)
+                        g = gradients(mloss, params, trainable)
                     if grads is None:
                         grads, loss = g, mloss.detach()
                     else:
@@ -341,25 +372,74 @@ def build_train_step(model, loss_fn, optimizer, compute_dtype=None,
     return train_step
 
 
-def predict_batches(model, x, batch_size: int = 32):
+def _max_over(group, n: int) -> int:
+    """The largest of the ranks' ``n`` over ``group``."""
+    import torch.distributed as dist
+    device = (torch.device("cuda", torch.cuda.current_device())
+              if dist.get_backend(group) == "nccl" else torch.device("cpu"))
+    t = torch.tensor([n], dtype=torch.int64, device=device)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
+    return int(t.item())
+
+
+def _rank_batches(ds: Dataset, batch_size: int, group=None):
+    """``ds``'s batches of ``batch_size`` rows in order (the tail at its
+    own size) and the list of their row counts.  Under ``group`` (the
+    data axes' group while the plan splits the batch) every rank runs as
+    many batches, the most any rank has, a rank with fewer going on with
+    batches of no rows, so that the collectives of the layers that see
+    the whole batch (BatchNorm's statistics, SwitchMoE's routing) pair
+    up across the ranks.  The count is agreed here, on the calling
+    thread, before a prefetch thread takes the batches."""
+    n = ds.size
+    steps = -(-n // batch_size)
+    total = steps if group is None else _max_over(group, steps)
+    rows = [min(batch_size, max(n - i * batch_size, 0))
+            for i in range(total)]
+
+    def batches():
+        yield from ds.batches(batch_size, shuffle=False,
+                              drop_remainder=False)
+        none = np.arange(0)
+        for _ in range(total - steps):
+            yield Dataset._index(ds.x, none), Dataset._index(ds.y, none)
+
+    return batches(), rows
+
+
+def _first_rows(y, n: int):
+    if isinstance(y, list):
+        return [t[:n] for t in y]
+    return y[:n]
+
+
+def predict_batches(model, x, batch_size: int = 32, group=None):
     """Forward ``x`` (an array or a Dataset) in batches of ``batch_size``
     without gradients or dropout, fed by a prefetch thread; returns numpy
     (a list of arrays for a model of several outputs).  The tail batch
-    runs at its own size (an eager step needs no fixed shape)."""
+    runs at its own size (an eager step needs no fixed shape).  Under
+    ``group`` (``Trainer.predict`` while its plan splits the batch) every
+    rank runs as many batches (:func:`_rank_batches`), each zero-padded
+    to ``batch_size`` as the JAX package pads its tail to the compiled
+    shape, so the global batch the layers reduce over is the JAX
+    package's; the padded rows' outputs are dropped."""
     ds = x if isinstance(x, Dataset) else Dataset.from_ndarray(x)
     if ds.size == 0:
         raise ValueError("predict called with an empty dataset")
+    batches, rows = _rank_batches(ds, batch_size, group)
+    inputs = ((bx for bx, _ in batches) if group is None else
+              (pad_leading(bx, batch_size - n)
+               for (bx, _), n in zip(batches, rows)))
     feed = DeviceFeed(_model_device(model))
     was_training = model.training
     model.eval()
     try:
-        with torch.no_grad(), prefetch(
-                (bx for bx, _ in ds.batches(batch_size,
-                                            drop_remainder=False)),
-                transform=feed) as batches:
-            out = [_to_host(model(feed.ready(item))) for item in batches]
+        with torch.no_grad(), prefetch(inputs, transform=feed) as items:
+            out = [_to_host(model(feed.ready(item))) for item in items]
     finally:
         model.train(was_training)
+    if group is not None:
+        out = [_first_rows(o, n) for o, n in zip(out, rows)]
     if isinstance(out[0], list):  # a model of several outputs
         return [torch.cat([o[i] for o in out]).numpy()
                 for i in range(len(out[0]))]
@@ -431,6 +511,12 @@ class Trainer:
     def _dp(self) -> int:
         return mesh_lib.dp_size(self.mesh) if self.mesh is not None else 1
 
+    def _split_group(self):
+        """The data axes' group while the plan splits the batch, else
+        None (``parallel.mesh.batch_split``)."""
+        plan = self.state.plan if self.state is not None else None
+        return plan.dp_group if plan is not None else None
+
     def _rank_batch(self, batch_size: int) -> int:
         """The rows a rank feeds of a global batch in evaluate and
         predict (at least 1)."""
@@ -459,18 +545,18 @@ class Trainer:
             self.load_weights(self._ckpt_path)
         except FileNotFoundError:
             train_metrics.record_ckpt_restore("cold_start")
-            _log.warning("ZOO_RESUME set but no complete checkpoint in %s:"
-                         " cold start", self._ckpt_path)
+            _log.warning("ZOO_RESUME set but no complete checkpoint found: "
+                         "cold start", path=self._ckpt_path)
             return
         except Exception as e:
             train_metrics.record_ckpt_restore("cold_start")
-            _log.error("ZOO_RESUME restore from %s failed (%s: %s): cold "
-                       "start", self._ckpt_path, type(e).__name__, e,
-                       exc_info=True)
+            _log.error("ZOO_RESUME restore failed: cold start",
+                       path=self._ckpt_path,
+                       error=f"{type(e).__name__}: {e}")
             return
-        _log.info("resumed from %s at epoch %d step %d (epoch step %d)",
-                  self._ckpt_path, self.state.epoch, self.state.step,
-                  self._resume_epoch_step)
+        _log.info("resumed from checkpoint", path=self._ckpt_path,
+                  epoch=self.state.epoch, step=self.state.step,
+                  epoch_step=self._resume_epoch_step)
 
     def _iteration_checkpoint(self, epoch_step: int):
         st = self.state
@@ -505,6 +591,19 @@ class Trainer:
                 "the same size")
         faults.refresh()
         faults.heartbeat()
+        # the flight recorder (the black box the supervisor harvests) and
+        # the step profiler arm from the env contract; absent, each costs
+        # one None check a step
+        recorder = flightrec.install_from_env()
+        prof = self._step_profiler
+        if prof is None:
+            prof = self._step_profiler = stepprof.from_env()
+        if recorder is not None:
+            # add_collector keys by function: wiring at every fit is free
+            # and follows a recorder replaced between fits
+            recorder.add_collector(train_metrics.train_families)
+            if prof is not None:
+                recorder.add_collector(prof.families)
         self._maybe_auto_resume()
         # an iteration-trigger snapshot lands mid-epoch: skip the batches
         # the restored position already consumed (the epoch's order is
@@ -522,13 +621,95 @@ class Trainer:
             return self._fit(dataset, batch_size, end_trigger,
                              validation_data, validation_trigger,
                              validation_batch_size, shuffle, verbose,
-                             resume_skip, device)
+                             resume_skip, device, recorder, prof)
+
+    def _start_profile(self, device):
+        """The fit's ``torch.profiler`` trace when ``set_tensorboard``
+        asked for one (None otherwise, or when it cannot start: tracing
+        is best effort)."""
+        if self._profile_dir is None:
+            return None
+        from torch.profiler import (ProfilerActivity, profile,
+                                    tensorboard_trace_handler)
+        run = os.path.join(self._profile_dir, "plugins", "profile",
+                           time.strftime("%Y_%m_%d_%H_%M_%S"))
+        activities = [ProfilerActivity.CPU]
+        if device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        try:
+            prof = profile(activities=activities,
+                           on_trace_ready=tensorboard_trace_handler(run))
+            prof.start()
+        except Exception as e:
+            _log.warning("could not start the torch.profiler trace",
+                         error=f"{type(e).__name__}: {e}")
+            return None
+        return prof
+
+    def _stop_profile(self, device):
+        """Stop and write the fit's trace, if one is running."""
+        profiler, self._live_profile = self._live_profile, None
+        if profiler is None:
+            return
+        try:
+            if device.type == "cuda":
+                # the trace covers the device work of the steps it took
+                torch.cuda.synchronize(device)
+            profiler.stop()
+        except Exception as e:
+            _log.warning("could not write the torch.profiler trace",
+                         error=f"{type(e).__name__}: {e}")
+
+    def _profiled_feed(self, feed):
+        """The prefetch transform of a profiled fit: the batch's split
+        into microbatches (under accumulation) and its upload, each timed
+        on the prefetch thread and shipped with the batch."""
+        accum = self.accum_steps
+
+        def put(batch):
+            accum_s = 0.0
+            if accum > 1:
+                t0 = time.perf_counter()
+                batch = tuple(_split_host(b, accum) for b in batch)
+                accum_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            out = feed(batch)
+            return out, time.perf_counter() - t0, accum_s
+
+        return put
 
     def _fit(self, dataset, batch_size, end_trigger, validation_data,
              validation_trigger, validation_batch_size, shuffle, verbose,
-             resume_skip, device):
+             resume_skip, device, recorder, prof):
+        self._live_profile = self._start_profile(device)
+        try:
+            return self._fit_loop(
+                dataset, batch_size, end_trigger, validation_data,
+                validation_trigger, validation_batch_size, shuffle,
+                verbose, resume_skip, device, recorder, prof,
+                self.state.step + self._profile_steps)
+        finally:
+            # the trace stops even when fit raises mid-epoch
+            self._stop_profile(device)
+            if prof is not None:
+                prof.flush(recorder)  # the buffered step entries
+                try:
+                    prof.write_timeline()
+                except OSError as e:
+                    _log.warning("could not write the step timeline",
+                                 path=prof.timeline_path,
+                                 error=f"{type(e).__name__}: {e}")
+            if recorder is not None:
+                recorder.snapshot_metrics(force=True)
+
+    def _fit_loop(self, dataset, batch_size, end_trigger, validation_data,
+                  validation_trigger, validation_batch_size, shuffle,
+                  verbose, resume_skip, device, recorder, prof,
+                  profile_end):
         st = self.state
         feed = DeviceFeed(device)
+        transform = feed if prof is None else self._profiled_feed(feed)
+        micro = prof is not None and self.accum_steps > 1
         end_trigger = end_trigger or trigger_lib.MaxEpoch(st.epoch + 1)
         validation_trigger = validation_trigger or trigger_lib.EveryEpoch()
         ckpt_trigger = self._ckpt_trigger or trigger_lib.EveryEpoch()
@@ -546,23 +727,59 @@ class Trainer:
             if resume_skip:
                 batches = itertools.islice(batches, resume_skip, None)
                 resume_skip = 0
-            with prefetch(batches, transform=feed) as items:
-                for item in items:
-                    bx, by = feed.ready(item)
-                    loss = self._train_step(st, bx, by)
+            with prefetch(batches, transform=transform) as items:
+                for item in (items if prof is None
+                             else prof.timed_iter(items)):
+                    if prof is None:
+                        bx, by = feed.ready(item)
+                        span = None
+                    else:
+                        item, h2d_s, accum_s = item
+                        bx, by = feed.ready(item)
+                        if micro:
+                            bx, by = _Microbatches(bx), _Microbatches(by)
+                        span = prof.begin_step(st.step + 1, h2d_s,
+                                               accum_s=accum_s)
+                    if span is None:
+                        loss = self._train_step(st, bx, by)
+                    else:
+                        # active across the step, so a compile-like event
+                        # (a kernel build) lands on the step that paid it
+                        span.phase_start("step_compute")
+                        with trace_lib.activate(span):
+                            loss = self._train_step(st, bx, by)
+                        span.phase_end()
                     st.step += 1
                     faults.heartbeat()
                     train_metrics.record_step()
+                    if recorder is not None:
+                        # the liveness record before the fault hook: a
+                        # crash at step k leaves step k's record (the
+                        # postmortem's last completed step)
+                        recorder.record_step(st.step)
+                        if not st.step & 15:
+                            # the snapshot's own throttle is seconds; the
+                            # check itself runs every 16th step
+                            recorder.snapshot_metrics()
                     # an injected fault lands before the checkpoint: a
                     # crash at step k never leaves a tag k
                     faults.maybe_fault(st.step)
                     epoch_losses.append(loss)
+                    if self._live_profile is not None \
+                            and st.step >= profile_end:
+                        self._stop_profile(device)
                     record = {"epoch": st.epoch, "iteration": st.step,
                               "loss": loss}
                     if self._ckpt_path and not per_epoch_ckpt \
                             and ckpt_trigger(record):
+                        if span is not None:
+                            span.phase_start("ckpt_save")
                         self._iteration_checkpoint(st.step
                                                    - epoch_start_step)
+                        if span is not None:
+                            span.phase_end()
+                    if span is not None:
+                        prof.finish_step(span, st.step)
                     if end_trigger(record):
                         stop = True
                         break
@@ -628,7 +845,8 @@ class Trainer:
         Sharded: ``batch_size`` is global, each rank evaluates its own
         data in batches of ``batch_size // dp`` rows, rows flagged
         False in ``dataset.valid`` (``shard_by_process``'s fillers) are
-        masked out, and the metrics are added over the data axes."""
+        masked out, and the metrics are added over the data axes; every
+        rank runs as many batches (:func:`_rank_batches`)."""
         if self.mesh is not None or dist_lib.cluster_env_present():
             self.ensure_initialized()
         batch_size = self._rank_batch(batch_size)
@@ -652,17 +870,18 @@ class Trainer:
                              valid[offset:offset + n_real])
             offset += n_real
             pad = batch_size - n_real
-            return feed((_pad_tail(bx, pad), _pad_tail(by, pad), mask))
+            return feed((pad_leading(bx, pad), pad_leading(by, pad), mask))
 
         accs = [m.init() for m in use_metrics]
         loss_sum = loss_n = 0.0
+        group = self._split_group()
+        rank_batches, _ = _rank_batches(dataset, batch_size, group)
         was_training = self.model.training
         self.model.eval()
         try:
-            with torch.no_grad(), mesh_lib.active_mesh(self.mesh), prefetch(
-                    dataset.batches(batch_size, shuffle=False,
-                                    drop_remainder=False),
-                    transform=padded) as batches:
+            with torch.no_grad(), mesh_lib.active_mesh(self.mesh), \
+                    mesh_lib.batch_split(group), prefetch(
+                    rank_batches, transform=padded) as batches:
                 for item in batches:
                     x, y, mask = feed.ready(item)
                     with collect_penalties() as penalties:
@@ -693,10 +912,14 @@ class Trainer:
 
     def predict(self, x, batch_size: int = 32):
         """Forward ``x``; sharded, ``batch_size`` is global and each rank
-        forwards its own rows in batches of ``batch_size // dp``."""
-        with mesh_lib.active_mesh(self.mesh):
+        forwards its own rows in batches of ``batch_size // dp``, every
+        batch padded to that size (:func:`predict_batches`)."""
+        if self.mesh is not None or dist_lib.cluster_env_present():
+            self.ensure_initialized()
+        group = self._split_group()
+        with mesh_lib.active_mesh(self.mesh), mesh_lib.batch_split(group):
             return predict_batches(self.model, x,
-                                   self._rank_batch(batch_size))
+                                   self._rank_batch(batch_size), group)
 
     # ---- summaries and checkpoints ----
     train_summary: Optional[TrainSummary] = None
@@ -706,13 +929,37 @@ class Trainer:
     _ckpt_trigger = None
     _auto_resumed = False
     _resume_epoch_step = 0
+    _profile_dir: Optional[str] = None
+    _profile_steps: int = 10
+    _live_profile = None  # the running fit's torch.profiler trace
+    _step_profiler: "Optional[stepprof.StepProfiler]" = None
 
-    def set_tensorboard(self, log_dir: str, app_name: str):
+    def set_tensorboard(self, log_dir: str, app_name: str,
+                        profile: bool = False, profile_steps: int = 10):
         """Loss and LearningRate per step and Throughput (samples/s) per
         epoch under ``<log_dir>/<app_name>/train``, each validation
-        result per epoch under ``.../validation``."""
+        result per epoch under ``.../validation``.  ``profile=True`` also
+        captures one ``torch.profiler`` trace a fit, of its first
+        ``profile_steps`` steps (the CUDA activity too on a card), under
+        ``<log_dir>/<app_name>/plugins/profile/<run>/`` where
+        TensorBoard's profile plugin finds it."""
         self.train_summary = TrainSummary(log_dir, app_name)
         self.val_summary = ValidationSummary(log_dir, app_name)
+        self._profile_dir = (os.path.join(log_dir, app_name)
+                             if profile else None)
+        self._profile_steps = int(profile_steps)
+
+    def enable_step_profiler(self, timeline_path: Optional[str] = None
+                             ) -> "stepprof.StepProfiler":
+        """Turn on the per-step phase profiler (``data_wait -> h2d ->
+        grad_accum -> step_compute -> ckpt_save``; ``train/stepprof.py``)
+        for the following fits; ``timeline_path`` also publishes the
+        bounded per-step timeline as JSONL when a fit ends.  The env
+        contract reaches it without code: ``ZOO_STEP_PROFILE=1``,
+        ``ZOO_STEP_TIMELINE=<path>``."""
+        self._step_profiler = stepprof.StepProfiler(
+            timeline_path=timeline_path)
+        return self._step_profiler
 
     def set_checkpoint(self, path: str, over_write: bool = True,
                        trigger=None):

@@ -185,6 +185,9 @@ Phases (any failure makes the exit code non-zero):
    state bit for bit (or within the two runs' spread, when they differ);
    every kernel at least 12 times a step in each run; the recovery
    seconds (import, build, restore with its deep verify, first step);
+   the SIGKILLed incarnation runs with ``ZOO_FLIGHTREC_DIR``, and the
+   post-mortem of its flight recorder (``flightrec.write_postmortem``)
+   must name step 7 as its last completed step;
    then 8 steps with asynchronous ``SeveralIteration(4)`` snapshots
    against 8 without (step ms, the ms the copy to the host blocks, the
    writer's and the commit's seconds, bytes a snapshot, a deep verify);
@@ -208,14 +211,33 @@ Phases (any failure makes the exit code non-zero):
    seq 2048, batch 2 on the ``seq`` axis against the same weights
    through the flash kernels (values within 1e-5, gradients within 1e-4
    of their largest entry); ``moe_sharded`` on an ``expert`` axis of one
-   against ``switch_moe`` (equal).
+   against ``switch_moe`` (equal);
+20. observe: observability on the train and serve paths at full width.
+   The train phase's model and plan (dropout 0) from one set of
+   weights: a warm-up fit, then 3 pairs of 4-step fits with the step
+   profiler (its timeline) and the flight recorder off and on in turns,
+   each timed by CUDA events around the whole fit (ms a step, the traced
+   step rate over the untraced one); losses and final weights bit for
+   bit across all of them, each kernel launched 12 times a step in each,
+   every timeline row holding the five phases, the recorder's last step
+   and step entries, ``train_families()`` and the profiler's families
+   through the Prometheus round trip; one fit under
+   ``set_tensorboard(profile=True, profile_steps=2)`` whose
+   ``torch.profiler`` trace must name all three hand kernels.  Then the
+   serve phase's handle: 8 generate requests from 4 threads, each under
+   a span of its own (``decode_wait -> prefill -> decode_step``, gap-free
+   to 1e-3 ms, 12 flash_fwd launches an admission, no CUDA graph
+   captured after warm-up by the profile's compile count, streams equal
+   to the same requests untraced; the phases' medians), and one traced
+   coalesced LeNet predict (``coalesce_wait, pad, device_put, execute,
+   depad``).
 
 ``python3 chip_smoke.py --phases train,resume`` runs only the named
 phases (after the build), for a short call.
 
 The card's line, then ``resnet:``, ``detect:``, ``recommend:``,
-``textclass:``, ``moe:``, ``image:``, ``layers:``, ``resume:`` and
-``parallel:`` summary lines (each
+``textclass:``, ``moe:``, ``image:``, ``layers:``, ``resume:``,
+``parallel:`` and ``observe:`` summary lines (each
 with the card's name and power limit) come near the end; the line
 before the last is a JSON object with each kernel's numbers; the last
 line is ``{"ok": true, "device": {...}}``.  ResNet-50, the registry,
@@ -391,12 +413,15 @@ SUMMARIES = {
                "launches_per_step", "idle_share", "loss_rel_err",
                "predict_rel_err", "own_state_predict_rel_err", "card"),
     "resume": ("resumed_vs_uninterrupted", "uninterrupted_runs_differ",
-               "incarnation2", "async", "card"),
+               "incarnation2", "async", "postmortem", "card"),
     "parallel": ("backend", "mesh", "split_leaves", "fit_bitwise",
                  "sharded_step_ms", "plain_step_ms", "step_ratio",
                  "sharded_peak_gib", "plain_peak_gib", "restore_bitwise",
                  "ring_rel_err", "ring_grad_rel_err", "moe_equal",
                  "card"),
+    "observe": ("step_ms_off", "step_ms_on", "rate_ratio_on_off", "bitwise",
+                "profile_hand_kernels", "decode_phase_median_ms",
+                "predict_chain", "card"),
 }
 KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "flash_fwd": ("analytics_zoo_tpu_torch/ops/csrc/flash_fwd.cu",
@@ -4097,7 +4122,7 @@ def phase_resume(torch, TransformerLM, kernels, tmp):
     torch.cuda.empty_cache()
     root = os.path.join(tmp, "resume")
     dirs = {k: os.path.join(root, k) for k in ("full_a", "full_b", "ckpt",
-                                               "async")}
+                                               "async", "flightrec")}
     try:
         runs = {}
         for key in ("full_a", "full_b"):
@@ -4114,10 +4139,29 @@ def phase_resume(torch, TransformerLM, kernels, tmp):
         env1 = {"ZOO_CKPT_SYNC": "1",
                 "ZOO_FAULT_CORRUPT_TAG": str(R["corrupt_tag"]),
                 "ZOO_FAULT_CRASH_STEP": str(R["crash_step"]),
-                "ZOO_FAULT_CRASH_RANK": "0"}
+                "ZOO_FAULT_CRASH_RANK": "0",
+                "ZOO_FLIGHTREC_DIR": dirs["flightrec"]}
         rc1, res1, last1, wall1 = run_worker(tmp, "crash", dirs["ckpt"],
                                              env1)
         killed = rc1 == -signal.SIGKILL
+        # the supervisor's post-mortem of the SIGKILLed incarnation, from
+        # its flight recorder
+        from analytics_zoo_tpu_torch.observability import flightrec
+        pm = flightrec.write_postmortem(
+            dirs["flightrec"], os.path.join(root, "pod_postmortem.json"),
+            reason="exit", failed_rank=0, incarnation=0,
+            supervisor={0: {"rc": rc1}})
+        pm_rank = pm["ranks"].get("0") or {}
+        stats["postmortem"] = dict(
+            last_step=pm_rank.get("last_step"), rc=pm_rank.get("rc"),
+            heartbeats=[h["step"] for h in pm_rank.get("heartbeats", [])],
+            meta={k: (pm_rank.get("meta") or {}).get(k)
+                  for k in ("torch", "cuda", "device")})
+        if pm_rank.get("last_step") != R["crash_step"]:
+            log(f"resume: FAIL the post-mortem names step "
+                f"{pm_rank.get('last_step')} as the last completed, "
+                f"expected {R['crash_step']}")
+            ok = False
         stats["incarnation1"] = dict(rc=rc1, last_step=(last1 or {}).get(
             "step"), launches=(last1 or {}).get("launches"), wall_s=wall1,
             tags=sorted(f for f in os.listdir(dirs["ckpt"])
@@ -4391,6 +4435,330 @@ def parallel_ring(torch, MultiHeadSelfAttention, mesh_lib, mesh, stats):
             and stats["ring_grad_rel_err"] <= PARALLEL_TOL["ring_grad"])
 
 
+# the observe phase: the train plan's 4-step fits with the step profiler
+# and flight recorder off and on, in turns; then a traced serve
+OBSERVE = dict(runs=3, steps=4, profile_steps=2, requests=8, threads=4,
+               max_new=(8, 16, 32, 64), gap_ms=1e-3)
+OBSERVE_PREDICT_PHASES = ["coalesce_wait", "pad", "device_put", "execute",
+                          "depad"]
+OBSERVE_DECODE_PHASES = ["decode_wait", "prefill", "decode_step"]
+
+
+def observe_fits(torch, TransformerLM, kernels, tmp):
+    """The train plan from one set of weights: a warm-up fit, then
+    OBSERVE["runs"] pairs of 4-step fits, untraced and traced in turns
+    (the step profiler with its timeline and the flight recorder), each
+    timed by CUDA events around the whole fit; then one fit under
+    ``set_tensorboard(profile=True)``.  Returns (ok, stats)."""
+    import gc
+    import statistics
+    from analytics_zoo_tpu_torch.observability import (
+        flightrec, parse_prometheus_text, render_prometheus)
+    from analytics_zoo_tpu_torch.train import metrics as train_metrics
+    steps = OBSERVE["steps"]
+    cfg = dict(FULL, seq_len=TRAIN_SEQ)
+    model = TransformerLM(**cfg, device="cuda", seed=0)
+    init = [p.detach().clone() for p in model.parameters()]
+    x, y = periodic_tokens(TRAIN_BATCH * steps, cfg["vocab_size"],
+                           TRAIN_SEQ, seed=1)
+    root = os.path.join(tmp, "observe")
+    ok, stats, runs = True, {}, []
+
+    def fresh():
+        with torch.no_grad():
+            for p, v in zip(model.parameters(), init):
+                p.copy_(v)
+        model.compile({"name": "adam", "lr": TRAIN_LR}, "class_nll")
+        gc.collect()
+        return model.trainer
+
+    def one_fit(traced, i):
+        tr = fresh()
+        prof = recorder = None
+        if traced:
+            prof = tr.enable_step_profiler(
+                os.path.join(root, f"timeline{i}.jsonl"))
+            recorder = flightrec.configure(os.path.join(root, f"fr{i}"),
+                                           rank=0, incarnation=0)
+        kernels.reset_launch_counts()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        try:
+            start.record()
+            hist = model.fit(x, y, batch_size=TRAIN_BATCH, shuffle=False)
+            end.record()
+            torch.cuda.synchronize()
+        finally:
+            if traced:
+                flightrec.shutdown()
+        run = dict(traced=traced, losses=hist["loss"],
+                   step_ms=start.elapsed_time(end) / steps,
+                   launches=kernels.launch_counts(),
+                   weights=[p.detach().clone() for p in model.parameters()])
+        if traced:
+            with open(prof.timeline_path) as f:
+                run["timeline"] = [json.loads(ln) for ln in f]
+            run["harvest"] = flightrec.harvest(
+                os.path.join(root, f"fr{i}"))
+            run["families"] = parse_prometheus_text(render_prometheus(
+                train_metrics.train_families() + prof.families()))
+        return run
+
+    try:
+        os.makedirs(root, exist_ok=True)
+        one_fit(False, -1)  # warm-up
+        for i in range(OBSERVE["runs"]):
+            for traced in (False, True):
+                runs.append(one_fit(traced, i))
+        off = [r for r in runs if not r["traced"]]
+        on = [r for r in runs if r["traced"]]
+        ref = off[0]
+        stats["step_ms_off"] = [r["step_ms"] for r in off]
+        stats["step_ms_on"] = [r["step_ms"] for r in on]
+        med_off = statistics.median(stats["step_ms_off"])
+        med_on = statistics.median(stats["step_ms_on"])
+        stats["step_ms_off_median"], stats["step_ms_on_median"] = (
+            med_off, med_on)
+        # the JAX drill's ratio: the traced step rate over the untraced
+        stats["rate_ratio_on_off"] = med_off / med_on
+        bits = all(r["losses"] == ref["losses"]
+                   and all(torch.equal(a, b)
+                           for a, b in zip(r["weights"], ref["weights"]))
+                   for r in runs)
+        stats["bitwise"] = bits
+        if not bits:
+            log("observe: FAIL traced and untraced fits differ")
+            ok = False
+        per_step = [{k: c / steps for k, c in r["launches"].items()}
+                    for r in runs]
+        stats["launches_per_step"] = per_step[1]
+        stats["launches"] = on[0]["launches"]
+        for r in runs:
+            for name in KERNELS:
+                if r["launches"].get(name, 0) != cfg["n_layers"] * steps:
+                    log(f"observe: FAIL {name} launched "
+                        f"{r['launches'].get(name, 0)} times in {steps} "
+                        f"{'traced' if r['traced'] else 'untraced'} steps")
+                    ok = False
+        keys = [f"{p}_ms" for p in ("data_wait", "h2d", "grad_accum",
+                                    "step_compute", "ckpt_save")]
+        for r in on:
+            rows = r["timeline"]
+            if [e["step"] for e in rows] != list(range(1, steps + 1)) \
+                    or not all(k in e for e in rows for k in keys):
+                log(f"observe: FAIL timeline {rows}")
+                ok = False
+            h = r["harvest"].get(0) or {}
+            if h.get("last_step") != steps or len(h.get("steps", [])) \
+                    != steps:
+                log(f"observe: FAIL flight recorder {h.get('last_step')}, "
+                    f"{len(h.get('steps', []))} step entries")
+                ok = False
+            samples = r["families"]["samples"]
+            if samples.get(("zoo_train_step_seconds_count",
+                            (("phase", "step_compute"),))) != steps \
+                    or not any(k[0] == "zoo_train_steps_total"
+                               for k in samples):
+                log("observe: FAIL step families")
+                ok = False
+        stats["timeline_step_compute_ms"] = [
+            e["step_compute_ms"] for e in on[-1]["timeline"]]
+        stats["timeline_data_wait_ms"] = [
+            e["data_wait_ms"] for e in on[-1]["timeline"]]
+        stats["timeline_h2d_ms"] = [e["h2d_ms"] for e in on[-1]["timeline"]]
+
+        # one torch.profiler trace of the first steps of a fit
+        tr = fresh()
+        tr.set_tensorboard(root, "profiled", profile=True,
+                           profile_steps=OBSERVE["profile_steps"])
+        model.fit(x, y, batch_size=TRAIN_BATCH, shuffle=False)
+        found = sorted(
+            os.path.join(d, f)
+            for d, _, files in os.walk(os.path.join(root, "profiled",
+                                                    "plugins", "profile"))
+            for f in files if f.endswith(".pt.trace.json"))
+        names = set()
+        if found:
+            with open(found[0]) as f:
+                events = json.load(f).get("traceEvents", [])
+            names = {e.get("name", "") for e in events
+                     if e.get("cat") == "kernel"}
+        stats["profile_trace_files"] = len(found)
+        stats["profile_kernel_names"] = len(names)
+        stats["profile_hand_kernels"] = {
+            k: sum(1 for n in names if f"{k}_kernel" in n) for k in KERNELS}
+        if len(found) != 1 or not all(stats["profile_hand_kernels"]
+                                      .values()):
+            log(f"observe: FAIL profiler trace files {found}, hand kernels "
+                f"{stats['profile_hand_kernels']}")
+            ok = False
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        del model, init, runs
+        gc.collect()
+        torch.cuda.empty_cache()
+    return ok, stats
+
+
+def span_medians(spans):
+    """{phase: median ms} over finished span dicts."""
+    import statistics
+    by = {}
+    for d in spans:
+        for p in d["phases"]:
+            by.setdefault(p["name"], []).append(p["dur_ms"])
+    return {k: statistics.median(v) for k, v in by.items()}
+
+
+def observe_serve(torch, TransformerLM, keras, kernels, inference):
+    """A traced serve at the serve phase's settings: OBSERVE["requests"]
+    generate requests from OBSERVE["threads"] threads, each under a span
+    of its own, then the same requests untraced; then one traced
+    coalesced LeNet predict.  Returns (ok, stats)."""
+    import gc
+    import itertools
+    import threading
+    import numpy as np
+    from analytics_zoo_tpu_torch.observability import Tracer, profile
+    handle_profile = profile.install()
+    cfg = dict(FULL, seq_len=SERVE["max_len"])
+    model = TransformerLM(**cfg, device="cuda", seed=0).eval()
+    handle = inference.InferenceModel(
+        decode_capacity=SERVE["capacity"], decode_max_len=SERVE["max_len"],
+        decode_prompt_buckets=SERVE["buckets"],
+        decode_prefix_pool=SERVE["pool"])
+    ok, stats = True, {}
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, cfg["vocab_size"], int(n)) for n in
+               rng.integers(16, max(SERVE["buckets"]), OBSERVE["requests"])]
+    news = [OBSERVE["max_new"][i % len(OBSERVE["max_new"])]
+            for i in range(len(prompts))]
+    tracer = Tracer(capacity=64)
+    try:
+        handle.load_keras_net(model)
+        engine = handle.decode_engine
+        compiles_warm = handle_profile.snapshot()["compiles"]
+
+        def serve(traced):
+            outs, errors = [None] * len(prompts), []
+
+            def client(t):
+                try:
+                    for i in range(t, len(prompts), OBSERVE["threads"]):
+                        if traced:
+                            with tracer.request("generate", request=i):
+                                outs[i] = handle.generate(
+                                    [prompts[i]], news[i], timeout=120)[0]
+                        else:
+                            outs[i] = handle.generate(
+                                [prompts[i]], news[i], timeout=120)[0]
+                except Exception as e:  # re-raised below
+                    errors.append(e)
+
+            threads = [threading.Thread(target=client, args=(t,))
+                       for t in range(OBSERVE["threads"])]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(300)
+            if errors:
+                raise errors[0]
+            return outs
+
+        # traced first, on a prefix pool that has not seen the prompts:
+        # every admission computes its prefill (a pool hit would copy the
+        # prefix block and launch no kernel); the untraced pass after it
+        # hits, and a hit gives a miss's stream
+        before = engine.stats()
+        kernels.reset_launch_counts()
+        traced = serve(True)
+        launches = kernels.launch_counts()
+        after = engine.stats()
+        plain = serve(False)
+        admitted = after["admitted"] - before["admitted"]
+        spans = [d for d in tracer.recent() if d["name"] == "generate"]
+        gaps = [abs(a["start_ms"] + a["dur_ms"] - b["start_ms"])
+                for d in spans for a, b in zip(d["phases"], d["phases"][1:])]
+        chains = [[k for k, _ in itertools.groupby(
+            p["name"] for p in d["phases"])] for d in spans]
+        stats.update(
+            requests=len(spans), admitted=admitted,
+            flash_fwd_launches=launches.get("flash_fwd", 0),
+            launches=launches,
+            compiles_at_warmup=compiles_warm,
+            compiles_after=handle_profile.snapshot()["compiles"],
+            captures=after["captures"],
+            max_gap_ms=max(gaps) if gaps else None,
+            decode_phase_median_ms=span_medians(spans),
+            coverage_min=min(d["coverage"] for d in spans) if spans
+            else None,
+            streams_equal=all(np.array_equal(a, b)
+                              for a, b in zip(plain, traced)))
+        checks = dict(
+            chains=len(spans) == len(prompts)
+            and all(c == OBSERVE_DECODE_PHASES for c in chains),
+            gap_free=bool(gaps) and max(gaps) <= OBSERVE["gap_ms"],
+            launches=admitted == len(prompts)
+            and stats["flash_fwd_launches"] == cfg["n_layers"] * admitted,
+            no_capture=stats["compiles_after"] == compiles_warm
+            and after["captures"] == before["captures"],
+            streams=stats["streams_equal"])
+    finally:
+        handle.close()
+    del handle, model
+    gc.collect()
+    torch._C._cuda_clearCublasWorkspaces()
+    torch.cuda.empty_cache()
+
+    net = build_lenet(keras, "cuda")
+    coal = net.to_serving(supported_concurrent_num=2, max_batch_size=32,
+                          coalescing=True, warmup_shapes=(28, 28, 1))
+    try:
+        x = rng.normal(size=(5, 28, 28, 1)).astype(np.float32)
+        want = coal.predict(x)
+        with tracer.request("predict") as span:
+            got = coal.predict(x)
+        d = span.to_dict()
+    finally:
+        coal.close()
+    chain = [k for k, _ in itertools.groupby(p["name"]
+                                             for p in d["phases"])]
+    stats["predict_chain"] = chain
+    stats["predict_phase_ms"] = {p["name"]: p["dur_ms"]
+                                 for p in d["phases"]}
+    stats["predict_bucket"] = d["labels"].get("bucket")
+    checks["predict"] = (chain == OBSERVE_PREDICT_PHASES
+                         and np.array_equal(got, want))
+    stats["checks"] = checks
+    for name, good in checks.items():
+        if not good:
+            log(f"observe: FAIL serve {name}")
+            ok = False
+    return ok, stats
+
+
+def phase_observe(torch, TransformerLM, keras, kernels, inference, tmp):
+    """Observability on the train and serve paths at full width: the
+    step profiler and flight recorder's cost and neutrality, the
+    torch.profiler trace, and traced generate and predict requests."""
+    stats = {"card": smi_card()}
+    ok_fit, stats["fit"] = observe_fits(torch, TransformerLM, kernels, tmp)
+    ok_serve, stats["serve"] = observe_serve(torch, TransformerLM, keras,
+                                             kernels, inference)
+    fit, serve = stats["fit"], stats["serve"]
+    stats.update(
+        step_ms_off=fit.get("step_ms_off_median"),
+        step_ms_on=fit.get("step_ms_on_median"),
+        rate_ratio_on_off=fit.get("rate_ratio_on_off"),
+        bitwise=fit.get("bitwise"),
+        profile_hand_kernels=fit.get("profile_hand_kernels"),
+        decode_phase_median_ms=serve.get("decode_phase_median_ms"),
+        predict_chain=serve.get("predict_chain"),
+        launches=fit.get("launches"))
+    log("observe:", json.dumps(stats))
+    return ok_fit and ok_serve, stats
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4481,6 +4849,8 @@ def main() -> int:
                                         tmp)),
         ("parallel", lambda: phase_parallel(torch, TransformerLM, kernels,
                                             tmp)),
+        ("observe", lambda: phase_observe(torch, TransformerLM, keras,
+                                          kernels, inference, tmp)),
     ]
     if sys.argv[1:2] == ["--phases"]:  # e.g. --phases kernels,resume
         wanted = sys.argv[2].split(",")
@@ -4528,6 +4898,8 @@ def main() -> int:
         "remat") or {}).get("launches") or {}
     path_launches["parallel"] = (results.get("parallel") or {}).get(
         "launches") or {}
+    path_launches["observe"] = (results.get("observe") or {}).get(
+        "launches") or {}
 
     def timed_row(name, case, dtype, sq=None):
         row = next((r for r in results.get("kernels") or []
@@ -4574,7 +4946,8 @@ def main() -> int:
                          "resume_uninterrupted"].get(name, 0),
                      "resume_remat": path_launches["resume_remat"].get(
                          name, 0),
-                     "parallel": path_launches["parallel"].get(name, 0)}}
+                     "parallel": path_launches["parallel"].get(name, 0),
+                     "observe": path_launches["observe"].get(name, 0)}}
         entry.update(timed_row(name, "mixed", "bfloat16"))
         entry["f32"] = timed_row(name, "train", "float32")
         entry["bf16_batch8"] = timed_row(name, "train", "bfloat16")

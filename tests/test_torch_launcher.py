@@ -6,7 +6,10 @@ supervisor with trivial workers that import nothing (fast): a crash
 relaunches the pod with ``ZOO_RESUME=1``; a partial death is reaped at
 once; a stale heartbeat is SIGKILLed and relaunched; a spent restart
 budget surfaces the worker's exit code; the coordinator's bind race is
-retried on a fresh port.  Counterparts of ``tests/test_launcher.py``:
+retried on a fresh port; each incident's post-mortem harvests the
+workers' flight recorders (written here in the on-disk framing, with a
+torn tail) and lands the aggregated pod scrape beside it, and a hang's
+names the stale heartbeat.  Counterparts of ``tests/test_launcher.py``:
 a single process, pod mode's required coordinator, the shell.  And one
 drill on a real two-rank gloo group training data-parallel (each rank
 its half of the data): rank 1 SIGKILLs itself after step 6 of 12, the
@@ -31,6 +34,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 #   partial - rank 1 exits 2; rank 0 "blocks in a collective" (sleeps)
 #   hang    - rank 1 heartbeats once, then stops
 #   bind    - rank 0 prints a bind error and exits 1 until the flag file
+#   crashrec - each rank writes flight-recorder records and a snapshot
+#              (stdlib framing: pins the format), rank 1 dies mid-write
 WORKER = textwrap.dedent("""
     import os, sys, time
     rank = int(os.environ.get("ZOO_TPU_PROCESS_ID", "0"))
@@ -45,6 +50,24 @@ WORKER = textwrap.dedent("""
 
     if mode == "crash" and rank == 1 and not resume:
         sys.exit(3)
+    if mode == "crashrec":
+        import json, struct, zlib
+        d = os.path.join(os.environ["ZOO_FLIGHTREC_DIR"],
+                         f"rank{rank}.i{os.environ.get('ZOO_RESTART_COUNT', 0)}")
+        os.makedirs(d, exist_ok=True)
+        with open(os.path.join(d, "events.seg"), "ab") as f:
+            for step in range(1, 7):
+                p = json.dumps({"t": "hb", "ts": time.time(),
+                                "step": step}).encode()
+                f.write(struct.pack("<II", len(p),
+                                    zlib.crc32(p) & 0xffffffff) + p)
+            f.write(struct.pack("<II", 64, 1234) + b"half")  # torn
+        with open(os.path.join(d, "metrics.prom"), "w") as f:
+            f.write("# TYPE zoo_train_steps_total counter\\n")
+            f.write("zoo_train_steps_total 6\\n")
+        if rank == 1 and not resume:
+            time.sleep(0.5)  # rank 0 lands its snapshot first
+            sys.exit(5)
     if mode == "hang" and rank == 1 and not resume:
         beat()
         time.sleep(300)
@@ -92,8 +115,17 @@ def _launch(tmp_path, mode, extra_args=(), timeout=120):
     return proc, summ
 
 
+def _cleanup_kept(summ):
+    """Remove the run directory the launcher keeps after an incident
+    (the tests read it first)."""
+    import shutil
+    for p in (summ or {}).get("postmortems", []):
+        shutil.rmtree(os.path.dirname(p), ignore_errors=True)
+
+
 def test_crash_restarts_with_resume_env(tmp_path):
     proc, summ = _launch(tmp_path, "crash", ["--max-restarts", "1"])
+    _cleanup_kept(summ)
     assert proc.returncode == 0, proc.stdout[-2000:]
     assert summ["restarts"] == 1 and summ["reasons"] == ["exit"]
     assert "DONE rank=0 resume=1 restart_count=1" in proc.stdout
@@ -104,6 +136,7 @@ def test_crash_restarts_with_resume_env(tmp_path):
 def test_partial_death_fast_fails_with_no_restarts(tmp_path):
     start = time.time()
     proc, summ = _launch(tmp_path, "partial")
+    _cleanup_kept(summ)
     wall = time.time() - start
     assert proc.returncode == 2, proc.stdout[-2000:]
     assert wall < 60, f"the supervisor waited on the survivor ({wall:.0f}s)"
@@ -113,6 +146,7 @@ def test_partial_death_fast_fails_with_no_restarts(tmp_path):
 def test_watchdog_kills_and_restarts_hung_worker(tmp_path):
     proc, summ = _launch(tmp_path, "hang",
                          ["--max-restarts", "1", "--watchdog-sec", "2"])
+    _cleanup_kept(summ)
     assert proc.returncode == 0, proc.stdout[-2000:]
     assert summ["reasons"] == ["watchdog"], summ
     assert "DONE rank=1 resume=1" in proc.stdout
@@ -120,10 +154,16 @@ def test_watchdog_kills_and_restarts_hung_worker(tmp_path):
 
 
 def test_restart_budget_exhaustion_fails(tmp_path):
+    """A spent budget surfaces the worker's rc, and the incident still
+    gets its post-mortem (the supervisor's evidence, though these
+    workers recorded nothing), as in the JAX package."""
     proc, summ = _launch(tmp_path, "crash")
+    _cleanup_kept(summ)
     assert proc.returncode == 3
     assert summ == {"rc": 3, "restarts": 0, "port_retries": 0,
-                    "reasons": [], "metrics": summ["metrics"]}
+                    "reasons": [], "postmortems": summ["postmortems"],
+                    "metrics": summ["metrics"]}
+    assert len(summ["postmortems"]) == 1
 
 
 def test_coordinator_bind_race_retried_with_fresh_port(tmp_path):
@@ -132,6 +172,114 @@ def test_coordinator_bind_race_retried_with_fresh_port(tmp_path):
     assert summ["port_retries"] == 1 and summ["restarts"] == 0
     assert summ["reasons"] == ["port"]
     assert "DONE rank=0 resume=0" in proc.stdout
+
+
+def test_postmortem_harvests_flight_recorders(tmp_path):
+    """The reaped pod's post-mortem names rank 1's last completed step
+    from its recorder (the torn tail frame dropped, never misread), with
+    the supervisor's exit code; the aggregated pod scrape beside it
+    holds each rank's step counter and their pod total.  The JAX
+    package's harvester reads the same directory to the same ranks."""
+    from analytics_zoo_tpu.observability import flightrec as jflightrec
+    from analytics_zoo_tpu_torch.observability.metrics import \
+        parse_prometheus_text
+    proc, summ = _launch(tmp_path, "crashrec", ["--max-restarts", "1"])
+    try:
+        assert proc.returncode == 0, proc.stdout[-2000:]
+        assert len(summ["postmortems"]) == 1
+        run_dir = os.path.dirname(summ["postmortems"][0])
+        with open(summ["postmortems"][0]) as f:
+            pm = json.load(f)
+        assert pm["reason"] == "exit" and pm["failed_rank"] == 1
+        assert pm["incarnation"] == 0
+        r1 = pm["ranks"]["1"]
+        assert r1["rc"] == 5 and r1["last_step"] == 6
+        assert [h["step"] for h in r1["heartbeats"]][-3:] == [4, 5, 6]
+        with open(os.path.join(run_dir, "pod_postmortem.json")) as f:
+            assert json.load(f)["failed_rank"] == 1
+        with open(os.path.join(run_dir, "pod_metrics.prom")) as f:
+            s = parse_prometheus_text(f.read())["samples"]
+        assert s[("zoo_train_steps_total", (("rank", "0"),))] == 6
+        assert s[("zoo_train_steps_total", (("rank", "1"),))] == 6
+        assert s[("zoo_train_steps_total", ())] == 12
+        jh = jflightrec.harvest(os.path.join(run_dir, "flightrec"))
+        assert jh[1]["last_step"] == 6 and jh[1]["incarnations"] == [0, 1]
+    finally:
+        _cleanup_kept(summ)
+
+
+def test_watchdog_postmortem_names_stale_heartbeat(tmp_path):
+    """A hang's post-mortem carries the hung worker's heartbeat age (at
+    least the watchdog window) and names it alone as stale: rank 0
+    exited long before, and its aging file is not a second hang."""
+    proc, summ = _launch(tmp_path, "hang",
+                         ["--max-restarts", "1", "--watchdog-sec", "2"])
+    try:
+        assert proc.returncode == 0, proc.stdout[-2000:]
+        assert len(summ["postmortems"]) == 1
+        with open(summ["postmortems"][0]) as f:
+            pm = json.load(f)
+        assert pm["reason"] == "watchdog" and pm["failed_rank"] == 1
+        assert pm["ranks"]["1"]["heartbeat_age_s"] >= 2.0
+        assert pm["stale_ranks"] == [1]
+    finally:
+        _cleanup_kept(summ)
+
+
+def test_train_metric_families_render_and_parse():
+    """The restart and checkpoint families round-trip through both
+    packages' parsers, under the JAX package's names and labels."""
+    from analytics_zoo_tpu.observability.metrics import \
+        parse_prometheus_text as jparse
+    from analytics_zoo_tpu.train import metrics as jtm
+    from analytics_zoo_tpu_torch.observability.metrics import (
+        parse_prometheus_text, render_prometheus)
+    from analytics_zoo_tpu_torch.train import metrics as tm
+    saved = tm.snapshot()
+    jsaved = jtm.snapshot()
+    try:
+        for m in (tm, jtm):
+            m.reset()
+            m.record_restart("exit")
+            m.record_restart("watchdog")
+            m.record_ckpt_save("sharded")
+            m.record_ckpt_commit()
+            m.record_ckpt_restore("ok")
+            m.record_ckpt_restore("corrupt_discarded")
+            m.record_step()
+        text = render_prometheus(tm.train_families())
+        parsed = parse_prometheus_text(text)
+        assert parsed == jparse(text)
+        assert parsed["types"]["zoo_train_restarts_total"] == "counter"
+        s = parsed["samples"]
+        assert s[("zoo_train_restarts_total", (("reason", "exit"),))] == 1
+        assert s[("zoo_train_restarts_total",
+                  (("reason", "watchdog"),))] == 1
+        assert s[("zoo_ckpt_saves_total", (("format", "sharded"),))] == 1
+        assert s[("zoo_ckpt_restores_total", (("outcome", "ok"),))] == 1
+        assert s[("zoo_ckpt_restores_total",
+                  (("outcome", "corrupt_discarded"),))] == 1
+        assert s[("zoo_ckpt_commits_total", ())] == 1
+        assert s[("zoo_train_steps_total", ())] == 1
+        from analytics_zoo_tpu.observability.metrics import \
+            render_prometheus as jrender
+        assert jrender(jtm.train_families()) == text
+    finally:
+        for m, st in ((tm, saved), (jtm, jsaved)):
+            m.reset()
+            for r, v in st["restarts"].items():
+                for _ in range(v):
+                    m.record_restart(r)
+            for f, v in st["ckpt_saves"].items():
+                for _ in range(v):
+                    m.record_ckpt_save(f)
+            for o, v in st["ckpt_restores"].items():
+                for _ in range(v):
+                    m.record_ckpt_restore(o)
+            for _ in range(st["ckpt_commits"]):
+                m.record_ckpt_commit()
+            for _ in range(st.get("steps", 0)):
+                m.record_step()
 
 
 def _submit(args, script, timeout=240, **env):
@@ -243,8 +391,9 @@ def test_supervisor_recovers_sigkilled_gloo_rank_mid_epoch(tmp_path):
                  ZOO_CKPT_SYNC="1"),
         cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
         text=True, timeout=300)
-    assert proc.returncode == 0, proc.stdout[-3000:]
     summ = json.loads(summary.read_text())
+    _cleanup_kept(summ)
+    assert proc.returncode == 0, proc.stdout[-3000:]
     assert summ["restarts"] == 1 and summ["reasons"] == ["exit"]
     lines = [l for l in proc.stdout.splitlines() if "RESULT" in l]
     assert any("proc=0/2 step=12 resumed=1" in l for l in lines), lines

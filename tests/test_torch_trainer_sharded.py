@@ -22,7 +22,19 @@ the test process on its 8 virtual CPU devices:
   tensor 2} (attention on its head blocks, the MLP on column and row
   blocks), with Switch-MoE on {expert 2} and with ring attention on
   {seq 2}, each through ``fit`` against the JAX package (losses 1e-5,
-  weights 1e-5).
+  weights 1e-5);
+* the layers that depend on the whole batch on {data 2}, where each
+  rank holds half of it: a Sequential with BatchNormalization (its
+  statistics the global batch's: losses, weights and moving statistics
+  at 1e-5, both ranks' statistics equal) and the Switch-MoE
+  TransformerLM with a router that drops the two ranks' tokens
+  unevenly (global capacity and routing, the aux loss of the global
+  statistics), each through ``fit`` against the JAX package, and again
+  with their layers under remat (the backward's recompute reduces over
+  the ranks too); the MoE TransformerLM's ``evaluate`` and ``predict``
+  on {data 2} against the JAX package's, over a set whose tail leaves
+  one rank a batch short (every rank pads to the same batches, as the
+  JAX package pads its tail).
 
 Dropout is 0 throughout (the ranks' masks differ from JAX's draws).
 Every process group has a 60 s timeout and every pod a subprocess
@@ -527,3 +539,215 @@ def test_strategy_env_knob_and_argument(monkeypatch):
     assert Trainer(m, loss, opt, strategy="tp").strategy == "tp"
     monkeypatch.delenv("ZOO_TRAIN_STRATEGY")
     assert Trainer(m, loss, opt).strategy == "replicate"
+
+
+# the global-batch layers on {data 2}: each rank's half of every global
+# batch differs in distribution, so a rank's own statistics (or routing)
+# are not the batch's
+def bn_data():
+    rng = np.random.default_rng(5)
+    x = rng.normal(size=(64, 8)).astype(np.float32)
+    second = shard_rows(64, 32, 1, 2)
+    x[second] = x[second] * 2.5 + 3.0
+    return x, rng.integers(0, 4, 64).astype(np.int32)
+
+
+def uneven_tokens():
+    # rank 0's rows count up through the low half of the vocabulary,
+    # rank 1's through the high half: the router sends the two halves to
+    # different experts, so their queues fill unevenly
+    tx, ty = tokens(n=64)
+    second = shard_rows(64, 32, 1, 2)
+    return (np.where(np.isin(np.arange(64), second)[:, None],
+                     tx % 6 + 6, tx % 6).astype(np.int32),
+            np.where(np.isin(np.arange(64), second)[:, None],
+                     ty % 6 + 6, ty % 6).astype(np.int32))
+
+
+MOE_DP = dict(moe_every=2, n_experts=4, capacity_factor=1.0)
+#: the evaluate/predict set: 40 rows in global batches of 32, so the
+#: tail's 8 rows all fall on rank 0 and rank 1 has one batch fewer
+EVAL_N = 40
+
+
+def _jbn_model():
+    from analytics_zoo_tpu.pipeline.api.keras.layers import (
+        Activation as JActivation, BatchNormalization as JBN)
+    m = JSequential()
+    # no bias before the BatchNorm: its gradient is rounding noise that
+    # adam turns into lr-sized steps
+    m.add(JDense(16, input_shape=(8,), bias=False, name="hid"))
+    m.add(JBN(name="bn"))
+    m.add(JActivation("relu"))
+    m.add(JDense(4, activation="softmax", name="out"))
+    return m
+
+
+@pytest.fixture(scope="module")
+def repairs(tmp_path_factory):
+    d = str(tmp_path_factory.mktemp("dp_repairs"))
+    with open(os.path.join(d, "inputs.py"), "w") as f:
+        f.write(INPUTS + "\n" + textwrap.dedent(
+            __import__("inspect").getsource(bn_data)) + "\n"
+            + textwrap.dedent(
+                __import__("inspect").getsource(uneven_tokens)))
+    ref = {}
+    x, y = bn_data()
+    jt = JTrainer(_jbn_model().to_graph(),
+                  jobj.get("sparse_categorical_crossentropy"),
+                  optax.adam(1e-3), mesh=_jmesh({"data": 2}),
+                  strategy="replicate", seed=0)
+    jt.ensure_initialized()
+    np.savez(os.path.join(d, "bn_w0.npz"),
+             **_flat(jax.device_get(jt.state.params)))
+    ref["bn_loss"] = jt.fit(JDataset.from_ndarray(x, y), batch_size=32,
+                            end_trigger=jtrig.MaxIteration(4),
+                            shuffle=False)["loss"]
+    ref["bn_state"] = _jax_state(jt)
+    tx, ty = uneven_tokens()
+    jm = JaxLM(**SMALL, **MOE_DP)
+    jm.compile(optimizer={"name": "adam", "lr": 3e-3}, loss="class_nll",
+               mesh=_jmesh({"data": 2}))
+    np.savez(os.path.join(d, "moe_dp_w0.npz"), **_flat(jm.get_weights()))
+    # evaluate and predict from the same weights, on a model of their own
+    je = JaxLM(**SMALL, **MOE_DP)
+    je.compile(optimizer={"name": "adam", "lr": 3e-3}, loss="class_nll",
+               mesh=_jmesh({"data": 2}))
+    je.set_weights(jm.get_weights())
+    ref["moe_eval"] = je.evaluate(tx[:EVAL_N], ty[:EVAL_N], batch_size=32)
+    ref["moe_pred"] = je.predict(tx[:EVAL_N], batch_size=32)
+    ref["moe_loss"] = jm.fit(tx, ty, batch_size=32, nb_epoch=1,
+                             shuffle=False)["loss"]
+    ref["moe_state"] = _jax_state(jm.trainer)
+    run_pod(d, 2, POD_DP)
+    return d, ref
+
+
+POD_DP = f"EVAL_N = {EVAL_N}\n" + """
+sys.path.insert(0, OUT)
+from inputs import bn_data, uneven_tokens
+data2 = create_mesh({"data": 2}, device="cpu")
+rows = shard_rows(64, 32, data_index(data2), dp_size(data2))
+
+x, y = bn_data()
+from analytics_zoo_tpu_torch.ops import batchnorm as bn_ops
+for form in ("closed", "naive", "remat"):
+    bn_ops.set_naive_bn(form == "naive")
+    m = Sequential(device="cpu", seed=0)
+    m.add(L.Dense(16, input_shape=(8,), bias=False, name="hid"))
+    m.add(L.BatchNormalization(name="bn"))
+    m.layers[-1].remat = form == "remat"
+    m.add(L.Activation("relu"))
+    m.add(L.Dense(4, activation="softmax", name="out"))
+    from_jax_params(m, nest(load_npz(os.path.join(OUT, "bn_w0.npz"))))
+    t = Trainer(m, objectives.get("sparse_categorical_crossentropy"),
+                optimizers.get({"name": "adam", "lr": 1e-3}), mesh=data2,
+                strategy="replicate")
+    loss = t.fit(Dataset.from_ndarray(x[rows], y[rows]), batch_size=32,
+                 end_trigger=triggers.MaxIteration(4),
+                 shuffle=False)["loss"]
+    save(f"bn_dp_{form}", loss=np.asarray(loss), **state_arrays(t))
+bn_ops.set_naive_bn(False)
+
+tx, ty = uneven_tokens()
+
+
+def moe_lm(remat=False):
+    lm = TransformerLM(vocab_size=12, seq_len=24, n_layers=2, d_model=32,
+                       n_heads=2, moe_every=2, n_experts=4,
+                       capacity_factor=1.0, remat=remat, device="cpu")
+    from_jax_params(lm, nest(load_npz(os.path.join(OUT, "moe_dp_w0.npz"))))
+    lm.compile(optimizer={"name": "adam", "lr": 3e-3}, loss="class_nll",
+               mesh=data2)
+    return lm
+
+
+for name, remat in (("moe_dp", False), ("moe_dp_remat", True)):
+    lm = moe_lm(remat)
+    loss = lm.fit(tx[rows], ty[rows], batch_size=32, nb_epoch=1,
+                  shuffle=False)["loss"]
+    save(name, loss=np.asarray(loss), **state_arrays(lm.trainer))
+
+# evaluate and predict: rank 0 holds 24 rows (a full batch and the
+# tail's 8), rank 1 16 (one batch)
+ev_rows = shard_rows(64, 32, data_index(data2), dp_size(data2))
+ev_rows = ev_rows[ev_rows < EVAL_N]
+lm = moe_lm()
+res = lm.evaluate(tx[ev_rows], ty[ev_rows], batch_size=32)
+save("moe_dp_eval", rows=ev_rows, pred=lm.predict(tx[ev_rows], batch_size=32),
+     **{k: np.asarray(v) for k, v in res.items()})
+"""
+
+
+def _model_state_close(got, want, atol, what):
+    keys = [k for k in want if k.startswith("model_state/")]
+    assert keys
+    for k in keys:
+        np.testing.assert_allclose(got[k], want[k], rtol=0, atol=atol,
+                                   err_msg=f"{what}: {k}")
+
+
+@pytest.mark.parametrize("form", ["closed", "naive", "remat"])
+def test_batchnorm_on_data_axes_takes_global_batch_statistics(repairs,
+                                                              form):
+    """BatchNormalization under a {data 2} plan normalises by the global
+    batch's statistics, as the JAX package does under jit, in the closed
+    form, in the plain one (``set_naive_bn``) and in the closed form
+    under remat (its recompute in the backward reduces over the ranks
+    as its forward did): the losses, weights,
+    moments and moving statistics of a 4-step fit match the JAX Trainer
+    on {data 2} at 1e-5, and both ranks hold the same moving
+    statistics."""
+    d, ref = repairs
+    got = [load(d, f"bn_dp_{form}", rank) for rank in range(2)]
+    for rank, g in enumerate(got):
+        np.testing.assert_allclose(g["loss"], ref["bn_loss"], rtol=1e-5)
+        _state_close(g, ref["bn_state"], 1e-5, f"bn rank {rank}")
+        _model_state_close(g, ref["bn_state"], 1e-5, f"bn rank {rank}")
+    for k in ref["bn_state"]:
+        if k.startswith("model_state/"):
+            np.testing.assert_array_equal(got[0][k], got[1][k], err_msg=k)
+
+
+def _moe_fit_matches_jax(repairs, name):
+    d, ref = repairs
+    for rank in range(2):
+        g = load(d, name, rank)
+        np.testing.assert_allclose(g["loss"], ref["moe_loss"], rtol=1e-5)
+        _state_close(g, ref["moe_state"], 1e-5, f"moe rank {rank}")
+        _model_state_close(g, ref["moe_state"], 1e-5, f"moe rank {rank}")
+
+
+def test_switch_moe_on_data_axes_routes_the_global_batch(repairs):
+    """Switch-MoE replicated on {data 2}, with a router that sends the
+    two ranks' tokens to different experts at capacity factor 1: the
+    capacity and the kept tokens are the global batch's and the aux loss
+    takes the global routing statistics, so the fit (losses, weights,
+    the aux loss state) matches the JAX package on {data 2} at 1e-5."""
+    _moe_fit_matches_jax(repairs, "moe_dp")
+
+
+def test_switch_moe_on_data_axes_under_remat(repairs):
+    """The same fit with the TransformerLM's sublayers under remat: the
+    recompute in the backward routes the global batch as the forward
+    did, so the fit still matches the JAX package at 1e-5."""
+    _moe_fit_matches_jax(repairs, "moe_dp_remat")
+
+
+def test_switch_moe_on_data_axes_evaluate_and_predict(repairs):
+    """``evaluate`` and ``predict`` of the MoE TransformerLM on {data 2}
+    route the global batch, padded tail included, as the JAX package
+    does: rank 0 holds the tail's 8 rows and rank 1 one batch fewer, so
+    rank 1 runs a batch of padding alone (no rank waits in a collective
+    the other never joins).  The metrics over both ranks match the JAX
+    package's at 1e-5, and each rank's predictions its rows of the JAX
+    package's at 1e-5."""
+    d, ref = repairs
+    for rank in range(2):
+        g = load(d, "moe_dp_eval", rank)
+        assert len(g["rows"]) == (24 if rank == 0 else 16)
+        assert set(ref["moe_eval"]) <= set(g)
+        for k, want in ref["moe_eval"].items():
+            assert float(g[k]) == pytest.approx(want, rel=1e-5)
+        np.testing.assert_allclose(g["pred"], ref["moe_pred"][g["rows"]],
+                                   rtol=1e-5, atol=1e-6)
