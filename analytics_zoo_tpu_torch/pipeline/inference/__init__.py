@@ -2,4 +2,4 @@ from .decode import (DecodeEngine, DecodeEngineClosedError, TokenStream,
                      skeleton_draft)
 from .inference_model import AbstractInferenceModel, InferenceModel, JTensor
 from .serving import (BucketedExecutableCache, CoalescerClosedError,
-                      RequestCoalescer, bucket_ladder)
+                      Replica, ReplicaSet, RequestCoalescer, bucket_ladder)

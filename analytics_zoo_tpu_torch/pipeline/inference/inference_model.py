@@ -16,8 +16,21 @@ The handle serves on the device of the model it is given;
 asked otherwise).  A quantized handle (``quantize=True``, or a model
 named '<arch>-quantize') serves the model's int8 twin
 (:meth:`KerasNet.quantize`) on the exact-shape path, as the JAX package
-does.  Replicas, hedging, sharded meshes, the executable store and the
-TF/graph/JAX import paths are not ported (see ROADMAP.md).
+does.  :meth:`load_fn` serves a torch callable ``fn(params, x)`` over a
+tree of tensors (the counterpart of the JAX package's ``load_jax``).
+
+``replicas`` serves the bucketed path from several replicas
+(``serving.ReplicaSet``): on the card ``"all"`` means every card of the
+process and an int is clamped to that count; on the CPU a replica is a
+copy on the CPU (``"all"`` means one per core), which is how replica
+failover, re-probes, elasticity and hedging run without a card.  A list
+of devices places the replicas on exactly those devices, repeats
+allowed (``["cuda:0", "cuda:0"]``: two replicas on one card, each on
+its own stream).  A module's replicas are its parameters and buffers
+copied per device, run through the module as a skeleton with
+``torch.func.functional_call``.  Sharded meshes (``mesh=``), the
+persistent executable store (``store_tag=``) and the TF/graph import
+paths are not ported (see ROADMAP.md).
 
 Tracing: ``predict``, ``generate`` and ``generate_stream`` read the
 caller's current span once (``observability.trace.current_span``; one
@@ -29,17 +42,23 @@ the decode engine's thread ``decode_wait -> prefill -> decode_step``.
 
 from __future__ import annotations
 
+import copy
+import itertools
+import sys
 import threading
-from typing import Any, Optional, Sequence
+from typing import Any, List, Optional, Sequence
 
 import numpy as np
 import torch
 
+from ...common.context import resolve_device
 from ...observability import profile as _profile
 from ...observability import trace as _trace
 from .decode import DecodeEngine
 from .serving import (BucketedExecutableCache, CoalescerClosedError,
-                      RequestCoalescer, _rows, fetch_rows, to_device)
+                      ReplicaSet, RequestCoalescer, _norm_device, _rows,
+                      available_devices, fetch_rows, place_tree,
+                      to_device)
 
 
 class JTensor:
@@ -76,8 +95,62 @@ def _canonical(a: np.ndarray) -> np.ndarray:
 
 
 def _not_ported(what: str):
-    return NotImplementedError(f"InferenceModel({what}) is not ported yet "
-                               "(see ROADMAP.md)")
+    return NotImplementedError(
+        f"InferenceModel({what}) is not ported yet: sharded serving groups "
+        "and the executable store come with the next serving slice (see "
+        "ROADMAP.md)")
+
+
+def module_forward(net):
+    """``fn(params, x)`` running ``net`` as a skeleton over ``params`` (a
+    dict of every parameter and buffer by name) through
+    ``torch.func.functional_call``.  The call swaps the module's tensors
+    for the duration of the forward, so calls are serialised by a lock
+    (on a card only the launches are: the replicas' streams still
+    overlap)."""
+    lock = threading.Lock()
+
+    def fn(params, x):
+        with lock:
+            return torch.func.functional_call(
+                net, params, (list(x) if isinstance(x, tuple) else x,))
+
+    return fn
+
+
+def meta_skeleton(net):
+    """A copy of ``net`` whose parameters and buffers live on the
+    ``meta`` device (shapes and dtypes, no storage), for
+    :func:`module_forward` over weights held elsewhere.  Made without
+    touching the device: every tensor is mapped to its ``meta`` twin
+    before the copy, and training state (the trainer, generators, a
+    cached quantized twin) is left out."""
+    memo = {}
+    for t in itertools.chain(net.parameters(), net.buffers()):
+        twin = torch.empty_like(t, device="meta")
+        memo[id(t)] = (torch.nn.Parameter(twin, requires_grad=False)
+                       if isinstance(t, torch.nn.Parameter) else twin)
+    for mod in net.modules():
+        for key, value in vars(mod).items():
+            if (isinstance(value, torch.Generator)
+                    or key in ("trainer", "_quantized_net")):
+                memo[id(value)] = None
+    # a graph's nodes link to their inputs, so the copy recurses about
+    # once per layer (ResNet-50 passes 1,000 levels)
+    limit = sys.getrecursionlimit()
+    sys.setrecursionlimit(max(limit, 20000))
+    try:
+        skeleton = copy.deepcopy(net, memo)
+    finally:
+        sys.setrecursionlimit(limit)
+    return skeleton.eval()
+
+
+def module_tensors(net) -> dict:
+    """Every parameter and buffer of ``net`` by name (detached)."""
+    out = {k: v.detach() for k, v in net.named_parameters()}
+    out.update({k: v.detach() for k, v in net.named_buffers()})
+    return out
 
 
 class InferenceModel:
@@ -121,23 +194,32 @@ class InferenceModel:
           ``decode_prompt_buckets``, ``decode_eos_id``,
           ``decode_prefix_pool``, and ``decode_draft`` with
           ``decode_spec_tokens`` configure it); it is warmed at load.
-        * ``device``: where :meth:`load` puts a saved model (``"cuda"``
-          unless asked otherwise); an in-memory model serves on its own
-          device.
+        * ``replicas``: ``"all"``, an int N, or a list of devices: serve
+          the bucketed path from that many replicas (module docstring),
+          each bucket built once and placed on every replica; 1 (the
+          default) keeps the single-device path.  Quantized handles stay
+          single-device.  ``supported_concurrent_num`` is then PER
+          replica.
+        * ``hedging`` (coalesced, several replicas): a group in flight
+          longer than the ``hedge_quantile`` of observed group latencies
+          (floored at ``hedge_min_ms``) is re-dispatched to a second
+          healthy replica and the first result wins.
+        * ``device``: where :meth:`load` and :meth:`load_fn` put the
+          model (``"cuda"`` unless asked otherwise); an in-memory model
+          serves on its own device.
 
-        ``replicas`` other than 1, ``hedging``, ``mesh`` and
-        ``store_tag`` are not ported and raise."""
-        if replicas != 1:
-            raise _not_ported(f"replicas={replicas!r}")
-        if hedging:
-            raise _not_ported("hedging=True")
+        ``mesh`` and ``store_tag`` are not ported and raise."""
         if mesh is not None:
             raise _not_ported("mesh=...")
         if store_tag is not None:
             raise _not_ported("store_tag=...")
-        del hedge_quantile, hedge_min_ms  # hedging only
         self.concurrent_num = int(supported_concurrent_num)
         self._semaphore = threading.Semaphore(self.concurrent_num)
+        self._sem_capacity = self.concurrent_num
+        self._replicas_req = replicas
+        self._hedging = bool(hedging)
+        self._hedge_quantile = float(hedge_quantile)
+        self._hedge_min_ms = float(hedge_min_ms)
         self._device = device
         self.max_batch_size = int(max_batch_size)
         self._buckets = buckets
@@ -160,6 +242,11 @@ class InferenceModel:
         # a predict() racing reload() takes one consistent path
         self._fastpath = None
         self._quantize_flag: Optional[bool] = None
+        # what the handle serves, for the registry's page recipe: a net
+        # (load_keras_net) or a function and its placed params (load_fn)
+        self._net = None
+        self._fn = None
+        self._params = None
 
     # ---- loading ----
     def load(self, model_path: str, weight_path: Optional[str] = None,
@@ -171,7 +258,6 @@ class InferenceModel:
         ones.  ``quantize`` as :meth:`load_keras_net` takes it."""
         from ... import models  # noqa: F401  (registers the zoo's models)
         from ..api.keras.engine import KerasNet
-        from ...common.context import resolve_device
         net = KerasNet.load_model(model_path,
                                   device=resolve_device(self._device))
         if weight_path is not None:
@@ -206,7 +292,13 @@ class InferenceModel:
         # version, both planes
         engine = self._build_decode_engine(net)
         self._quantize_flag = bool(quantize)
-        self._install(net)
+
+        def predict_fn(x):
+            return net(list(x) if isinstance(x, tuple) else x)
+
+        self._net, self._fn, self._params = net, None, None
+        self._install(predict_fn, net.device, replica_fn=module_forward(net),
+                      replica_params=module_tensors(net))
         if self._decode_capacity is not None:
             old, self._decode_engine = self._decode_engine, engine
             if old is not None:
@@ -239,34 +331,123 @@ class InferenceModel:
         engine.warmup()
         return engine
 
-    def _install(self, net):
-        """Build the predict path for ``net`` and publish it; the old
-        coalescer is closed after, so its queued requests drain on the
-        old path while new traffic takes the new one."""
-        old_coalescer = self._coalescer
-        device = net.device
+    def load_fn(self, fn, params):
+        """Serve a torch callable ``fn(params, x)`` over ``params`` (a
+        dict, list or tuple tree of tensors or numpy arrays), placed once
+        on the handle's device (``"cuda"`` unless asked otherwise; a
+        tensor already there is not copied).  The counterpart of the
+        JAX package's ``load_jax``."""
+        device = resolve_device(self._device)
+        placed = place_tree(params, device)
+        self._quantize_flag = False
+        self._net, self._fn, self._params = None, fn, placed
 
         def predict_fn(x):
-            return net(list(x) if isinstance(x, tuple) else x)
+            return fn(placed, x)
 
-        cache = coalescer = None
+        self._install(predict_fn, device, replica_fn=fn,
+                      replica_params=placed)
+        return self
+
+    def _replica_devices(self, device) -> List[torch.device]:
+        """The replicas' devices: the request (``"all"``, an int clamped
+        to the devices of ``device``'s platform, or a device list)."""
+        req = self._replicas_req
+        if isinstance(req, (list, tuple)):
+            if not req:
+                raise ValueError("replicas needs at least one device")
+            return [_norm_device(d) for d in req]
+        avail = available_devices(device)
+        if isinstance(req, str):
+            if req.lower() != "all":
+                raise ValueError(
+                    f'replicas must be "all", an int or a list of '
+                    f"devices, got {req!r}")
+            return avail
+        n = int(req)
+        if n < 1:
+            raise ValueError(f"replicas must be >= 1, got {n}")
+        return avail[:n]
+
+    def _install(self, predict_fn, device, replica_fn=None,
+                 replica_params=None):
+        """Build the predict path for ``predict_fn`` on ``device``
+        (replicated over ``replica_fn``/``replica_params`` when
+        ``replicas`` asks for more than one) and publish it; the old
+        coalescer is closed after, so its queued requests drain on the
+        old path while new traffic takes the new one.  The concurrency
+        semaphore is per replica, and REUSED while the capacity is
+        unchanged, so old-path drains and new-path traffic share one
+        budget."""
+        old_coalescer = self._coalescer
+        cache = coalescer = replica_set = None
         # a quantized handle runs each batch at its own shape, as the
         # JAX package's does
         if self._bucketing and not self._quantize_flag:
+            devs = self._replica_devices(device)
+            if len(devs) > 1 and replica_fn is not None:
+                replica_set = ReplicaSet(replica_fn, replica_params,
+                                         devices=devs)
             cache = BucketedExecutableCache(
                 predict_fn, max_batch=self.max_batch_size,
                 buckets=self._buckets, growth=self._bucket_growth,
-                device=device)
-            if self._coalescing:
-                coalescer = RequestCoalescer(
-                    cache, max_wait_ms=self.max_wait_ms,
-                    semaphore=self._semaphore,
-                    pipeline_depth=min(2, self.concurrent_num))
+                device=device, replica_set=replica_set)
+        cap = self.concurrent_num * (
+            replica_set.n if replica_set is not None else 1)
+        if cap != self._sem_capacity:
+            self._semaphore = threading.Semaphore(cap)
+            self._sem_capacity = cap
+        if cache is not None and self._coalescing:
+            coalescer = RequestCoalescer(
+                cache, max_wait_ms=self.max_wait_ms,
+                semaphore=self._semaphore,
+                pipeline_depth=min(2, self.concurrent_num),
+                hedging=self._hedging,
+                hedge_quantile=self._hedge_quantile,
+                hedge_min_ms=self._hedge_min_ms)
         self._fastpath = (predict_fn, cache, coalescer, device)
         self._cache = cache
         self._coalescer = coalescer
         if old_coalescer is not None:
             old_coalescer.close()
+
+    def _replica_set(self) -> Optional[ReplicaSet]:
+        fastpath = self._fastpath
+        if fastpath is None:
+            return None
+        cache = fastpath[1]
+        return cache.replica_set if cache is not None else None
+
+    @property
+    def n_replicas(self) -> int:
+        """Total replica count (1 on the single-device path)."""
+        rs = self._replica_set()
+        return rs.n if rs is not None else 1
+
+    @property
+    def active_replicas(self) -> int:
+        """Replicas currently in the scheduled (elastic) set."""
+        rs = self._replica_set()
+        return rs.n_active if rs is not None else 1
+
+    def placement_complete(self) -> bool:
+        """True when every replica holds every placed signature (the
+        pager's install guard); a handle without replicas is complete
+        once loaded."""
+        if self._fastpath is None:
+            return False
+        rs = self._replica_set()
+        return rs.placement_complete() if rs is not None else True
+
+    def set_active_replicas(self, n: int) -> int:
+        """Resize the scheduled replica set (the autoscaler's lever):
+        joining replicas are primed on every placed signature BEFORE they
+        take traffic, so a scale-up never serves cold and never builds.
+        Returns the active count; 1 on the single-device path."""
+        if self._fastpath is None:
+            raise RuntimeError("InferenceModel: no model loaded")
+        rs = self._replica_set()
+        return rs.set_active(n) if rs is not None else 1
 
     # ---- serving fast path surface ----
     def warmup(self, sample_shapes, dtypes=None) -> float:
@@ -282,7 +463,9 @@ class InferenceModel:
 
     def serving_stats(self) -> dict:
         """Per-bucket hit/miss/build-time counters, coalescer dispatch
-        counts and, with an engine, its decode counters."""
+        counts, with replicas their per-replica counters and health (and
+        hedge outcomes when hedging), and with an engine its decode
+        counters."""
         out = {"buckets": (), "hits": {}, "misses": {},
                "build_time_s": {}, "dispatches": 0,
                "coalesced_requests": 0, "coalescer_pending": 0,
@@ -294,10 +477,14 @@ class InferenceModel:
         if cache is not None:
             out["buckets"] = cache.buckets
             out.update(cache.stats.snapshot())
+            if cache.replica_set is not None:
+                out.update(cache.replica_set.stats())
         if coalescer is not None:
             out["dispatches"] = coalescer.dispatches
             out["coalesced_requests"] = coalescer.coalesced_requests
             out["coalescer_pending"] = coalescer.pending
+            if coalescer.hedging:
+                out["hedges"] = coalescer.hedge_stats()
         engine = self._decode_engine
         if engine is not None:
             out["decode"] = engine.stats()

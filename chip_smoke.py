@@ -231,13 +231,39 @@ Phases (any failure makes the exit code non-zero):
    to the same requests untraced; the phases' medians), and one traced
    coalesced LeNet predict (``coalesce_wait, pad, device_put, execute,
    depad``).
+21. control: the serving control plane.  (a) The serve phase's handle
+   (capacity 8, max_len 640, prompt buckets 128/256/512) deployed as
+   ``lm`` v1 (seed 0) in a ``ModelRegistry(max_queue=16,
+   max_concurrency=8)``; each of 16 prompts of 16-511 tokens (8-64 new
+   tokens) gets its solo greedy stream from v1 and from v2 (seed 1); 4
+   clients then cycle through them with ``generate_ex`` while v2
+   deploys, until v2 served 16: zero failed requests, every stream equal
+   to its serving version's solo stream, both versions served, 12
+   flash_fwd launches an admission (warm-up admissions included);
+   requests/s, TTFT and ITL medians (from the request spans), v2's
+   warm-up seconds and the peak GiB with both engines.  (b) 32 requests
+   at once against the bounded queue (high water <= 16; every rejection
+   an immediate ``Overloaded`` 429), a LeNet canary at 0.25 routed
+   exactly 10 of 40 requests, and a deploy whose warm-up raises leaving
+   v1 serving.  (c) Three pageable ResNet-50 f32 handles (coalescing,
+   buckets to 32, 224x224) under ``pager={"max_resident": 2}`` and a
+   pinned handle of model 0's weights: model 0 faults in bit-equal to
+   the pinned handle, and paging it out frees at least 95% of its weight
+   bytes on the card; fault-in ms and bytes a fault.  (d) LeNet on
+   ``replicas=["cuda:0", "cuda:0"]`` (two streams), coalesced and
+   hedged at one bucket (32): every result bit-identical to a solo
+   handle's, a replica made to raise is marked unhealthy while its
+   groups re-route and a re-probe heals it, a replica slowed by an
+   injected 20 ms wait fires hedges that win bit-exact (latency p50/p99
+   with hedging and without), and ``set_active_replicas(1)`` then
+   ``(2)`` cost no build.
 
 ``python3 chip_smoke.py --phases train,resume`` runs only the named
 phases (after the build), for a short call.
 
 The card's line, then ``resnet:``, ``detect:``, ``recommend:``,
 ``textclass:``, ``moe:``, ``image:``, ``layers:``, ``resume:``,
-``parallel:`` and ``observe:`` summary lines (each
+``parallel:``, ``control:`` and ``observe:`` summary lines (each
 with the card's name and power limit) come near the end; the line
 before the last is a JSON object with each kernel's numbers; the last
 line is ``{"ok": true, "device": {...}}``.  ResNet-50, the registry,
@@ -419,6 +445,9 @@ SUMMARIES = {
                  "sharded_peak_gib", "plain_peak_gib", "restore_bitwise",
                  "ring_rel_err", "ring_grad_rel_err", "moe_equal",
                  "card"),
+    "control": ("requests_per_s", "ttft_ms_median", "itl_ms_median",
+                "v2_warmup_s", "peak_gib", "fault_in_ms", "bytes_per_fault",
+                "hedged_ms", "unhedged_ms", "card"),
     "observe": ("step_ms_off", "step_ms_on", "rate_ratio_on_off", "bitwise",
                 "profile_hand_kernels", "decode_phase_median_ms",
                 "predict_chain", "card"),
@@ -4759,6 +4788,502 @@ def phase_observe(torch, TransformerLM, keras, kernels, inference, tmp):
     return ok_fit and ok_serve, stats
 
 
+# the control phase: the serving control plane on the serve phase's
+# handle (full-width TransformerLM), three pageable ResNet-50s and a
+# LeNet on two replicas of one card
+CONTROL = dict(requests=16, threads=4, prompt=(16, 511), new=(8, 64),
+               max_queue=16, max_concurrency=8, saturate=32,
+               saturate_new=8, canary=0.25, canary_requests=40,
+               reject_s=0.1, resnet_size=224, resnet_classes=1000,
+               pager_rows=(1, 32), pager_resident=2, replica_threads=8,
+               replica_requests=12, replica_rows=(1, 4),
+               replica_bucket=32, hedge_delay_s=0.02, hedge_seed=40,
+               hedge_requests=64, freed_share=0.95)
+
+
+def control_swap(torch, TransformerLM, kernels, serving, inference):
+    """(a) A hot swap under traffic and (b) admission on the registry's
+    full-width TransformerLM: v1 (seed 0) deployed, each prompt's solo
+    greedy stream from v1 and from v2 (seed 1) computed first, then
+    CONTROL["threads"] clients cycle through CONTROL["requests"] prompts
+    with generate_ex while v2 deploys, until v2 has served as many
+    requests as there are prompts.  Then a saturating burst against the
+    bounded queue.  Returns (checks, {"swap": ..., "admission": ...})."""
+    import threading
+    import numpy as np
+    from analytics_zoo_tpu_torch.observability import Tracer
+    C = CONTROL
+    cfg = dict(FULL, seq_len=SERVE["max_len"])
+    engine_kw = dict(decode_capacity=SERVE["capacity"],
+                     decode_max_len=SERVE["max_len"],
+                     decode_prompt_buckets=SERVE["buckets"])
+    rng = np.random.default_rng(17)
+    prompts = [rng.integers(0, cfg["vocab_size"], int(n))
+               for n in rng.integers(C["prompt"][0], C["prompt"][1] + 1,
+                                     C["requests"])]
+    news = [int(n) for n in rng.integers(C["new"][0], C["new"][1] + 1,
+                                         C["requests"])]
+    v1 = TransformerLM(**cfg, device="cuda", seed=0).eval()
+    v2 = TransformerLM(**cfg, device="cuda", seed=1).eval()
+    tracer = Tracer(capacity=256)
+    reg = serving.ModelRegistry(max_queue=C["max_queue"],
+                                max_concurrency=C["max_concurrency"],
+                                tracer=tracer)
+    checks, stats = {}, {}
+    try:
+        reg.deploy("lm", v1, **engine_kw)
+        solo = {1: [reg.generate("lm", [p], n)[0]
+                    for p, n in zip(prompts, news)]}
+        alone = inference.InferenceModel(**engine_kw).load_keras_net(v2)
+        try:
+            solo[2] = [alone.generate([p], n, timeout=120)[0]
+                       for p, n in zip(prompts, news)]
+        finally:
+            alone.close()
+        engine1 = reg._entry("lm").active.model.decode_engine
+        admitted1 = engine1.stats()["admitted"]
+        done, errors = [], []  # (prompt index, stream, info)
+        go, stop = threading.Event(), threading.Event()
+
+        def client(t):
+            go.wait(10)
+            i = t
+            while not stop.is_set():
+                k = i % len(prompts)
+                try:
+                    out, info = reg.generate_ex("lm", [prompts[k]],
+                                                news[k])
+                    done.append((k, out[0], info))
+                except Exception as e:  # counted as a failed request
+                    errors.append(f"{type(e).__name__}: {e}")
+                i += C["threads"]
+
+        def served_by(v):
+            return sum(1 for _, _, info in done if info["version"] == v)
+
+        threads = [threading.Thread(target=client, args=(t,))
+                   for t in range(C["threads"])]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        for t in threads:
+            t.start()
+        t0 = time.perf_counter()
+        go.set()
+        # mid-traffic: once a quarter of the prompts came back
+        while (len(done) < len(prompts) // 4 and not errors
+               and time.perf_counter() - t0 < 120):
+            time.sleep(0.005)
+        t_deploy = time.time()
+        try:
+            reg.deploy("lm", v2, **engine_kw)
+            swap_at = reg._entry("lm").active.deployed_at
+            while (served_by(2) < len(prompts) and not errors
+                   and time.perf_counter() - t0 < 300):
+                time.sleep(0.005)
+        finally:
+            stop.set()
+            for t in threads:
+                t.join(300)
+        wall = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+        engine2 = reg._entry("lm").active.model.decode_engine
+        admitted = (engine1.stats()["admitted"] - admitted1
+                    + engine2.stats()["admitted"])
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        versions = [info["version"] for _, _, info in done]
+        own = [np.array_equal(out, solo[info["version"]][k])
+               for k, out, info in done]
+        ids = {info["request_id"]: k for k, _, info in done}
+        spans = [(d, news[ids[d["trace_id"]]]) for d in tracer.recent()
+                 if d["trace_id"] in ids]
+
+        def through(d, phase):
+            total = 0.0
+            for p in d["phases"]:
+                total += p["dur_ms"]
+                if p["name"] == phase:
+                    return total
+            return None
+
+        ttft = [through(d, "prefill") for d, _ in spans]
+        itl = [sum(p["dur_ms"] for p in d["phases"]
+                   if p["name"] == "decode_step") / (n - 1)
+               for d, n in spans if n > 1]
+        stats["swap"] = dict(
+            prompts=len(prompts), requests=len(done), failed=len(errors),
+            errors=errors[:3], served_by={v: versions.count(v)
+                                          for v in (1, 2)},
+            requests_per_s=len(done) / wall, wall_s=wall,
+            ttft_ms_median=percentile([t for t in ttft if t is not None],
+                                      50),
+            itl_ms_median=percentile(itl, 50),
+            v2_warmup_s=swap_at - t_deploy, peak_gib=peak_gib,
+            admitted=admitted, warm_admissions=len(SERVE["buckets"]),
+            flash_fwd_launches=launches.get("flash_fwd", 0),
+            launches=launches)
+        checks["swap_zero_failed"] = not errors
+        checks["swap_each_stream_one_version"] = all(own)
+        checks["swap_both_versions_served"] = set(versions) == {1, 2}
+        checks["swap_flash_fwd_12_an_admission"] = (
+            launches.get("flash_fwd", 0)
+            == cfg["n_layers"] * (admitted + len(SERVE["buckets"]))
+            and admitted == len(done))
+
+        # (b) a saturating burst: every request at once, the queue bound
+        # holds, a rejection is an Overloaded with its payload, at once
+        got, rejected, other = [], [], []
+        go = threading.Event()
+
+        def burst(i):
+            go.wait(10)
+            t1 = time.perf_counter()
+            try:
+                reg.generate("lm", [prompts[i % len(prompts)][:16]],
+                             C["saturate_new"])
+                got.append(i)
+            except serving.Overloaded as e:
+                rejected.append((time.perf_counter() - t1, e.to_dict(),
+                                 serving.error_response(e)))
+            except Exception as e:
+                other.append(f"{type(e).__name__}: {e}")
+
+        threads = [threading.Thread(target=burst, args=(i,))
+                   for i in range(C["saturate"])]
+        for t in threads:
+            t.start()
+        go.set()
+        for t in threads:
+            t.join(300)
+        adm = reg.metrics("lm")["lm"]["admission"]
+        stats["admission"] = dict(
+            sent=C["saturate"], served=len(got), rejected=len(rejected),
+            other=other[:3], queue_high_water=adm["queue_high_water"],
+            max_queue=adm["max_queue"],
+            reject_ms_max=(max(r[0] for r in rejected) * 1e3
+                           if rejected else None),
+            payload=rejected[0][1] if rejected else None)
+        checks["admission_queue_bound"] = (
+            adm["queue_high_water"] <= C["max_queue"])
+        checks["admission_rejections_structured_and_immediate"] = (
+            bool(rejected) and not other
+            and all(r[1]["error"] == "Overloaded" and r[2][0] == 429
+                    and r[0] <= C["reject_s"] for r in rejected)
+            and adm["max_queue"] == C["max_queue"]
+            and len(got) + len(rejected) == C["saturate"])
+    finally:
+        reg.shutdown()
+    del v1, v2, reg
+    return checks, stats
+
+
+def control_canary(torch, keras, serving):
+    """(b) A canary at CONTROL["canary"] on a LeNet registry entry (two
+    seeds), and a deploy whose warm-up raises.  Returns (checks, stats)."""
+    import numpy as np
+    C = CONTROL
+    reg = serving.ModelRegistry(device="cuda")
+    checks, stats = {}, {}
+    x = np.random.default_rng(5).normal(size=(2, 28, 28, 1)).astype(
+        np.float32)
+    try:
+        reg.deploy("lenet", build_lenet(keras, "cuda", seed=0),
+                   warmup_shapes=(28, 28, 1))
+        want1 = reg.predict("lenet", x)
+        reg.deploy("lenet", build_lenet(keras, "cuda", seed=1),
+                   warmup_shapes=(28, 28, 1),
+                   canary_fraction=C["canary"])
+        routed = [reg.predict_ex("lenet", x)[1]["canary"]
+                  for _ in range(C["canary_requests"])]
+        stats["canary_hits"] = sum(routed)
+        stats["canary_requests"] = len(routed)
+        checks["canary_exact_share"] = (
+            sum(routed) == round(C["canary"] * C["canary_requests"]))
+        reg.clear_canary("lenet")
+
+        def broken(p, xb):
+            raise RuntimeError("injected warm-up failure")
+
+        try:
+            reg.deploy("lenet", fn=broken, params={},
+                       warmup_shapes=(28, 28, 1))
+            failed = None
+        except serving.DeployError as e:
+            failed = e.to_dict()
+        stats["failed_deploy"] = failed
+        out, info = reg.predict_ex("lenet", x)
+        checks["failed_warmup_keeps_active"] = (
+            failed is not None and failed["stage"] == "warmup"
+            and info["version"] == 1 and np.array_equal(out, want1))
+    finally:
+        reg.shutdown()
+    return checks, stats
+
+
+def control_pager(torch, models, serving):
+    """(c) Three pageable ResNet-50 f32 handles (coalescing, buckets to
+    32) under pager={"max_resident": 2}, a pinned handle of model 0's
+    weights beside them.  Returns (checks, stats)."""
+    import gc
+    import numpy as np
+    from analytics_zoo_tpu_torch.observability import Tracer
+    C = CONTROL
+    shape = (C["resnet_size"], C["resnet_size"], 3)
+    tracer = Tracer(capacity=16)
+    reg = serving.ModelRegistry(
+        device="cuda", max_batch_size=C["pager_rows"][1], tracer=tracer,
+        pager={"max_resident": C["pager_resident"]})
+    checks, stats = {}, {}
+    rng = np.random.default_rng(9)
+    x = rng.normal(size=(3,) + shape).astype(np.float32)
+    try:
+        pinned = models.ImageClassifier(
+            "resnet-50", input_shape=shape,
+            num_classes=C["resnet_classes"], device="cuda", seed=0)
+        weight_bytes = sum(t.numel() * t.element_size()
+                           for t in pinned.state_dict().values())
+        for i in range(3):
+            net = models.ImageClassifier(
+                "resnet-50", input_shape=shape,
+                num_classes=C["resnet_classes"], device="cuda", seed=i)
+            if i == 0:
+                pinned.load_state_dict(net.state_dict())
+            reg.deploy(f"r{i}", net, warmup_shapes=shape)
+            del net  # the registry holds the only reference
+        reg.deploy("pinned", pinned, warmup_shapes=shape, pageable=False)
+        del pinned
+        gc.collect()
+        states = {f"r{i}": reg.metrics(f"r{i}")[f"r{i}"]["pager"]["state"]
+                  for i in range(3)}
+        want = reg.predict("pinned", x)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got, info = reg.predict_ex("r0", x)  # r0 is cold: a fault-in
+        fault_ms = (time.perf_counter() - t0) * 1e3
+        fault_phases = {}
+        for ph in tracer.find(info["request_id"])["phases"]:
+            fault_phases[ph["name"]] = (fault_phases.get(ph["name"], 0.0)
+                                        + ph["dur_ms"])
+        warm_t0 = time.perf_counter()
+        again = reg.predict("r0", x)
+        warm_ms = (time.perf_counter() - warm_t0) * 1e3
+        entry = reg._entry("r0")
+        recipe_bytes = entry.pager_recipe.host_bytes
+        # page r0 out now (the pressure path's own demotion, called
+        # directly so that no fault-in overlaps the reading) and read
+        # what leaves the card
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        evicted = reg.pager._try_evict("r0", entry, "pressure")
+        torch.cuda.synchronize()
+        freed = before - torch.cuda.memory_allocated()
+        refault = reg.predict("r0", x)
+        pm = reg.metrics("r0")["r0"]["pager"]
+        stats.update(states_after_deploys=states, fault_in_ms=fault_ms,
+                     fault_phase_ms=fault_phases,
+                     warm_predict_ms=warm_ms, bytes_per_fault=recipe_bytes,
+                     weight_bytes=weight_bytes, freed_bytes=freed,
+                     freed_share=freed / weight_bytes,
+                     faults=pm["fault_ok"], evictions=pm["evict_pressure"])
+        checks["pager_cold_after_deploys"] = states["r0"] == "cold"
+        checks["pager_fault_in_bit_equal"] = (
+            np.array_equal(got, want) and np.array_equal(again, want)
+            and np.array_equal(refault, want))
+        checks["pager_frees_weights"] = (
+            evicted and freed >= C["freed_share"] * weight_bytes)
+    finally:
+        reg.shutdown()
+    return checks, stats
+
+
+def control_replicas(torch, keras, inference, profile):
+    """(d) LeNet on two replicas of one card (each on its own stream),
+    coalesced and hedged: results against solo runs, a failing replica,
+    its re-probe, a slowed replica's hedges and an elastic resize.
+    Returns (checks, stats)."""
+    import threading
+    import numpy as np
+    C = CONTROL
+    net = build_lenet(keras, "cuda", seed=3)
+    net.eval()
+    solo = inference.InferenceModel(
+        max_batch_size=C["replica_bucket"],
+        buckets=[C["replica_bucket"]]).load_keras_net(net)
+    im = inference.InferenceModel(
+        supported_concurrent_num=2, max_batch_size=C["replica_bucket"],
+        buckets=[C["replica_bucket"]], coalescing=True, max_wait_ms=1.0,
+        replicas=["cuda:0", "cuda:0"], hedging=True, hedge_quantile=0.5,
+        hedge_min_ms=0.5).load_keras_net(net)
+    handle = profile.install()
+    checks, stats = {}, {}
+    rng = np.random.default_rng(12)
+    xs = [rng.normal(size=(int(n), 28, 28, 1)).astype(np.float32)
+          for n in rng.integers(C["replica_rows"][0],
+                                C["replica_rows"][1] + 1,
+                                C["replica_threads"] * C["replica_requests"])]
+
+    def run_all(timed=False):
+        outs, lat, errors = [None] * len(xs), [None] * len(xs), []
+
+        def client(t):
+            for i in range(t, len(xs), C["replica_threads"]):
+                t1 = time.perf_counter()
+                try:
+                    outs[i] = im.predict(xs[i])
+                except Exception as e:
+                    errors.append(f"{type(e).__name__}: {e}")
+                lat[i] = time.perf_counter() - t1
+
+        threads = [threading.Thread(target=client, args=(t,))
+                   for t in range(C["replica_threads"])]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(300)
+        return outs, lat, errors
+
+    try:
+        compiles0 = handle.snapshot()["compiles"]
+        im.warmup((28, 28, 1))
+        stats["builds_at_warmup"] = handle.snapshot()["compiles"] - compiles0
+        solo.warmup((28, 28, 1))
+        want = [solo.predict(x) for x in xs]
+        rs = im._cache.replica_set
+        coal = im._coalescer
+        streams = [r.stream for r in rs.replicas]
+
+        def exact(outs):
+            return all(o is not None and np.array_equal(o, w)
+                       for o, w in zip(outs, want))
+
+        outs, _, errors = run_all()
+        d0 = {r.index: r.dispatches for r in rs.replicas}
+        checks["replicas_bit_identical"] = not errors and exact(outs)
+        stats["max_abs_err"] = max(
+            float(np.abs(o - w).max()) for o, w in zip(outs, want)
+            if o is not None)
+        checks["replicas_own_streams"] = (
+            all(s is not None for s in streams)
+            and streams[0] != streams[1])
+        checks["replicas_both_serve"] = all(v > 0 for v in d0.values())
+
+        # a replica that raises: marked unhealthy, its groups re-routed
+        placed = dict(rs._exes)
+
+        class Crashing:
+            def execute(self, args):
+                raise RuntimeError("injected replica crash")
+
+        rs.probe_backoff_s = 3600.0
+        for key, exes in placed.items():
+            rs._exes[key] = (exes[0], Crashing())
+        outs, _, errors = run_all()
+        sick = rs.replicas[1]
+        checks["failover_rerouted_exact"] = not errors and exact(outs)
+        checks["failover_marked_unhealthy"] = not sick.healthy
+        # the fault clears: a re-probe heals it
+        with rs._lock:
+            for key, exes in placed.items():
+                rs._exes[key] = exes
+            rs.probe_backoff_s = 0.01
+            sick.probe_at = 0.0
+        end = time.monotonic() + 30
+        while not sick.healthy and time.monotonic() < end:
+            im.predict(xs[0])
+            time.sleep(0.01)
+        checks["reprobe_heals"] = sick.healthy
+
+        # a replica slowed by an injected wait: hedges fire and win
+        for x in xs[:C["hedge_seed"]]:
+            im.predict(x)
+        fetch = coal._fetch_slot
+
+        def slow_fetch(dev, n, slot):
+            if slot == 1:
+                time.sleep(C["hedge_delay_s"])
+            return fetch(dev, n, slot)
+
+        coal._fetch_slot = slow_fetch
+        h0 = coal.hedge_stats()
+        outs, lat_on, errors = run_all()
+        h1 = coal.hedge_stats()
+        checks["hedges_fire_and_win_exact"] = (
+            not errors and exact(outs)
+            and h1["hedge_won"] > h0["hedge_won"])
+        coal.hedging = False
+        outs, lat_off, errors_off = run_all()
+        coal.hedging = True
+        coal._fetch_slot = fetch
+        checks["unhedged_exact"] = not errors_off and exact(outs)
+        stats["hedges"] = {k: h1[k] - h0[k] for k in h1}
+        stats["hedged_ms"] = dict(p50=percentile(lat_on, 50) * 1e3,
+                                  p99=percentile(lat_on, 99) * 1e3)
+        stats["unhedged_ms"] = dict(p50=percentile(lat_off, 50) * 1e3,
+                                    p99=percentile(lat_off, 99) * 1e3)
+
+        # elastic: down to one replica and back costs no build
+        compiles = handle.snapshot()["compiles"]
+        misses = dict(im.serving_stats()["misses"])
+        im.set_active_replicas(1)
+        outs1, _, e1 = run_all()
+        im.set_active_replicas(2)
+        outs2, _, e2 = run_all()
+        checks["elastic_no_build"] = (
+            handle.snapshot()["compiles"] == compiles
+            and im.serving_stats()["misses"] == misses
+            and im.active_replicas == 2)
+        checks["elastic_exact"] = (not e1 and not e2 and exact(outs1)
+                                   and exact(outs2))
+        stats["replica_dispatches"] = im.serving_stats()[
+            "replica_dispatches"]
+        stats["bucket"] = C["replica_bucket"]
+    finally:
+        im.close()
+        solo.close()
+    return checks, stats
+
+
+def phase_control(torch, TransformerLM, keras, models, kernels, inference):
+    """The serving control plane on the card: (a) a hot swap of the
+    full-width TransformerLM under traffic, (b) admission and canary,
+    (c) the weight pager and (d) two replicas with failover and
+    hedging."""
+    import gc
+    from analytics_zoo_tpu_torch import serving
+    from analytics_zoo_tpu_torch.observability import profile
+    stats, checks, seconds = {"card": smi_card()}, {}, {}
+    for part, run in (
+            ("swap", lambda: control_swap(torch, TransformerLM, kernels,
+                                          serving, inference)),
+            ("canary", lambda: control_canary(torch, keras, serving)),
+            ("pager", lambda: control_pager(torch, models, serving)),
+            ("replicas", lambda: control_replicas(torch, keras, inference,
+                                                  profile))):
+        t = time.perf_counter()
+        c, s = run()
+        checks.update(c)
+        stats.update(s if part == "swap" else {part: s})
+        seconds[part] = time.perf_counter() - t
+        gc.collect()
+        torch.cuda.empty_cache()
+    swap = stats.get("swap", {})
+    stats.update(
+        seconds=seconds, requests_per_s=swap.get("requests_per_s"),
+        ttft_ms_median=swap.get("ttft_ms_median"),
+        itl_ms_median=swap.get("itl_ms_median"),
+        v2_warmup_s=swap.get("v2_warmup_s"), peak_gib=swap.get("peak_gib"),
+        fault_in_ms=stats["pager"].get("fault_in_ms"),
+        bytes_per_fault=stats["pager"].get("bytes_per_fault"),
+        hedged_ms=stats["replicas"].get("hedged_ms"),
+        unhedged_ms=stats["replicas"].get("unhedged_ms"),
+        launches=swap.get("launches"), checks=checks)
+    for name, good in checks.items():
+        if not good:
+            log(f"control: FAIL {name}")
+    log("control:", json.dumps(stats, default=str))
+    return all(checks.values()), stats
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4851,6 +5376,8 @@ def main() -> int:
                                             tmp)),
         ("observe", lambda: phase_observe(torch, TransformerLM, keras,
                                           kernels, inference, tmp)),
+        ("control", lambda: phase_control(torch, TransformerLM, keras,
+                                          models, kernels, inference)),
     ]
     if sys.argv[1:2] == ["--phases"]:  # e.g. --phases kernels,resume
         wanted = sys.argv[2].split(",")
@@ -4900,6 +5427,8 @@ def main() -> int:
         "launches") or {}
     path_launches["observe"] = (results.get("observe") or {}).get(
         "launches") or {}
+    path_launches["control"] = (results.get("control") or {}).get(
+        "launches") or {}
 
     def timed_row(name, case, dtype, sq=None):
         row = next((r for r in results.get("kernels") or []
@@ -4947,7 +5476,8 @@ def main() -> int:
                      "resume_remat": path_launches["resume_remat"].get(
                          name, 0),
                      "parallel": path_launches["parallel"].get(name, 0),
-                     "observe": path_launches["observe"].get(name, 0)}}
+                     "observe": path_launches["observe"].get(name, 0),
+                     "control": path_launches["control"].get(name, 0)}}
         entry.update(timed_row(name, "mixed", "bfloat16"))
         entry["f32"] = timed_row(name, "train", "float32")
         entry["bf16_batch8"] = timed_row(name, "train", "bfloat16")

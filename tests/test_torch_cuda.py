@@ -20,7 +20,9 @@ ResizeBilinear (shrinking) against the CPU; an asynchronous snapshot
 holding the weights of its step after the next in-place step, remat
 through the flash kernels giving the non-remat gradients, a corrupt
 snapshot tag falling back on the card, and a world of one over NCCL
-training under fsdp bit for bit with the plain Trainer. This file
+training under fsdp bit for bit with the plain Trainer; two replicas of
+one model on one card (each on its own stream) giving the model's own
+bits, and the weight pager returning a paged-out model's bytes. This file
 imports no jax (nor does anything it imports), so that it runs on a
 GPU host without the JAX package: ``python -m pytest --noconftest
 tests/test_torch_cuda.py -m cuda``. Without a card every test skips
@@ -1219,3 +1221,65 @@ def test_cuda_fsdp_fit_on_a_world_of_one_matches_plain(cuda):
     finally:
         mesh_lib.set_default_mesh(None)
         dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_cuda_replicas_on_one_card_give_the_models_bits(cuda, f32_convs):
+    """A replica set over ``["cuda:0", "cuda:0"]``: each replica's
+    dispatch runs on its own stream and returns the bits of the model's
+    own forward at the same batch, coalesced or solo, with or without a
+    hedge."""
+    from analytics_zoo_tpu_torch.pipeline.inference import InferenceModel
+    net = lenet("cuda", seed=2)
+    net.eval()
+    x = make_blobs(8, seed=5)[0]
+    with torch.no_grad():
+        want = net(torch.from_numpy(x).cuda()).cpu().numpy()
+    im = InferenceModel(max_batch_size=8, buckets=[8], coalescing=True,
+                        replicas=["cuda:0", "cuda:0"],
+                        hedging=True).load_keras_net(net)
+    try:
+        im.warmup((28, 28, 1))
+        rs = im._cache.replica_set
+        assert rs.replicas[0].stream != rs.replicas[1].stream
+        from analytics_zoo_tpu_torch.pipeline.inference.serving import \
+            fetch_rows
+        for r in rs.replicas:
+            np.testing.assert_array_equal(
+                fetch_rows(rs.dispatch(r, x), 8), want)
+        np.testing.assert_array_equal(im.predict(x), want)
+    finally:
+        im.close()
+
+
+@pytest.mark.cuda
+def test_cuda_page_out_frees_the_models_bytes(cuda):
+    """A paged-out model returns at least 95% of its weight bytes to the
+    card, and faults back in with its own bits."""
+    from analytics_zoo_tpu_torch.serving import ModelRegistry
+    shape = (64, 64, 3)
+    reg = ModelRegistry(device="cuda", pager={"max_resident": 1})
+    x = np.random.default_rng(1).normal(size=(2,) + shape).astype(
+        np.float32)
+    try:
+        net = ImageClassifier("resnet-50", input_shape=shape,
+                              num_classes=10, device="cuda", seed=0)
+        weight_bytes = sum(t.numel() * t.element_size()
+                           for t in net.state_dict().values())
+        reg.deploy("a", net, warmup_shapes=shape)
+        del net
+        want = reg.predict("a", x)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        entry = reg._entry("a")
+        assert reg.pager._try_evict("a", entry, "pressure")
+        torch.cuda.synchronize()
+        assert before - torch.cuda.memory_allocated() >= 0.95 * weight_bytes
+        np.testing.assert_array_equal(reg.predict("a", x), want)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        assert reg.pager._try_evict("a", entry, "pressure")
+        torch.cuda.synchronize()
+        assert before - torch.cuda.memory_allocated() >= 0.95 * weight_bytes
+    finally:
+        reg.shutdown()

@@ -417,8 +417,20 @@ def test_saved_lm_loads_and_serves(models, make_handle, tmp_path):
                                 dict(hedging=True), dict(mesh={"tp": 2}),
                                 dict(store_tag="m")])
 def test_unported_handle_options_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        InferenceModel(**kw)
+    """``mesh=`` and ``store_tag=`` are not ported and raise, naming the
+    roadmap; ``replicas`` and ``hedging`` are ported and serve."""
+    if "mesh" in kw or "store_tag" in kw:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            InferenceModel(**kw)
+        return
+    im = InferenceModel(device="cpu", max_batch_size=2, **kw)
+    im.load_fn(lambda p, x: x * p["s"], {"s": np.float32(3.0)})
+    try:
+        x = np.ones((2, 4), np.float32)
+        np.testing.assert_array_equal(im.predict(x), 3.0 * x)
+        assert im.n_replicas >= 1
+    finally:
+        im.close()
 
 
 # ------------------------------------------------------------ sampling
