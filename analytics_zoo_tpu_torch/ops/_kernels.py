@@ -10,6 +10,13 @@ module builds nothing and needs no ``nvcc``: the build runs on the first
 launch, or when :func:`build` is called.  A build that runs ``nvcc``
 is reported to ``observability/profile.py`` as a compile.
 
+With the persistent store on (``common/execstore.py``), a library
+missing from the build directory is read from the store first: a hit is
+written into the build directory and loaded, and ``nvcc`` does not run;
+a miss builds and writes the library behind; an entry that is corrupt
+or will not load is counted invalid, deleted and rebuilt.  Without a
+store the build touches no store file.
+
 A wrapper checks device, dtype, shape and contiguity, allocates its
 outputs with ``torch.empty``, launches on the current CUDA stream, raises
 when the launch returns a CUDA error, and counts its launches, in all
@@ -20,6 +27,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -29,6 +37,7 @@ from pathlib import Path
 
 import torch
 
+from ..common import execstore
 from ..observability import profile
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
@@ -64,15 +73,68 @@ def _nvcc() -> str:
                        "CUDA toolkit")
 
 
-def _build_dir() -> Path:
-    """The build directory of this set of sources: a hash of the flags and
-    of every ``csrc/*.cu`` and ``*.cuh`` file, so that an edited header
-    rebuilds the sources that include it."""
+def _source_hash() -> str:
+    """A hash of the flags and of every ``csrc/*.cu`` and ``*.cuh`` file,
+    so that an edited header rebuilds the sources that include it."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for path in sorted([*_CSRC.glob("*.cu"), *_CSRC.glob("*.cuh")]):
         h.update(path.name.encode())
         h.update(path.read_bytes())
-    return _BUILD_ROOT / h.hexdigest()[:16]
+    return h.hexdigest()
+
+
+def _build_dir() -> Path:
+    """The build directory of this set of sources (:func:`_source_hash`)."""
+    return _BUILD_ROOT / _source_hash()[:16]
+
+
+@functools.lru_cache(maxsize=1)
+def _nvcc_version() -> str:
+    """``nvcc --version``'s text, or ``"none"`` on a host without the
+    toolkit (read once a process)."""
+    try:
+        return subprocess.run([_nvcc(), "--version"], capture_output=True,
+                              text=True, timeout=60).stdout.strip()
+    except (RuntimeError, OSError, subprocess.SubprocessError):
+        return "none"
+
+
+def _store_key(store, name: str) -> str:
+    """The store fingerprint of ``csrc/<name>``'s library: the sources'
+    and flags' hash and the compiler's version, over the store's own
+    runtime parts (torch, CUDA, the device)."""
+    return store.fingerprint("kernel-lib", name, _source_hash(),
+                             "nvcc", _nvcc_version())
+
+
+def _compile(name: str, out: Path) -> subprocess.Popen:
+    """Start ``nvcc`` on ``csrc/<name>`` writing the library ``out``."""
+    return subprocess.Popen(
+        [_nvcc(), *NVCC_FLAGS, "-o", str(out), str(_CSRC / name)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def _load(path: Path):
+    """Load one built library."""
+    return ctypes.CDLL(str(path))
+
+
+def _from_store(store, fp: str, lib: Path):
+    """The library of fingerprint ``fp`` read from ``store`` into ``lib``
+    (written atomically) and loaded, or None on a miss.  An entry that
+    will not load is counted invalid and removed, file and entry."""
+    entry = store.lookup(fp)
+    if entry is None:
+        return None
+    tmp = lib.with_suffix(f".{os.getpid()}.store")
+    tmp.write_bytes(entry.payload)
+    os.replace(tmp, lib)
+    try:
+        return _load(lib)
+    except OSError as e:
+        store.note_invalid(fp, e)
+        lib.unlink()
+        return None
 
 
 class KernelLibrary:
@@ -88,17 +150,22 @@ class KernelLibrary:
             return self._fns
         out = _build_dir()
         out.mkdir(parents=True, exist_ok=True)
+        store = execstore.current()
         t0 = time.perf_counter()
-        procs, logs = {}, []
+        procs, logs, loaded, fps = {}, [], {}, {}
         for name in sorted(_SIGNATURES):
             lib = out / (Path(name).stem + ".so")
             if lib.exists():
                 continue
+            if store is not None:
+                # read-through at the build miss only
+                fps[name] = _store_key(store, name)
+                handle = _from_store(store, fps[name], lib)
+                if handle is not None:
+                    loaded[name] = handle
+                    continue
             tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-            procs[name] = (subprocess.Popen(
-                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_CSRC / name)],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
-                tmp, lib)
+            procs[name] = (_compile(name, tmp), tmp, lib)
         failed = []
         for name, (proc, tmp, lib) in procs.items():
             text, _ = proc.communicate()
@@ -115,9 +182,17 @@ class KernelLibrary:
             # the span of the step or request that paid for it
             profile.note_compile(time.perf_counter() - t0,
                                  "nvcc:" + ",".join(sorted(procs)))
+            if store is not None:
+                meta = {"kind": "kernel-lib"}
+                tag = execstore.build_tag()
+                if tag is not None:
+                    meta["model"] = tag
+                for name, (_, _, lib) in sorted(procs.items()):
+                    store.put(fps[name], lib.read_bytes(),
+                              meta=dict(meta, source=name))
         fns = {}
         for name, symbols in _SIGNATURES.items():
-            lib = ctypes.CDLL(str(out / (Path(name).stem + ".so")))
+            lib = loaded.get(name) or _load(out / (Path(name).stem + ".so"))
             for symbol, argtypes in symbols.items():
                 fn = getattr(lib, symbol)
                 fn.argtypes = argtypes

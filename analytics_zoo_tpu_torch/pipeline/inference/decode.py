@@ -46,6 +46,17 @@ request never waits on a long neighbour.
   the plain step, so a full rejection gives the plain stream) and
   verifies the proposals with a k-query ``_decode_window``; accepted
   proposals emit up to ``spec_tokens`` tokens a dispatch.
+* **Mesh: slots split over a device group.**  ``DecodeEngine(mesh=...)``
+  returns a :class:`MeshDecodeEngine`, a router over member engines:
+  the capacity is split over the first group the spec carves from the
+  devices, and each member is a ``DecodeEngine`` of its own over a
+  contiguous slice of the slots, with its own copy of the params, its
+  own KV-cache slice, its own captured CUDA graphs and stream.
+  Admission routes a request to the member with the fewest live
+  requests.  No step has a cross-slot term, so a slot's stream is the
+  unsplit engine's up to the GEMMs' rounding: each member runs them at
+  ``capacity / group size`` rows, and the BLAS may pick another
+  algorithm at that size.
 
 * **Tracing.**  A request submitted with a span (``observability/
   trace.py``) carries it to the dispatcher thread: ``decode_wait``
@@ -73,12 +84,14 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ...common import execstore
 from ...models.generation import (_decode_step, _decode_window,
                                   _embed_token, _head_logits, _prefill,
                                   _prefill_ext)
 from ...observability import profile as _profile
 from ...observability import trace as _trace
-from .serving import bucket_ladder
+from .serving import (_norm_device, available_devices, bucket_ladder,
+                      module_twin)
 
 _M32 = 0xFFFFFFFF
 
@@ -305,6 +318,40 @@ class _PrefixPool:
         return evicted
 
 
+def _generate(validate, submit, prompts, max_new_tokens, eos_id, timeout,
+              span, temperature, top_k, top_p, seed) -> List[np.ndarray]:
+    """``generate`` over an engine's ``validate`` and ``submit``: every
+    row validated before the first is queued, then each row's
+    continuation."""
+    rows = ([np.asarray(prompts[i]) for i in range(len(prompts))]
+            if isinstance(prompts, (list, tuple))
+            else [r for r in np.asarray(prompts)])
+    if np.ndim(max_new_tokens) == 0:
+        max_news = [int(max_new_tokens)] * len(rows)
+    else:
+        max_news = [int(m) for m in max_new_tokens]
+        if len(max_news) != len(rows):
+            raise ValueError(
+                f"max_new_tokens has {len(max_news)} entries for "
+                f"{len(rows)} prompts")
+    if np.ndim(seed) == 0:
+        seeds = [int(seed)] * len(rows)
+    else:
+        seeds = [int(s) for s in seed]
+        if len(seeds) != len(rows):
+            raise ValueError(
+                f"seed has {len(seeds)} entries for "
+                f"{len(rows)} prompts")
+    for r, m, s in zip(rows, max_news, seeds):
+        validate(r, m, temperature, top_k, top_p, s)
+    streams = [submit(r, m, eos_id=eos_id,
+                      span=span if len(rows) == 1 else None,
+                      temperature=temperature, top_k=top_k, top_p=top_p,
+                      seed=s)
+               for (r, m, s) in zip(rows, max_news, seeds)]
+    return [s.result(timeout=timeout) for s in streams]
+
+
 class _Plan:
     """One step plan: ``body`` advances the decode state in place and
     leaves its results in ``outputs`` (state tensors).  On a CUDA device
@@ -376,15 +423,39 @@ class DecodeEngine:
             :func:`skeleton_draft`) turns on speculative decoding of up
             to ``spec_tokens`` tokens a dispatch.  Not with
             ``prefix_pool``.
+        mesh: a sharded-serving spec (``serving.shardgroup``): the
+            call returns a :class:`MeshDecodeEngine` splitting the slots
+            over the first group carved from ``devices`` (default every
+            device of the model's platform; a card may repeat).  Not with
+            ``device``, ``prefix_pool`` or ``draft``.
+        device: the engine's device, which is the model's (the engine
+            runs where its model is); None takes the model's.
+        store_tag: the ``model`` tag of the persistent store's entries
+            written while the engine warms up (``common/execstore.py``).
     """
+
+    def __new__(cls, *args, mesh=None, **kwargs):
+        # the mesh engine is a router over member engines, not an engine
+        # itself: returned as it is, so __init__ below never runs for it
+        if mesh is not None:
+            return MeshDecodeEngine(*args, mesh=mesh, **kwargs)
+        return super().__new__(cls)
 
     def __init__(self, model, capacity: int = 8,
                  max_len: Optional[int] = None,
                  prompt_buckets: Optional[Sequence[int]] = None,
                  eos_id: Optional[int] = None, max_queue: int = 256,
                  step_fuse: int = 4, prefix_pool: int = 0, draft=None,
-                 spec_tokens: int = 4):
+                 spec_tokens: int = 4, *, mesh=None, devices=None,
+                 device=None, store_tag: Optional[str] = None):
         hyper = model.hyper
+        if devices is not None:
+            raise ValueError("devices= goes with mesh=: they are the "
+                             "devices the mesh spec carves")
+        if device is not None and _norm_device(device) != _norm_device(
+                model.device):
+            raise ValueError(f"the model is on {model.device}, the "
+                             f"engine's device is {device}")
         if capacity < 1:
             raise ValueError(f"capacity must be >= 1, got {capacity}")
         if int(prefix_pool) < 0:
@@ -423,6 +494,7 @@ class DecodeEngine:
                 f"largest prompt bucket ({self.prompt_buckets[-1]}) "
                 f"must leave room to decode (max_len {self.max_len})")
         self.eos_id = eos_id
+        self.store_tag = store_tag
         self._model = model.eval()
         self.device = model.device
         self.spec_tokens = int(spec_tokens)
@@ -767,7 +839,7 @@ class DecodeEngine:
             self._warming = True
         self._after_caller()
         try:
-            with self._on_device():
+            with self._on_device(), execstore.tag_builds(self.store_tag):
                 self._warm()
         finally:
             with self._start_cond:
@@ -921,33 +993,9 @@ class DecodeEngine:
         validated before the first is queued.  ``span`` rides the
         request when there is exactly one row (a span has one owner at a
         time; several rows would interleave its phases)."""
-        rows = ([np.asarray(prompts[i]) for i in range(len(prompts))]
-                if isinstance(prompts, (list, tuple))
-                else [r for r in np.asarray(prompts)])
-        if np.ndim(max_new_tokens) == 0:
-            max_news = [int(max_new_tokens)] * len(rows)
-        else:
-            max_news = [int(m) for m in max_new_tokens]
-            if len(max_news) != len(rows):
-                raise ValueError(
-                    f"max_new_tokens has {len(max_news)} entries for "
-                    f"{len(rows)} prompts")
-        if np.ndim(seed) == 0:
-            seeds = [int(seed)] * len(rows)
-        else:
-            seeds = [int(s) for s in seed]
-            if len(seeds) != len(rows):
-                raise ValueError(
-                    f"seed has {len(seeds)} entries for "
-                    f"{len(rows)} prompts")
-        for r, m, s in zip(rows, max_news, seeds):
-            self._validate(r, m, temperature, top_k, top_p, s)
-        streams = [self.submit(r, m, eos_id=eos_id,
-                               span=span if len(rows) == 1 else None,
-                               temperature=temperature, top_k=top_k,
-                               top_p=top_p, seed=s)
-                   for (r, m, s) in zip(rows, max_news, seeds)]
-        return [s.result(timeout=timeout) for s in streams]
+        return _generate(self._validate, self.submit, prompts,
+                         max_new_tokens, eos_id, timeout, span,
+                         temperature, top_k, top_p, seed)
 
     # ---- stats ----------------------------------------------------------
     def stats(self) -> Dict[str, Any]:
@@ -1197,3 +1245,132 @@ class DecodeEngine:
                     shutdown = True
                     continue
                 self._admit_slot(nxt, self._free.popleft())
+
+
+class MeshDecodeEngine:
+    """What ``DecodeEngine(mesh=...)`` returns: a router over member
+    engines that splits the slot capacity over the first device group the
+    mesh spec carves from ``devices`` (module doc).  Member ``j`` is a
+    :class:`DecodeEngine` of ``capacity / group size`` slots on the
+    group's ``j``-th device, with its own copy of the params (member 0
+    serves the model itself when it is on that device), KV caches, CUDA
+    graphs, stream and dispatcher.  :meth:`submit` routes to the member
+    with the fewest live requests; :meth:`generate`, :meth:`stats`,
+    :meth:`warmup` and :meth:`close` cover every member.  The JAX
+    package's refusals hold: ``device`` with a mesh, ``prefix_pool`` or
+    a draft under a mesh, and a capacity that does not divide by the
+    group size."""
+
+    def __init__(self, model, capacity: int = 8,
+                 max_len: Optional[int] = None,
+                 prompt_buckets: Optional[Sequence[int]] = None,
+                 eos_id: Optional[int] = None, max_queue: int = 256,
+                 step_fuse: int = 4, prefix_pool: int = 0, draft=None,
+                 spec_tokens: int = 4, *, mesh, devices=None,
+                 device=None, store_tag: Optional[str] = None):
+        from ...serving.shardgroup import carve_groups, normalize_mesh_spec
+        if device is not None:
+            raise ValueError(
+                "pass mesh= or device=, not both — the mesh spec "
+                "carves the engine's device group itself")
+        if prefix_pool or draft is not None:
+            raise ValueError(
+                "mesh-sharded decode does not support prefix_pool "
+                "or speculative drafts in this engine version — "
+                "their pool/draft caches would need the same slot "
+                "sharding twin")
+        spec = normalize_mesh_spec(mesh)
+        devs = ([_norm_device(d) for d in devices] if devices
+                else available_devices(model.device))
+        gdevs, _ = carve_groups(devs, spec)[0]
+        if int(capacity) % len(gdevs):
+            raise ValueError(
+                f"capacity ({capacity}) must divide evenly "
+                f"over the mesh's {len(gdevs)} devices")
+        per = int(capacity) // len(gdevs)
+        self.members: List[DecodeEngine] = []
+        for j, dev in enumerate(gdevs):
+            own = model if (j == 0 and dev == model.device) else \
+                module_twin(model, lambda t, dev=dev: t.to(dev, copy=True))
+            self.members.append(DecodeEngine(
+                own, capacity=per, max_len=max_len,
+                prompt_buckets=prompt_buckets, eos_id=eos_id,
+                max_queue=max_queue, step_fuse=step_fuse,
+                store_tag=store_tag))
+        self.capacity = int(capacity)
+        self.max_len = self.members[0].max_len
+        self.prompt_buckets = self.members[0].prompt_buckets
+        self.store_tag = store_tag
+        self.device = gdevs[0]
+        self.devices = tuple(gdevs)
+        self.mesh_spec = spec
+        self._route_lock = threading.Lock()
+        self._live: List[List[TokenStream]] = [[] for _ in self.members]
+
+    @property
+    def closed(self) -> bool:
+        return any(m.closed for m in self.members)
+
+    def warmup(self) -> float:
+        """Warm every member (each admission bucket, each step plan);
+        returns wall seconds."""
+        t0 = time.perf_counter()
+        for m in self.members:
+            m.warmup()
+        return time.perf_counter() - t0
+
+    def submit(self, prompt_ids, max_new_tokens: int,
+               eos_id: Optional[int] = None, span=None,
+               temperature: float = 0.0, top_k: Optional[int] = None,
+               top_p: Optional[float] = None,
+               seed: int = 0) -> TokenStream:
+        """Queue one prompt on the member with the fewest live requests
+        (ties to the lowest index); as :meth:`DecodeEngine.submit`."""
+        with self._route_lock:
+            for live in self._live:
+                live[:] = [s for s in live if not s.done]
+            j = min(range(len(self.members)),
+                    key=lambda i: (len(self._live[i]), i))
+            stream = self.members[j].submit(
+                prompt_ids, max_new_tokens, eos_id=eos_id, span=span,
+                temperature=temperature, top_k=top_k, top_p=top_p,
+                seed=seed)
+            self._live[j].append(stream)
+        return stream
+
+    def generate(self, prompts, max_new_tokens, eos_id=None,
+                 timeout: Optional[float] = None, span=None,
+                 temperature: float = 0.0, top_k: Optional[int] = None,
+                 top_p: Optional[float] = None,
+                 seed=0) -> List[np.ndarray]:
+        """As :meth:`DecodeEngine.generate`, each row routed by
+        :meth:`submit`; the members share one request validation."""
+        return _generate(self.members[0]._validate, self.submit, prompts,
+                         max_new_tokens, eos_id, timeout, span,
+                         temperature, top_k, top_p, seed)
+
+    def stats(self) -> Dict[str, Any]:
+        """The members' counters summed (per-bucket counters by bucket),
+        with the mesh's axes and device count."""
+        per = [m.stats() for m in self.members]
+        out: Dict[str, Any] = {}
+        for key, first in per[0].items():
+            if isinstance(first, bool) or not isinstance(
+                    first, (int, float, dict)):
+                out[key] = first
+            elif isinstance(first, dict):
+                merged: Dict[Any, Any] = {}
+                for st in per:
+                    for k, v in st[key].items():
+                        merged[k] = merged.get(k, 0) + v
+                out[key] = merged
+            else:
+                out[key] = sum(st[key] for st in per)
+        out["capacity"] = self.capacity
+        out["mesh_axes"] = dict(self.mesh_spec["axes"])
+        out["mesh_devices"] = len(self.members)
+        return out
+
+    def close(self, timeout: float = 5.0):
+        for m in self.members:
+            m.close(timeout)

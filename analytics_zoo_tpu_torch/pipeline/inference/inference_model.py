@@ -28,9 +28,28 @@ of devices places the replicas on exactly those devices, repeats
 allowed (``["cuda:0", "cuda:0"]``: two replicas on one card, each on
 its own stream).  A module's replicas are its parameters and buffers
 copied per device, run through the module as a skeleton with
-``torch.func.functional_call``.  Sharded meshes (``mesh=``), the
-persistent executable store (``store_tag=``) and the TF/graph import
-paths are not ported (see ROADMAP.md).
+``torch.func.functional_call``.
+
+``mesh`` serves the bucketed path from replica GROUPS
+(``serving.shardgroup.ShardGroupSet``): the devices are carved into
+groups of the spec's size, each group's weights sharded across its
+members and gathered on use on its first device.  The blocks are cut
+from host tensors and the handle keeps only a ``meta`` skeleton of the
+net, so no card holds the whole model: :meth:`load` reads a saved
+model onto the host, and an in-memory net may be on the host or a
+card.  A function given to :meth:`load_fn` is gathered a layer at a
+time when it carries its module as ``fn.module`` (as
+:func:`module_forward` makes it), else its whole tree is gathered for
+each dispatch, which the group warns about.  The devices are the
+``replicas`` list when one is given (a card may repeat:
+``["cuda:0", "cuda:0"]`` runs a group of two on one card), else every
+device of the model's platform; an int ``replicas`` is ignored under a
+mesh, as the JAX package ignores it.  With ``decode_capacity`` the
+decode engine splits its slots over the first group's devices
+(``DecodeEngine(mesh=...)``).  ``store_tag`` names this handle in the
+persistent store (``common/execstore.py``): a kernel library built while
+it loads or warms up is written with that tag as its ``model``.  The
+TF/graph import paths are not ported (see ROADMAP.md).
 
 Tracing: ``predict``, ``generate`` and ``generate_stream`` read the
 caller's current span once (``observability.trace.current_span``; one
@@ -42,23 +61,21 @@ the decode engine's thread ``decode_wait -> prefill -> decode_step``.
 
 from __future__ import annotations
 
-import copy
-import itertools
-import sys
 import threading
 from typing import Any, List, Optional, Sequence
 
 import numpy as np
 import torch
 
+from ...common import execstore
 from ...common.context import resolve_device
 from ...observability import profile as _profile
 from ...observability import trace as _trace
 from .decode import DecodeEngine
 from .serving import (BucketedExecutableCache, CoalescerClosedError,
                       ReplicaSet, RequestCoalescer, _norm_device, _rows,
-                      available_devices, fetch_rows, place_tree,
-                      to_device)
+                      available_devices, fetch_rows, module_twin,
+                      place_tree, to_device)
 
 
 class JTensor:
@@ -94,13 +111,6 @@ def _canonical(a: np.ndarray) -> np.ndarray:
     return a.astype(np.float32) if a.dtype == np.float64 else a
 
 
-def _not_ported(what: str):
-    return NotImplementedError(
-        f"InferenceModel({what}) is not ported yet: sharded serving groups "
-        "and the executable store come with the next serving slice (see "
-        "ROADMAP.md)")
-
-
 def module_forward(net):
     """``fn(params, x)`` running ``net`` as a skeleton over ``params`` (a
     dict of every parameter and buffer by name) through
@@ -115,6 +125,9 @@ def module_forward(net):
             return torch.func.functional_call(
                 net, params, (list(x) if isinstance(x, tuple) else x,))
 
+    # a sharded group runs the net's layers itself, gathering each
+    # layer's weights on use (serving/shardgroup.py)
+    fn.module = net
     return fn
 
 
@@ -122,28 +135,8 @@ def meta_skeleton(net):
     """A copy of ``net`` whose parameters and buffers live on the
     ``meta`` device (shapes and dtypes, no storage), for
     :func:`module_forward` over weights held elsewhere.  Made without
-    touching the device: every tensor is mapped to its ``meta`` twin
-    before the copy, and training state (the trainer, generators, a
-    cached quantized twin) is left out."""
-    memo = {}
-    for t in itertools.chain(net.parameters(), net.buffers()):
-        twin = torch.empty_like(t, device="meta")
-        memo[id(t)] = (torch.nn.Parameter(twin, requires_grad=False)
-                       if isinstance(t, torch.nn.Parameter) else twin)
-    for mod in net.modules():
-        for key, value in vars(mod).items():
-            if (isinstance(value, torch.Generator)
-                    or key in ("trainer", "_quantized_net")):
-                memo[id(value)] = None
-    # a graph's nodes link to their inputs, so the copy recurses about
-    # once per layer (ResNet-50 passes 1,000 levels)
-    limit = sys.getrecursionlimit()
-    sys.setrecursionlimit(max(limit, 20000))
-    try:
-        skeleton = copy.deepcopy(net, memo)
-    finally:
-        sys.setrecursionlimit(limit)
-    return skeleton.eval()
+    touching the device (``serving.module_twin``)."""
+    return module_twin(net, lambda t: torch.empty_like(t, device="meta"))
 
 
 def module_tensors(net) -> dict:
@@ -204,15 +197,27 @@ class InferenceModel:
           longer than the ``hedge_quantile`` of observed group latencies
           (floored at ``hedge_min_ms``) is re-dispatched to a second
           healthy replica and the first result wins.
+        * ``mesh``: a sharded-serving spec dict (see
+          :func:`analytics_zoo_tpu_torch.serving.shardgroup.normalize_mesh_spec`):
+          replicas become replica GROUPS over the ``replicas`` device
+          list (else every device of the platform), each group's weights
+          sharded by the spec's rule table; the decode engine, when
+          configured, splits its slots over the first group.  A bad spec
+          fails here.
+        * ``store_tag``: the ``model`` tag of the persistent store's
+          entries this handle's builds write (``stat --by-model``).
         * ``device``: where :meth:`load` and :meth:`load_fn` put the
           model (``"cuda"`` unless asked otherwise); an in-memory model
-          serves on its own device.
-
-        ``mesh`` and ``store_tag`` are not ported and raise."""
+          serves on its own device."""
+        # per-model accounting tag for the persistent store: metadata on
+        # the entries this handle's builds write, never part of a key
+        self.store_tag = store_tag
+        # normalized once here, so a malformed spec fails the
+        # constructor (deploy time), not the first install
         if mesh is not None:
-            raise _not_ported("mesh=...")
-        if store_tag is not None:
-            raise _not_ported("store_tag=...")
+            from ...serving.shardgroup import normalize_mesh_spec
+            mesh = normalize_mesh_spec(mesh)
+        self._mesh = mesh
         self.concurrent_num = int(supported_concurrent_num)
         self._semaphore = threading.Semaphore(self.concurrent_num)
         self._sem_capacity = self.concurrent_num
@@ -255,50 +260,95 @@ class InferenceModel:
         format) onto this handle's device and serve it, with its layer
         state.  ``weight_path`` is a checkpoint directory (a saved model's
         ``weights``) whose final weights and state replace the saved
-        ones.  ``quantize`` as :meth:`load_keras_net` takes it."""
+        ones.  ``quantize`` as :meth:`load_keras_net` takes it.  Under a
+        mesh the model is read onto the host and only the groups' blocks
+        reach the devices."""
         from ... import models  # noqa: F401  (registers the zoo's models)
         from ..api.keras.engine import KerasNet
-        net = KerasNet.load_model(model_path,
-                                  device=resolve_device(self._device))
-        if weight_path is not None:
-            from ...models.jax_params import model_tree
-            from ...train import checkpoint as checkpoint_lib
-            checkpoint_lib.restore_into(weight_path, model_tree(net),
-                                        "final")
-        return self.load_keras_net(net, quantize=quantize)
+
+        def read(device):
+            net = KerasNet.load_model(model_path, device=device)
+            if weight_path is not None:
+                from ...models.jax_params import model_tree
+                from ...train import checkpoint as checkpoint_lib
+                checkpoint_lib.restore_into(weight_path, model_tree(net),
+                                            "final")
+            return net
+
+        device = resolve_device(self._device)
+        if self._mesh is not None and self._bucketing:
+            net = read(torch.device("cpu"))
+            quantize = self._quantizes(net, quantize)
+            if not quantize:
+                return self._serve_net(net, False, device)
+            # a quantized handle serves single-device, where it runs
+            return self._serve_net(read(device), True, device)
+        return self.load_keras_net(read(device), quantize=quantize)
 
     def load_keras_net(self, net, quantize: Optional[bool] = None):
-        """Serve an in-memory KerasNet or zoo model on its device.
-        ``quantize=True`` serves its int8 twin; None keeps the handle's
-        last choice (so ``reload`` stays int8), and on a first load
-        follows a '-quantize' model name."""
+        """Serve an in-memory KerasNet or zoo model on its device, or
+        under a mesh on the groups' devices (the net may then be on the
+        host).  ``quantize=True`` serves its int8 twin; None keeps the
+        handle's last choice (so ``reload`` stays int8), and on a first
+        load follows a '-quantize' model name."""
+        quantize = self._quantizes(net, quantize)
+        if self._sharded(quantize):
+            return self._serve_net(
+                net, False, net.device if self._device is None
+                else resolve_device(self._device))
+        if self._device is not None and _norm_device(
+                self._device) != _norm_device(net.device):
+            raise ValueError(f"the model is on {net.device}, the handle's "
+                             f"device is {self._device}")
+        return self._serve_net(net, quantize, net.device)
+
+    def _quantizes(self, net, quantize: Optional[bool]) -> bool:
+        """``quantize`` resolved: the handle's last choice when None, and
+        on a first load a '-quantize' model name."""
         if quantize is None:
             quantize = self._quantize_flag
         if quantize is None:
             name = getattr(net, "hyper", {}).get("model_name", "")
             quantize = isinstance(name, str) and name.endswith("-quantize")
+        return bool(quantize)
+
+    def _sharded(self, quantize: bool) -> bool:
+        """Whether a load serves from replica groups (a mesh on the
+        bucketed path; a quantized handle stays single-device)."""
+        return self._mesh is not None and self._bucketing and not quantize
+
+    def _serve_net(self, net, quantize: bool, device):
+        """Serve ``net`` (its int8 twin when ``quantize``) on ``device``:
+        the net's own device, or under a mesh the platform the groups
+        are carved from.  Sharded, the groups cut their blocks from the
+        net's tensors and the handle keeps a ``meta`` skeleton, so
+        nothing here holds the whole model once this returns."""
         if quantize and self._decode_capacity is not None:
             raise ValueError("decode_capacity is not supported for "
                              "quantized handles")
-        if self._device is not None and torch.device(
-                self._device) != net.device:
-            raise ValueError(f"the model is on {net.device}, the handle's "
-                             f"device is {self._device}")
         if quantize:
             net = net.quantize()
         net.eval()
         # build and warm the decode engine before publishing anything: a
         # reload whose engine build fails leaves the handle on the old
         # version, both planes
-        engine = self._build_decode_engine(net)
-        self._quantize_flag = bool(quantize)
+        with execstore.tag_builds(self.store_tag):
+            engine = self._build_decode_engine(net, device)
+        self._quantize_flag = quantize
+        if self._sharded(quantize):
+            # the set serves every dispatch, so no predict closure holds
+            # the net
+            skeleton = meta_skeleton(net)
+            self._net, self._fn, self._params = skeleton, None, None
+            self._install(None, device, replica_fn=module_forward(skeleton),
+                          replica_params=module_tensors(net))
+        else:
+            def predict_fn(x):
+                return net(list(x) if isinstance(x, tuple) else x)
 
-        def predict_fn(x):
-            return net(list(x) if isinstance(x, tuple) else x)
-
-        self._net, self._fn, self._params = net, None, None
-        self._install(predict_fn, net.device, replica_fn=module_forward(net),
-                      replica_params=module_tensors(net))
+            self._net, self._fn, self._params = net, None, None
+            self._install(predict_fn, device, replica_fn=module_forward(net),
+                          replica_params=module_tensors(net))
         if self._decode_capacity is not None:
             old, self._decode_engine = self._decode_engine, engine
             if old is not None:
@@ -306,9 +356,10 @@ class InferenceModel:
                 old.close()
         return self
 
-    def _build_decode_engine(self, net):
+    def _build_decode_engine(self, net, device):
         """The warmed decode engine when ``decode_capacity`` is set and
-        ``net`` is a generation-capable LM; publishes nothing."""
+        ``net`` is a generation-capable LM; publishes nothing.  Under a
+        mesh its members are carved from ``device``'s platform."""
         if self._decode_capacity is None:
             return None
         hyper = getattr(net, "hyper", None)
@@ -327,7 +378,10 @@ class InferenceModel:
             prompt_buckets=self._decode_prompt_buckets,
             eos_id=self._decode_eos_id,
             prefix_pool=self._decode_prefix_pool, draft=draft,
-            spec_tokens=self._decode_spec_tokens)
+            spec_tokens=self._decode_spec_tokens, mesh=self._mesh,
+            devices=(self._replica_devices(device)
+                     if self._mesh is not None else None),
+            store_tag=self.store_tag)
         engine.warmup()
         return engine
 
@@ -335,10 +389,15 @@ class InferenceModel:
         """Serve a torch callable ``fn(params, x)`` over ``params`` (a
         dict, list or tuple tree of tensors or numpy arrays), placed once
         on the handle's device (``"cuda"`` unless asked otherwise; a
-        tensor already there is not copied).  The counterpart of the
-        JAX package's ``load_jax``."""
+        tensor already there is not copied).  Under a mesh (bucketed) the
+        tree stays on the host and only each member's blocks go to the
+        devices; an ``fn`` that carries its module as ``fn.module`` (as
+        :func:`module_forward` makes it) is gathered a layer at a time,
+        any other ``fn`` its whole tree a dispatch.  The counterpart of
+        the JAX package's ``load_jax``."""
         device = resolve_device(self._device)
-        placed = place_tree(params, device)
+        placed = place_tree(params,
+                            "cpu" if self._sharded(False) else device)
         self._quantize_flag = False
         self._net, self._fn, self._params = None, fn, placed
 
@@ -351,13 +410,17 @@ class InferenceModel:
 
     def _replica_devices(self, device) -> List[torch.device]:
         """The replicas' devices: the request (``"all"``, an int clamped
-        to the devices of ``device``'s platform, or a device list)."""
+        to the devices of ``device``'s platform, or a device list).
+        Under a mesh, the device list or else every device of the
+        platform, to carve into groups."""
         req = self._replicas_req
         if isinstance(req, (list, tuple)):
             if not req:
                 raise ValueError("replicas needs at least one device")
             return [_norm_device(d) for d in req]
         avail = available_devices(device)
+        if self._mesh is not None:
+            return avail
         if isinstance(req, str):
             if req.lower() != "all":
                 raise ValueError(
@@ -378,14 +441,22 @@ class InferenceModel:
         old path while new traffic takes the new one.  The concurrency
         semaphore is per replica, and REUSED while the capacity is
         unchanged, so old-path drains and new-path traffic share one
-        budget."""
+        budget.  ``predict_fn`` is None for a sharded net, whose groups
+        serve every dispatch."""
         old_coalescer = self._coalescer
         cache = coalescer = replica_set = None
         # a quantized handle runs each batch at its own shape, as the
         # JAX package's does
         if self._bucketing and not self._quantize_flag:
             devs = self._replica_devices(device)
-            if len(devs) > 1 and replica_fn is not None:
+            if self._mesh is not None and replica_fn is not None:
+                # sharded serving: the spec decides how many groups the
+                # devices carve into; one build, every other group a
+                # placement
+                from ...serving.shardgroup import ShardGroupSet
+                replica_set = ShardGroupSet(replica_fn, replica_params,
+                                            self._mesh, devices=devs)
+            elif len(devs) > 1 and replica_fn is not None:
                 replica_set = ReplicaSet(replica_fn, replica_params,
                                          devices=devs)
             cache = BucketedExecutableCache(
@@ -410,6 +481,13 @@ class InferenceModel:
         self._coalescer = coalescer
         if old_coalescer is not None:
             old_coalescer.close()
+
+    def _net_weights(self) -> dict:
+        """The served net's weights by name: its tensors, or, sharded,
+        the first group's blocks assembled on the host."""
+        if self._sharded(self._quantize_flag):
+            return self._replica_set().host_params()
+        return module_tensors(self._net)
 
     def _replica_set(self) -> Optional[ReplicaSet]:
         fastpath = self._fastpath
@@ -459,7 +537,8 @@ class InferenceModel:
         if self._cache is None:
             raise RuntimeError(
                 "warmup needs the bucketed path (bucketing=True)")
-        return self._cache.warmup(sample_shapes, dtypes)
+        with execstore.tag_builds(self.store_tag):
+            return self._cache.warmup(sample_shapes, dtypes)
 
     def serving_stats(self) -> dict:
         """Per-bucket hit/miss/build-time counters, coalescer dispatch

@@ -60,8 +60,11 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import copy
+import itertools
 import os
 import queue
+import sys
 import threading
 import time
 from concurrent.futures import (FIRST_COMPLETED, Future,
@@ -199,6 +202,33 @@ def place_tree(tree, device, copy: bool = False):
     """Every leaf of ``tree`` as a tensor on ``device``.  A tensor already
     there is kept (no second copy) unless ``copy``."""
     return tree_map(lambda a: _as_tensor(a).to(device, copy=copy), tree)
+
+
+def module_twin(net, make):
+    """A copy of the module ``net`` whose every parameter and buffer is
+    ``make(tensor)`` (parameters stay ``Parameter``s, without gradients),
+    in eval mode.  Training state (the trainer, generators, a cached
+    quantized twin) is left out.  ``make`` runs before the copy, so no
+    tensor of ``net`` is copied on its device first."""
+    memo = {}
+    for t in itertools.chain(net.parameters(), net.buffers()):
+        twin = make(t.detach())
+        memo[id(t)] = (torch.nn.Parameter(twin, requires_grad=False)
+                       if isinstance(t, torch.nn.Parameter) else twin)
+    for mod in net.modules():
+        for key, value in vars(mod).items():
+            if (isinstance(value, torch.Generator)
+                    or key in ("trainer", "_quantized_net")):
+                memo[id(value)] = None
+    # a graph's nodes link to their inputs, so the copy recurses about
+    # once per layer (ResNet-50 passes 1,000 levels)
+    limit = sys.getrecursionlimit()
+    sys.setrecursionlimit(max(limit, 20000))
+    try:
+        twin_net = copy.deepcopy(net, memo)
+    finally:
+        sys.setrecursionlimit(limit)
+    return twin_net.eval()
 
 
 def _norm_device(device) -> torch.device:
@@ -341,20 +371,15 @@ class ReplicaSet:
                  probe_backoff_s: float = 0.5,
                  probe_backoff_max_s: float = 30.0):
         self._fn = fn
-        devs = ([_norm_device(d) for d in devices] if devices
-                else available_devices("cuda"))
-        if not devs:
-            raise ValueError("ReplicaSet needs at least one device")
-        placed0 = place_tree(params, devs[0])
-        replicas = [Replica(0, devs[0], placed0)]
-        for i, dev in enumerate(devs[1:], start=1):
-            replicas.append(Replica(i, dev, place_tree(placed0, dev,
-                                                       copy=True)))
-        for r in replicas:
-            if r.device.type == "cuda":
-                r.stream = torch.cuda.Stream(r.device)
-                # after the params the caller's stream just wrote
-                r.stream.wait_stream(torch.cuda.current_stream(r.device))
+        # the set's placement units: one device a replica here, one
+        # device group a replica in serving/shardgroup.py; the build,
+        # placement, scheduling and health machinery below is shared
+        units = self._carve_units(devices)
+        placed0 = self._place_params(params, units[0])
+        replicas = [self._make_replica(0, units[0], placed0)]
+        for i, unit in enumerate(units[1:], start=1):
+            replicas.append(self._make_replica(
+                i, unit, self._place_params(params, unit, placed0)))
         self.replicas: Tuple[Replica, ...] = tuple(replicas)
         # per-signature executables: key -> one _Placed per replica,
         # published under _lock AFTER the build and the placements
@@ -369,6 +394,35 @@ class ReplicaSet:
         self._unhealthy_count = 0
         # serializes probes (dispatcher + solo threads may both ask)
         self._probe_guard = threading.Lock()
+
+    # ---- placement-unit hooks (overridden by ShardGroupSet) ----
+    def _carve_units(self, devices) -> List:
+        """The set's units: here its devices (every card when None)."""
+        devs = ([_norm_device(d) for d in devices] if devices
+                else available_devices("cuda"))
+        if not devs:
+            raise ValueError("ReplicaSet needs at least one device")
+        return devs
+
+    def _place_params(self, params, unit, first=None):
+        """``params`` on one unit.  ``first`` is the first unit's
+        placement, given for every later unit: here the source of its
+        copy (a tensor already on the first device is used as it is)."""
+        if first is None:
+            return place_tree(params, unit)
+        return place_tree(first, unit, copy=True)
+
+    def _make_replica(self, index: int, unit, placed) -> Replica:
+        replica = Replica(index, unit, placed)
+        if unit.type == "cuda":
+            replica.stream = torch.cuda.Stream(unit)
+            # after the params the caller's stream just wrote
+            replica.stream.wait_stream(torch.cuda.current_stream(unit))
+        return replica
+
+    def _make_exe(self, replica: Replica):
+        """One replica's executable for a newly placed signature."""
+        return _Placed(self._fn, replica)
 
     def span_labels(self, replica: Replica) -> Dict[str, Any]:
         """Labels the dispatch path stamps on request spans."""
@@ -436,7 +490,7 @@ class ReplicaSet:
         with klock:
             if key in self._exes:
                 return 0.0
-            exes = tuple(_Placed(self._fn, r) for r in self.replicas)
+            exes = tuple(self._make_exe(r) for r in self.replicas)
             t0 = time.perf_counter()
             self._run_once(self.replicas[0], exes[0], batched)
             _profile.note_compile(time.perf_counter() - t0,

@@ -6,26 +6,32 @@ metrics snapshot API — the lifecycle layer over the
 coalescing + replica sets).
 
 Counterpart of ``analytics_zoo_tpu/serving/`` with the same names, error
-codes, metric families and span phases.  Sharded serving groups
+codes, metric families and span phases, with sharded serving groups
 (``ShardGroup``, ``ShardGroupSet``, ``carve_groups``,
-``normalize_mesh_spec``), the persistent executable store (``ExecStore``)
-and the fleet are not ported yet (see ROADMAP.md).
+``normalize_mesh_spec``) and the persistent store (``ExecStore``, which
+holds the port's kernel libraries).  The fleet is not ported yet (see
+ROADMAP.md).
 """
 
+from . import execstore
 from .admission import AdmissionController
 from .autoscale import Autoscaler, autoscaler_for
 from .errors import (ColdStartTimeout, DeadlineExceeded, DeployError,
                      ModelNotFound, Overloaded, ServingError,
                      error_response)
+from .execstore import ExecStore
 from .metrics import (Counters, LatencyWindow, registry_collector,
                       registry_families)
 from .pager import ModelPager, PageRecipe
 from .registry import ModelRegistry
+from .shardgroup import (ShardGroup, ShardGroupSet, carve_groups,
+                         normalize_mesh_spec)
 
 __all__ = [
     "AdmissionController", "Autoscaler", "ColdStartTimeout", "Counters",
-    "DeadlineExceeded", "DeployError", "LatencyWindow", "ModelNotFound",
-    "ModelPager", "ModelRegistry", "Overloaded", "PageRecipe",
-    "ServingError", "autoscaler_for", "error_response",
-    "registry_collector", "registry_families",
+    "DeadlineExceeded", "DeployError", "ExecStore", "LatencyWindow",
+    "ModelNotFound", "ModelPager", "ModelRegistry", "Overloaded",
+    "PageRecipe", "ServingError", "ShardGroup", "ShardGroupSet",
+    "autoscaler_for", "carve_groups", "error_response", "execstore",
+    "normalize_mesh_spec", "registry_collector", "registry_families",
 ]

@@ -277,7 +277,9 @@ class ModelRegistry:
             eff_kwargs = {**self._model_defaults, **model_kwargs}
             if model is None:
                 from ..pipeline.inference import InferenceModel
-                im = InferenceModel(**eff_kwargs)
+                # store_tag: a kernel library this deploy's build writes
+                # to the persistent store is tagged with the model name
+                im = InferenceModel(store_tag=name, **eff_kwargs)
                 try:
                     if net is not None:
                         im.load_keras_net(net, quantize=quantize)
@@ -318,7 +320,7 @@ class ModelRegistry:
             if (self._pager is not None and canary_fraction is None
                     and pageable and not prebuilt):
                 recipe = self._build_recipe(
-                    version, model, eff_kwargs, shapes, dtypes)
+                    version, model, eff_kwargs, shapes, dtypes, name=name)
 
             # 3. atomic pointer swap (or canary staging) + 4. drain old
             old = None
@@ -373,7 +375,8 @@ class ModelRegistry:
         return version
 
     def _build_recipe(self, version: int, model,
-                      eff_kwargs: Dict[str, Any], shapes, dtypes
+                      eff_kwargs: Dict[str, Any], shapes, dtypes,
+                      name: Optional[str] = None
                       ) -> Optional[PageRecipe]:
         """The host-side rebuild recipe for a just-built deployment —
         what a cold entry keeps instead of device memory — or None
@@ -389,8 +392,8 @@ class ModelRegistry:
         (``InferenceModel.load_fn``) and a warm-up of the bucket
         ladder."""
         from ..pipeline.inference import InferenceModel
-        from ..pipeline.inference.inference_model import (
-            meta_skeleton, module_forward, module_tensors)
+        from ..pipeline.inference.inference_model import (meta_skeleton,
+                                                          module_forward)
         from ..pipeline.inference.serving import tree_leaves, tree_map
         if not isinstance(model, InferenceModel):
             return None
@@ -411,7 +414,7 @@ class ModelRegistry:
             host_params = host_tree(model._params)
         elif model._net is not None:
             forward = module_forward(meta_skeleton(model._net))
-            host_params = host_tree(module_tensors(model._net))
+            host_params = host_tree(model._net_weights())
         else:
             return None
         host_bytes = sum(int(a.nbytes) for a in tree_leaves(host_params))
@@ -419,7 +422,7 @@ class ModelRegistry:
         kwargs = {**eff_kwargs, "device": model._fastpath[3]}
 
         def _page_rebuild(span=None):
-            im = InferenceModel(**kwargs)
+            im = InferenceModel(store_tag=name, **kwargs)
             try:
                 if span is not None:
                     span.phase_start("weights_h2d")

@@ -258,12 +258,36 @@ Phases (any failure makes the exit code non-zero):
    with hedging and without), and ``set_active_replicas(1)`` then
    ``(2)`` cost no build.
 
+Since PR 18 a shard phase runs last: (a) the serve phase's full-width
+TransformerLM, saved and loaded again with ``InferenceModel.load``
+under ``{"axes": {"tensor": 2}}`` over ``["cuda:0"] * 4`` (two groups
+of two on one card; the model is read onto the host and the card's
+allocation grows by the groups' blocks alone), coalesced: every
+bucket's output from either group bit-equal to the single-device
+handle's, one build a signature and none for group 1, 12 flash_fwd
+launches a dispatch, each member's bytes at rest against the whole
+model's, the dispatch peak (gathering costs less than half the model),
+predict p50/p99 against the single-device handle.  (b) The mesh decode
+engine (capacity 8 split over two members on one card) on 16 mixed
+prompts: the largest difference of the logits its members' step body
+computes (eagerly, at their step batch) to the unsplit engine's
+(<= 1e-5, and whether the bits held), streams equal token for token, 12
+flash_fwd launches an admission, tokens/s in turns.  (c) A sharded
+registry deploy under a pager of one: paged out (the bytes freed),
+refused while its placement reads incomplete, faulted in bit-equal.
+(d) The kernel-library store (``ZOO_EXECSTORE_DIR``): three worker
+processes from fresh copies of the package, no build directory: the
+first runs ``nvcc`` and writes, the second builds nothing and gives
+the first one's bits, the third after a flipped byte counts the entry
+invalid, rebuilds flash_fwd and gives the same bits; ``stat`` lists the
+entries with their tag.
+
 ``python3 chip_smoke.py --phases train,resume`` runs only the named
 phases (after the build), for a short call.
 
 The card's line, then ``resnet:``, ``detect:``, ``recommend:``,
 ``textclass:``, ``moe:``, ``image:``, ``layers:``, ``resume:``,
-``parallel:``, ``control:`` and ``observe:`` summary lines (each
+``parallel:``, ``control:``, ``observe:`` and ``shard:`` summary lines (each
 with the card's name and power limit) come near the end; the line
 before the last is a JSON object with each kernel's numbers; the last
 line is ``{"ok": true, "device": {...}}``.  ResNet-50, the registry,
@@ -451,6 +475,10 @@ SUMMARIES = {
     "observe": ("step_ms_off", "step_ms_on", "rate_ratio_on_off", "bitwise",
                 "profile_hand_kernels", "decode_phase_median_ms",
                 "predict_chain", "card"),
+    "shard": ("whole_model_bytes", "member_bytes", "dispatch_peak_bytes",
+              "gather_bytes", "predict_ms", "decode_tokens_per_s",
+              "logit_max_abs_diff", "logit_bits_equal", "freed_bytes",
+              "store_cold_build_s", "store_warm_first_answer_s", "card"),
 }
 KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "flash_fwd": ("analytics_zoo_tpu_torch/ops/csrc/flash_fwd.cu",
@@ -580,6 +608,10 @@ CASES = [
     *[("serve admit", 12, s, s, 64, "float32", True, None, True)
       for s in SERVE["buckets"]],
     ("predict", 96, 1024, 1024, 64, "bfloat16", True, None, True),
+    # the shard phase's sharded predict at its top bucket (4 rows of 12
+    # heads at the serve model's 640 positions)
+    ("shard predict", 48, SERVE["max_len"], SERVE["max_len"], 64,
+     "float32", True, None, False),
     ("cross causal", 24, 192, 512, 64, "float32", True, None, False),
     ("cross", 24, 200, 777, 64, "float32", False, None, False),
     ("kv_lengths", 24, 512, 512, 64, "float32", True, 512, False),
@@ -5284,6 +5316,502 @@ def phase_control(torch, TransformerLM, keras, models, kernels, inference):
     return all(checks.values()), stats
 
 
+SHARD = dict(spec={"axes": {"tensor": 2}}, devices=["cuda:0"] * 4,
+             decode_devices=["cuda:0"] * 2, max_batch=4, rows=(1, 4),
+             requests=24, decode_requests=16, decode_runs=2,
+             gather_share=0.5, freed_share=0.95, logit_tol=1e-5,
+             rest_slack=0.02,
+             worker_lm=dict(vocab_size=1000, seq_len=128, n_layers=2,
+                            d_model=128, n_heads=2),
+             tag="shard-lm-small")
+
+STORE_WORKER = r"""
+# One process of the shard phase's store check: imports the port from
+# the copy given as argv[1] (its own empty build/), serves a small
+# TransformerLM (InferenceModel(store_tag=...), warmed: its first
+# forward builds or loads the kernel libraries), runs flash_fwd on seeded
+# inputs, saves the outputs to argv[3] and prints one RESULT line.
+import json
+import sys
+import time
+
+t_start = time.perf_counter()
+sys.path.insert(0, sys.argv[1])
+import numpy as np
+import torch
+from analytics_zoo_tpu_torch.observability import profile
+from analytics_zoo_tpu_torch.ops import _kernels
+from analytics_zoo_tpu_torch.models import TransformerLM
+from analytics_zoo_tpu_torch.pipeline.inference import InferenceModel
+from analytics_zoo_tpu_torch.serving import execstore
+
+assert _kernels.__file__.startswith(sys.argv[1]), _kernels.__file__
+torch.backends.cuda.matmul.allow_tf32 = False
+cfg = json.loads(sys.argv[2])
+handle = profile.install()
+keys = []
+note = profile.note_compile
+profile.note_compile = lambda s, key: (keys.append(key), note(s, key))
+lm = TransformerLM(**cfg["lm"], device="cuda", seed=0).eval()
+seq = cfg["lm"]["seq_len"]
+x = np.random.default_rng(0).integers(
+    0, cfg["lm"]["vocab_size"], (2, seq)).astype(np.int32)
+im = InferenceModel(max_batch_size=2, store_tag=cfg["tag"])
+im.load_keras_net(lm)
+t0 = time.perf_counter()
+im.warmup((seq,), np.int32)
+warmup_s = time.perf_counter() - t0
+y = im.predict(x)
+first_answer_s = time.perf_counter() - t_start
+g = torch.Generator("cuda").manual_seed(0)
+q, k, v = (torch.randn((12, 256, 64), generator=g, device="cuda")
+           for _ in range(3))
+o, lse = _kernels.flash_fwd(q, k, v, None, True, 0.125)
+np.savez(sys.argv[3], y=y, o=o.cpu().numpy(), lse=lse.cpu().numpy())
+snap = handle.snapshot()
+print("RESULT " + json.dumps({
+    "compiles": snap["compiles"], "compile_keys": keys,
+    "compile_s": snap["compile_seconds"], "warmup_s": warmup_s,
+    "first_answer_s": first_answer_s,
+    "launches": _kernels.launch_counts(),
+    "store": execstore.current().stats()}))
+"""
+
+
+def store_worker(tmp, name, store_dir, timeout=900):
+    """One store worker from a fresh copy ``tmp/name`` of the package
+    (no build directory) with ``ZOO_EXECSTORE_DIR=store_dir``: (its
+    RESULT, its outputs, wall s)."""
+    import numpy as np
+    repo = os.path.dirname(os.path.abspath(__file__))
+    root = os.path.join(tmp, name)
+    shutil.rmtree(root, ignore_errors=True)
+    shutil.copytree(os.path.join(repo, "analytics_zoo_tpu_torch"),
+                    os.path.join(root, "analytics_zoo_tpu_torch"),
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    script = os.path.join(tmp, "store_worker.py")
+    with open(script, "w") as f:
+        f.write(STORE_WORKER)
+    out = os.path.join(tmp, f"{name}.npz")
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("ZOO_EXECSTORE")}
+    env.update(ZOO_EXECSTORE_DIR=store_dir, PYTHONPATH=root)
+    cfg = {"lm": SHARD["worker_lm"], "tag": SHARD["tag"]}
+    t = time.perf_counter()
+    proc = subprocess.run([sys.executable, script, root, json.dumps(cfg),
+                           out], env=env, capture_output=True, text=True,
+                          timeout=timeout)
+    wall = time.perf_counter() - t
+    line = [ln for ln in proc.stdout.splitlines()
+            if ln.startswith("RESULT ")]
+    if proc.returncode != 0 or not line:
+        raise RuntimeError(f"store worker {name} rc {proc.returncode}:\n"
+                           f"{proc.stderr[-3000:]}")
+    with np.load(out) as z:
+        arrays = {k: z[k] for k in z.files}
+    return json.loads(line[0][len("RESULT "):]), arrays, wall
+
+
+def shard_predict(torch, lm, kernels, inference, profile, tmp):
+    """(a) The serve model, saved and loaded again under the mesh (read
+    onto the host, only the blocks reaching the card), through a
+    ShardGroupSet over SHARD["devices"] (two groups of two on one card),
+    coalesced, against the single-device handle.  Returns (checks,
+    stats)."""
+    import numpy as np
+    from analytics_zoo_tpu_torch.pipeline.inference.inference_model import \
+        module_tensors
+    from analytics_zoo_tpu_torch.pipeline.inference.serving import fetch_rows
+    S = SHARD
+    seq = lm.hyper["seq_len"]
+    vocab = lm.hyper["vocab_size"]
+    checks, stats = {}, {}
+    path = os.path.join(tmp, "shard_lm")
+    lm.save_model(path)
+    solo = inference.InferenceModel(max_batch_size=S["max_batch"])
+    solo.load_keras_net(lm)
+    handle = profile.install()
+    compiles0 = handle.snapshot()["compiles"]
+    im = inference.InferenceModel(max_batch_size=S["max_batch"],
+                                  coalescing=True, mesh=S["spec"],
+                                  replicas=S["devices"])
+    # the bytes the load asked the allocator for (its block rounding
+    # left out), and what the allocator holds for them
+    torch.cuda.synchronize()
+    base = (torch.cuda.memory_stats()["requested_bytes.all.current"],
+            torch.cuda.memory_allocated())
+    im.load(path)
+    torch.cuda.synchronize()
+    at_rest = torch.cuda.memory_stats()[
+        "requested_bytes.all.current"] - base[0]
+    at_rest_allocated = torch.cuda.memory_allocated() - base[1]
+    try:
+        im.warmup((seq,), np.int32)
+        solo.warmup((seq,), np.int32)
+        rs = im._cache.replica_set
+        buckets = im._cache.buckets
+        builds = handle.snapshot()["compiles"] - compiles0
+        checks["shard_one_build_a_signature"] = (
+            builds == len(buckets) and rs.compiled_keys() == len(buckets)
+            and rs.placement_complete())
+        rng = np.random.default_rng(21)
+        exact, launches = True, []
+        for b in buckets:
+            x = rng.integers(0, vocab, (b, seq)).astype(np.int32)
+            want = solo.predict(x)
+            for g in rs.groups:
+                kernels.reset_launch_counts()
+                got = fetch_rows(rs.dispatch(g, x), b)
+                launches.append(kernels.launch_counts()["flash_fwd"])
+                exact = exact and np.array_equal(got, want)
+        checks["shard_bit_equal_every_bucket_and_group"] = exact
+        checks["shard_flash_fwd_12_a_dispatch"] = all(
+            n == lm.hyper["n_layers"] for n in launches)
+        whole = sum(t.numel() * t.element_size()
+                    for t in module_tensors(lm).values())
+        layer = {}
+        for name, t in module_tensors(lm).items():
+            key = name.rsplit(".", 1)[0]
+            layer[key] = layer.get(key, 0) + t.numel() * t.element_size()
+        members = rs.member_bytes()
+        checks["shard_members_hold_blocks"] = all(
+            max(m) < whole and sum(m) >= whole for m in members)
+        # the card's allocation after the load is the groups' blocks:
+        # no whole model stays behind on it
+        blocks = sum(sum(m) for m in members)
+        checks["shard_card_holds_only_the_blocks"] = (
+            blocks <= at_rest < blocks + S["rest_slack"] * whole)
+        # the dispatch peak over what is resident, against the solo
+        # handle's at the same bucket: the difference is what gathering
+        # costs (one layer at a time, not the whole model)
+        x = rng.integers(0, vocab, (buckets[-1], seq)).astype(np.int32)
+        peaks = {}
+        for name, run in (("solo", lambda: solo.predict(x)),
+                          ("shard", lambda: fetch_rows(
+                              rs.dispatch(rs.groups[0], x), len(x)))):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            run()
+            torch.cuda.synchronize()
+            peaks[name] = torch.cuda.max_memory_allocated() - base
+        gather = peaks["shard"] - peaks["solo"]
+        checks["shard_gathers_a_layer_not_the_model"] = (
+            gather < S["gather_share"] * whole)
+        # latency: the same requests through either handle, in turns
+        reqs = [rng.integers(0, vocab, (int(n), seq)).astype(np.int32)
+                for n in rng.integers(S["rows"][0], S["rows"][1] + 1,
+                                      S["requests"])]
+        lat = {"solo": [], "shard": []}
+        for x in reqs:
+            for name, h in (("shard", im), ("solo", solo)):
+                t = time.perf_counter()
+                out = h.predict(x)
+                lat[name].append(time.perf_counter() - t)
+                if name == "shard":
+                    shard_out = out
+                else:
+                    exact = exact and np.array_equal(shard_out, out)
+        checks["shard_coalesced_bit_equal"] = exact
+        group_disp = rs.stats()["group_dispatches"]
+        checks["shard_both_groups_serve"] = all(
+            v > 0 for v in group_disp.values())
+        stats.update(
+            buckets=list(buckets), builds=builds,
+            flash_fwd_a_dispatch=launches,
+            whole_model_bytes=whole, member_bytes=members,
+            at_rest_bytes=at_rest, at_rest_allocated_bytes=at_rest_allocated,
+            block_bytes=blocks,
+            largest_layer_bytes=max(layer.values()),
+            dispatch_peak_bytes=peaks["shard"],
+            solo_peak_bytes=peaks["solo"], gather_bytes=gather,
+            predict_ms={k: dict(p50=percentile(v, 50) * 1e3,
+                                p99=percentile(v, 99) * 1e3)
+                        for k, v in lat.items()},
+            group_dispatches=group_disp)
+    finally:
+        im.close()
+        solo.close()
+    return checks, stats
+
+
+def probe_logits(torch, engine, prompts):
+    """Admit ``prompts`` into the engine's slots 0, 1, ... (a mesh
+    engine's members in turn, ``capacity / group size`` each) and return,
+    on the host, the logits each member's next decode step selects from,
+    computed eagerly by the step's body at the member's step batch (not
+    the captured graph; the streams check the served path).  Runs before
+    the engine serves; the slots stay on the free list."""
+    import numpy as np
+    from analytics_zoo_tpu_torch.models.generation import (_decode_step,
+                                                           _embed_token)
+    from analytics_zoo_tpu_torch.pipeline.inference.decode import (
+        TokenStream, _DecodeRequest)
+    members = getattr(engine, "members", [engine])
+    per = engine.capacity // len(members)
+    parts = []
+    for j, m in enumerate(members):
+        rows = prompts[j * per:(j + 1) * per]
+        if not rows:
+            continue
+        m._after_caller()
+        with m._on_device():
+            for slot, ids in enumerate(rows):
+                prompt, n, bucket, _, _ = m._validate(ids, 1)
+                padded = np.zeros((1, bucket), np.int32)
+                padded[0, :n] = prompt
+                m._admit_monolithic(_DecodeRequest(
+                    padded, n, bucket, 1, None, TokenStream(0)), slot)
+            posc = m._pos.clamp(max=m.max_len - 1)
+            logits = _decode_step(m._model, m._caches,
+                                  _embed_token(m._model, m._tok, posc), posc)
+            parts.append(logits[:len(rows)].float().cpu())
+    return torch.cat(parts)
+
+
+def shard_decode(torch, lm, kernels, inference):
+    """(b) The mesh decode engine (slots split over two members on one
+    card) against the unsplit engine on the serve phase's mixed prompts:
+    probe logits first, then the streams, in turns.  Returns (checks,
+    stats)."""
+    import numpy as np
+    S = SHARD
+    engine_kw = dict(decode_capacity=SERVE["capacity"],
+                     decode_max_len=SERVE["max_len"],
+                     decode_prompt_buckets=SERVE["buckets"])
+    checks, stats = {}, {}
+    rng = np.random.default_rng(22)
+    prompts, news = mixed_requests(lm.hyper, rng, S["decode_requests"])
+    plain = inference.InferenceModel(**engine_kw).load_keras_net(lm)
+    mesh = inference.InferenceModel(
+        mesh=S["spec"], replicas=S["decode_devices"], **engine_kw)
+    mesh.load_keras_net(lm)
+    try:
+        pe, me = plain.decode_engine, mesh.decode_engine
+        probe = prompts[:SERVE["capacity"]]
+        want = probe_logits(torch, pe, probe)
+        got = probe_logits(torch, me, probe)
+        diff = float((got - want).abs().max())
+        stats.update(logit_max_abs_diff=diff,
+                     logit_bits_equal=bool(torch.equal(got, want)),
+                     members=[m.capacity for m in me.members])
+        checks["shard_decode_logits_within_tol"] = diff <= S["logit_tol"]
+        runs = {"plain": [], "mesh": []}
+        outs = {}
+        launches, admitted = {}, 0
+        for turn in range(S["decode_runs"]):
+            for name, eng in (("mesh", me), ("plain", pe)):
+                a0 = eng.stats()["admitted"]
+                kernels.reset_launch_counts()
+                res = serve_stream(eng.submit, prompts, news)
+                if name == "mesh":
+                    launches = kernels.launch_counts()
+                    admitted = eng.stats()["admitted"] - a0
+                m = stream_metrics(*res)
+                runs[name].append(m["tokens_per_s"])
+                outs.setdefault(name, []).append(res[0])
+        equal = all(np.array_equal(a, b) for run_m, run_p in
+                    zip(outs["mesh"], outs["plain"])
+                    for a, b in zip(run_m, run_p))
+        checks["shard_decode_streams_equal"] = equal
+        checks["shard_decode_flash_fwd_12_an_admission"] = (
+            launches.get("flash_fwd", 0) == lm.hyper["n_layers"] * admitted
+            and admitted == len(prompts))
+        checks["shard_decode_both_members_admit"] = all(
+            m.stats()["admitted"] > 0 for m in me.members)
+        stats.update(tokens_per_s=runs, admitted=admitted,
+                     launches=launches,
+                     member_admitted=[m.stats()["admitted"]
+                                      for m in me.members])
+    finally:
+        mesh.close()
+        plain.close()
+    return checks, stats
+
+
+def shard_registry(torch, lm, serving):
+    """(c) A sharded deploy of the serve model through the registry with
+    a pager of one resident model: paged out and faulted in, installed
+    only with its placement complete, bit-equal after.  Returns (checks,
+    stats)."""
+    import gc
+    import numpy as np
+    from analytics_zoo_tpu_torch.pipeline.inference import inference_model
+    S = SHARD
+    seq = lm.hyper["seq_len"]
+    reg = serving.ModelRegistry(device="cuda", max_batch_size=2,
+                                replicas=S["devices"],
+                                pager={"max_resident": 1,
+                                       "quiesce_timeout_s": 5.0})
+    checks, stats = {}, {}
+    x = np.random.default_rng(23).integers(
+        0, lm.hyper["vocab_size"], (2, seq)).astype(np.int32)
+    try:
+        reg.deploy("shard", lm, mesh=S["spec"], warmup_shapes=(seq,),
+                   warmup_dtypes=np.int32)
+        entry = reg._entry("shard")
+        model = entry.active.model
+        want = reg.predict("shard", x)
+        held = sum(sum(m) for m in
+                   model._cache.replica_set.member_bytes())
+        del model
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        evicted = reg.pager._try_evict("shard", entry, "pressure")
+        gc.collect()
+        torch.cuda.synchronize()
+        freed = before - torch.cuda.memory_allocated()
+        cold = entry.pager_state == "cold"
+        # a fault-in whose placement reads incomplete is refused
+        real = inference_model.InferenceModel.placement_complete
+        inference_model.InferenceModel.placement_complete = \
+            lambda self: False
+        try:
+            reg.predict("shard", x)
+            refused = False
+        except Exception:  # the refusal: the entry stays cold
+            refused = entry.pager_state != "resident"
+        finally:
+            inference_model.InferenceModel.placement_complete = real
+        t = time.perf_counter()
+        got = reg.predict("shard", x)
+        fault_ms = (time.perf_counter() - t) * 1e3
+        checks["shard_pager_refuses_partial_placement"] = refused
+        checks["shard_pager_resident_with_placement_complete"] = (
+            entry.pager_state == "resident"
+            and entry.active.model.placement_complete())
+        checks["shard_pager_fault_in_bit_equal"] = np.array_equal(got, want)
+        checks["shard_pager_frees_blocks"] = (
+            evicted and cold and freed >= S["freed_share"] * held)
+        stats.update(group_block_bytes=held, freed_bytes=freed,
+                     fault_in_ms=fault_ms,
+                     groups=entry.active.model.serving_stats()["groups"])
+    finally:
+        reg.shutdown()
+    return checks, stats
+
+
+def shard_store(tmp):
+    """(d) The kernel-library store across processes: a cold worker
+    builds and writes, a warm one (another fresh copy) builds nothing and
+    gives the same bits, a third after a flipped byte counts the entry
+    invalid, rebuilds and gives the same bits; ``stat`` lists the
+    entries with their tag.  Returns (checks, stats)."""
+    import numpy as np
+    store = os.path.join(tmp, "store")
+    shutil.rmtree(store, ignore_errors=True)
+    checks, stats = {}, {}
+    cold, a_cold, wall_cold = store_worker(tmp, "copy_cold", store)
+    warm, a_warm, wall_warm = store_worker(tmp, "copy_warm", store)
+    entries = sorted(os.listdir(store))
+    # flip a byte in the payload of flash_fwd.cu's entry
+    flipped = None
+    for name in entries:
+        path = os.path.join(store, name)
+        raw = open(path, "rb").read()
+        head = json.loads(raw[:raw.index(b"\n")])
+        if head["meta"].get("source") == "flash_fwd.cu":
+            mid = raw.index(b"\n") + (len(raw) - raw.index(b"\n")) // 2
+            with open(path, "wb") as f:
+                f.write(raw[:mid] + bytes([raw[mid] ^ 0xFF]) + raw[mid + 1:])
+            flipped = head["meta"]
+    bad, a_bad, wall_bad = store_worker(tmp, "copy_corrupt", store)
+    repo = os.path.dirname(os.path.abspath(__file__))
+    stat = subprocess.run(
+        [sys.executable, "-m", "analytics_zoo_tpu_torch.serving.execstore",
+         "--root", store, "stat"], env=dict(os.environ, PYTHONPATH=repo),
+        capture_output=True, text=True, timeout=120)
+
+    def same(a, b):
+        return all(np.array_equal(a[k], b[k]) for k in ("y", "o", "lse"))
+
+    checks["store_cold_builds_and_writes"] = (
+        cold["compiles"] == 1 and cold["store"]["write"] == 2
+        and cold["launches"]["flash_fwd"] > 0)
+    checks["store_warm_runs_no_nvcc"] = (
+        warm["compiles"] == 0 and warm["store"]["hit"] == 2
+        and warm["store"]["write"] == 0)
+    checks["store_warm_same_bits"] = same(a_cold, a_warm)
+    checks["store_corrupt_invalid_rebuilt_same_bits"] = (
+        flipped is not None and bad["store"]["invalid"] == 1
+        and bad["compile_keys"] == ["nvcc:flash_fwd.cu"]
+        and bad["store"]["hit"] == 1 and same(a_cold, a_bad))
+    checks["store_stat_lists_tagged_entries"] = (
+        stat.returncode == 0 and "2 entries" in stat.stdout
+        and stat.stdout.count(SHARD["tag"]) == 2)
+    stats.update(
+        cold_build_s=cold["compile_s"], cold_first_answer_s=cold[
+            "first_answer_s"], warm_first_answer_s=warm["first_answer_s"],
+        corrupt_first_answer_s=bad["first_answer_s"],
+        cold_warmup_s=cold["warmup_s"], warm_warmup_s=warm["warmup_s"],
+        wall_s=dict(cold=wall_cold, warm=wall_warm, corrupt=wall_bad),
+        store=dict(cold=cold["store"], warm=warm["store"],
+                   corrupt=bad["store"]),
+        compile_keys=dict(cold=cold["compile_keys"],
+                          warm=warm["compile_keys"],
+                          corrupt=bad["compile_keys"]),
+        stat=stat.stdout.strip().splitlines())
+    return checks, stats
+
+
+def phase_shard(torch, TransformerLM, kernels, inference, tmp):
+    """Sharded serving groups and the kernel-library store on the card:
+    (a) the full-width serve model through two groups of two on one
+    card, (b) the mesh decode engine, (c) a sharded registry deploy
+    through the pager, (d) the store across three processes."""
+    import gc
+    from analytics_zoo_tpu_torch import serving
+    from analytics_zoo_tpu_torch.observability import profile
+    stats, checks, seconds = {"card": smi_card()}, {}, {}
+    cfg = dict(FULL, seq_len=SERVE["max_len"])
+    lm = TransformerLM(**cfg, device="cuda", seed=0).eval()
+    launches = {}
+    for part, run in (
+            ("predict", lambda: shard_predict(torch, lm, kernels, inference,
+                                              profile, tmp)),
+            ("decode", lambda: shard_decode(torch, lm, kernels, inference)),
+            ("registry", lambda: shard_registry(torch, lm, serving)),
+            ("store", lambda: shard_store(tmp))):
+        t = time.perf_counter()
+        try:
+            c, s = run()
+        except Exception as e:  # the part fails; the others still run
+            import traceback
+            traceback.print_exc()
+            c, s = {f"{part}_ran": False}, {"error": f"{type(e).__name__}: "
+                                                     f"{e}"}
+        checks.update(c)
+        stats[part] = s
+        seconds[part] = time.perf_counter() - t
+        gc.collect()
+        torch.cuda.empty_cache()
+    pred, dec = stats["predict"], stats["decode"]
+    for name in kernels.KERNELS:
+        launches[name] = (sum(pred.get("flash_fwd_a_dispatch", []))
+                          if name == "flash_fwd" else 0) + dec.get(
+                              "launches", {}).get(name, 0)
+    stats.update(
+        seconds=seconds, launches=launches,
+        member_bytes=pred.get("member_bytes"),
+        at_rest_bytes=pred.get("at_rest_bytes"),
+        whole_model_bytes=pred.get("whole_model_bytes"),
+        dispatch_peak_bytes=pred.get("dispatch_peak_bytes"),
+        gather_bytes=pred.get("gather_bytes"),
+        predict_ms=pred.get("predict_ms"),
+        decode_tokens_per_s=dec.get("tokens_per_s"),
+        logit_max_abs_diff=dec.get("logit_max_abs_diff"),
+        logit_bits_equal=dec.get("logit_bits_equal"),
+        freed_bytes=stats["registry"].get("freed_bytes"),
+        store_cold_build_s=stats["store"].get("cold_build_s"),
+        store_warm_first_answer_s=stats["store"].get("warm_first_answer_s"),
+        checks=checks)
+    for name, good in checks.items():
+        if not good:
+            log(f"shard: FAIL {name}")
+    log("shard:", json.dumps(stats, default=str))
+    return all(checks.values()), stats
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5378,6 +5906,8 @@ def main() -> int:
                                           kernels, inference, tmp)),
         ("control", lambda: phase_control(torch, TransformerLM, keras,
                                           models, kernels, inference)),
+        ("shard", lambda: phase_shard(torch, TransformerLM, kernels,
+                                      inference, tmp)),
     ]
     if sys.argv[1:2] == ["--phases"]:  # e.g. --phases kernels,resume
         wanted = sys.argv[2].split(",")
@@ -5429,6 +5959,8 @@ def main() -> int:
         "launches") or {}
     path_launches["control"] = (results.get("control") or {}).get(
         "launches") or {}
+    path_launches["shard"] = (results.get("shard") or {}).get(
+        "launches") or {}
 
     def timed_row(name, case, dtype, sq=None):
         row = next((r for r in results.get("kernels") or []
@@ -5477,7 +6009,8 @@ def main() -> int:
                          name, 0),
                      "parallel": path_launches["parallel"].get(name, 0),
                      "observe": path_launches["observe"].get(name, 0),
-                     "control": path_launches["control"].get(name, 0)}}
+                     "control": path_launches["control"].get(name, 0),
+                     "shard": path_launches["shard"].get(name, 0)}}
         entry.update(timed_row(name, "mixed", "bfloat16"))
         entry["f32"] = timed_row(name, "train", "float32")
         entry["bf16_batch8"] = timed_row(name, "train", "bfloat16")

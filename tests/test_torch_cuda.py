@@ -22,7 +22,12 @@ through the flash kernels giving the non-remat gradients, a corrupt
 snapshot tag falling back on the card, and a world of one over NCCL
 training under fsdp bit for bit with the plain Trainer; two replicas of
 one model on one card (each on its own stream) giving the model's own
-bits, and the weight pager returning a paged-out model's bytes. This file
+bits, and the weight pager returning a paged-out model's bytes; a
+sharded group of two on one card giving the single-device bits, a
+sharded load holding only the groups' blocks on the card, a function
+without its module gathering its whole tree a dispatch where a module
+gathers a layer, and a kernel-library store hit in a second process
+running no nvcc. This file
 imports no jax (nor does anything it imports), so that it runs on a
 GPU host without the JAX package: ``python -m pytest --noconftest
 tests/test_torch_cuda.py -m cuda``. Without a card every test skips
@@ -1283,3 +1288,137 @@ def test_cuda_page_out_frees_the_models_bytes(cuda):
         assert before - torch.cuda.memory_allocated() >= 0.95 * weight_bytes
     finally:
         reg.shutdown()
+
+
+@pytest.mark.cuda
+def test_cuda_shard_group_of_two_on_one_card_gives_the_solo_bits(cuda):
+    """A group of two on one card (``replicas=["cuda:0", "cuda:0"]``,
+    ``{"axes": {"tensor": 2}}``): each member holds its blocks, the
+    forward gathers each layer on use on the group's stream, and the
+    output is the single-device handle's bit for bit, through the flash
+    forward once a layer."""
+    from analytics_zoo_tpu_torch.pipeline.inference import InferenceModel
+    lm = TransformerLM(vocab_size=1000, seq_len=128, n_layers=2,
+                       d_model=128, n_heads=2, device="cuda").eval()
+    x = np.random.default_rng(3).integers(0, 1000, (3, 128)).astype(
+        np.int32)
+    # device="cuda" against the model's cuda:0: the same card
+    solo = InferenceModel(max_batch_size=4, device="cuda").load_keras_net(lm)
+    im = InferenceModel(max_batch_size=4, mesh={"axes": {"tensor": 2}},
+                        replicas=["cuda:0", "cuda:0"]).load_keras_net(lm)
+    try:
+        im.warmup((128,), np.int32)
+        want = solo.predict(x)
+        _kernels.reset_launch_counts()
+        got = im.predict(x)
+        assert _kernels.launch_counts()["flash_fwd"] == 2
+        np.testing.assert_array_equal(got, want)
+        rs = im._cache.replica_set
+        assert rs.group_size == 2 and len(rs.groups) == 1
+        assert rs.groups[0].stream is not None
+        whole = sum(t.numel() * t.element_size() for t in
+                    list(lm.parameters()) + list(lm.buffers()))
+        (members,) = rs.member_bytes()
+        assert max(members) < whole <= sum(members)
+    finally:
+        im.close()
+        solo.close()
+
+
+@pytest.mark.cuda
+def test_cuda_sharded_load_holds_only_the_blocks(cuda, tmp_path):
+    """``load()`` under a mesh reads the saved model onto the host and
+    carves the groups' blocks from it: the card's allocation grows by the
+    members' blocks, not the blocks plus the model, and the output is the
+    single-device load's bit for bit."""
+    from analytics_zoo_tpu_torch.pipeline.inference import InferenceModel
+    lm = TransformerLM(vocab_size=1000, seq_len=128, n_layers=2,
+                       d_model=128, n_heads=2, device="cpu").eval()
+    path = str(tmp_path / "lm")
+    lm.save_model(path)
+    whole = sum(t.numel() * t.element_size() for t in
+                list(lm.parameters()) + list(lm.buffers()))
+    x = np.random.default_rng(4).integers(0, 1000, (3, 128)).astype(
+        np.int32)
+    # the bytes requested of the allocator (its block rounding left out)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_stats()["requested_bytes.all.current"]
+    im = InferenceModel(max_batch_size=4, mesh={"axes": {"tensor": 2}},
+                        replicas=["cuda:0", "cuda:0"]).load(path)
+    solo = None
+    try:
+        torch.cuda.synchronize()
+        grown = torch.cuda.memory_stats()[
+            "requested_bytes.all.current"] - base
+        blocks = sum(sum(m) for m in im._cache.replica_set.member_bytes())
+        assert blocks <= grown < blocks + 0.1 * whole
+        solo = InferenceModel(max_batch_size=4).load(path)
+        np.testing.assert_array_equal(im.predict(x), solo.predict(x))
+    finally:
+        im.close()
+        if solo is not None:
+            solo.close()
+
+
+@pytest.mark.cuda
+def test_cuda_bare_fn_gathers_its_whole_tree_a_module_a_layer(cuda):
+    """A function served under a mesh without its module gathers its
+    whole tree on the group's first device for each dispatch; the same
+    function carrying ``fn.module`` gathers one layer at a time.  The
+    dispatch peaks over what is resident, against an unsharded handle's
+    at the same input, pin both."""
+    from analytics_zoo_tpu_torch.pipeline.inference import InferenceModel
+    from analytics_zoo_tpu_torch.pipeline.inference.inference_model import (
+        meta_skeleton, module_forward, module_tensors)
+    lm = TransformerLM(vocab_size=512, seq_len=128, n_layers=4,
+                       d_model=256, n_heads=4, device="cpu").eval()
+    params = module_tensors(lm)
+    whole = sum(t.numel() * t.element_size() for t in params.values())
+    by_layer = module_forward(meta_skeleton(lm))
+
+    def bare(p, x):
+        return by_layer(p, x)
+
+    x = np.random.default_rng(5).integers(0, 512, (2, 128)).astype(
+        np.int32)
+    peaks, outs = {}, {}
+    for name, fn in (("solo", by_layer), ("layer", by_layer),
+                     ("bare", bare)):
+        if name == "solo":
+            im = InferenceModel(max_batch_size=2).load_fn(fn, params)
+        else:
+            im = InferenceModel(max_batch_size=2,
+                                mesh={"axes": {"tensor": 2}},
+                                replicas=["cuda:0", "cuda:0"]).load_fn(
+                                    fn, params)
+        try:
+            im.warmup((128,), np.int32)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            outs[name] = im.predict(x)
+            torch.cuda.synchronize()
+            peaks[name] = torch.cuda.max_memory_allocated() - base
+        finally:
+            im.close()
+    np.testing.assert_array_equal(outs["bare"], outs["solo"])
+    np.testing.assert_array_equal(outs["layer"], outs["solo"])
+    assert peaks["layer"] - peaks["solo"] < 0.5 * whole
+    assert 0.5 * whole < peaks["bare"] - peaks["layer"] <= whole
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_lib_store_hit_in_a_subprocess(cuda, tmp_path):
+    """Two processes from fresh copies of the package share one store:
+    the first runs nvcc and writes both kernel libraries, the second runs
+    no nvcc (no compile in its profile), loads them from the store and
+    gives the first one's flash_fwd and predict bits."""
+    from chip_smoke import store_worker
+    store = str(tmp_path / "store")
+    cold, a, _ = store_worker(str(tmp_path), "cold", store)
+    warm, b, _ = store_worker(str(tmp_path), "warm", store)
+    assert cold["compiles"] == 1 and cold["store"]["write"] == 2
+    assert warm["compiles"] == 0 and warm["compile_keys"] == []
+    assert warm["store"]["hit"] == 2 and warm["store"]["write"] == 0
+    for key in ("y", "o", "lse"):
+        np.testing.assert_array_equal(a[key], b[key])

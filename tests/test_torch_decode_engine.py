@@ -417,10 +417,11 @@ def test_saved_lm_loads_and_serves(models, make_handle, tmp_path):
                                 dict(hedging=True), dict(mesh={"tp": 2}),
                                 dict(store_tag="m")])
 def test_unported_handle_options_raise(kw):
-    """``mesh=`` and ``store_tag=`` are not ported and raise, naming the
-    roadmap; ``replicas`` and ``hedging`` are ported and serve."""
-    if "mesh" in kw or "store_tag" in kw:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """Every option here is ported now: ``replicas``, ``hedging`` and
+    ``store_tag`` serve, and a malformed ``mesh`` spec (``tp`` is no spec
+    key) raises at construction, with the JAX package's message."""
+    if "mesh" in kw:
+        with pytest.raises(ValueError, match="unknown mesh spec keys"):
             InferenceModel(**kw)
         return
     im = InferenceModel(device="cpu", max_batch_size=2, **kw)
