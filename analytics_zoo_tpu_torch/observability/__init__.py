@@ -17,13 +17,13 @@ public names, span phases, Prometheus families and on-disk formats:
 * :mod:`.flightrec`: the crash-safe per-process flight recorder the
   supervising launcher harvests into ``pod_postmortem.json``;
 * :mod:`.aggregate`: per-rank Prometheus snapshots merged into one pod
-  scrape (``python -m analytics_zoo_tpu_torch.observability.aggregate``).
-
-The fleet's cross-process trace stitching (``tracefleet``) comes with
-the fleet.
+  scrape (``python -m analytics_zoo_tpu_torch.observability.aggregate``);
+* :mod:`.tracefleet`: the fleet's cross-process span stitching, time
+  attribution and waterfall CLI
+  (``python -m analytics_zoo_tpu_torch.observability.tracefleet``).
 """
 
-from . import aggregate, flightrec, profile, trace
+from . import aggregate, flightrec, profile, trace, tracefleet
 from .flightrec import FlightRecorder
 from .log import StructuredLogger, get_logger
 from .metrics import (Counters, Family, LatencyWindow, MetricsRegistry,
@@ -38,5 +38,5 @@ __all__ = [
     "TRAIN_PHASES", "Tracer", "activate", "aggregate", "current_span",
     "flightrec", "get_logger", "parse_prometheus_text",
     "process_info_family", "profile", "render_prometheus",
-    "summary_family", "trace",
+    "summary_family", "trace", "tracefleet",
 ]

@@ -6,13 +6,18 @@ module subscribes to jax's monitoring stream, whose ``backend_compile``
 events fire once per real XLA compile.  Torch runs eagerly and has no
 such stream, so here a "compile" is one of the port's own moments of
 building device code that it then reuses, reported by the code that
-does it through :func:`note_compile`:
+does it through :func:`note_compile`, with its kind
+(:data:`COMPILE_KINDS`):
 
-* a build of the hand-written kernels (``ops/_kernels.py``: the ``nvcc``
-  processes, timed from their start to the last one's end; a library
-  found on disk is loaded, not compiled, and counts nothing);
-* a CUDA-graph capture of the decode engine (``pipeline/inference/
-  decode.py``: the step plan, each fused window, the speculative window).
+* ``kernel_build``: a build of the hand-written kernels
+  (``ops/_kernels.py``: the ``nvcc`` processes, timed from their start to
+  the last one's end; a library found on disk or in the store is loaded,
+  not compiled, and counts nothing);
+* ``signature_build``: a serving signature's first run on replica 0
+  (``pipeline/inference/serving.py``);
+* ``graph_capture``: a CUDA-graph capture of the decode engine
+  (``pipeline/inference/decode.py``: the step plan, each fused window,
+  the speculative window).
 
 Each increments ``zoo_xla_compiles_total`` and adds its wall seconds to
 ``zoo_xla_compile_seconds_total`` (the JAX package's family names, so one
@@ -46,6 +51,10 @@ from .metrics import Family
 _lock = threading.Lock()
 _installed: "Optional[XlaProfile]" = None
 
+#: the kinds of compile-like events: an ``nvcc`` run, a serving
+#: signature's first build, a CUDA-graph capture
+COMPILE_KINDS = ("kernel_build", "signature_build", "graph_capture")
+
 
 class XlaProfile:
     """Counters fed by :func:`note_compile` and :func:`note_transfer`
@@ -55,16 +64,18 @@ class XlaProfile:
         self._lock = threading.Lock()
         self.compiles = 0
         self.compile_seconds = 0.0
+        self.by_kind = dict.fromkeys(COMPILE_KINDS, 0)
         self._transfers: Dict[str, int] = {}
         self._closed = False
 
     # ---- feed side ----
-    def _on_compile(self, seconds: float, key: str):
+    def _on_compile(self, seconds: float, key: str, kind: str):
         if self._closed:
             return
         with self._lock:
             self.compiles += 1
             self.compile_seconds += seconds
+            self.by_kind[kind] += 1
         span = trace.current_span()
         if span is not None:
             span.event("backend_compile", seconds=round(seconds, 6),
@@ -80,6 +91,7 @@ class XlaProfile:
         with self._lock:
             return {"compiles": self.compiles,
                     "compile_seconds": round(self.compile_seconds, 6),
+                    "by_kind": dict(self.by_kind),
                     "transfers": dict(self._transfers)}
 
     def families(self) -> List[Family]:
@@ -149,13 +161,14 @@ def installed() -> "Optional[XlaProfile]":
     return _installed
 
 
-def note_compile(seconds: float, key: str) -> None:
+def note_compile(seconds: float, key: str,
+                 kind: str = "signature_build") -> None:
     """Report one compile-like event of ``seconds`` wall time (``key``
-    names what was built).  A single flag check when no profile is
-    installed."""
+    names what was built, ``kind`` is one of :data:`COMPILE_KINDS`).  A
+    single flag check when no profile is installed."""
     handle = _installed
     if handle is not None:
-        handle._on_compile(seconds, key)
+        handle._on_compile(seconds, key, kind)
 
 
 def note_transfer(direction: str = "h2d"):

@@ -181,7 +181,8 @@ class KernelLibrary:
             # the port's compile: counted by the profile hooks and put on
             # the span of the step or request that paid for it
             profile.note_compile(time.perf_counter() - t0,
-                                 "nvcc:" + ",".join(sorted(procs)))
+                                 "nvcc:" + ",".join(sorted(procs)),
+                                 kind="kernel_build")
             if store is not None:
                 meta = {"kind": "kernel-lib"}
                 tag = execstore.build_tag()

@@ -683,7 +683,7 @@ class DecodeEngine:
             self._counters["captures"] += 1
             # the port's compile: counted by the profile hooks
             _profile.note_compile(time.perf_counter() - t0,
-                                  "cuda_graph_capture")
+                                  "cuda_graph_capture", kind="graph_capture")
         self._counters["plans_built"] += 1
         return plan
 

@@ -165,8 +165,14 @@ def to_device(batched, device):
     ``device``, dtypes kept.  Pinned host tensors (the staging arena's)
     upload without blocking."""
     def one(a):
-        t = a if isinstance(a, torch.Tensor) else torch.from_numpy(
-            np.ascontiguousarray(a))
+        if isinstance(a, torch.Tensor):
+            t = a
+        else:
+            a = np.ascontiguousarray(a)
+            # a read-only view (a fleet frame decoded without a copy) is
+            # copied here, once: a tensor must not alias memory that
+            # nothing may write
+            t = torch.from_numpy(a if a.flags.writeable else a.copy())
         return t.to(device, non_blocking=t.is_pinned())
 
     return tree_map(one, batched)
@@ -494,7 +500,7 @@ class ReplicaSet:
             t0 = time.perf_counter()
             self._run_once(self.replicas[0], exes[0], batched)
             _profile.note_compile(time.perf_counter() - t0,
-                                  "replica-forward")
+                                  "replica-forward", kind="signature_build")
             for rep, exe in zip(self.replicas[1:], exes[1:]):
                 try:
                     self._run_once(rep, exe, batched)

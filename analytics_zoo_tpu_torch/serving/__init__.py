@@ -8,12 +8,13 @@ coalescing + replica sets).
 Counterpart of ``analytics_zoo_tpu/serving/`` with the same names, error
 codes, metric families and span phases, with sharded serving groups
 (``ShardGroup``, ``ShardGroupSet``, ``carve_groups``,
-``normalize_mesh_spec``) and the persistent store (``ExecStore``, which
-holds the port's kernel libraries).  The fleet is not ported yet (see
-ROADMAP.md).
+``normalize_mesh_spec``), the persistent store (``ExecStore``, which
+holds the port's kernel libraries) and the multi-process fleet
+(:mod:`.fleet`: ``FleetRouter``, ``FleetSupervisor``, the worker
+process and its frame protocol).
 """
 
-from . import execstore
+from . import execstore, fleet
 from .admission import AdmissionController
 from .autoscale import Autoscaler, autoscaler_for
 from .errors import (ColdStartTimeout, DeadlineExceeded, DeployError,
@@ -33,5 +34,6 @@ __all__ = [
     "ModelNotFound", "ModelPager", "ModelRegistry", "Overloaded",
     "PageRecipe", "ServingError", "ShardGroup", "ShardGroupSet",
     "autoscaler_for", "carve_groups", "error_response", "execstore",
-    "normalize_mesh_spec", "registry_collector", "registry_families",
+    "fleet", "normalize_mesh_spec", "registry_collector",
+    "registry_families",
 ]

@@ -282,12 +282,39 @@ the first one's bits, the third after a flipped byte counts the entry
 invalid, rebuilds flash_fwd and gives the same bits; ``stat`` lists the
 entries with their tag.
 
+Then a fleet phase: the serve phase's full-width TransformerLM served
+by ``FleetRouter(n_workers=2, device="cuda")`` on the one card, the
+workers running from a fresh copy of the package (no kernel build
+directory) over a share under ``build/chip_smoke/fleet`` with the store
+in it.  (1) Deploy through the ``lm`` builder: the first activation
+runs nvcc and misses the store, the second builds nothing.  (2) 16 of
+the serve phase's mixed prompts, greedy and sampled, from 4 threads:
+every stream equal to a single-process ``ModelRegistry`` built here from
+the same spec, each worker's flash_fwd count (read by ``ping``) 12 an
+admission that computed its prompt; requests/s, TTFT and ITL medians
+beside the single-process registry's.  (3) Predict of 1 and 2 rows at
+640 tokens on the binary wire, then the JSON wire: bit-equal to each
+other and to the single-process handle, 12 flash_fwd launches a
+dispatch, bytes and p50/p99 a request on each wire; a 4-row reply over
+the 256 MiB frame bound comes back as the structured error with its
+``attempted_bytes`` and the connection serves on.  (4) v2 (seed 1)
+deployed under traffic: no failed request, each reply equal to its
+version's reference, no nvcc.  (5) Worker 1 SIGKILLed while it holds a
+request: no failed request, a retry, a postmortem, the restarted
+worker replaying v2 with no nvcc and no store miss and serving equal
+replies; seconds until it is routable again.  (6) The killed request
+stitched offline from the flight directory (attributed fraction at
+least 0.95; the CLI once), ``fleet_gap_ms`` on traced requests with the
+worker leg under ``worker_call``, traced closed-loop requests/s at least
+0.95 of untraced.  (7) The scrape holds both ranks and the
+``zoo_fleet_*`` families.
+
 ``python3 chip_smoke.py --phases train,resume`` runs only the named
 phases (after the build), for a short call.
 
 The card's line, then ``resnet:``, ``detect:``, ``recommend:``,
 ``textclass:``, ``moe:``, ``image:``, ``layers:``, ``resume:``,
-``parallel:``, ``control:``, ``observe:`` and ``shard:`` summary lines (each
+``parallel:``, ``control:``, ``observe:``, ``shard:`` and ``fleet:`` summary lines (each
 with the card's name and power limit) come near the end; the line
 before the last is a JSON object with each kernel's numbers; the last
 line is ``{"ok": true, "device": {...}}``.  ResNet-50, the registry,
@@ -301,6 +328,7 @@ non-zero and prints no result.
 
 from __future__ import annotations
 
+import glob
 import json
 import math
 import os
@@ -479,6 +507,11 @@ SUMMARIES = {
               "gather_bytes", "predict_ms", "decode_tokens_per_s",
               "logit_max_abs_diff", "logit_bits_equal", "freed_bytes",
               "store_cold_build_s", "store_warm_first_answer_s", "card"),
+    "fleet": ("requests_per_s", "ref_requests_per_s", "ttft_ms_median",
+              "ref_ttft_ms_median", "itl_ms_median", "ref_itl_ms_median",
+              "first_activation_kernel_builds", "warm_ms", "fanout_s",
+              "predict_ms_p50", "recovery_s", "attributed_fraction",
+              "traced_ratio", "card"),
 }
 KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "flash_fwd": ("analytics_zoo_tpu_torch/ops/csrc/flash_fwd.cu",
@@ -612,6 +645,10 @@ CASES = [
     # heads at the serve model's 640 positions)
     ("shard predict", 48, SERVE["max_len"], SERVE["max_len"], 64,
      "float32", True, None, False),
+    # the fleet phase's predicts of 1 and 2 rows at the same 640 positions,
+    # launched in the workers
+    *[("fleet predict", 12 * rows, SERVE["max_len"], SERVE["max_len"], 64,
+       "float32", True, None, False) for rows in (1, 2)],
     ("cross causal", 24, 192, 512, 64, "float32", True, None, False),
     ("cross", 24, 200, 777, 64, "float32", False, None, False),
     ("kv_lengths", 24, 512, 512, 64, "float32", True, 512, False),
@@ -5351,7 +5388,8 @@ cfg = json.loads(sys.argv[2])
 handle = profile.install()
 keys = []
 note = profile.note_compile
-profile.note_compile = lambda s, key: (keys.append(key), note(s, key))
+profile.note_compile = lambda s, key, **kw: (keys.append(key),
+                                             note(s, key, **kw))
 lm = TransformerLM(**cfg["lm"], device="cuda", seed=0).eval()
 seq = cfg["lm"]["seq_len"]
 x = np.random.default_rng(0).integers(
@@ -5812,6 +5850,608 @@ def phase_shard(torch, TransformerLM, kernels, inference, tmp):
     return all(checks.values()), stats
 
 
+# the fleet phase: the serve phase's full-width TransformerLM served by a
+# supervised fleet of two worker processes on the one card, the workers
+# running from a fresh copy of the package (no kernel build directory),
+# so that the first activation runs nvcc and fills the shared store
+FLEET = dict(workers=2, requests=16, threads=4, sampled=dict(
+                 temperature=0.8, top_k=50, top_p=0.95),
+             predict_rows=(1, 2), predict_reps=4, oversize_rows=4,
+             upgrade_served=16, kill_after=4, after_recovery=8,
+             traced_requests=48, traced_prompt=32, traced_new=8,
+             traced_rounds=2, attribution=0.95, traced_ratio=0.95,
+             start_timeout=600, call_timeout=600, wait_s=600)
+FLEET_BUILDER = "analytics_zoo_tpu_torch.serving.fleet.builders:lm"
+
+
+def fleet_args(seed):
+    """The ``lm`` builder's args: the serve phase's model and engine."""
+    return dict(vocab_size=FULL["vocab_size"], seq_len=SERVE["max_len"],
+                n_layers=FULL["n_layers"], d_model=FULL["d_model"],
+                n_heads=FULL["n_heads"], d_ff=FULL["d_ff"], seed=seed,
+                capacity=SERVE["capacity"],
+                prompt_buckets=list(SERVE["buckets"]),
+                prefix_pool=SERVE["pool"])
+
+
+#: the deploy keywords every copy of the model gets: a predict ladder of
+#: buckets 1 and 2, warmed at (640,) int32 token ids
+FLEET_DEPLOY = dict(max_batch_size=2, warmup_dtypes="int32")
+
+
+def fleet_package(root):
+    """A fresh copy of the package under ``root/pkg`` (no build
+    directory): the PYTHONPATH of the fleet's workers."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    pkg = os.path.join(root, "pkg")
+    shutil.rmtree(pkg, ignore_errors=True)
+    shutil.copytree(os.path.join(repo, "analytics_zoo_tpu_torch"),
+                    os.path.join(pkg, "analytics_zoo_tpu_torch"),
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    return pkg
+
+
+def fleet_drop_builds(pkg):
+    """Remove the package copy's kernel build directory and return the
+    libraries it held.  The workers on one host import one copy, so they
+    share that directory: a later worker loads the first one's libraries
+    from it and never reads the store.  Without it a restarted worker
+    must load them from the store."""
+    root = os.path.join(pkg, "build")
+    libs = sorted(os.path.basename(p) for p in glob.glob(
+        os.path.join(root, "torch_kernels", "*", "*.so")))
+    shutil.rmtree(root, ignore_errors=True)
+    return libs
+
+
+def fleet_env(pkg):
+    """The workers' environment: the package copy first on the path and
+    the working directory (this checkout) off it, which ``python -m``
+    would otherwise put first."""
+    return {"PYTHONPATH": pkg, "PYTHONSAFEPATH": "1"}
+
+
+def fleet_sampling(i):
+    """Request i's sampling: even requests greedy, odd ones sampled with
+    a seed of their own."""
+    if i % 2 == 0:
+        return {}
+    return dict(FLEET["sampled"], seed=1000 + i)
+
+
+def fleet_drive(call, n, threads, stop=None):
+    """``call(i)`` for i in 0..n-1 (or cycling until ``stop`` is set)
+    from ``threads`` clients at once: ([(i, out, info, t0, t1)], errors,
+    wall s)."""
+    import threading
+    done, errors = [], []
+    go = threading.Event()
+
+    def client(t):
+        go.wait(10)
+        i = t
+        while (i < n) if stop is None else not stop.is_set():
+            t0 = time.perf_counter()
+            try:
+                out, info = call(i % n)
+                done.append((i % n, out, info, t0, time.perf_counter()))
+            except Exception as e:  # counted as a failed request
+                errors.append(f"{type(e).__name__}: {e}")
+            i += threads
+
+    workers = [threading.Thread(target=client, args=(t,))
+               for t in range(threads)]
+    for w in workers:
+        w.start()
+    t0 = time.perf_counter()
+    go.set()
+    return done, errors, workers, t0
+
+
+def fleet_join(workers, t0, timeout):
+    for w in workers:
+        w.join(timeout)
+    return time.perf_counter() - t0
+
+
+def phase_timings(phases, n_new):
+    """(TTFT ms, ITL ms) of one generate span's phases (dicts or
+    ``[name, start, dur]`` triples): the time through ``prefill``, and
+    the decode steps' time over the tokens after the first."""
+    rows = [(p["name"], p["dur_ms"]) if isinstance(p, dict)
+            else (p[0], p[2]) for p in phases or ()]
+    total, ttft = 0.0, None
+    for name, dur in rows:
+        total += dur
+        if name == "prefill":
+            ttft = total
+            break
+    itl = (sum(d for name, d in rows if name == "decode_step")
+           / (n_new - 1)) if n_new > 1 else None
+    return ttft, itl
+
+
+def fleet_reference(torch, serving, builders, prompts, news, xs):
+    """The single-process registry built in this process from the same
+    spec: v1's and v2's streams for every prompt, v1's predict replies,
+    and requests/s, TTFT and ITL medians of v1 served from
+    FLEET["threads"] clients.  Returns (streams, predicts, stats)."""
+    import numpy as np
+    from analytics_zoo_tpu_torch.observability import Tracer
+    tracer = Tracer(capacity=256)
+    reg = serving.ModelRegistry(tracer=tracer)
+    try:
+        for v in (1, 2):
+            reg.deploy(f"v{v}", warmup_shapes=(SERVE["max_len"],),
+                       **builders.lm(fleet_args(v - 1), None,
+                                     device="cuda"), **FLEET_DEPLOY)
+
+        def gen(name):
+            return lambda i: reg.generate_ex(name, [prompts[i]], news[i],
+                                             **fleet_sampling(i))
+
+        done, errors, workers, t0 = fleet_drive(gen("v1"), len(prompts),
+                                                FLEET["threads"])
+        wall = fleet_join(workers, t0, FLEET["wait_s"])
+        if errors:
+            raise RuntimeError(f"reference generate failed: {errors[:3]}")
+        streams = {1: {i: out[0] for i, out, _, _, _ in done}}
+        timings = [phase_timings(tracer.find(info["request_id"])["phases"],
+                                 len(out[0]))
+                   for i, out, info, _, _ in done]
+        streams[2] = {i: reg.generate("v2", [prompts[i]], news[i],
+                                      **fleet_sampling(i))[0]
+                      for i in range(len(prompts))}
+        predicts = {rows: np.asarray(reg.predict("v1", x))
+                    for rows, x in xs.items()}
+    finally:
+        reg.shutdown()
+    stats = dict(requests_per_s=len(done) / wall, wall_s=wall,
+                 ttft_ms_median=percentile(
+                     [t for t, _ in timings if t is not None], 50),
+                 itl_ms_median=percentile(
+                     [t for _, t in timings if t is not None], 50))
+    return streams, predicts, stats
+
+
+def fleet_flash(router, ranks):
+    """Each worker's flash_fwd count (its process's, read by ``ping``)."""
+    return {rk: router.ping(rk)["launches"]["flash_fwd"] for rk in ranks}
+
+
+def fleet_scrape(router):
+    from analytics_zoo_tpu_torch.observability.metrics import \
+        parse_prometheus_text
+    return parse_prometheus_text(router.metrics_text())
+
+
+def fleet_prefix_hits(parsed, rank):
+    return sum(v for (name, labels), v in parsed["samples"].items()
+               if name == "zoo_decode_prefix_hits_total"
+               and ("rank", str(rank)) in labels)
+
+
+def fleet_log_tail(router, n=3000):
+    """The workers' stderr tails, for a failure's diagnosis."""
+    run = router.supervisor.run_dir
+    for name in sorted(os.listdir(run)):
+        if name.startswith("stderr_"):
+            with open(os.path.join(run, name), errors="replace") as f:
+                log(f"fleet: {name}:\n{f.read()[-n:]}")
+
+
+def fleet_generate(torch, r, kernels, prompts, news, ref, checks, stats):
+    """(2) The generate path through the router from FLEET["threads"]
+    clients, traced: streams against the reference, 12 flash_fwd
+    launches in the workers an admission that computed its prompt."""
+    import numpy as np
+    from analytics_zoo_tpu_torch.observability import Tracer
+    ranks = range(FLEET["workers"])
+    r.tracer = Tracer(capacity=256)
+    scrape0 = fleet_scrape(r)
+    flash0 = fleet_flash(r, ranks)
+    done, errors, workers, t0 = fleet_drive(
+        lambda i: r.generate_ex("lm", [prompts[i]], news[i],
+                                **fleet_sampling(i)),
+        len(prompts), FLEET["threads"])
+    wall = fleet_join(workers, t0, FLEET["wait_s"])
+    flash1 = fleet_flash(r, ranks)
+    scrape1 = fleet_scrape(r)
+    spans = {info["request_id"]: r.tracer.find(info["request_id"])
+             for _, _, info, _, _ in done}
+    served = {rk: sum(1 for sd in spans.values()
+                      if sd["labels"].get("worker") == rk) for rk in ranks}
+    per_rank = {rk: dict(
+        admissions=served[rk],
+        prefix_hits=fleet_prefix_hits(scrape1, rk)
+        - fleet_prefix_hits(scrape0, rk),
+        flash_fwd=flash1[rk] - flash0[rk]) for rk in ranks}
+    timings = [phase_timings((spans[info["request_id"]].get("children")
+                              or [{}])[0].get("phases"), len(out[0]))
+               for _, out, info, _, _ in done]
+    nested = [sd.get("children") or [] for sd in spans.values()]
+    checks["generate_zero_failed"] = not errors and len(done) == len(prompts)
+    checks["generate_streams_equal_single_process"] = all(
+        np.array_equal(out[0], ref[1][i]) for i, out, _, _, _ in done)
+    checks["generate_flash_fwd_12_an_admission_per_worker"] = all(
+        p["flash_fwd"] == FULL["n_layers"] * (p["admissions"]
+                                              - p["prefix_hits"])
+        and p["admissions"] > 0 for p in per_rank.values())
+    checks["generate_worker_leg_nested_under_worker_call"] = all(
+        len(ch) == 1 and ch[0].get("_phase") == "worker_call"
+        for ch in nested)
+    checks["generate_info_fleet_gap_ms"] = all(
+        "fleet_gap_ms" in info for _, _, info, _, _ in done)
+    stats["generate"] = dict(
+        requests=len(done), errors=errors[:3], wall_s=wall,
+        requests_per_s=len(done) / wall, per_rank=per_rank,
+        ttft_ms_median=percentile([t for t, _ in timings
+                                   if t is not None], 50),
+        itl_ms_median=percentile([t for _, t in timings
+                                  if t is not None], 50),
+        fleet_gap_ms_median=percentile(
+            [info.get("fleet_gap_ms", 0.0) for _, _, info, _, _ in done],
+            50))
+    r.tracer = None
+    return sum(p["flash_fwd"] for p in per_rank.values())
+
+
+def fleet_predict(torch, r, xs, ref, checks, stats):
+    """(3) Predict of 1 and 2 rows at 640 tokens on the binary wire, then
+    the JSON wire: replies bit-equal to each other and to the
+    single-process handle, 12 flash_fwd launches a dispatch; a 4-row
+    reply over the frame bound comes back structured and the connection
+    serves on."""
+    import numpy as np
+    from analytics_zoo_tpu_torch.serving import ServingError
+    from analytics_zoo_tpu_torch.serving.fleet import protocol
+    ranks = range(FLEET["workers"])
+    out, flash = {}, 0
+    for wire in ("binary", "json"):
+        r.set_wire(wire)
+        lat, nbytes, got = {}, {}, {}
+        f0 = fleet_flash(r, ranks)
+        sent = 0
+        for rows in FLEET["predict_rows"]:
+            for _ in range(FLEET["predict_reps"]):
+                wb0 = r.wire_bytes
+                t = time.perf_counter()
+                y, _ = r.predict_ex("lm", xs[rows])
+                lat.setdefault(rows, []).append(
+                    (time.perf_counter() - t) * 1e3)
+                wb1 = r.wire_bytes
+                nbytes[rows] = sum(wb1.get(k, 0) - wb0.get(k, 0)
+                                   for k in wb1)
+                got.setdefault(rows, []).append(np.asarray(y))
+                sent += 1
+        f1 = fleet_flash(r, ranks)
+        launched = sum(f1[rk] - f0[rk] for rk in ranks)
+        flash += launched
+        out[wire] = got
+        stats[f"predict_{wire}"] = dict(
+            bytes_a_request={rows: nbytes[rows] for rows in nbytes},
+            ms_p50={rows: percentile(v, 50) for rows, v in lat.items()},
+            ms_p99={rows: percentile(v, 99) for rows, v in lat.items()},
+            requests=sent, flash_fwd=launched)
+        checks[f"predict_{wire}_flash_fwd_12_a_dispatch"] = (
+            launched == FULL["n_layers"] * sent)
+    r.set_wire("binary")
+    checks["predict_bit_equal_both_wires_and_single_process"] = all(
+        y.tobytes() == ref[rows].tobytes()
+        for wire in out for rows in out[wire] for y in out[wire][rows])
+    retries = r.retries_total
+    err = None
+    x4 = np.concatenate([xs[2], xs[2]])[:FLEET["oversize_rows"]]
+    try:
+        r.predict_ex("lm", x4)
+    except ServingError as e:
+        err = dict(e.details)
+    y, _ = r.predict_ex("lm", xs[1])
+    stats["oversize"] = dict(
+        rows=FLEET["oversize_rows"], error=err and err.get("error"),
+        attempted_bytes=err and err.get("attempted_bytes"),
+        max_frame_bytes=err and err.get("max_frame_bytes"))
+    checks["predict_oversize_structured"] = (
+        err is not None and err.get("error") == "FrameError"
+        and err.get("attempted_bytes", 0) > protocol.MAX_FRAME_BYTES
+        and err.get("max_frame_bytes") == protocol.MAX_FRAME_BYTES)
+    checks["predict_connection_usable_after_oversize"] = (
+        y.tobytes() == ref[1].tobytes() and r.retries_total == retries)
+    return flash
+
+
+def fleet_upgrade(r, prompts, news, ref, checks, stats):
+    """(4) v2 (seed 1) deployed while FLEET["threads"] clients cycle
+    through the prompts, until v2 served FLEET["upgrade_served"]."""
+    import threading
+    import numpy as np
+    stop = threading.Event()
+    done, errors, workers, t0 = fleet_drive(
+        lambda i: r.generate_ex("lm", [prompts[i]], news[i],
+                                **fleet_sampling(i)),
+        len(prompts), FLEET["threads"], stop=stop)
+    try:
+        while (len(done) < FLEET["kill_after"] and not errors
+               and time.perf_counter() - t0 < FLEET["wait_s"]):
+            time.sleep(0.01)
+        rep = r.deploy("lm", None, FLEET_BUILDER, fleet_args(1),
+                       warmup_shapes=(SERVE["max_len"],),
+                       deploy_kwargs=FLEET_DEPLOY)
+        while (sum(1 for d in done if d[2]["version"] == 2)
+               < FLEET["upgrade_served"] and not errors
+               and time.perf_counter() - t0 < FLEET["wait_s"]):
+            time.sleep(0.01)
+    finally:
+        stop.set()
+        wall = fleet_join(workers, t0, FLEET["wait_s"])
+    acts = rep["activations"]
+    versions = [d[2]["version"] for d in done]
+    checks["upgrade_zero_failed"] = not errors
+    checks["upgrade_each_reply_its_versions_reference"] = all(
+        np.array_equal(out[0], ref[info["version"]][i])
+        for i, out, info, _, _ in done)
+    checks["upgrade_both_versions_served"] = set(versions) == {1, 2}
+    checks["upgrade_activations_no_nvcc"] = (
+        len(acts) == FLEET["workers"]
+        and all("error" not in a and a["kernel_builds"] == 0
+                and a["store_misses"] == 0 for a in acts))
+    stats["upgrade"] = dict(
+        requests=len(done), errors=errors[:3], wall_s=wall,
+        served_by={v: versions.count(v) for v in (1, 2)},
+        fanout_s=rep["fanout_s"], activations=acts)
+
+
+def fleet_kill(r, prompts, news, ref, checks, stats):
+    """(5) SIGKILL worker 1 while it holds a request, under traffic and a
+    router tracer: no failed request, a retry, a postmortem, and the
+    restarted worker replaying v2 without nvcc and serving equal
+    replies.  Returns the killed request's trace id (or None)."""
+    import threading
+    import numpy as np
+    from analytics_zoo_tpu_torch.observability import Tracer
+    r.tracer = Tracer(capacity=1024)
+    stop = threading.Event()
+    retries0 = r.retries_total
+    done, errors, workers, t0 = fleet_drive(
+        lambda i: r.generate_ex("lm", [prompts[i]], news[i],
+                                **fleet_sampling(i)),
+        len(prompts), FLEET["threads"], stop=stop)
+    recovery_s = t_kill = None
+    try:
+        while ((len(done) < FLEET["kill_after"]
+                or r.handles[1].outstanding == 0) and not errors
+               and time.perf_counter() - t0 < FLEET["wait_s"]):
+            time.sleep(0.001)
+        t_kill = time.perf_counter()
+        r.supervisor.kill(1)
+        while time.perf_counter() - t_kill < FLEET["wait_s"]:
+            w = r.supervisor.worker(1)
+            if w.incarnation >= 1 and r.handles[1].routable:
+                recovery_s = time.perf_counter() - t_kill
+                break
+            time.sleep(0.01)
+        n_at = len(done)
+        while (len(done) < n_at + FLEET["after_recovery"] and not errors
+               and time.perf_counter() - t0 < FLEET["wait_s"]):
+            time.sleep(0.01)
+    finally:
+        stop.set()
+        wall = fleet_join(workers, t0, FLEET["wait_s"])
+    spans = [r.tracer.find(info["request_id"]) for _, _, info, _, _ in done]
+    after = [sd for (_, _, _, ts, _), sd in zip(done, spans)
+             if recovery_s is not None and ts > t_kill + recovery_s]
+    retried = [sd for sd in spans if sd and sd["labels"].get("retried")]
+    pm = os.path.join(r.supervisor.run_dir, "worker_postmortem.r1.i0.json")
+    replay = r.replays.get(1) or []
+    checks["kill_zero_failed"] = not errors
+    checks["kill_replies_equal_reference"] = all(
+        np.array_equal(out[0], ref[info["version"]][i])
+        for i, out, info, _, _ in done)
+    checks["kill_retried_on_sibling"] = r.retries_total - retries0 >= 1
+    checks["kill_postmortem_written"] = (
+        pm in r.supervisor.postmortems and os.path.exists(pm))
+    # the package copy's build directory is gone (fleet_drop_builds):
+    # the restarted worker's libraries come from the store
+    checks["kill_replay_loads_the_store_no_nvcc"] = (
+        recovery_s is not None and len(replay) == 1
+        and replay[0]["model"] == "lm" and replay[0]["version"] == 2
+        and replay[0]["kernel_builds"] == 0
+        and replay[0]["store_misses"] == 0
+        and replay[0]["store_hits"] > 0)
+    checks["kill_restarted_worker_serves_equal"] = any(
+        sd["labels"].get("worker") == 1 for sd in after if sd)
+    stats["kill"] = dict(
+        requests=len(done), errors=errors[:3], wall_s=wall,
+        recovery_s=recovery_s, retries=r.retries_total - retries0,
+        replay=replay, retried_requests=len(retried),
+        served_by_restarted=sum(1 for sd in after
+                                if sd and sd["labels"].get("worker") == 1))
+    return retried[0] if retried else None
+
+
+def fleet_trace(r, killed, checks, stats, tmp):
+    """(6) The killed request stitched offline from the flight directory
+    (``harvest_legs`` + ``stitch``, then the CLI once), and the traced
+    closed-loop rate against the untraced."""
+    import numpy as np
+    from analytics_zoo_tpu_torch.observability import Tracer, tracefleet
+    flight = r.supervisor.flight_dir()
+    st, cli = None, None
+    if killed is not None:
+        tid = killed["trace_id"]
+        deadline = time.monotonic() + 60
+        legs = []
+        while not legs and time.monotonic() < deadline:
+            legs = tracefleet.harvest_legs(flight, trace_id=tid)
+            if not legs:
+                time.sleep(0.1)
+        st = tracefleet.stitch(killed, legs)
+        ring = os.path.join(tmp, "fleet", "router_ring.json")
+        tracefleet.dump_ring(r.tracer, ring)
+        repo = os.path.dirname(os.path.abspath(__file__))
+        cli = subprocess.run(
+            [sys.executable, "-m",
+             "analytics_zoo_tpu_torch.observability.tracefleet", flight,
+             "--router", ring, "--trace", tid],
+            env=dict(os.environ, PYTHONPATH=repo), capture_output=True,
+            text=True, timeout=120)
+        log("fleet: waterfall of the killed request:\n" + cli.stdout)
+    checks["trace_killed_request_attributed"] = (
+        st is not None and st["stitched_legs"] >= 1
+        and st["attributed_fraction"] >= FLEET["attribution"])
+    checks["trace_cli_stitches"] = (
+        cli is not None and cli.returncode == 0
+        and f"trace {killed['trace_id']}" in cli.stdout)
+    # closed-loop rate, untraced and traced in turns (ABBA)
+    rng = np.random.default_rng(9)
+    short = [rng.integers(0, FULL["vocab_size"], FLEET["traced_prompt"])
+             for _ in range(FLEET["traced_requests"])]
+    rates = {"untraced": [], "traced": []}
+    for _ in range(FLEET["traced_rounds"]):
+        for mode in ("untraced", "traced", "traced", "untraced"):
+            r.tracer = Tracer(capacity=256) if mode == "traced" else None
+            done, errors, workers, t0 = fleet_drive(
+                lambda i: r.generate_ex("lm", [short[i]],
+                                        FLEET["traced_new"]),
+                len(short), FLEET["threads"])
+            wall = fleet_join(workers, t0, FLEET["wait_s"])
+            if errors:
+                raise RuntimeError(f"closed loop failed: {errors[:3]}")
+            rates[mode].append(len(done) / wall)
+    r.tracer = None
+    ratio = sum(rates["traced"]) / sum(rates["untraced"])
+    checks["trace_traced_rate_at_least_0_95"] = ratio >= FLEET["traced_ratio"]
+    stats["trace"] = dict(
+        killed_trace_id=killed and killed["trace_id"],
+        attributed_fraction=st and st["attributed_fraction"],
+        stitched_legs=st and st["stitched_legs"],
+        partial=st and st["partial"], skew_s=st and st["skew_s"],
+        cli_rc=cli and cli.returncode, rates=rates, traced_ratio=ratio)
+
+
+def phase_fleet(torch, kernels, tmp):
+    """The serving fleet on the card: the serve phase's full-width
+    TransformerLM deployed through ``FleetRouter(n_workers=2,
+    device="cuda")`` (workers from a fresh copy of the package): deploy,
+    generate, predict on both wires, a rolling upgrade, a SIGKILL,
+    tracing and the scrape, each held to the single-process registry."""
+    import gc
+    import numpy as np
+    from analytics_zoo_tpu_torch import serving
+    from analytics_zoo_tpu_torch.serving.fleet import FleetRouter, builders
+    stats, checks = {"card": smi_card()}, {}
+    root = os.path.join(tmp, "fleet")
+    shutil.rmtree(root, ignore_errors=True)
+    pkg = fleet_package(root)
+    cfg = dict(FULL, seq_len=SERVE["max_len"])
+    prompts, news = mixed_requests(cfg, np.random.default_rng(2))
+    prompts, news = prompts[:FLEET["requests"]], news[:FLEET["requests"]]
+    rng = np.random.default_rng(4)
+    x2 = rng.integers(0, FULL["vocab_size"],
+                      (2, SERVE["max_len"])).astype(np.int32)
+    xs = {1: x2[:1].copy(), 2: x2}
+    t = time.perf_counter()
+    ref_streams, ref_predict, stats["reference"] = fleet_reference(
+        torch, serving, builders, prompts, news, xs)
+    stats["reference_s"] = time.perf_counter() - t
+    gc.collect()
+    torch.cuda.empty_cache()
+    r = FleetRouter(os.path.join(root, "share"), n_workers=FLEET["workers"],
+                    device="cuda", env=fleet_env(pkg),
+                    max_restarts=2, restart_backoff=0.5,
+                    call_timeout_s=FLEET["call_timeout"])
+    launches = dict.fromkeys(kernels.KERNELS, 0)
+    try:
+        t = time.perf_counter()
+        r.start(timeout=FLEET["start_timeout"])
+        stats["start_s"] = time.perf_counter() - t
+        # (1) deploy: the first activation builds, the second does not
+        rep = r.deploy("lm", None, FLEET_BUILDER, fleet_args(0),
+                       warmup_shapes=(SERVE["max_len"],),
+                       deploy_kwargs=FLEET_DEPLOY)
+        acts = rep["activations"]
+        stats["deploy"] = dict(fanout_s=rep["fanout_s"], activations=acts)
+        for a in acts:
+            log(f"fleet: activation rank {a['rank']}: "
+                + json.dumps({k: a.get(k) for k in (
+                    "warm_ms", "kernel_builds", "signature_builds",
+                    "graph_captures", "store_hits", "store_misses",
+                    "error")}))
+        log(f"fleet: fanout_s {rep['fanout_s']}")
+        checks["deploy_all_activated"] = (
+            len(acts) == FLEET["workers"]
+            and all("error" not in a for a in acts))
+        checks["deploy_first_builds_with_store_miss"] = bool(acts) and (
+            acts[0].get("kernel_builds", 0) > 0
+            and acts[0].get("store_misses", 0) > 0)
+        checks["deploy_second_no_nvcc_no_store_miss"] = all(
+            a.get("kernel_builds") == 0 and a.get("store_misses") == 0
+            for a in acts[1:])
+        # rank 1 loaded rank 0's libraries from the shared build
+        # directory; drop it so that the SIGKILL's replay reads the store
+        stats["dropped_libraries"] = fleet_drop_builds(pkg)
+        checks["deploy_built_in_the_package_copy"] = (
+            len(stats["dropped_libraries"]) == len(kernels._SIGNATURES))
+        kernels.reset_launch_counts()
+        launches["flash_fwd"] += fleet_generate(
+            torch, r, kernels, prompts, news, ref_streams, checks, stats)
+        launches["flash_fwd"] += fleet_predict(torch, r, xs, ref_predict,
+                                               checks, stats)
+        stats["router_launches"] = kernels.launch_counts()
+        checks["router_process_launched_nothing"] = not any(
+            stats["router_launches"].values())
+        fleet_upgrade(r, prompts, news, ref_streams, checks, stats)
+        killed = fleet_kill(r, prompts, news, ref_streams, checks, stats)
+        fleet_trace(r, killed, checks, stats, tmp)
+        # (7) the scrape: both ranks' families and the fleet's own
+        parsed = fleet_scrape(r)
+        names = {name for name, _ in parsed["samples"]}
+        ranks = {dict(labels).get("rank")
+                 for name, labels in parsed["samples"]
+                 if name == "zoo_model_requests_total"}
+        checks["scrape_both_ranks_and_fleet_families"] = (
+            {"0", "1"} <= ranks
+            and {"zoo_fleet_workers", "zoo_fleet_router_retries_total",
+                 "zoo_fleet_deploy_fanout_seconds",
+                 "zoo_fleet_wire_bytes_total",
+                 "zoo_fleet_affinity_total"} <= names)
+        stats["scrape"] = dict(families=len(parsed["types"]),
+                               samples=len(parsed["samples"]),
+                               ranks=sorted(r for r in ranks if r))
+    except Exception:
+        fleet_log_tail(r)
+        raise
+    finally:
+        r.close()
+    if not all(checks.values()):
+        fleet_log_tail(r)
+    gen, ref = stats.get("generate", {}), stats["reference"]
+    stats.update(
+        launches=launches, checks=checks,
+        requests_per_s=gen.get("requests_per_s"),
+        ref_requests_per_s=ref["requests_per_s"],
+        ttft_ms_median=gen.get("ttft_ms_median"),
+        ref_ttft_ms_median=ref["ttft_ms_median"],
+        itl_ms_median=gen.get("itl_ms_median"),
+        ref_itl_ms_median=ref["itl_ms_median"],
+        first_activation_kernel_builds=(stats.get("deploy", {}).get(
+            "activations") or [{}])[0].get("kernel_builds"),
+        warm_ms=[a.get("warm_ms") for a in stats.get("deploy", {}).get(
+            "activations", [])],
+        fanout_s=stats.get("deploy", {}).get("fanout_s"),
+        predict_ms_p50={w: stats.get(f"predict_{w}", {}).get("ms_p50")
+                        for w in ("binary", "json")},
+        recovery_s=stats.get("kill", {}).get("recovery_s"),
+        attributed_fraction=stats.get("trace", {}).get(
+            "attributed_fraction"),
+        traced_ratio=stats.get("trace", {}).get("traced_ratio"))
+    for name, good in checks.items():
+        if not good:
+            log(f"fleet: FAIL {name}")
+    log("fleet:", json.dumps(stats, default=str))
+    return all(checks.values()), stats
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5908,6 +6548,7 @@ def main() -> int:
                                           models, kernels, inference)),
         ("shard", lambda: phase_shard(torch, TransformerLM, kernels,
                                       inference, tmp)),
+        ("fleet", lambda: phase_fleet(torch, kernels, tmp)),
     ]
     if sys.argv[1:2] == ["--phases"]:  # e.g. --phases kernels,resume
         wanted = sys.argv[2].split(",")
@@ -5961,6 +6602,11 @@ def main() -> int:
         "launches") or {}
     path_launches["shard"] = (results.get("shard") or {}).get(
         "launches") or {}
+    # the fleet's workers (summed over them) and the router's own process
+    path_launches["fleet"] = (results.get("fleet") or {}).get(
+        "launches") or {}
+    path_launches["fleet_router"] = (results.get("fleet") or {}).get(
+        "router_launches") or {}
 
     def timed_row(name, case, dtype, sq=None):
         row = next((r for r in results.get("kernels") or []
@@ -6010,7 +6656,10 @@ def main() -> int:
                      "parallel": path_launches["parallel"].get(name, 0),
                      "observe": path_launches["observe"].get(name, 0),
                      "control": path_launches["control"].get(name, 0),
-                     "shard": path_launches["shard"].get(name, 0)}}
+                     "shard": path_launches["shard"].get(name, 0),
+                     "fleet": path_launches["fleet"].get(name, 0),
+                     "fleet_router": path_launches["fleet_router"].get(
+                         name, 0)}}
         entry.update(timed_row(name, "mixed", "bfloat16"))
         entry["f32"] = timed_row(name, "train", "float32")
         entry["bf16_batch8"] = timed_row(name, "train", "bfloat16")

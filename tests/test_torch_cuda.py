@@ -27,7 +27,9 @@ sharded group of two on one card giving the single-device bits, a
 sharded load holding only the groups' blocks on the card, a function
 without its module gathering its whole tree a dispatch where a module
 gathers a layer, and a kernel-library store hit in a second process
-running no nvcc. This file
+running no nvcc; a fleet of two worker processes on one card replaying
+the single-process registry's tokens, its first activation the only one
+that runs nvcc, and a SIGKILLed worker's replay running none. This file
 imports no jax (nor does anything it imports), so that it runs on a
 GPU host without the JAX package: ``python -m pytest --noconftest
 tests/test_torch_cuda.py -m cuda``. Without a card every test skips
@@ -1422,3 +1424,68 @@ def test_cuda_kernel_lib_store_hit_in_a_subprocess(cuda, tmp_path):
     assert warm["store"]["hit"] == 2 and warm["store"]["write"] == 0
     for key in ("y", "o", "lse"):
         np.testing.assert_array_equal(a[key], b[key])
+
+
+@pytest.mark.cuda
+def test_cuda_two_worker_fleet_generates_the_registry_tokens(cuda,
+                                                             tmp_path):
+    """A fleet of two workers on the card (from a fresh copy of the
+    package) serving a 2-layer TransformerLM: generate equals the
+    single-process registry token for token, greedy and sampled; each
+    worker's flash_fwd count (read by ``ping``) grows 2 an admission;
+    the first activation runs nvcc, the second none (it loads the first's
+    libraries from the build directory of the copy they share); with that
+    directory removed, a SIGKILLed worker comes back replaying the model
+    from the store, with no nvcc and no store miss."""
+    import time
+    from chip_smoke import fleet_drop_builds, fleet_env, fleet_package
+    from analytics_zoo_tpu_torch.serving import ModelRegistry
+    from analytics_zoo_tpu_torch.serving.fleet import FleetRouter, builders
+    args = dict(vocab_size=1000, seq_len=128, n_layers=2, d_model=128,
+                n_heads=2, capacity=2, prompt_buckets=[32, 64])
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, 1000, int(n)) for n in (5, 30, 47, 64)]
+    samplings = [{}, dict(temperature=0.9, top_k=20, seed=3)] * 2
+    reg = ModelRegistry()
+    try:
+        reg.deploy("lm", **builders.lm(args, None, device="cuda"))
+        ref = [reg.generate("lm", [p], 6, **s)[0]
+               for p, s in zip(prompts, samplings)]
+    finally:
+        reg.shutdown()
+    pkg = fleet_package(str(tmp_path))
+    r = FleetRouter(str(tmp_path / "share"), n_workers=2, device="cuda",
+                    env=fleet_env(pkg),
+                    max_restarts=1, call_timeout_s=600)
+    try:
+        r.start(timeout=300)
+        acts = r.deploy("lm", None, "analytics_zoo_tpu_torch.serving."
+                        "fleet.builders:lm", args)["activations"]
+        assert all("error" not in a for a in acts), acts
+        assert acts[0]["kernel_builds"] == 1 and acts[0]["store_misses"] > 0
+        assert acts[1]["kernel_builds"] == 0
+        assert acts[1]["store_misses"] == 0
+        before = {rk: r.ping(rk)["launches"]["flash_fwd"] for rk in (0, 1)}
+        outs = [r.generate_ex("lm", [p], 6, **s)[0][0]
+                for p, s in zip(prompts, samplings)]
+        for got, want in zip(outs, ref):
+            np.testing.assert_array_equal(got, want)
+        after = {rk: r.ping(rk)["launches"]["flash_fwd"] for rk in (0, 1)}
+        # sequential requests rotate over the idle workers: two each
+        assert all(after[rk] - before[rk] == 2 * 2 for rk in (0, 1))
+        assert len(fleet_drop_builds(pkg)) == 2
+        r.supervisor.kill(1)
+        deadline = time.monotonic() + 300
+        while time.monotonic() < deadline and not (
+                r.supervisor.worker(1).incarnation == 1
+                and r.handles[1].routable):
+            time.sleep(0.05)
+        (replay,) = r.replays[1]
+        assert replay["kernel_builds"] == 0 and replay["store_misses"] == 0
+        assert replay["store_hits"] == 2
+        assert r.ping(1)["incarnation"] == 1
+        for p, s, want in zip(prompts, samplings, ref):
+            np.testing.assert_array_equal(
+                r.generate_ex("lm", [p], 6, **s)[0][0], want)
+    finally:
+        r.close()

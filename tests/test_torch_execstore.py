@@ -309,7 +309,7 @@ def test_kernel_lib_hit_loads_without_nvcc(store, stub_build,
     stub_build()
     noted = []
     monkeypatch.setattr(profile, "note_compile",
-                        lambda s, key: noted.append(key))
+                        lambda s, key, **kw: noted.append(key))
     calls, loads = stub_build()
     assert calls == [] and loads == WANT and noted == []
     s = store.stats()
@@ -399,7 +399,7 @@ def compile_counter(monkeypatch):
 
     events = []
     monkeypatch.setattr(profile, "note_compile",
-                        lambda s, key: events.append(key))
+                        lambda s, key, **kw: events.append(key))
     return events
 
 

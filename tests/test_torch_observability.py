@@ -577,6 +577,24 @@ def test_profile_hooks_count_compiles_and_attach_span_events():
     profile.note_transfer("h2d")  # a no-op, must not raise
 
 
+def test_profile_counts_each_compile_by_the_kind_its_reporter_gives():
+    """The kind is the reporter's, never read from the key: a key that
+    looks like another kind's counts as the kind passed, and an event
+    with no kind is a signature build."""
+    handle = profile.install()
+    try:
+        before = handle.snapshot()["by_kind"]
+        assert set(before) == set(profile.COMPILE_KINDS)
+        profile.note_compile(0.01, "renamed-build", kind="kernel_build")
+        profile.note_compile(0.01, "nvcc:flash_fwd.cu", kind="graph_capture")
+        profile.note_compile(0.01, "cuda_graph_capture")
+        after = handle.snapshot()["by_kind"]
+        assert {k: after[k] - before[k] for k in after} == {
+            "kernel_build": 1, "graph_capture": 1, "signature_build": 1}
+    finally:
+        handle.close()
+
+
 def _served(closing, **kw):
     from analytics_zoo_tpu_torch.pipeline.api.keras import Sequential
     from analytics_zoo_tpu_torch.pipeline.api.keras import layers as L

@@ -444,9 +444,9 @@ def compile_counter(monkeypatch):
     events = []
     real = profile.note_compile
 
-    def note(seconds, key):
+    def note(seconds, key, **kw):
         events.append(key)
-        real(seconds, key)
+        real(seconds, key, **kw)
 
     monkeypatch.setattr(profile, "note_compile", note)
     return events
