@@ -458,11 +458,11 @@ class KerasNet(Layer):
         counters the save holds."""
         with open(os.path.join(path, "architecture.json")) as f:
             arch = json.load(f)
-        cls = _MODEL_CLASSES.get(arch["class_name"])
-        if cls is None:
+        try:
+            cls = resolve_model_class(arch["class_name"])
+        except KeyError:
             raise ValueError(
-                f"unknown model class {arch['class_name']!r}: a zoo model "
-                "registers when analytics_zoo_tpu_torch.models is imported")
+                f"unknown model class {arch['class_name']!r}") from None
         model = cls.from_config(arch["config"], device=device)
         if model._compile_args is not None:
             model.compile(**model._compile_args)
@@ -665,9 +665,21 @@ def _layer_from_spec(spec: dict, device) -> Layer:
 _MODEL_CLASSES = {"Sequential": Sequential, "Model": Model}
 
 
+def resolve_model_class(name: str):
+    """The model class saved under ``name``, for every load path
+    (``KerasNet.load_model``, ``NNModel.load``).  The zoo's families
+    register when ``analytics_zoo_tpu_torch.models`` is imported; a fresh
+    process that loads a save before importing it imports it here, so
+    the order of imports does not matter.  KeyError for an unknown
+    name."""
+    if name not in _MODEL_CLASSES:
+        import analytics_zoo_tpu_torch.models  # noqa: F401
+    return _MODEL_CLASSES[name]
+
+
 def load_model(path: str, device=None) -> KerasNet:
     return KerasNet.load_model(path, device=device)
 
 
 __all__ = ["Input", "InputLayer", "KerasNet", "Model", "Sequential",
-           "load_model"]
+           "load_model", "resolve_model_class"]

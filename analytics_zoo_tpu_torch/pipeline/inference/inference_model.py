@@ -385,6 +385,50 @@ class InferenceModel:
         engine.warmup()
         return engine
 
+    def load_tf(self, path: Optional[str] = None, net=None,
+                input_names=None, output_names=None):
+        """Serve a frozen TF graph or an imported keras model (reference
+        ``loadTF``): ``path`` loads an export folder or a ``.pb`` as a
+        :class:`~analytics_zoo_tpu_torch.pipeline.api.tfgraph.TFNet`
+        (the port's codec: no tensorflow), or pass one as ``net`` (from
+        ``Net.load_keras`` / ``Net.from_tf_keras``).  The graph runs on
+        the handle's device; its random nodes, if any, draw from a
+        generator seeded 0 each call (the JAX package pins its key)."""
+        from ..api.tfgraph.net import TFNet
+        device = resolve_device(self._device)
+        if net is None:
+            if path is None:
+                raise ValueError("load_tf: pass path= (export folder / "
+                                 ".pb) or net= (an existing TFNet)")
+            net = TFNet(path=path, input_names=input_names,
+                        output_names=output_names, device=device)
+        params = {k: v.detach() for k, v in net.params().items()}
+        graph = net.fn
+
+        def run(p, x):
+            xs = x if isinstance(x, (tuple, list)) else (x,)
+            dev = xs[0].device if isinstance(xs[0], torch.Tensor) else device
+            gen = torch.Generator(dev).manual_seed(0)
+            with torch.no_grad():
+                out = graph(p, *xs, rng=gen, device=dev)
+            return out[0] if len(out) == 1 else out
+
+        return self.load_fn(run, params)
+
+    def load_graph(self, graph, params, state=None):
+        """Serve a prebuilt graph (a port model or ``GraphModule``) with
+        an explicit weight tree: ``params`` and ``state`` keyed by layer
+        as the JAX package's trees (host numpy, say, as the weight
+        pager keeps a cold deployment).  They are copied into the graph,
+        placed on the handle's device once, and the graph serves there
+        as :meth:`load_keras_net` serves a net."""
+        from ...models.jax_params import from_jax_params
+        device = resolve_device(self._device)
+        graph = graph.to(device)
+        from_jax_params(graph, params, state)
+        self._quantize_flag = False
+        return self._serve_net(graph, False, device)
+
     def load_fn(self, fn, params):
         """Serve a torch callable ``fn(params, x)`` over ``params`` (a
         dict, list or tuple tree of tensors or numpy arrays), placed once

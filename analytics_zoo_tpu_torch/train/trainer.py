@@ -71,7 +71,7 @@ from .. import envcontract
 from ..common.prefetch import DeviceFeed, prefetch
 from ..common.utils import pad_leading
 from ..core.module import RandomLayer
-from ..data.dataset import Dataset
+from ..data.dataset import Dataset, _batch_slice
 from ..observability import flightrec
 from ..observability import trace as trace_lib
 from ..observability.log import get_logger
@@ -384,25 +384,38 @@ def _max_over(group, n: int) -> int:
 
 def _rank_batches(ds: Dataset, batch_size: int, group=None):
     """``ds``'s batches of ``batch_size`` rows in order (the tail at its
-    own size) and the list of their row counts.  Under ``group`` (the
-    data axes' group while the plan splits the batch) every rank runs as
-    many batches, the most any rank has, a rank with fewer going on with
-    batches of no rows, so that the collectives of the layers that see
-    the whole batch (BatchNorm's statistics, SwitchMoE's routing) pair
-    up across the ranks.  The count is agreed here, on the calling
-    thread, before a prefetch thread takes the batches."""
+    own size) and the list of their row counts (None without ``group``:
+    a stream of unknown length is read as it comes, as the JAX package
+    reads it).  Under ``group`` (the data axes' group while the plan
+    splits the batch) every rank runs as many batches, the most any rank
+    has, a rank with fewer going on with batches of no rows, so that the
+    collectives of the layers that see the whole batch (BatchNorm's
+    statistics, SwitchMoE's routing) pair up across the ranks.  The count
+    is agreed here, on the calling thread, before a prefetch thread takes
+    the batches; a stream must know its length for that."""
+    if group is None:
+        return ds.batches(batch_size, shuffle=False,
+                          drop_remainder=False), None
     n = ds.size
+    if n is None:
+        raise ValueError("unknown stream length — pass size to "
+                         "from_batch_iterable or iterate one epoch first "
+                         "before evaluating or predicting on a mesh")
     steps = -(-n // batch_size)
-    total = steps if group is None else _max_over(group, steps)
+    total = _max_over(group, steps)
     rows = [min(batch_size, max(n - i * batch_size, 0))
             for i in range(total)]
 
     def batches():
-        yield from ds.batches(batch_size, shuffle=False,
-                              drop_remainder=False)
-        none = np.arange(0)
+        last = None
+        for last in ds.batches(batch_size, shuffle=False,
+                               drop_remainder=False):
+            yield last
+        if last is None:  # no rows here: empty slices of the arrays
+            none = np.arange(0)
+            last = Dataset._index(ds.x, none), Dataset._index(ds.y, none)
         for _ in range(total - steps):
-            yield Dataset._index(ds.x, none), Dataset._index(ds.y, none)
+            yield _batch_slice(last, 0, 0)
 
     return batches(), rows
 

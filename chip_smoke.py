@@ -309,12 +309,33 @@ worker leg under ``worker_call``, traced closed-loop requests/s at least
 0.95 of untraced.  (7) The scrape holds both ranks and the
 ``zoo_fleet_*`` families.
 
+Then a stream phase: the train phase's model (seed 0, adam 3e-4) after
+one warm-up step fits 4 steps from ``Dataset.from_batch_iterable`` over
+32 ``periodic_tokens`` rows pulled in ragged chunks of 3 through a
+windowed shuffle of 32 rows; a second model from the same weights fits
+the batches the stream emitted from ``Dataset.from_ndarray``
+(``shuffle=False``): losses and weights bit for bit, each kernel 12
+times a step in both; step ms and tokens/s of each, the host pull ms a
+batch.  And an interop phase, reaching no flash kernel: ResNet-50's
+stem and stage 1 as an ONNX model built with the port's codec (batch 32
+at 224x224) through ``Net.load_onnx`` and an ``InferenceModel`` handle
+against the port's CPU conversion (1e-4), and one sgd step on the card
+and on the CPU against one in f64; an NHWC GraphDef (Conv2D SAME stride
+2, FusedBatchNormV3, MaxPool SAME, BiasAdd, Mean, MatMul, Softmax)
+through ``Net.load_tf`` and ``InferenceModel.load_tf`` against the CPU;
+``NNClassifier`` (the MNIST MLP) on a frame of numpy columns, 2,048 rows
+of 784 features for 2 epochs, its probabilities within 1e-5 of a CPU
+copy of the trained weights and a save/load bit for bit.  Each part's
+predict ms, rows/s and a converted-graph call's host ms beside its
+device ms.
+
 ``python3 chip_smoke.py --phases train,resume`` runs only the named
 phases (after the build), for a short call.
 
 The card's line, then ``resnet:``, ``detect:``, ``recommend:``,
 ``textclass:``, ``moe:``, ``image:``, ``layers:``, ``resume:``,
-``parallel:``, ``control:``, ``observe:``, ``shard:`` and ``fleet:`` summary lines (each
+``parallel:``, ``control:``, ``observe:``, ``shard:``, ``fleet:``,
+``stream:`` and ``interop:`` summary lines (each
 with the card's name and power limit) come near the end; the line
 before the last is a JSON object with each kernel's numbers; the last
 line is ``{"ok": true, "device": {...}}``.  ResNet-50, the registry,
@@ -507,6 +528,11 @@ SUMMARIES = {
               "gather_bytes", "predict_ms", "decode_tokens_per_s",
               "logit_max_abs_diff", "logit_bits_equal", "freed_bytes",
               "store_cold_build_s", "store_warm_first_answer_s", "card"),
+    "stream": ("step_ms", "memory_step_ms", "tokens_per_s",
+               "memory_tokens_per_s", "host_pull_ms_per_batch",
+               "losses_bitwise", "weights_bitwise", "launches_per_step",
+               "card"),
+    "interop": ("onnx", "tf", "frame", "card"),
     "fleet": ("requests_per_s", "ref_requests_per_s", "ttft_ms_median",
               "ref_ttft_ms_median", "itl_ms_median", "ref_itl_ms_median",
               "first_activation_kernel_builds", "warm_ms", "fanout_s",
@@ -644,11 +670,11 @@ CASES = [
     # the shard phase's sharded predict at its top bucket (4 rows of 12
     # heads at the serve model's 640 positions)
     ("shard predict", 48, SERVE["max_len"], SERVE["max_len"], 64,
-     "float32", True, None, False),
+     "float32", True, None, True),
     # the fleet phase's predicts of 1 and 2 rows at the same 640 positions,
     # launched in the workers
     *[("fleet predict", 12 * rows, SERVE["max_len"], SERVE["max_len"], 64,
-       "float32", True, None, False) for rows in (1, 2)],
+       "float32", True, None, True) for rows in (1, 2)],
     ("cross causal", 24, 192, 512, 64, "float32", True, None, False),
     ("cross", 24, 200, 777, 64, "float32", False, None, False),
     ("kv_lengths", 24, 512, 512, 64, "float32", True, 512, False),
@@ -6452,6 +6478,524 @@ def phase_fleet(torch, kernels, tmp):
     return all(checks.values()), stats
 
 
+STREAM = dict(chunk=3, shuffle_buffer=32, steps=4, data_seed=2)
+
+
+def stream_factory(x, y, chunk, pulls):
+    """A zero-argument factory of (x, y) chunks of ``chunk`` rows (the
+    stream a user's reader yields); each chunk's host seconds go to
+    ``pulls``."""
+    def make():
+        for i in range(0, len(x), chunk):
+            t = time.perf_counter()
+            part = x[i:i + chunk].copy(), y[i:i + chunk].copy()
+            pulls.append(time.perf_counter() - t)
+            yield part
+    return make
+
+
+def recorded(ds, store):
+    """``ds`` whose ``batches()`` copies every batch it emits to
+    ``store`` (the fit's own batches, in order)."""
+    emit = ds.batches
+
+    def batches(*a, **kw):
+        for bx, by in emit(*a, **kw):
+            store.append((bx.copy(), by.copy()))
+            yield bx, by
+
+    ds.batches = batches
+    return ds
+
+
+def stream_fit(torch, TransformerLM, kernels, data, steps):
+    """A full-width model (the train phase's: seed 0, adam) after one
+    warm-up step, then one epoch of ``data`` (a Dataset); the losses,
+    the wall seconds of the epoch, the launch counts of the epoch and
+    the model."""
+    cfg = dict(FULL, seq_len=TRAIN_SEQ)
+    model = TransformerLM(**cfg, device="cuda", seed=0)
+    model.compile({"name": "adam", "lr": TRAIN_LR}, "class_nll")
+    wx, wy = periodic_tokens(TRAIN_BATCH, cfg["vocab_size"], TRAIN_SEQ,
+                             seed=1)
+    model.fit(wx, wy, batch_size=TRAIN_BATCH, shuffle=False)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t = time.perf_counter()
+    hist = model.fit(data, batch_size=TRAIN_BATCH, nb_epoch=1,
+                     shuffle=data.__class__.__name__ == "StreamingDataset")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    return hist["loss"], wall, kernels.launch_counts(), model
+
+
+def phase_stream(torch, TransformerLM, kernels):
+    """The train phase's model fitted from a stream: one warm-up step,
+    then 4 steps from ``Dataset.from_batch_iterable`` over
+    ``periodic_tokens`` rows in ragged chunks of 3 with a windowed
+    shuffle of 32 rows; then a second model from the same weights fitted
+    from ``Dataset.from_ndarray`` over the batches the stream emitted
+    (collected on the host, ``shuffle=False``), whose losses and weights
+    must equal the stream's bit for bit.  Each kernel 12 times a step in
+    both."""
+    import numpy as np
+    from analytics_zoo_tpu_torch.data.dataset import Dataset
+    steps, chunk = STREAM["steps"], STREAM["chunk"]
+    x, y = periodic_tokens(TRAIN_BATCH * steps, FULL["vocab_size"],
+                           TRAIN_SEQ, seed=STREAM["data_seed"])
+    pulls, emitted = [], []
+    ds = recorded(Dataset.from_batch_iterable(
+        stream_factory(x, y, chunk, pulls),
+        shuffle_buffer=STREAM["shuffle_buffer"]), emitted)
+    losses, wall, counts, stream_model = stream_fit(
+        torch, TransformerLM, kernels, ds, steps)
+    n_pulls = len(pulls)
+    # the host side alone: pulling and rebatching one epoch, no device
+    t = time.perf_counter()
+    host = list(Dataset.from_batch_iterable(
+        stream_factory(x, y, chunk, []),
+        shuffle_buffer=STREAM["shuffle_buffer"]).batches(
+            TRAIN_BATCH, shuffle=True, seed=0, epoch=1))
+    host_s = time.perf_counter() - t
+    same_order = len(host) == len(emitted) and all(
+        np.array_equal(a[0], b[0]) for a, b in zip(host, emitted))
+    bx = np.concatenate([b[0] for b in emitted])
+    by = np.concatenate([b[1] for b in emitted])
+    ref_losses, ref_wall, ref_counts, ref_model = stream_fit(
+        torch, TransformerLM, kernels, Dataset.from_ndarray(bx, by), steps)
+    weights_equal = all(torch.equal(a, b) for a, b in zip(
+        stream_model.parameters(), ref_model.parameters()))
+    del stream_model, ref_model
+    torch.cuda.empty_cache()
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    stats = dict(
+        steps=len(losses), losses=losses, memory_losses=ref_losses,
+        losses_bitwise=losses == ref_losses, weights_bitwise=weights_equal,
+        emitted_batches=len(emitted), emitted_rows=int(len(bx)),
+        chunks_pulled=n_pulls, stream_order_replayed=same_order,
+        step_ms=wall / max(len(losses), 1) * 1e3,
+        memory_step_ms=ref_wall / steps * 1e3,
+        tokens_per_s=tokens * len(losses) / wall,
+        memory_tokens_per_s=tokens * steps / ref_wall,
+        host_pull_ms_per_batch=host_s / max(len(host), 1) * 1e3,
+        host_chunk_ms=sum(pulls) / max(len(pulls), 1) * 1e3,
+        launches=counts, memory_launches=ref_counts,
+        launches_per_step={n: c / steps for n, c in counts.items()},
+        card=smi_card())
+    log("stream:", json.dumps(stats))
+    checks = {
+        "steps": len(losses) == steps and len(ref_losses) == steps,
+        "finite_and_falling": all(math.isfinite(v) for v in losses)
+        and losses[-1] < losses[0],
+        "losses_bitwise": losses == ref_losses,
+        "weights_bitwise": weights_equal,
+        "stream_order_replayed": same_order,
+        "rows": sorted(map(tuple, bx.tolist())) == sorted(
+            map(tuple, x.tolist())),
+    }
+    for name in KERNELS:
+        want = FULL["n_layers"] * steps
+        checks[f"{name}_12_a_step"] = counts[name] == want \
+            and ref_counts[name] == want
+    for k, v in checks.items():
+        if not v:
+            log(f"stream: FAIL {k}")
+    stats["checks"] = checks
+    return all(checks.values()), stats
+
+
+# ---- interop: ONNX, a TF GraphDef and nnframes on the card ----------------
+
+INTEROP = dict(batch=32, size=224, classes=1000, tune_batch=8, tune_lr=0.01,
+               frame_rows=2048, frame_features=784, frame_classes=10,
+               frame_hidden=200, frame_epochs=2, frame_batch=128,
+               reps=10)
+#: predictions within 1e-4 of the CPU (Queue 3's Winograd note); a
+#: fine-tuning step's change, each f32 path's, within 5e-4 of the f64
+#: change over its largest entry (13 chained convolutions' weight
+#: gradients, each summing up to 100,352 products in f32)
+INTEROP_TOL = dict(onnx=1e-4, tune=5e-4, tf=1e-4, frame=1e-5)
+
+
+def resnet_stage1_onnx(P, size, classes, seed=0):
+    """ResNet-50's stem and stage 1 at its widths, as an ONNX model built
+    with the port's codec: 7x7/2 conv 64, BN, ReLU, 3x3/2 max pool; three
+    bottlenecks 64-64-256 (a projection shortcut on the first); global
+    average pool, Gemm 256 -> ``classes``, softmax.  Weights from
+    ``seed`` (He-scaled convolutions, a head of std 0.01); BN statistics
+    near 0 and 1."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    inits, nodes = [], []
+
+    def conv(name, x, cin, cout, k, stride=1, pad=0):
+        w = (rng.normal(size=(cout, cin, k, k))
+             * np.sqrt(2.0 / (cin * k * k))).astype(np.float32)
+        inits.append(P.numpy_to_tensor(w, f"{name}_w"))
+        nodes.append(P.make_node("Conv", [x, f"{name}_w"], [name],
+                                 kernel_shape=[k, k], strides=[stride] * 2,
+                                 pads=[pad] * 4))
+        return name
+
+    def bn(name, x, c, relu=True):
+        for part, v in (("s", rng.uniform(0.5, 1.5, c)),
+                        ("b", rng.normal(0, 0.1, c)),
+                        ("m", rng.normal(0, 0.1, c)),
+                        ("v", rng.uniform(0.5, 1.5, c))):
+            inits.append(P.numpy_to_tensor(v.astype(np.float32),
+                                           f"{name}_{part}"))
+        nodes.append(P.make_node(
+            "BatchNormalization",
+            [x] + [f"{name}_{p}" for p in "sbmv"], [f"{name}_bn"],
+            epsilon=1e-5))
+        if not relu:
+            return f"{name}_bn"
+        nodes.append(P.make_node("Relu", [f"{name}_bn"], [f"{name}_r"]))
+        return f"{name}_r"
+
+    h = bn("conv1", conv("conv1", "x", 3, 64, 7, 2, 3), 64)
+    nodes.append(P.make_node("MaxPool", [h], ["pool1"], kernel_shape=[3, 3],
+                             strides=[2, 2], pads=[1, 1, 1, 1]))
+    h, cin = "pool1", 64
+    for b in range(3):
+        p = f"res2{'abc'[b]}"
+        a = bn(f"{p}_1", conv(f"{p}_1", h, cin, 64, 1), 64)
+        a = bn(f"{p}_2", conv(f"{p}_2", a, 64, 64, 3, pad=1), 64)
+        a = bn(f"{p}_3", conv(f"{p}_3", a, 64, 256, 1), 256, relu=False)
+        short = (bn(f"{p}_proj", conv(f"{p}_proj", h, cin, 256, 1), 256,
+                    relu=False) if b == 0 else h)
+        nodes.append(P.make_node("Add", [a, short], [f"{p}_sum"]))
+        nodes.append(P.make_node("Relu", [f"{p}_sum"], [f"{p}_out"]))
+        h, cin = f"{p}_out", 256
+    nodes.append(P.make_node("GlobalAveragePool", [h], ["gap"]))
+    nodes.append(P.make_node("Flatten", ["gap"], ["flat"], axis=1))
+    # a small head: the softmax stays off the loss's clip, so a step has
+    # gradients
+    fc = (rng.normal(size=(classes, 256)) * 0.01).astype(np.float32)
+    inits += [P.numpy_to_tensor(fc, "fc_w"),
+              P.numpy_to_tensor(np.zeros(classes, np.float32), "fc_b")]
+    nodes.append(P.make_node("Gemm", ["flat", "fc_w", "fc_b"], ["logits"],
+                             transB=1))
+    nodes.append(P.make_node("Softmax", ["logits"], ["probs"], axis=-1))
+    graph = P.make_graph(nodes, "resnet50_stage1",
+                         [P.make_value_info("x", ("N", 3, size, size))],
+                         [P.make_value_info("probs", ("N", classes))],
+                         initializer=inits)
+    return P.encode(P.make_model(graph))
+
+
+def nhwc_graph_def(TP, classes, seed=0):
+    """An NHWC GraphDef built with the port's codec: Conv2D SAME stride 2
+    (7x7, 32), FusedBatchNormV3, Relu, MaxPool SAME 3x3/2, Conv2D 3x3 64
+    with BiasAdd, Mean over H and W, MatMul 64 -> ``classes``,
+    Softmax."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+
+    def w(*shape, fan):
+        return (rng.normal(size=shape) * np.sqrt(2.0 / fan)).astype(f32)
+
+    nodes = [
+        TP.placeholder("image", (None, None, None, 3)),
+        TP.const("k1", w(7, 7, 3, 32, fan=147)),
+        TP.make_node("Conv2D", "conv1", ["image", "k1"], T=f32,
+                     strides=[1, 2, 2, 1], padding="SAME",
+                     data_format="NHWC", dilations=[1, 1, 1, 1]),
+        TP.const("bn_s", rng.uniform(0.5, 1.5, 32).astype(f32)),
+        TP.const("bn_b", rng.normal(0, 0.1, 32).astype(f32)),
+        TP.const("bn_m", rng.normal(0, 0.1, 32).astype(f32)),
+        TP.const("bn_v", rng.uniform(0.5, 1.5, 32).astype(f32)),
+        TP.make_node("FusedBatchNormV3", "bn1",
+                     ["conv1", "bn_s", "bn_b", "bn_m", "bn_v"], T=f32,
+                     U=f32, epsilon=1e-3, data_format="NHWC",
+                     is_training=False),
+        TP.make_node("Relu", "relu1", ["bn1"], T=f32),
+        TP.make_node("MaxPool", "pool1", ["relu1"], T=f32,
+                     ksize=[1, 3, 3, 1], strides=[1, 2, 2, 1],
+                     padding="SAME", data_format="NHWC"),
+        TP.const("k2", w(3, 3, 32, 64, fan=288)),
+        TP.make_node("Conv2D", "conv2", ["pool1", "k2"], T=f32,
+                     strides=[1, 1, 1, 1], padding="SAME",
+                     data_format="NHWC", dilations=[1, 1, 1, 1]),
+        TP.const("b2", rng.normal(0, 0.1, 64).astype(f32)),
+        TP.make_node("BiasAdd", "bias2", ["conv2", "b2"], T=f32,
+                     data_format="NHWC"),
+        TP.const("axes", np.array([1, 2], np.int32)),
+        TP.make_node("Mean", "gap", ["bias2", "axes"], T=f32, Tidx=np.int32,
+                     keep_dims=False),
+        TP.const("fc", w(64, classes, fan=64)),
+        TP.make_node("MatMul", "logits", ["gap", "fc"], T=f32,
+                     transpose_a=False, transpose_b=False),
+        TP.make_node("Softmax", "probs", ["logits"], T=f32),
+    ]
+    return TP.encode(TP.make_graph(nodes))
+
+
+def split_ms(torch, fn, reps):
+    """Host ms of one call (the launches queued, not waited for) and its
+    device ms (CUDA events around it), medians of ``reps``."""
+    import statistics
+    host, dev = [], []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        start, end = (torch.cuda.Event(enable_timing=True)
+                      for _ in range(2))
+        t = time.perf_counter()
+        start.record()
+        fn()
+        end.record()
+        host.append((time.perf_counter() - t) * 1e3)
+        torch.cuda.synchronize()
+        dev.append(start.elapsed_time(end))
+    return statistics.median(host), statistics.median(dev)
+
+
+def predict_timing(torch, fn, rows, reps):
+    """Median synchronised ms of ``fn()`` and the rows a second."""
+    import statistics
+    _, times = timed(torch, fn, reps)
+    ms = statistics.median(times) * 1e3
+    return ms, rows / ms * 1e3
+
+
+def max_rel(a, b):
+    """max|a - b| / max|b| over numpy arrays."""
+    import numpy as np
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+
+
+def interop_onnx(torch, inference, tmp, stats, checks):
+    import numpy as np
+    from analytics_zoo_tpu_torch.pipeline.api.net import Net
+    from analytics_zoo_tpu_torch.pipeline.api.onnx import proto as P
+    from analytics_zoo_tpu_torch.pipeline.api.keras import (objectives,
+                                                            optimizers)
+    from analytics_zoo_tpu_torch.train.trainer import Trainer
+    cfg = INTEROP
+    path = os.path.join(tmp, "resnet50_stage1.onnx")
+    with open(path, "wb") as f:
+        f.write(resnet_stage1_onnx(P, cfg["size"], cfg["classes"]))
+    x = np.random.default_rng(0).normal(
+        size=(cfg["batch"], 3, cfg["size"], cfg["size"])).astype(np.float32)
+    net = Net.load_onnx(path)
+    cpu = Net.load_onnx(path, device="cpu")
+    on_card = all(p.device.type == "cuda" for p in net.parameters())
+    got = net.predict(x, batch_per_thread=cfg["batch"])
+    ref = cpu.predict(x, batch_per_thread=cfg["batch"])
+    im = inference.InferenceModel().load_keras_net(net)
+    try:
+        served = im.predict(x)
+        ms, rows_s = predict_timing(
+            torch, lambda: im.predict(x), cfg["batch"], cfg["reps"])
+    finally:
+        im.close()
+    xt = torch.as_tensor(x, device="cuda")
+    net.eval()
+    with torch.no_grad():
+        host_ms, dev_ms = split_ms(torch, lambda: net(xt), cfg["reps"])
+    # one fine-tuning step from the same weights on the card, on the CPU
+    # and in f64 on the CPU (the exact change the two f32 paths are held
+    # to)
+    from analytics_zoo_tpu_torch.data.dataset import Dataset
+    labels = np.random.default_rng(1).integers(
+        0, cfg["classes"], cfg["tune_batch"]).astype(np.int32)
+    exact = Net.load_onnx(path, device="cpu").double()
+    xb = x[:cfg["tune_batch"]]
+    losses, changes = [], []
+    for model, xs in ((net, xb), (cpu, xb), (exact, xb.astype(np.float64))):
+        before = [p.detach().cpu().clone() for p in model.parameters()]
+        tr = Trainer(model, objectives.get("sparse_categorical_crossentropy"),
+                     optimizers.get({"name": "sgd", "lr": cfg["tune_lr"]}))
+        hist = tr.fit(Dataset.from_ndarray(xs, labels), cfg["tune_batch"],
+                      shuffle=False)
+        losses.append(hist["loss"][0])
+        changes.append([(p.detach().cpu() - b).double().numpy()
+                        for p, b in zip(model.parameters(), before)])
+
+    def change_err(got, ref):
+        return max(max_rel(a, b) for a, b in zip(got, ref)
+                   if np.abs(b).max() > 0)
+
+    tune = dict(card_vs_f64=change_err(changes[0], changes[2]),
+                cpu_vs_f64=change_err(changes[1], changes[2]),
+                card_vs_cpu=change_err(changes[0], changes[1]))
+    stats["onnx"] = dict(
+        ops=sorted({n.op_type for n in P.load_model(path).graph.node}),
+        params=sum(p.numel() for p in net.parameters()),
+        predict_max_abs_err=float(np.abs(got - ref).max()),
+        served_max_abs_err=float(np.abs(served - got).max()),
+        predict_ms=ms, rows_per_s=rows_s, graph_call_host_ms=host_ms,
+        graph_call_device_ms=dev_ms, tune_loss=losses[0],
+        tune_loss_cpu=losses[1], tune_loss_f64=losses[2],
+        tune_change_rel_err=tune)
+    checks["onnx_params_on_card"] = on_card
+    checks["onnx_vs_cpu"] = float(np.abs(got - ref).max()) <= \
+        INTEROP_TOL["onnx"]
+    checks["onnx_served"] = float(np.abs(served - got).max()) <= \
+        INTEROP_TOL["onnx"]
+    checks["onnx_tune_vs_f64"] = (
+        max(tune["card_vs_f64"], tune["cpu_vs_f64"]) <= INTEROP_TOL["tune"]
+        and all(abs(v - losses[2]) <= 1e-5 * abs(losses[2])
+                for v in losses[:2]))
+    del net, cpu, exact
+
+
+def interop_tf(torch, inference, tmp, stats, checks):
+    import numpy as np
+    from analytics_zoo_tpu_torch.pipeline.api.net import Net
+    from analytics_zoo_tpu_torch.pipeline.api.tfgraph import proto as TP
+    from analytics_zoo_tpu_torch.pipeline.api.tfgraph.net import write_meta
+    cfg = INTEROP
+    folder = os.path.join(tmp, "nhwc_graph")
+    os.makedirs(folder, exist_ok=True)
+    with open(os.path.join(folder, "frozen_inference_graph.pb"), "wb") as f:
+        f.write(nhwc_graph_def(TP, cfg["classes"]))
+    write_meta(folder, ["image:0"], ["probs:0"])
+    x = np.random.default_rng(2).normal(
+        size=(cfg["batch"], cfg["size"], cfg["size"], 3)).astype(np.float32)
+    net = Net.load_tf(folder)
+    ref = Net.load_tf(folder, device="cpu").predict(x)
+    got = net.predict(x)
+    im = inference.InferenceModel().load_tf(folder)
+    try:
+        served = im.predict(x)
+        ms, rows_s = predict_timing(
+            torch, lambda: im.predict(x), cfg["batch"], cfg["reps"])
+    finally:
+        im.close()
+    xt = torch.as_tensor(x, device="cuda")
+    with torch.no_grad():
+        host_ms, dev_ms = split_ms(torch, lambda: net(xt), cfg["reps"])
+    stats["tf"] = dict(
+        predict_max_abs_err=float(np.abs(got - ref).max()),
+        served_max_abs_err=float(np.abs(served - ref).max()),
+        predict_ms=ms, rows_per_s=rows_s, graph_call_host_ms=host_ms,
+        graph_call_device_ms=dev_ms)
+    checks["tf_vs_cpu"] = float(np.abs(got - ref).max()) <= \
+        INTEROP_TOL["tf"]
+    checks["tf_served_vs_cpu"] = float(np.abs(served - ref).max()) <= \
+        INTEROP_TOL["tf"]
+    checks["tf_shape"] = got.shape == (cfg["batch"], cfg["classes"])
+
+
+class ColumnFrame(dict):
+    """A dataframe of numpy columns: what ``NNEstimator`` reads of a
+    frame (``df[col].tolist()``, ``columns``, ``copy()``), where pandas
+    is absent."""
+
+    @property
+    def columns(self):
+        return list(self)
+
+    def copy(self):
+        return ColumnFrame(self)
+
+
+def mnist_like(rows, features, classes, seed=0):
+    """Rows of ``features`` values in [0, 1], a noisy prototype a class
+    (learnable in a few epochs), and their labels."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    protos = rng.uniform(0, 1, (classes, features))
+    labels = rng.integers(0, classes, rows)
+    x = np.clip(protos[labels] + rng.normal(0, 0.3, (rows, features)), 0, 1)
+    return x.astype(np.float32), labels.astype(np.float32)
+
+
+def mnist_mlp(keras, cfg, device):
+    from analytics_zoo_tpu_torch.pipeline.api.keras.layers import Dense
+    m = keras.Sequential(device=device, seed=0)
+    m.add(Dense(cfg["frame_hidden"], activation="relu",
+                input_shape=(cfg["frame_features"],), name="fc1"))
+    m.add(Dense(cfg["frame_classes"], activation="softmax", name="fc2"))
+    return m
+
+
+def interop_frame(torch, keras, tmp, stats, checks):
+    import numpy as np
+    from analytics_zoo_tpu_torch.models.jax_params import (from_jax_params,
+                                                           to_jax_params)
+    from analytics_zoo_tpu_torch.pipeline.estimator import (NNClassifier,
+                                                            NNModel)
+    cfg = INTEROP
+    x, y = mnist_like(cfg["frame_rows"], cfg["frame_features"],
+                      cfg["frame_classes"])
+    frame = ColumnFrame(features=x, label=y)
+    model = mnist_mlp(keras, cfg, "cuda")
+    clf = (NNClassifier(model, "sparse_categorical_crossentropy")
+           .set_batch_size(cfg["frame_batch"])
+           .set_max_epoch(cfg["frame_epochs"])
+           .set_optim_method("adam").set_learning_rate(1e-3))
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    fitted = clf.fit(frame)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t
+    out = fitted.transform(frame)
+    preds = np.asarray(out["prediction"])
+    probs = fitted.trainer.predict(x, cfg["frame_batch"])
+    cpu = mnist_mlp(keras, cfg, "cpu")
+    from_jax_params(cpu, to_jax_params(model))
+    cpu_probs = cpu.predict(x, batch_size=cfg["frame_batch"])
+    fitted.save(os.path.join(tmp, "nnmodel"))
+    loaded = NNModel.load(os.path.join(tmp, "nnmodel"))
+    loaded_probs = loaded.trainer.predict(x, cfg["frame_batch"])
+    loaded_preds = np.asarray(loaded.transform(frame)["prediction"])
+    ms, rows_s = predict_timing(
+        torch, lambda: fitted.transform(frame), cfg["frame_rows"],
+        cfg["reps"])
+    xt = torch.as_tensor(x[:cfg["frame_batch"]], device="cuda")
+    model.eval()
+    with torch.no_grad():
+        host_ms, dev_ms = split_ms(torch, lambda: model(xt), cfg["reps"])
+    acc = float(np.mean(preds == y))
+    stats["frame"] = dict(
+        rows=cfg["frame_rows"], accuracy=acc, fit_s=fit_s,
+        fit_rows_per_s=cfg["frame_rows"] * cfg["frame_epochs"] / fit_s,
+        cpu_max_abs_err=float(np.abs(probs - cpu_probs).max()),
+        cpu_labels_equal=bool(np.array_equal(preds, np.argmax(
+            cpu_probs, 1).astype(np.float32))),
+        saved_bits_equal=bool(np.array_equal(loaded_probs, probs)),
+        transform_ms=ms, rows_per_s=rows_s, graph_call_host_ms=host_ms,
+        graph_call_device_ms=dev_ms)
+    checks["frame_learned"] = acc > 0.5
+    checks["frame_vs_cpu"] = float(np.abs(probs - cpu_probs).max()) <= \
+        INTEROP_TOL["frame"]
+    checks["frame_cpu_labels"] = stats["frame"]["cpu_labels_equal"]
+    checks["frame_save_load_bits"] = stats["frame"]["saved_bits_equal"] \
+        and np.array_equal(loaded_preds, preds)
+
+
+def phase_interop(torch, keras, kernels, inference, tmp):
+    """Model interop on the card: an ONNX ResNet-50 stem and stage 1
+    (batch 32 at 224x224) built with the port's codec, through
+    ``Net.load_onnx`` and an InferenceModel handle, against the port's
+    CPU conversion of the same bytes, and one fine-tuning step on the
+    card and on the CPU against one in f64; an NHWC GraphDef through ``Net.load_tf`` and
+    ``InferenceModel.load_tf`` against the CPU; an ``NNClassifier`` on a
+    frame of numpy columns (2,048 rows of 784 features, the MNIST MLP)
+    for 2 epochs, its predictions against a CPU copy of the trained
+    weights and a save/load.  Predict ms, rows/s, and a converted-graph
+    call's host ms beside its device ms for each.  No flash kernel is on
+    these paths: their launches are counted and must be 0."""
+    stats, checks = {}, {}
+    kernels.reset_launch_counts()
+    for part in (interop_onnx, interop_tf):
+        part(torch, inference, tmp, stats, checks)
+    interop_frame(torch, keras, tmp, stats, checks)
+    stats["launches"] = kernels.launch_counts()
+    checks["no_flash_launch"] = not any(stats["launches"].values())
+    torch.cuda.empty_cache()
+    stats["card"] = smi_card()
+    stats["checks"] = checks
+    log("interop:", json.dumps(stats))
+    for k, v in checks.items():
+        if not v:
+            log(f"interop: FAIL {k}")
+    return all(checks.values()), stats
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6549,6 +7093,9 @@ def main() -> int:
         ("shard", lambda: phase_shard(torch, TransformerLM, kernels,
                                       inference, tmp)),
         ("fleet", lambda: phase_fleet(torch, kernels, tmp)),
+        ("stream", lambda: phase_stream(torch, TransformerLM, kernels)),
+        ("interop", lambda: phase_interop(torch, keras, kernels, inference,
+                                          tmp)),
     ]
     if sys.argv[1:2] == ["--phases"]:  # e.g. --phases kernels,resume
         wanted = sys.argv[2].split(",")
@@ -6607,6 +7154,10 @@ def main() -> int:
         "launches") or {}
     path_launches["fleet_router"] = (results.get("fleet") or {}).get(
         "router_launches") or {}
+    path_launches["stream"] = (results.get("stream") or {}).get(
+        "launches") or {}
+    path_launches["interop"] = (results.get("interop") or {}).get(
+        "launches") or {}
 
     def timed_row(name, case, dtype, sq=None):
         row = next((r for r in results.get("kernels") or []
@@ -6622,6 +7173,17 @@ def main() -> int:
                     library_ms=row["library_ms"],
                     library_backend=row["library_backend"],
                     shape=[row["bh"], row["sq"], row["d"]], dtype=dtype)
+
+    def row_at(name, case, bh):
+        row = next((r for r in results.get("kernels") or []
+                    if r["kernel"] == name and r["case"] == case
+                    and r["bh"] == bh and r.get("ms") is not None), None)
+        return {} if row is None else dict(
+            max_abs_err=row["abs_err"], ms=row["ms"],
+            plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+            bound_by=row["bound_by"], library_ms=row["library_ms"],
+            library_backend=row["library_backend"],
+            shape=[row["bh"], row["sq"], row["d"]])
 
     entries = []
     for name, (source, replaces) in KERNELS.items():
@@ -6659,13 +7221,21 @@ def main() -> int:
                      "shard": path_launches["shard"].get(name, 0),
                      "fleet": path_launches["fleet"].get(name, 0),
                      "fleet_router": path_launches["fleet_router"].get(
-                         name, 0)}}
+                         name, 0),
+                     "stream": path_launches["stream"].get(name, 0),
+                     "interop": path_launches["interop"].get(name, 0)}}
         entry.update(timed_row(name, "mixed", "bfloat16"))
         entry["f32"] = timed_row(name, "train", "float32")
         entry["bf16_batch8"] = timed_row(name, "train", "bfloat16")
         if name == "flash_fwd":  # the serve phase's prefill shapes
             entry["serve"] = [timed_row(name, "serve admit", "float32", s)
                               for s in SERVE["buckets"]]
+            # the shard phase's and the fleet's predicts at 640 positions
+            entry["shard_predict"] = timed_row(name, "shard predict",
+                                               "float32")
+            entry["fleet_predict"] = [
+                r for r in (row_at(name, "fleet predict", bh)
+                            for bh in (12, 24)) if r]
         entries.append(entry)
     log(json.dumps({"kernels": entries}))
     if failed:

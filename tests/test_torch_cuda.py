@@ -29,7 +29,11 @@ without its module gathering its whole tree a dispatch where a module
 gathers a layer, and a kernel-library store hit in a second process
 running no nvcc; a fleet of two worker processes on one card replaying
 the single-process registry's tokens, its first activation the only one
-that runs nvcc, and a SIGKILLed worker's replay running none. This file
+that runs nvcc, and a SIGKILLed worker's replay running none; a fit from
+a ``from_batch_iterable`` stream launching each kernel once a layer and
+step and giving the in-memory fit's bits, an ONNX model and a GraphDef
+(built by the port's codecs) predicting on the card as on the CPU, and
+an ``OnnxNet`` keeping no parameter on the CPU. This file
 imports no jax (nor does anything it imports), so that it runs on a
 GPU host without the JAX package: ``python -m pytest --noconftest
 tests/test_torch_cuda.py -m cuda``. Without a card every test skips
@@ -42,7 +46,8 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import unmatched_detections, write_png
+from chip_smoke import (nhwc_graph_def, recorded, resnet_stage1_onnx,
+                        stream_factory, unmatched_detections, write_png)
 from analytics_zoo_tpu_torch.models import (ImageClassifier, NeuralCF,
                                             ObjectDetector, TransformerLM,
                                             decode_output, from_jax_params,
@@ -1489,3 +1494,76 @@ def test_cuda_two_worker_fleet_generates_the_registry_tokens(cuda,
                 r.generate_ex("lm", [p], 6, **s)[0][0], want)
     finally:
         r.close()
+
+
+@pytest.mark.cuda
+def test_cuda_stream_fit_launches_and_equals_the_memory_fit(cuda):
+    """The full-width config at 2 layers (seq 2048, batch 8): 3 steps from
+    a stream of ragged chunks with a windowed shuffle launch each kernel
+    twice a step, and a fit over the emitted batches from memory gives
+    the same losses and weights, bit for bit."""
+    from chip_smoke import periodic_tokens
+    from analytics_zoo_tpu_torch.data.dataset import Dataset
+    cfg = dict(vocab_size=32000, seq_len=2048, n_layers=2, d_model=768,
+               n_heads=12)
+    x, y = periodic_tokens(24, cfg["vocab_size"], 2048, seed=2)
+    emitted = []
+    runs = []
+    for data in ("stream", "memory"):
+        model = TransformerLM(**cfg, seed=0)
+        model.compile({"name": "adam", "lr": 3e-4}, "class_nll")
+        if data == "stream":
+            ds = recorded(Dataset.from_batch_iterable(
+                stream_factory(x, y, 3, []), shuffle_buffer=24), emitted)
+        else:
+            ds = Dataset.from_ndarray(np.concatenate([b[0] for b in emitted]),
+                                      np.concatenate([b[1] for b in emitted]))
+        _kernels.reset_launch_counts()
+        hist = model.fit(ds, batch_size=8, shuffle=data == "stream")
+        torch.cuda.synchronize()
+        counts = _kernels.launch_counts()
+        assert all(counts[k] == 2 * 3 for k in
+                   ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")), counts
+        runs.append((hist["loss"], [p.detach().clone()
+                                    for p in model.parameters()]))
+        del model
+    assert len(emitted) == 3
+    assert runs[0][0] == runs[1][0]
+    assert all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
+
+
+@pytest.mark.cuda
+def test_cuda_onnx_and_graphdef_predict_as_on_the_cpu(cuda, f32_convs,
+                                                     tmp_path):
+    from analytics_zoo_tpu_torch.pipeline.api.net import Net
+    from analytics_zoo_tpu_torch.pipeline.api.onnx import proto as P
+    from analytics_zoo_tpu_torch.pipeline.api.tfgraph import proto as TP
+    from analytics_zoo_tpu_torch.pipeline.api.tfgraph.net import write_meta
+    onnx_path = str(tmp_path / "stage1.onnx")
+    with open(onnx_path, "wb") as f:
+        f.write(resnet_stage1_onnx(P, 64, 10))
+    x = np.random.default_rng(0).normal(size=(4, 3, 64, 64)).astype(
+        np.float32)
+    got = Net.load_onnx(onnx_path).predict(x)
+    want = Net.load_onnx(onnx_path, device="cpu").predict(x)
+    assert np.abs(got - want).max() <= 1e-4
+    folder = tmp_path / "graph"
+    folder.mkdir()
+    (folder / "frozen_inference_graph.pb").write_bytes(nhwc_graph_def(TP, 10))
+    write_meta(str(folder), ["image:0"], ["probs:0"])
+    x = np.random.default_rng(1).normal(size=(4, 65, 63, 3)).astype(
+        np.float32)
+    got = Net.load_tf(str(folder)).predict(x)
+    want = Net.load_tf(str(folder), device="cpu").predict(x)
+    assert got.shape == (4, 10) and np.abs(got - want).max() <= 1e-4
+
+
+@pytest.mark.cuda
+def test_cuda_onnxnet_keeps_no_parameter_on_the_cpu(cuda):
+    from analytics_zoo_tpu_torch.pipeline.api.onnx import OnnxNet
+    from analytics_zoo_tpu_torch.pipeline.api.onnx import proto as P
+    net = OnnxNet(model=P.load_model(resnet_stage1_onnx(P, 32, 10)))
+    tensors = list(net.parameters()) + list(net.buffers())
+    assert tensors and all(t.device.type == "cuda" for t in tensors)
+    out = net(torch.zeros((2, 3, 32, 32), device="cuda"))
+    assert out.device.type == "cuda" and out.shape == (2, 10)

@@ -28,6 +28,8 @@ import analytics_zoo_tpu_torch.pipeline.api.keras2 as K2
 import analytics_zoo_tpu_torch.ops.quantize  # noqa: F401
 import analytics_zoo_tpu_torch.ops.elementwise  # noqa: F401
 import analytics_zoo_tpu_torch.pipeline.api.autograd  # noqa: F401
+import analytics_zoo_tpu_torch.pipeline.api.onnx  # noqa: F401
+import analytics_zoo_tpu_torch.pipeline.api.tfgraph  # noqa: F401
 
 RNG = np.random.default_rng(7)
 
@@ -260,6 +262,9 @@ SKIPS = {
     "QuantizedConv": "int8 inference twin; test_torch_quantize",
     "QuantizedEmbedding": "int8 inference twin; test_torch_quantize",
     "QuantizedSeparableConv": "int8 inference twin; test_torch_quantize",
+    # registered by the importers (as in the JAX package's sweep)
+    "TFNet": "frozen-graph net; covered by test_torch_tf_interop",
+    "OnnxNet": "onnx-imported net; covered by test_torch_onnx",
 }
 
 
