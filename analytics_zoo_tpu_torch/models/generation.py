@@ -38,7 +38,7 @@ def _layer_norm(ln, x, eps=1e-5):
     return layer_norm(x, ln.gamma, ln.beta, eps)
 
 
-def _mlp(model, i, f):
+def _mlp(model: "TransformerLM", i: int, f):
     if model.is_moe_block(i):
         # drop-free (capacity = the token count), as the JAX package
         # decodes: a step's few tokens must never lose their FFN output

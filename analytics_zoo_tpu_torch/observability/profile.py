@@ -13,8 +13,9 @@ does it through :func:`note_compile`, with its kind
   (``ops/_kernels.py``: the ``nvcc`` processes, timed from their start to
   the last one's end; a library found on disk or in the store is loaded,
   not compiled, and counts nothing);
-* ``signature_build``: a serving signature's first run on replica 0
-  (``pipeline/inference/serving.py``);
+* ``signature_build``: a serving signature's first run (a bucket's on
+  the single-device cache, or on replica 0 of a replica set;
+  ``pipeline/inference/serving.py``);
 * ``graph_capture``: a CUDA-graph capture of the decode engine
   (``pipeline/inference/decode.py``: the step plan, each fused window,
   the speculative window).
@@ -30,6 +31,10 @@ check when nothing is installed.  ``zoo_live_buffers`` is read at scrape
 time: ``torch.cuda.memory_stats()["active.all.current"]`` (live
 allocations of the caching allocator) when the process uses a card, else
 a count of the live tensors the garbage collector tracks.
+
+Listeners (:func:`add_compile_listener`) see every event as it is
+reported, whether a profile is installed or not: the runtime sanitizer
+(``tools/zoolint/sanitizer.py``) counts a block's compiles through one.
 
 Install once per process and plug ``handle.families`` into a
 :class:`~.metrics.MetricsRegistry`::
@@ -50,6 +55,9 @@ from .metrics import Family
 
 _lock = threading.Lock()
 _installed: "Optional[XlaProfile]" = None
+#: callables ``fn(seconds, key, kind)`` told of every compile-like event
+#: (a tuple, replaced whole: :func:`note_compile` reads it unlocked)
+_listeners: tuple = ()
 
 #: the kinds of compile-like events: an ``nvcc`` run, a serving
 #: signature's first build, a CUDA-graph capture
@@ -169,6 +177,28 @@ def note_compile(seconds: float, key: str,
     handle = _installed
     if handle is not None:
         handle._on_compile(seconds, key, kind)
+    for fn in _listeners:
+        fn(seconds, key, kind)
+
+
+def add_compile_listener(fn) -> None:
+    """Tell ``fn(seconds, key, kind)`` of every later compile-like
+    event, from whatever thread reports it."""
+    global _listeners
+    with _lock:
+        _listeners = _listeners + (fn,)
+
+
+def remove_compile_listener(fn) -> None:
+    """Stop telling ``fn`` (a no-op when it was not added)."""
+    global _listeners
+    with _lock:
+        _listeners = tuple(f for f in _listeners if f != fn)
+
+
+def compile_listeners() -> tuple:
+    """The listeners told of compile-like events now."""
+    return _listeners
 
 
 def note_transfer(direction: str = "h2d"):

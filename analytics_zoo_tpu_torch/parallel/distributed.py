@@ -21,14 +21,14 @@ rows of one back.
 from __future__ import annotations
 
 import atexit
-import logging
 from datetime import timedelta
 
 import torch
 
 from .. import envcontract
+from ..observability.log import get_logger
 
-log = logging.getLogger("analytics_zoo_tpu_torch")
+_slog = get_logger("zoo.distributed")
 
 ENV_COORD = "ZOO_TPU_COORDINATOR"
 ENV_NPROC = "ZOO_TPU_NUM_PROCESSES"
@@ -68,7 +68,7 @@ def shutdown_at_exit() -> None:
             try:
                 _dist().barrier()
             except RuntimeError as e:  # a peer gone, or the timeout
-                log.warning("barrier at exit failed: %s", e)
+                _slog.warning("barrier_at_exit_failed", error=str(e))
         _dist().destroy_process_group()
 
     sys.excepthook = excepthook
@@ -105,8 +105,8 @@ def maybe_initialize_distributed(device=None,
                             world_size=nproc, rank=pid,
                             timeout=timedelta(seconds=timeout_s))
     shutdown_at_exit()
-    log.info("torch.distributed: process %d/%d (%s)", pid, nproc,
-             dist.get_backend())
+    _slog.info("process_group_joined", rank=pid, world=nproc,
+               backend=dist.get_backend())
     # the first liveness touch at the join: the supervisor's watchdog
     # then covers the first step's warm-up too
     from ..train import faults

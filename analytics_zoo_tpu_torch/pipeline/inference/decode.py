@@ -84,7 +84,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ...common import execstore
+from ...common import execstore, hostcopy
 from ...models.generation import (_decode_step, _decode_window,
                                   _embed_token, _head_logits, _prefill,
                                   _prefill_ext)
@@ -358,8 +358,9 @@ class _Plan:
     :meth:`build` warms the body once and captures it as a CUDA graph;
     calling the plan replays the graph and starts a non-blocking copy of
     the outputs into pinned host memory (a ring of two, as the loop holds
-    at most one unprocessed dispatch), returning (host arrays, event).
-    On the CPU the body runs eagerly and the outputs are copied."""
+    at most one unprocessed dispatch), returning (host arrays, events to
+    wait on: ``hostcopy.start_fetch``).  On the CPU the body runs
+    eagerly and the outputs are copied."""
 
     def __init__(self, body, outputs: Sequence[torch.Tensor]):
         self.body = body
@@ -385,15 +386,13 @@ class _Plan:
     def __call__(self):
         if self.graph is None:
             self.body()
-            return [t.clone().numpy() for t in self.outputs], None
-        self.graph.replay()
-        host = self._host[self._turn]
-        self._turn ^= 1
-        for h, t in zip(host, self.outputs):
-            h.copy_(t, non_blocking=True)
-        event = torch.cuda.Event()
-        event.record()
-        return [h.numpy() for h in host], event
+            host, events = hostcopy.start_fetch(self.outputs)
+        else:
+            self.graph.replay()
+            host, events = hostcopy.start_fetch(
+                self.outputs, out=self._host[self._turn])
+            self._turn ^= 1
+        return [h.numpy() for h in host], events
 
 
 _SHUTDOWN = object()
@@ -566,6 +565,9 @@ class DecodeEngine:
         self._closed = False
         self._submit_lock = threading.Lock()
         self._crashed = False
+        # the request between the queue and its slot (its prefill): the
+        # crash net finishes it too
+        self._admitting: Optional[_DecodeRequest] = None
         # the dispatcher starts at the first submit: warmup() runs on the
         # caller's thread and writes the decode state, which belongs to
         # the dispatcher once it runs
@@ -708,11 +710,27 @@ class DecodeEngine:
         self._step_plan = self._make_plan(self._step_body, [self._tok])
 
     # ---- admission ------------------------------------------------------
+    def _upload(self, ids) -> torch.Tensor:
+        """Host token ids as an int64 tensor on the engine's device,
+        through pinned memory to a card (``hostcopy.upload``: nothing
+        waits for the device)."""
+        return hostcopy.upload(
+            torch.as_tensor(np.asarray(ids), dtype=torch.long), self.device)
+
+    def _host_token(self, tok0) -> int:
+        """The first token on the host, through pinned memory and an
+        event on the card (an explicit fetch; a blocking
+        ``int(tok0[0])`` would be an implicit one)."""
+        host, events = hostcopy.start_fetch([tok0])
+        hostcopy.wait(events)
+        return int(host[0][0])
+
     def _first_token(self, logits0, req: _DecodeRequest):
         """The first token, at absolute index 0 of the request's
-        stream."""
+        stream.  The sampling values are filled on the device (no host
+        tensor is copied up)."""
         def one(v, dtype):
-            return torch.tensor([v], dtype=dtype, device=self.device)
+            return torch.full((1,), v, dtype=dtype, device=self.device)
 
         seed = one(req.seed, torch.long)
         return select_tokens(
@@ -724,14 +742,17 @@ class DecodeEngine:
 
     def _slot_write(self, slot: int, tok0, req: _DecodeRequest):
         """Activate ``slot``: its token, position and sampling state; the
-        token index starts at 1, index 0 having drawn the first token."""
+        token index starts at 1, index 0 having drawn the first token.
+        The host values are filled in on the device (``fill_``): an item
+        assignment of a Python number copies a host scalar up and waits
+        for it."""
         self._tok[slot] = tok0[0]
-        self._pos[slot] = req.length
-        self._seed[slot] = req.seed
-        self._stepc[slot] = 1
-        self._temp[slot] = req.temperature
-        self._topk[slot] = req.top_k or 0
-        self._topp[slot] = 1.0 if req.top_p is None else req.top_p
+        self._pos[slot].fill_(req.length)
+        self._seed[slot].fill_(req.seed)
+        self._stepc[slot].fill_(1)
+        self._temp[slot].fill_(req.temperature)
+        self._topk[slot].fill_(req.top_k or 0)
+        self._topp[slot].fill_(1.0 if req.top_p is None else req.top_p)
 
     def _note_bucket(self, bucket: int, fresh: bool, t0: float):
         stat = ("misses" if fresh
@@ -748,8 +769,7 @@ class DecodeEngine:
         """One prefill of the whole padded prompt into ``slot``."""
         t0 = time.perf_counter()
         s_b = req.bucket
-        prompt = torch.as_tensor(req.prompt, dtype=torch.long,
-                                 device=self.device)
+        prompt = self._upload(req.prompt)
         x, pc = _prefill(self._model, prompt, s_b)
         tok0 = self._first_token(
             _head_logits(self._model, x[0, req.length - 1][None]), req)
@@ -765,7 +785,7 @@ class DecodeEngine:
         fresh = s_b not in self._admit_built
         self._admit_built.add(s_b)
         self._note_bucket(s_b, fresh, t0)
-        return int(tok0[0])
+        return self._host_token(tok0)
 
     def _prefix_bucket_for(self, n: int) -> int:
         """Largest prompt bucket <= n: the prefix split point."""
@@ -778,8 +798,7 @@ class DecodeEngine:
     def _prefix_fill(self, prefix_ids: np.ndarray) -> _PrefixEntry:
         """Prefill one (1, p_b) prefix: the blocks a pool hit copies."""
         p_b = prefix_ids.shape[1]
-        x, pc = _prefill(self._model, torch.as_tensor(
-            prefix_ids, dtype=torch.long, device=self.device), p_b)
+        x, pc = _prefill(self._model, self._upload(prefix_ids), p_b)
         return _PrefixEntry(pc, x[0, p_b - 1])
 
     def _admit_prefix(self, req: _DecodeRequest, slot: int) -> int:
@@ -803,8 +822,8 @@ class DecodeEngine:
         if s_b > p_b:
             tail = np.zeros((1, s_b - p_b), np.int64)
             tail[0, :L - p_b] = req.prompt[0, p_b:L]
-            xt, tail_kv = _prefill_ext(self._model, torch.as_tensor(
-                tail, device=self.device), ent.kv, p_b)
+            xt, tail_kv = _prefill_ext(self._model, self._upload(tail),
+                                       ent.kv, p_b)
             h_last = xt[0, L - p_b - 1]
         for i, (ck, cv) in enumerate(self._caches):
             pk, pv = ent.kv[i]
@@ -820,7 +839,7 @@ class DecodeEngine:
         fresh = (p_b, s_b) not in self._pfx_built
         self._pfx_built.add((p_b, s_b))
         self._note_bucket(s_b, fresh, t0)
-        return int(tok0[0])
+        return self._host_token(tok0)
 
     def warmup(self) -> float:
         """Run every prompt bucket's admission (and with a prefix pool,
@@ -875,9 +894,7 @@ class DecodeEngine:
         self._ensure_step_plans()
         for plan in ([self._spec_plan] if self._draft is not None
                      else [self._step_plan, *self._stepk_plans.values()]):
-            _, event = plan()
-            if event is not None:
-                event.synchronize()
+            hostcopy.wait(plan()[1])
 
     # ---- submission -----------------------------------------------------
     @property
@@ -1051,6 +1068,7 @@ class DecodeEngine:
         """Admit one queued request into ``slot``: prefill (pooled when
         eligible), stream the first token, and activate the slot, or
         finish the request at once when that token ends it."""
+        self._admitting = req
         span = req.span
         if span is not None:
             span.phase_start("prefill")
@@ -1081,12 +1099,14 @@ class DecodeEngine:
             self._counters["evicted"] += 1
             req.stream._finish()
             self._free.append(slot)
+            self._admitting = None
             return
         if span is not None:
             # one phase for the whole shared-step participation
             span.phase_start("decode_step")
         self._slots[slot] = req
         self._occupancy += 1
+        self._admitting = None
 
     def _choose_fuse(self) -> int:
         """Window size of the next dispatch.  A fused window never crosses
@@ -1167,9 +1187,8 @@ class DecodeEngine:
 
     def _process_step(self, pending):
         """Wait for a dispatched window's tokens and fan them out."""
-        (host, event), spec, snapshot, k = pending
-        if event is not None:
-            event.synchronize()
+        (host, events), spec, snapshot, k = pending
+        hostcopy.wait(events)
         toks = host[0].reshape(-1, self.capacity)
         if not spec:
             self._push_window(snapshot, toks, [k] * self.capacity)
@@ -1199,12 +1218,13 @@ class DecodeEngine:
             if got:
                 self._submit_lock.release()
             self._flush_queue(e)
-            for slot, req in enumerate(self._slots):
-                if req is not None:
+            admitting, self._admitting = self._admitting, None
+            for req in [*self._slots, admitting]:
+                if req is not None and not req.stream.done:
                     if req.span is not None:
                         req.span.phase_end()
                     req.stream._finish(e)
-                    self._slots[slot] = None
+            self._slots[:] = [None] * len(self._slots)
             self._occupancy = 0
             raise
 

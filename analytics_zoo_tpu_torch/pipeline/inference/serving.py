@@ -27,9 +27,9 @@ Counterpart of ``analytics_zoo_tpu/pipeline/inference/serving.py``.
   replica is a *placement* (a prime), which counts as no build.  So one
   bucket costs one build however many replicas serve it, and
   re-activating a replica costs none.  Each CUDA replica runs on a
-  ``torch.cuda.Stream`` of its own: the input copy, the forward and a
-  completion event all live there, and the fetch reads the results on
-  that stream.  The coalescer routes each group to the healthy replica
+  ``torch.cuda.Stream`` of its own: the input copy, the forward and the
+  fetch's copies into pinned host memory all live there.  The coalescer
+  routes each group to the healthy replica
   with the fewest undelivered groups, retries a failed dispatch once on
   another replica, re-probes unhealthy replicas on an exponential
   backoff and, with hedging, re-dispatches a straggling group to a
@@ -76,6 +76,7 @@ from typing import (Any, Callable, Dict, List, Optional, Sequence,
 import numpy as np
 import torch
 
+from ...common import hostcopy
 from ...common.context import resolve_device
 from ...common.utils import pad_leading
 from ...observability import profile as _profile
@@ -162,8 +163,10 @@ def batch_signature(batched) -> Tuple:
 
 def to_device(batched, device):
     """A host batch (numpy, or a tuple of arrays) as tensors on
-    ``device``, dtypes kept.  Pinned host tensors (the staging arena's)
-    upload without blocking."""
+    ``device``, dtypes kept.  An upload to a card goes through pinned
+    memory and never waits for the device (``hostcopy.upload``): a
+    pinned source (the staging arena's) as it is, a pageable one copied
+    into a pinned block first."""
     def one(a):
         if isinstance(a, torch.Tensor):
             t = a
@@ -173,7 +176,7 @@ def to_device(batched, device):
             # copied here, once: a tensor must not alias memory that
             # nothing may write
             t = torch.from_numpy(a if a.flags.writeable else a.copy())
-        return t.to(device, non_blocking=t.is_pinned())
+        return hostcopy.upload(t, device)
 
     return tree_map(one, batched)
 
@@ -258,30 +261,39 @@ def available_devices(device=None) -> List[torch.device]:
     return [dev] * max(1, os.cpu_count() or 1)
 
 
-def _host(tree) -> Any:
-    """Blocking copy of device results to host numpy.  CPU results are
-    copied: they may alias a staging buffer that is reused.  A replica's
-    results are read on the replica's stream, after its event."""
-    def one(t):
-        return (t.cpu() if t.is_cuda else t.clone()).numpy()
-
+def _host(tree, rows: Optional[int] = None) -> Any:
+    """Device results (their first ``rows`` rows, when given) as host
+    numpy arrays that the caller owns, waited for (``hostcopy.fetch``:
+    CPU results are copied, as they may alias a staging buffer that is
+    reused; CUDA results come down through pinned memory and an event,
+    with the bits of a blocking ``.cpu()`` and no implicit sync).  A
+    replica's results are copied on the replica's own stream, after its
+    forward."""
     if isinstance(tree, _OnStream):
-        tree.event.synchronize()
         with torch.cuda.stream(tree.stream):
-            return tree_map(one, tree.tree)
-    return tree_map(one, tree)
+            return _host(tree.tree, rows)
+    if rows is not None:
+        tree = _slice_rows(tree, 0, rows)
+    return _fetch(tree)
+
+
+def _fetch(tree) -> Any:
+    """:func:`_host`'s copies, on the current stream of each device."""
+    leaves: List[torch.Tensor] = []
+    tree_map(leaves.append, tree)
+    host = iter(hostcopy.fetch(leaves))
+    return tree_map(lambda _: next(host), tree)
 
 
 class _OnStream:
     """A replica dispatch's device results with the stream they were
-    computed on and the event recorded after the forward."""
+    computed on (the fetch is ordered after the forward on it)."""
 
-    __slots__ = ("tree", "stream", "event")
+    __slots__ = ("tree", "stream")
 
-    def __init__(self, tree, stream, event):
+    def __init__(self, tree, stream):
         self.tree = tree
         self.stream = stream
-        self.event = event
 
 
 def _on_replica(replica: "Replica"):
@@ -533,9 +545,7 @@ class ReplicaSet:
                 out = exe.execute(dev_x)
             if replica.stream is None:
                 return out
-            event = torch.cuda.Event()
-            event.record(replica.stream)
-        return _OnStream(out, replica.stream, event)
+        return _OnStream(out, replica.stream)
 
     # ---- elasticity ----
     def _zeros_for(self, key: Tuple):
@@ -798,7 +808,11 @@ class BucketedExecutableCache:
         if fresh:
             if self.device.type == "cuda":
                 torch.cuda.current_stream(self.device).synchronize()
-            self._note_build(bucket, time.perf_counter() - t0)
+            secs = time.perf_counter() - t0
+            self._note_build(bucket, secs)
+            # the bucket's first run is its build, as a replica set's
+            _profile.note_compile(secs, "bucket-forward",
+                                  kind="signature_build")
         return out
 
     def _dispatch_replica(self, rs: ReplicaSet, batched, bucket: int,
@@ -946,16 +960,14 @@ class BucketedExecutableCache:
 
 
 def fetch_rows(device_tree, n: int, span=None):
-    """Fetch dispatched device results to the host (the blocking copy
-    waits for the computation) and strip the padding rows.  With a
-    ``span`` the fetch closes the open ``execute`` phase: ``depad``
-    starts once the bytes are on the host."""
-    host = _host(device_tree)
+    """Fetch the first ``n`` rows of dispatched device results to the
+    host (the fetch waits for the computation; the padding rows stay on
+    the device).  With a ``span`` the fetch closes the open ``execute``
+    phase: ``depad`` starts once the bytes are on the host."""
+    out = _host(device_tree, rows=n)
     _profile.note_transfer("d2h")
     if span is not None:
         span.phase_start("depad")
-    out = _slice_rows(host, 0, n)
-    if span is not None:
         span.phase_end()
     return out
 

@@ -329,13 +329,26 @@ copy of the trained weights and a save/load bit for bit.  Each part's
 predict ms, rows/s and a converted-graph call's host ms beside its
 device ms.
 
+Last, a sanitize phase: the serve phase's model behind a coalescing
+handle on the card and one on two replicas of it, each warmed on its
+bucket ladder; 32 closed-loop predicts from 4 clients unguarded, then
+the same under ``zoolint.sanitize(max_compiles=0, invariants=...)``
+(``set_sync_debug_mode("error")``): no error, 0 events of each compile
+kind, the coalescer's and replicas' gauges level.  The handle's decode
+engine, warmed at every occupancy, serves 16 requests unguarded and
+then guarded: the same greedy tokens, 0 events, 12 flash_fwd launches
+an admission.  A new bucket in a guarded block raises
+``RecompileDetected`` naming ``signature_build``, an injected
+``.item()`` raises, and after both the sync mode is the entry one and
+no compile listener is left.  Rates with and without the guard.
+
 ``python3 chip_smoke.py --phases train,resume`` runs only the named
 phases (after the build), for a short call.
 
 The card's line, then ``resnet:``, ``detect:``, ``recommend:``,
 ``textclass:``, ``moe:``, ``image:``, ``layers:``, ``resume:``,
 ``parallel:``, ``control:``, ``observe:``, ``shard:``, ``fleet:``,
-``stream:`` and ``interop:`` summary lines (each
+``stream:``, ``interop:`` and ``sanitize:`` summary lines (each
 with the card's name and power limit) come near the end; the line
 before the last is a JSON object with each kernel's numbers; the last
 line is ``{"ok": true, "device": {...}}``.  ResNet-50, the registry,
@@ -533,6 +546,8 @@ SUMMARIES = {
                "losses_bitwise", "weights_bitwise", "launches_per_step",
                "card"),
     "interop": ("onnx", "tf", "frame", "card"),
+    "sanitize": ("predict_solo", "predict_replicas", "decode", "sync_mode",
+                 "card"),
     "fleet": ("requests_per_s", "ref_requests_per_s", "ttft_ms_median",
               "ref_ttft_ms_median", "itl_ms_median", "ref_itl_ms_median",
               "first_activation_kernel_builds", "warm_ms", "fanout_s",
@@ -5412,10 +5427,13 @@ assert _kernels.__file__.startswith(sys.argv[1]), _kernels.__file__
 torch.backends.cuda.matmul.allow_tf32 = False
 cfg = json.loads(sys.argv[2])
 handle = profile.install()
+# the worker's compiles are its nvcc runs: the handle's bucket builds
+# (signature_build events) are not the store's business
 keys = []
 note = profile.note_compile
-profile.note_compile = lambda s, key, **kw: (keys.append(key),
-                                             note(s, key, **kw))
+profile.note_compile = lambda s, key, **kw: (
+    kw.get("kind") == "kernel_build" and keys.append(key),
+    note(s, key, **kw))
 lm = TransformerLM(**cfg["lm"], device="cuda", seed=0).eval()
 seq = cfg["lm"]["seq_len"]
 x = np.random.default_rng(0).integers(
@@ -5434,7 +5452,7 @@ o, lse = _kernels.flash_fwd(q, k, v, None, True, 0.125)
 np.savez(sys.argv[3], y=y, o=o.cpu().numpy(), lse=lse.cpu().numpy())
 snap = handle.snapshot()
 print("RESULT " + json.dumps({
-    "compiles": snap["compiles"], "compile_keys": keys,
+    "compiles": snap["by_kind"]["kernel_build"], "compile_keys": keys,
     "compile_s": snap["compile_seconds"], "warmup_s": warmup_s,
     "first_answer_s": first_answer_s,
     "launches": _kernels.launch_counts(),
@@ -5511,10 +5529,11 @@ def shard_predict(torch, lm, kernels, inference, profile, tmp):
     at_rest_allocated = torch.cuda.memory_allocated() - base[1]
     try:
         im.warmup((seq,), np.int32)
+        # the sharded set's builds, before the solo handle's own
+        builds = handle.snapshot()["compiles"] - compiles0
         solo.warmup((seq,), np.int32)
         rs = im._cache.replica_set
         buckets = im._cache.buckets
-        builds = handle.snapshot()["compiles"] - compiles0
         checks["shard_one_build_a_signature"] = (
             builds == len(buckets) and rs.compiled_keys() == len(buckets)
             and rs.placement_complete())
@@ -6996,6 +7015,176 @@ def phase_interop(torch, keras, kernels, inference, tmp):
     return all(checks.values()), stats
 
 
+SANITIZE = dict(seq=128, rows=(1, 4), max_batch=4, predict_requests=32,
+                threads=4, decode_requests=16, max_new=8, bad_seq=64)
+
+
+def sanitize_predict(handle, kernels, sanitize, closed_loop, xs):
+    """One predict window unsanitized (it also fills the staging rings),
+    then the same window under ``sanitize(max_compiles=0,
+    invariants=...)``: (requests/s off, on, the report, flash_fwd
+    launches on, outputs well-formed and in pageable memory, errors,
+    host memory before the windows and after them with the replies
+    held)."""
+    import numpy as np
+    import torch
+    from analytics_zoo_tpu_torch.tools.zoolint.sanitizer import host_memory
+
+    def gauges():
+        st = handle.serving_stats()
+        return {"pending": st["coalescer_pending"],
+                "unhealthy": sum(st.get("replica_unhealthy", {}).values())}
+
+    mem = [host_memory()]
+    _, off_s, err_off = closed_loop(handle.predict, xs, SANITIZE["threads"])
+    kernels.reset_launch_counts()
+    with sanitize(max_compiles=0, invariants=gauges,
+                  label="sanitize predict") as rep:
+        outs, on_s, err_on = closed_loop(handle.predict, xs,
+                                         SANITIZE["threads"])
+    launches = kernels.launch_counts()["flash_fwd"]
+    mem.append(dict(host_memory(), replies_bytes=sum(
+        o.nbytes for o in outs if o is not None)))
+    good = not err_on and all(
+        o is not None and o.shape == x.shape + (FULL["vocab_size"],)
+        and np.isfinite(o).all() and not torch.from_numpy(o).is_pinned()
+        for o, x in zip(outs, xs))
+    return (len(xs) / off_s, len(xs) / on_s, rep, launches, good,
+            err_off + err_on, mem)
+
+
+def phase_sanitize(torch, TransformerLM, kernels, inference):
+    """The runtime sanitizer on the card at full width (the serve phase's
+    model): warmed predict windows (one card, and two replicas of it)
+    and a warmed decode window under ``sanitize(max_compiles=0)`` — no
+    build of any kind, level invariants, no implicit sync under
+    ``set_sync_debug_mode("error")`` — then the negatives: a new bucket
+    raises ``RecompileDetected`` naming ``signature_build``, an injected
+    ``.item()`` raises, and the sync mode and the listener are gone
+    after."""
+    import gc
+    import numpy as np
+    from analytics_zoo_tpu_torch.observability import profile
+    from analytics_zoo_tpu_torch.tools.zoolint import closed_loop, sanitize
+    S = SANITIZE
+    cfg = dict(FULL, seq_len=SERVE["max_len"])
+    model = TransformerLM(**cfg, device="cuda", seed=0).eval()
+    mode0 = torch.cuda.get_sync_debug_mode()
+    rng = np.random.default_rng(21)
+    xs = [rng.integers(0, cfg["vocab_size"], (int(n), S["seq"]),
+                       dtype=np.int32)
+          for n in rng.integers(S["rows"][0], S["rows"][1] + 1,
+                                S["predict_requests"])]
+    checks, stats = {}, {}
+    handles = {
+        "solo": inference.InferenceModel(
+            supported_concurrent_num=S["threads"],
+            max_batch_size=S["max_batch"], coalescing=True,
+            decode_capacity=SERVE["capacity"],
+            decode_max_len=SERVE["max_len"],
+            decode_prompt_buckets=SERVE["buckets"]),
+        "replicas": inference.InferenceModel(
+            supported_concurrent_num=S["threads"],
+            max_batch_size=S["max_batch"], coalescing=True,
+            replicas=["cuda:0", "cuda:0"])}
+    launches = {}
+    try:
+        for name, h in handles.items():
+            h.load_keras_net(model)
+            h.warmup((S["seq"],), np.int32)
+            off, on, rep, n, good, errors, mem = sanitize_predict(
+                h, kernels, sanitize, closed_loop, xs)
+            launches[f"predict_{name}"] = n
+            stats[f"predict_{name}"] = dict(
+                requests_per_s_unsanitized=off, requests_per_s=on,
+                compiles=rep.by_kind, flash_fwd_launches=n, errors=errors,
+                host_memory=mem)
+            checks[f"predict_{name}"] = (good and not errors
+                                         and rep.compiles == 0 and n > 0)
+
+        # (b) the decode engine, warmed at every occupancy 1..capacity
+        h = handles["solo"]
+        engine = h.decode_engine
+        for k in range(1, SERVE["capacity"] + 1):
+            h.generate([rng.integers(0, cfg["vocab_size"], 16 + i)
+                        for i in range(k)], [4] * k, timeout=120)
+        prompts = [rng.integers(0, cfg["vocab_size"], int(L))
+                   for L in rng.integers(16, SERVE["buckets"][-1] + 1,
+                                         S["decode_requests"])]
+        news = [S["max_new"]] * len(prompts)
+
+        def decode_window():
+            t = time.perf_counter()
+            outs = h.generate(prompts, news, timeout=300)
+            return outs, sum(len(o) for o in outs) / (time.perf_counter()
+                                                      - t)
+
+        ref, tps_off = decode_window()
+        before = engine.stats()
+        kernels.reset_launch_counts()
+        with sanitize(max_compiles=0, label="sanitize decode",
+                      invariants=lambda: {
+                          "slots": engine.stats()["slots_active"]}) as rep:
+            outs, tps_on = decode_window()
+        flash = kernels.launch_counts()["flash_fwd"]
+        after = engine.stats()
+        admitted = after["admitted"] - before["admitted"]
+        launches["decode"] = flash
+        same = all(np.array_equal(a, b) for a, b in zip(outs, ref))
+        stats["decode"] = dict(tokens_per_s_unsanitized=tps_off,
+                               tokens_per_s=tps_on, compiles=rep.by_kind,
+                               admitted=admitted, flash_fwd_launches=flash,
+                               greedy_equal_unsanitized=same,
+                               captures=after["captures"])
+        checks["decode"] = (same and rep.compiles == 0
+                            and admitted == len(prompts)
+                            and flash == cfg["n_layers"] * admitted
+                            and after["captures"] == before["captures"])
+
+        # (c) negatives: a new bucket (a signature never warmed) under
+        # the full guard, and an injected implicit fetch
+        bad = rng.integers(0, cfg["vocab_size"], (1, S["bad_seq"]),
+                           dtype=np.int32)
+        try:
+            with sanitize(max_compiles=0, label="sanitize new bucket"):
+                handles["replicas"].predict(bad)
+            caught = "nothing raised"
+        except Exception as e:  # RecompileDetected is the one wanted
+            caught = f"{type(e).__name__}: {e}"
+        stats["new_bucket"] = " ".join(caught.split())[:300]
+        checks["new_bucket_recompile"] = (
+            caught.startswith("RecompileDetected")
+            and "signature_build" in caught)
+        try:
+            with sanitize(max_compiles=0, label="sanitize .item()"):
+                torch.ones(4, device="cuda").sum().item()
+            injected = "nothing raised"
+        except RuntimeError as e:
+            injected = f"{type(e).__name__}: {e}"
+        stats["injected_item"] = injected[:160]
+        checks["injected_item_raises"] = "synchroniz" in injected
+    finally:
+        for h in handles.values():
+            h.close()
+        del handles, model
+        gc.collect()
+        torch._C._cuda_clearCublasWorkspaces()
+        torch.cuda.empty_cache()
+    stats["sync_mode"] = dict(before=mode0,
+                              after=torch.cuda.get_sync_debug_mode())
+    checks["sync_mode_restored"] = stats["sync_mode"]["after"] == mode0
+    checks["listener_gone"] = profile.compile_listeners() == ()
+    stats["launches"] = {"flash_fwd": sum(launches.values())}
+    stats["launches_by_window"] = launches
+    stats["checks"] = checks
+    stats["card"] = smi_card()
+    log("sanitize:", json.dumps(stats))
+    for name, ok in checks.items():
+        if not ok:
+            log(f"sanitize: FAIL {name}")
+    return all(checks.values()), stats
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -7096,6 +7285,8 @@ def main() -> int:
         ("stream", lambda: phase_stream(torch, TransformerLM, kernels)),
         ("interop", lambda: phase_interop(torch, keras, kernels, inference,
                                           tmp)),
+        ("sanitize", lambda: phase_sanitize(torch, TransformerLM, kernels,
+                                            inference)),
     ]
     if sys.argv[1:2] == ["--phases"]:  # e.g. --phases kernels,resume
         wanted = sys.argv[2].split(",")
@@ -7157,6 +7348,8 @@ def main() -> int:
     path_launches["stream"] = (results.get("stream") or {}).get(
         "launches") or {}
     path_launches["interop"] = (results.get("interop") or {}).get(
+        "launches") or {}
+    path_launches["sanitize"] = (results.get("sanitize") or {}).get(
         "launches") or {}
 
     def timed_row(name, case, dtype, sq=None):
@@ -7223,7 +7416,8 @@ def main() -> int:
                      "fleet_router": path_launches["fleet_router"].get(
                          name, 0),
                      "stream": path_launches["stream"].get(name, 0),
-                     "interop": path_launches["interop"].get(name, 0)}}
+                     "interop": path_launches["interop"].get(name, 0),
+                     "sanitize": path_launches["sanitize"].get(name, 0)}}
         entry.update(timed_row(name, "mixed", "bfloat16"))
         entry["f32"] = timed_row(name, "train", "float32")
         entry["bf16_batch8"] = timed_row(name, "train", "bfloat16")

@@ -32,8 +32,12 @@ the single-process registry's tokens, its first activation the only one
 that runs nvcc, and a SIGKILLed worker's replay running none; a fit from
 a ``from_batch_iterable`` stream launching each kernel once a layer and
 step and giving the in-memory fit's bits, an ONNX model and a GraphDef
-(built by the port's codecs) predicting on the card as on the CPU, and
-an ``OnnxNet`` keeping no parameter on the CPU. This file
+(built by the port's codecs) predicting on the card as on the CPU, an
+``OnnxNet`` keeping no parameter on the CPU; and the zoolint sanitizer's
+guard (``set_sync_debug_mode("error")``) catching an injected ``.item()``
+and ``.cpu()`` and restoring the mode, passing the explicit fetch, a
+warmed replicated predict with the bits of a blocking fetch, and a
+warmed decode engine's admissions and steps. This file
 imports no jax (nor does anything it imports), so that it runs on a
 GPU host without the JAX package: ``python -m pytest --noconftest
 tests/test_torch_cuda.py -m cuda``. Without a card every test skips
@@ -1567,3 +1571,155 @@ def test_cuda_onnxnet_keeps_no_parameter_on_the_cpu(cuda):
     assert tensors and all(t.device.type == "cuda" for t in tensors)
     out = net(torch.zeros((2, 3, 32, 32), device="cuda"))
     assert out.device.type == "cuda" and out.shape == (2, 10)
+
+
+@pytest.mark.cuda
+def test_cuda_sanitize_guard_catches_implicit_syncs_and_restores(cuda):
+    """Under ``sanitize()`` the card's sync debug mode is "error": an
+    injected ``.item()``, a blocking ``.cpu()`` or a blocking upload and
+    a stream's ``synchronize()`` raise (in a worker thread too), while
+    the explicit fetch — a non-blocking copy into pinned memory and an
+    event — passes; the entry mode comes back and the listener is
+    gone."""
+    import threading
+    from analytics_zoo_tpu_torch.observability import profile
+    from analytics_zoo_tpu_torch.tools.zoolint import sanitize
+    t = torch.arange(8.0, device=cuda)
+    torch.cuda.synchronize()
+    mode0 = torch.cuda.get_sync_debug_mode()
+    caught = []
+    with sanitize(max_compiles=0) as rep:
+        assert torch.cuda.get_sync_debug_mode() == 2
+        for fn in (lambda: t.sum().item(), lambda: t.cpu(),
+                   lambda: torch.tensor([1.0], device=cuda),
+                   lambda: torch.cuda.current_stream().synchronize()):
+            with pytest.raises(RuntimeError, match="synchroniz"):
+                fn()
+
+        def worker():
+            try:
+                t.tolist()
+            except RuntimeError as e:
+                caught.append(str(e))
+
+        th = threading.Thread(target=worker)
+        th.start()
+        th.join(60)
+        assert not th.is_alive()
+        host = t.to("cpu", non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        done.synchronize()
+    assert caught and "synchroniz" in caught[0]
+    assert host.is_pinned() and host.tolist() == list(range(8))
+    assert rep.sync_mode_before == mode0 and rep.sync_mode_in_block == 2
+    assert torch.cuda.get_sync_debug_mode() == mode0
+    assert profile.compile_listeners() == ()
+    with pytest.raises(RuntimeError, match="synchroniz"):
+        with sanitize(max_compiles=0):
+            t.max().item()
+    assert torch.cuda.get_sync_debug_mode() == mode0
+
+
+@pytest.mark.cuda
+def test_cuda_hostcopy_passes_the_guard_and_returns_pageable(cuda):
+    """``common.hostcopy`` under ``"error"``: a pageable host tensor
+    goes up through a pinned block, results come down through pinned
+    memory and an event, and ``fetch`` hands back pageable numpy arrays
+    with the bits; the pinned blocks stay with torch's host allocator
+    (``host_memory`` reads it)."""
+    from analytics_zoo_tpu_torch.common import hostcopy
+    from analytics_zoo_tpu_torch.tools.zoolint import sanitize
+    from analytics_zoo_tpu_torch.tools.zoolint.sanitizer import host_memory
+    rng = np.random.default_rng(9)
+    x = rng.normal(size=(64, 1000)).astype(np.float32)
+    with sanitize(max_compiles=0):
+        dev = hostcopy.upload(torch.from_numpy(x), cuda)
+        y, = hostcopy.fetch([dev * 2.0])
+        ring = [torch.empty(dev.shape, pin_memory=True)]
+        host, events = hostcopy.start_fetch([dev], out=ring)
+        hostcopy.wait(events)
+    assert not torch.from_numpy(y).is_pinned()
+    np.testing.assert_array_equal(y, x * 2.0)
+    assert host[0] is ring[0]
+    np.testing.assert_array_equal(host[0].numpy(), x)
+    mem = host_memory()
+    assert mem["rss_bytes"] > 0
+    assert mem["pinned"] is None or all(
+        isinstance(v, int) for v in mem["pinned"].values())
+
+
+@pytest.mark.cuda
+def test_cuda_warmed_replicated_predict_passes_the_guard(cuda):
+    """A warmed two-replica coalesced predict on one card runs under
+    ``"error"`` with no build and gives the bits of a blocking fetch of
+    the same forward (the pinned non-blocking fetch of ``serving._host``
+    changes how the bytes travel, not what they are)."""
+    import threading
+    from analytics_zoo_tpu_torch.pipeline.inference import InferenceModel
+    from analytics_zoo_tpu_torch.tools.zoolint import sanitize
+    rng = np.random.default_rng(4)
+    w = rng.normal(size=(16, 16)).astype(np.float32)
+    xs = [rng.normal(size=(1 + i % 4, 16)).astype(np.float32)
+          for i in range(12)]
+    im = InferenceModel(max_batch_size=4, coalescing=True,
+                        supported_concurrent_num=4,
+                        replicas=["cuda:0", "cuda:0"])
+    try:
+        im.load_fn(lambda p, x: torch.tanh(x @ p["w"]), {"w": w})
+        im.warmup((16,))
+        for x in xs:  # fill the staging rings and the pinned pool
+            im.predict(x)
+        outs = [None] * len(xs)
+
+        def client(c):
+            for i in range(c, len(xs), 3):
+                outs[i] = im.predict(xs[i])
+
+        with sanitize(max_compiles=0) as rep:
+            threads = [threading.Thread(target=client, args=(c,))
+                       for c in range(3)]
+            [t.start() for t in threads]
+            [t.join(120) for t in threads]
+        assert not any(t.is_alive() for t in threads)
+        assert rep.compiles == 0
+        wd = torch.from_numpy(w).to(cuda)
+        for x, o in zip(xs, outs):
+            ref = torch.tanh(torch.from_numpy(x).to(cuda) @ wd).cpu()
+            assert o is not None and not torch.from_numpy(o).is_pinned()
+            np.testing.assert_allclose(o, ref.numpy(), rtol=1e-6,
+                                       atol=1e-6)
+    finally:
+        im.close()
+
+
+@pytest.mark.cuda
+def test_cuda_warmed_decode_engine_passes_the_guard(cuda):
+    """The decode engine's admission uploads its prompt non-blocking,
+    fills its sampling values on the card and fetches its first token
+    through pinned memory and an event; its windows fetch the same way.
+    So a warmed engine generates under ``"error"`` with no capture, the
+    unguarded run's tokens, and 2 flash_fwd launches an admission."""
+    from analytics_zoo_tpu_torch.tools.zoolint import sanitize
+    lm = TransformerLM(vocab_size=128, seq_len=96, n_layers=2, d_model=64,
+                       n_heads=4, device="cuda", seed=0).eval()
+    eng = DecodeEngine(lm, capacity=4, max_len=96, prompt_buckets=(16, 32),
+                       prefix_pool=4)
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, 128, n) for n in (5, 20, 17, 30, 9, 16)]
+    news = [6, 3, 8, 2, 5, 4]
+    try:
+        eng.warmup()
+        ref = eng.generate(prompts, news, timeout=120)
+        before = eng.stats()
+        _kernels.reset_launch_counts()
+        with sanitize(max_compiles=0) as rep:
+            got = eng.generate(prompts, news, timeout=120)
+        after = eng.stats()
+        computed = (after["admitted"] - before["admitted"]
+                    - (after["prefix_hits"] - before["prefix_hits"]))
+        assert rep.compiles == 0 and after["captures"] == before["captures"]
+        assert all(np.array_equal(a, b) for a, b in zip(got, ref))
+        assert _kernels.launch_counts()["flash_fwd"] >= 2 * computed > 0
+    finally:
+        eng.close()

@@ -300,6 +300,35 @@ def test_crash_net_fails_all_streams(make_engine):
         eng.submit(rng.integers(0, VOCAB, 4), 2)
 
 
+@pytest.mark.filterwarnings(
+    "ignore::pytest.PytestUnhandledThreadExceptionWarning")
+def test_crash_in_admission_fails_the_admitted_request(make_engine):
+    """A raise inside an admission's prefill (a sync the sanitizer's
+    guard refuses, say) reaches the request being admitted at once: it
+    has left the queue and holds no slot yet, and the crash net still
+    finishes it with the error, and the engine then refuses work."""
+    eng = make_engine()
+    boom = RuntimeError("injected admission crash")
+
+    def exploding(*a, **kw):
+        raise boom
+
+    eng._admit_monolithic = exploding
+    eng._admit_prefix = exploding
+    rng = np.random.default_rng(3)
+    stream = eng.submit(rng.integers(0, VOCAB, 4), 8)
+    t0 = time.monotonic()
+    with pytest.raises(RuntimeError, match="injected admission crash"):
+        stream.result(timeout=WAIT)
+    assert time.monotonic() - t0 < WAIT / 2
+    assert eng._admitting is None
+    deadline = time.monotonic() + 10
+    while not eng.closed and time.monotonic() < deadline:
+        time.sleep(0.02)
+    with pytest.raises(DecodeEngineClosedError):
+        eng.submit(rng.integers(0, VOCAB, 4), 2)
+
+
 def test_concurrent_submitters(models, engine):
     """Many threads streaming through one engine: every stream equals the
     JAX package's generate (no bleed between requests)."""

@@ -1,0 +1,15 @@
+import threading
+
+
+class Counter:
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.n = 0
+
+    def bump(self):
+        with self._lock:
+            self.n += 1
+
+    def reset(self):
+        with self._lock:
+            self.n = 0
