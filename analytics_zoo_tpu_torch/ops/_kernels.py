@@ -21,6 +21,13 @@ A wrapper checks device, dtype, shape and contiguity, allocates its
 outputs with ``torch.empty``, launches on the current CUDA stream, raises
 when the launch returns a CUDA error, and counts its launches, in all
 and by dtype (``launch_counts_by_dtype``: ``flash_fwd[bf16]``).
+
+The flash forward has two designs, chosen by shape (:func:`fwd_design`):
+``sm90`` (``csrc/flash_fwd_sm90.cu``: TMA and ``wgmma``) for every call
+whose rows and bases TMA takes and whose head dim is at most 128, and
+``base`` (``csrc/flash_fwd.cu``: ``mma.sync``) for the rest.  Its
+launches are also counted by design (``launch_counts_by_design``:
+``flash_fwd[bf16,sm90]``); ``launches`` sums both.
 """
 
 from __future__ import annotations
@@ -53,6 +60,8 @@ _TAIL = [_INT, _INT, _INT, _INT, ctypes.c_float, _INT, _INT, _VOID]
 _SIGNATURES = {
     # q, k, v, lens, o, lse | bh, sq, sk, d, scale, causal, dtype, stream
     "flash_fwd.cu": {"flash_fwd": [_VOID] * 6 + _TAIL},
+    # q, k, v, lens, o, lse | ...
+    "flash_fwd_sm90.cu": {"flash_fwd_sm90": [_VOID] * 6 + _TAIL},
     # q, k, v, do, lse, delta, lens, dq | ...
     # q, k, v, do, lse, delta, lens, dk, dv | ...
     "flash_bwd.cu": {"flash_bwd_dq": [_VOID] * 8 + _TAIL,
@@ -216,6 +225,22 @@ def build() -> None:
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _DTYPE_NAMES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 MAX_HEAD_DIM = 256
+#: the flash forward's designs: TMA and wgmma, and the mma.sync baseline
+FWD_DESIGNS = ("sm90", "base")
+SM90_MAX_HEAD_DIM = 128
+
+
+def fwd_design(dtype, d: int, strides, ptrs) -> str:
+    """The flash forward's design for a call: ``"sm90"`` where TMA and
+    wgmma take it -- head dim at most 128, every tensor's rows contiguous
+    16-byte multiples (``strides``: each of q, k, v's (bh, s, d) strides
+    in elements), every base (``ptrs``) 16-byte aligned -- else
+    ``"base"``."""
+    if (d <= SM90_MAX_HEAD_DIM and (d * dtype.itemsize) % 16 == 0
+            and all(st[-1] == 1 and st[-2] == d for st in strides)
+            and all(p % 16 == 0 for p in ptrs)):
+        return "sm90"
+    return "base"
 
 
 def _check_attention_args(name, q, k, v, lens, causal, rows=()):
@@ -282,33 +307,60 @@ def _ptr(t):
 
 class _Wrapper:
     """``launches`` counts the kernel launches made through a wrapper;
-    ``by_dtype`` splits them by the inputs' dtype."""
+    ``by_dtype`` splits them by the inputs' dtype, ``by_design`` (the
+    forward's) by dtype and design.  ``total_by_design`` counts the
+    forward's launches by design since import: no reset clears it, so a
+    caller can read it before and after a run that resets the others."""
 
     def __init__(self):
         self.launches = 0
         self.by_dtype = collections.Counter()
+        self.by_design = collections.Counter()
+        self.total_by_design = collections.Counter()
 
-    def _count(self, q):
+    def _count(self, q, design=None):
         self.launches += 1
         self.by_dtype[_DTYPE_NAMES[q.dtype]] += 1
+        if design is not None:
+            self.by_design[f"{_DTYPE_NAMES[q.dtype]},{design}"] += 1
+            self.total_by_design[design] += 1
 
 
 class FlashFwd(_Wrapper):
-    """Wrapper of ``flash_fwd`` (csrc/flash_fwd.cu)."""
+    """Wrapper of the flash forward: ``flash_fwd_sm90``
+    (csrc/flash_fwd_sm90.cu) or ``flash_fwd`` (csrc/flash_fwd.cu), as
+    :func:`fwd_design` chooses."""
 
     def __call__(self, q, k, v, lens, causal: bool, scale: float):
         """q (bh, sq, d), k/v (bh, sk, d) CUDA tensors of one dtype;
-        ``lens`` (bh,) f32 valid key counts or None.  Returns
-        (o (bh, sq, d) at the input dtype, lse (bh, sq) f32)."""
+        ``lens`` (bh,) f32 valid key counts or None.  Returns (o (bh, sq,
+        d) at the input dtype, lse (bh, sq) f32)."""
+        return self._run(None, q, k, v, lens, causal, scale)
+
+    def _run(self, design, q, k, v, lens, causal, scale):
+        """The call at a forced ``design`` (None: :func:`fwd_design`'s),
+        for the tests and chip_smoke that hold both designs to the plain
+        version: ``"base"`` runs the baseline on any shape, ``"sm90"``
+        raises on a shape that design does not take."""
         bh, sq, sk, d = _check_attention_args("flash_fwd", q, k, v, lens,
                                               causal)
-        fn = LIBRARY.build()["flash_fwd"]
+        chosen = fwd_design(q.dtype, d, (q.stride(), k.stride(),
+                                         v.stride()),
+                            (q.data_ptr(), k.data_ptr(), v.data_ptr()))
+        design = chosen if design is None else design
+        if design not in FWD_DESIGNS or (design == "sm90"
+                                         and chosen != "sm90"):
+            raise ValueError(f"flash_fwd: design {design!r} does not take "
+                             f"this call (head_dim {d}, {q.dtype}); "
+                             f"{chosen!r} does")
         o = torch.empty_like(q)
         lse = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
-        _launch("flash_fwd", fn, q, q.data_ptr(), k.data_ptr(),
-                v.data_ptr(), _ptr(lens), o.data_ptr(), lse.data_ptr(), bh,
-                sq, sk, d, float(scale), int(bool(causal)), _DTYPES[q.dtype])
-        self._count(q)
+        symbol = "flash_fwd_sm90" if design == "sm90" else "flash_fwd"
+        _launch(symbol, LIBRARY.build()[symbol], q, q.data_ptr(),
+                k.data_ptr(), v.data_ptr(), _ptr(lens), o.data_ptr(),
+                lse.data_ptr(), bh, sq, sk, d, float(scale),
+                int(bool(causal)), _DTYPES[q.dtype])
+        self._count(q, design)
         return o, lse
 
 
@@ -368,6 +420,7 @@ def reset_launch_counts():
     for kernel in KERNELS.values():
         kernel.launches = 0
         kernel.by_dtype.clear()
+        kernel.by_design.clear()
 
 
 def launch_counts() -> dict:
@@ -379,3 +432,10 @@ def launch_counts_by_dtype() -> dict:
     return {f"{name}[{dt}]": kernel.by_dtype[dt]
             for name, kernel in KERNELS.items()
             for dt in _DTYPE_NAMES.values()}
+
+
+def launch_counts_by_design() -> dict:
+    """``{"flash_fwd[bf16,sm90]": n, ...}``: the forward at both dtypes
+    and designs."""
+    return {f"flash_fwd[{dt},{design}]": flash_fwd.by_design[f"{dt},{design}"]
+            for dt in _DTYPE_NAMES.values() for design in FWD_DESIGNS}

@@ -6,8 +6,10 @@ implementations share one semantics:
 * ``naive_attention``: O(S^2) materialised scores; the test oracle.
 * ``blockwise_attention``: a loop over key blocks with an online softmax.
 * ``flash_attention``: :class:`FlashAttentionFunction`, whose forward
-  is the hand-written CUDA kernel ``csrc/flash_fwd.cu`` and whose
-  backward is the two kernels of ``csrc/flash_bwd.cu`` on a CUDA tensor;
+  is a hand-written CUDA kernel (``csrc/flash_fwd_sm90.cu`` or
+  ``csrc/flash_fwd.cu``, as ``_kernels.fwd_design`` picks by shape) and
+  whose backward is the two kernels of ``csrc/flash_bwd.cu`` on a CUDA
+  tensor;
   on a CPU tensor their plain versions (:func:`flash_attention_reference`,
   :func:`flash_bwd_dq_reference`, :func:`flash_bwd_dkv_reference`),
   which run the kernels' tile algorithms in torch (the role Pallas

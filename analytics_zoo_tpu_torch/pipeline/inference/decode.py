@@ -21,7 +21,11 @@ request never waits on a long neighbour.
   shared memory pool, and replayed; the captures happen in ``warmup``
   (or when the dispatcher starts, before any slot is live) and their
   count never moves with occupancy.
-  A capture that fails raises.  On the CPU the same Python bodies run
+  A capture that fails raises.  The cyclic garbage collector is off
+  while a plan captures, and plans capture one at a time in the process:
+  a collection there could free another engine's graphs, and destroying
+  a graph is not permitted on a capturing thread (it invalidates the
+  capture).  On the CPU the same Python bodies run
   eagerly.  No plan leaves a live allocation behind (every result is
   copied into a state tensor made before capture), which is what makes
   one pool safe for plans replayed in any order on one stream.
@@ -75,6 +79,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import gc
 import hashlib
 import queue
 import threading
@@ -94,6 +99,9 @@ from .serving import (_norm_device, available_devices, bucket_ladder,
                       module_twin)
 
 _M32 = 0xFFFFFFFF
+#: held by a plan while it captures with the cyclic collector off, on any
+#: engine's thread
+_CAPTURING = threading.Lock()
 
 
 def _mul32(x, c: int):
@@ -371,13 +379,23 @@ class _Plan:
 
     def build(self, pool, stream):
         """Warm the body on ``stream`` and capture it into ``pool``; a
-        failed capture raises."""
+        failed capture raises.  No automatic collection runs during the
+        capture (it could destroy an unreachable engine's graph there):
+        captures take turns, so one that ends cannot turn the collector
+        back on under another."""
         self.body()
         stream.synchronize()
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=pool, stream=stream,
-                              capture_error_mode="thread_local"):
-            self.body()
+        with _CAPTURING:
+            collecting = gc.isenabled()
+            gc.disable()
+            try:
+                with torch.cuda.graph(graph, pool=pool, stream=stream,
+                                      capture_error_mode="thread_local"):
+                    self.body()
+            finally:
+                if collecting:
+                    gc.enable()
         self.graph = graph
         self._host = [[torch.empty(t.shape, dtype=t.dtype,
                                    pin_memory=True) for t in self.outputs]

@@ -7,14 +7,20 @@ NVIDIA GPU.
 Phases (any failure makes the exit code non-zero):
 
 1. build: compile every CUDA kernel of the port from ``ops/csrc``, and
-   count the tensor-core MMA, ``cp.async``, ``ldmatrix`` and atomic
-   instructions of each kernel instantiation (every one must have the
-   first two and no atomics, and the forward ``ldmatrix``);
-2. kernels: hold each kernel (the flash forward, and the backward's dq
-   and dk/dv) against its plain PyTorch version on the card, at the
-   paths' shapes and at edge cases, and time the kernel, the plain
-   version and one PyTorch library call that computes the same function
-   (a yardstick only; the port never calls it);
+   count the tensor-core MMA, ``wgmma``, ``cp.async``, TMA, ``ldmatrix``
+   and atomic instructions of each kernel instantiation (none may have
+   atomics; the sm90 forward must have ``wgmma`` and TMA loads, every
+   other kernel ``mma.sync`` and ``cp.async``, the baseline forward
+   ``ldmatrix``);
+2. kernels: hold each kernel (the flash forward at both of its designs,
+   the sm90 one on TMA and ``wgmma`` and the ``mma.sync`` baseline, and
+   the backward's dq and dk/dv) against its plain PyTorch version on the
+   card, at the paths' shapes and at edge cases, every kernel launched
+   twice and equal bit for bit, and time the kernels (their device time,
+   replayed from a CUDA graph, and back-to-back calls from Python), the
+   plain version and one PyTorch library call that computes the same
+   function, timed the same two ways (a yardstick only; the port never
+   calls it);
 3. path: ``TransformerLM.generate`` at full width (12 layers, d_model 768,
    12 heads, vocab 32000; batch 8, prompt 512, 128 greedy tokens) from
    seeded random weights, with the kernel launch counts read around it,
@@ -342,6 +348,14 @@ an admission.  A new bucket in a guarded block raises
 ``.item()`` raises, and after both the sync mode is the entry one and
 no compile listener is left.  Rates with and without the guard.
 
+Every flash forward launch of the train, mixed, serve and sanitize
+phases (all at head dim 64) must run the sm90 design: the forward's
+running counts by design (``total_by_design``, which no reset clears),
+read before and after the phase, warm-ups and checks included, fail the
+phase if one went to the baseline.  The kernels line's launch counts by
+design are each phase's own run's, read after its own reset where its
+``launches`` are.
+
 ``python3 chip_smoke.py --phases train,resume`` runs only the named
 phases (after the build), for a short call.
 
@@ -350,9 +364,11 @@ The card's line, then ``resnet:``, ``detect:``, ``recommend:``,
 ``parallel:``, ``control:``, ``observe:``, ``shard:``, ``fleet:``,
 ``stream:``, ``interop:`` and ``sanitize:`` summary lines (each
 with the card's name and power limit) come near the end; the line
-before the last is a JSON object with each kernel's numbers; the last
-line is ``{"ok": true, "device": {...}}``.  ResNet-50, the registry,
-SSD, the recommenders, the text classifiers and the layer set reach
+before the last is a JSON object with each kernel's numbers (the flash
+forward's two designs as two entries, ``flash_fwd`` and
+``flash_fwd_base``); the last line is ``{"ok": true, "device":
+{...}}``.  ResNet-50, the registry, SSD, the recommenders, the text
+classifiers and the layer set reach
 none of the port's CUDA kernels (BatchNorm's closed form, NMS, the
 gathers and the recurrences are torch ops): their launch counts stand
 beside the other paths'.
@@ -555,13 +571,20 @@ SUMMARIES = {
               "traced_ratio", "card"),
 }
 KERNELS = {  # name -> (source, the TPU kernel it replaces)
-    "flash_fwd": ("analytics_zoo_tpu_torch/ops/csrc/flash_fwd.cu",
+    "flash_fwd": ("analytics_zoo_tpu_torch/ops/csrc/flash_fwd_sm90.cu",
                   "analytics_zoo_tpu/ops/attention.py:149"),
     "flash_bwd_dq": ("analytics_zoo_tpu_torch/ops/csrc/flash_bwd.cu",
                      "analytics_zoo_tpu/ops/attention.py:214"),
     "flash_bwd_dkv": ("analytics_zoo_tpu_torch/ops/csrc/flash_bwd.cu",
                       "analytics_zoo_tpu/ops/attention.py:265"),
 }
+#: the flash forward's designs (``_kernels.fwd_design``): the sm90 one runs
+#: every main-path launch (d = 64), the baseline every shape TMA or wgmma
+#: does not take
+FWD_SOURCES = {"sm90": KERNELS["flash_fwd"][0],
+               "base": "analytics_zoo_tpu_torch/ops/csrc/flash_fwd.cu"}
+#: the phases whose every flash_fwd launch (all d = 64) must be sm90's
+SM90_PHASES = ("train", "mixed", "serve", "sanitize")
 #: FLOP per valid (query, key) pair and head-dim element, per kernel:
 #: 2 per product, and 2, 3 or 4 products
 PRODUCTS = {"flash_fwd": 2, "flash_bwd_dq": 3, "flash_bwd_dkv": 4}
@@ -569,6 +592,22 @@ PRODUCTS = {"flash_fwd": 2, "flash_bwd_dq": 3, "flash_bwd_dkv": 4}
 
 def log(*a):
     print(*a, flush=True)
+
+
+def all_sm90(kernels, name, before):
+    """Whether every flash_fwd launch of a phase ran the sm90 design, and
+    at least one did: the forward's ``total_by_design`` (which no reset
+    clears) against ``before``, its value at the phase's start, so the
+    phase's warm-ups and checks count too."""
+    seen = {d: kernels.flash_fwd.total_by_design[d] - before.get(d, 0)
+            for d in kernels.FWD_DESIGNS}
+    log(f"{name}: flash_fwd launches by design over the whole phase "
+        f"{json.dumps(seen)}")
+    if seen["base"] or not seen["sm90"]:
+        log(f"{name}: FAIL {seen['base']} d = 64 flash_fwd launches went "
+            f"to the baseline, {seen['sm90']} to sm90")
+        return False
+    return True
 
 
 def cuda_ms(fn, reps):
@@ -580,6 +619,37 @@ def cuda_ms(fn, reps):
     start.record()
     for _ in range(reps):
         fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps, stream=None):
+    """The device time of one call of ``fn``: ``reps`` calls captured into
+    a CUDA graph (on ``stream``, else torch's capture stream), its replay
+    timed by CUDA events.  Unlike :func:`cuda_ms` it holds no host time:
+    a call whose launches take the host longer than the card takes to run
+    them reads the card's time, not the host's.  (A ``torch.profiler``
+    session would read the same and leave its tracer in the process,
+    slowing every later phase.)"""
+    import torch
+    fn()
+    side = stream or torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm off the capture's stream
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream,
+                          capture_error_mode="relaxed"):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
@@ -753,25 +823,31 @@ def case_inputs(torch, g, bh, sq, sk, d, dtype, lens_max):
     return q, k, v, do, lens
 
 
-def sdpa_backward_call(torch, q, k, v, do, lens, causal, scale):
+def sdpa_backward_call(torch, q, k, v, do, lens, causal, scale, stream):
     """(fn, backend): the library yardstick of the backward, autograd of
     scaled_dot_product_attention (:func:`sdpa_call`) from one saved
-    forward (retain_graph), timed apart from that forward."""
+    forward (retain_graph), timed apart from that forward.  The forward
+    runs on ``stream``, where autograd then runs the backward: a capture
+    on ``stream`` (``device_ms(fn, reps, stream)``) holds it."""
     qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
-    fwd, backend = sdpa_call(qs, ks, vs, lens, causal, scale)
-    out = fwd()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):  # every node of the forward, views too
+        fwd, backend = sdpa_call(qs, ks, vs, lens, causal, scale)
+        out = fwd()
+    torch.cuda.current_stream().wait_stream(stream)
     return (lambda: torch.autograd.grad(out, (qs, ks, vs), do[None],
                                         retain_graph=True)), backend
 
 
-SASS_OPS = ("HMMA", "LDGSTS", "LDSM", "ATOM", "RED")
+SASS_OPS = ("HMMA", "HGMMA", "LDGSTS", "UTMALDG", "LDSM", "ATOM", "RED")
 
 
 def sass_counts(kernels):
     """Per kernel instantiation of the built libraries, counts of the SASS
     instructions that show the design (``cuobjdump -sass``): HMMA
-    (tensor-core MMA), LDGSTS (cp.async), LDSM (ldmatrix), ATOM and RED
-    (atomics).  None where the toolkit has no cuobjdump."""
+    (mma.sync), HGMMA (wgmma), LDGSTS (cp.async), UTMALDG (TMA loads),
+    LDSM (ldmatrix), ATOM and RED (atomics).  None where the toolkit has
+    no cuobjdump."""
     tool = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     if not os.path.exists(tool):
@@ -782,9 +858,11 @@ def sass_counts(kernels):
                               text=True, timeout=300, check=True).stdout
         for line in text.splitlines():
             if "Function :" in line:
-                m = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv)_kernel)"
-                              r"I(f|13__nv_bfloat16)Li(\d+)E", line)
-                fn = (f"{m[1]}<{'f32' if m[2] == 'f' else 'bf16'},{m[3]}>"
+                m = re.search(r"(flash_(?:fwd|fwd_sm90|bwd_dq|bwd_dkv)"
+                              r"_kernel)I(f|13__nv_bfloat16)Li(\d+)E"
+                              r"(?:Li(\d+)E)?", line)
+                fn = (f"{m[1]}<{'f32' if m[2] == 'f' else 'bf16'},{m[3]}"
+                      f"{',' + m[4] if m[4] else ''}>"
                       if m else line.split("Function :")[1].strip())
                 counts[fn] = dict.fromkeys(SASS_OPS, 0)
                 continue
@@ -797,21 +875,50 @@ def sass_counts(kernels):
 
 def phase_kernels(torch, ops_attn, kernels):
     """Each kernel against its plain version, case by case: flash_fwd
-    against flash_attention_reference (o within TOL, lse within LSE_TOL),
+    against flash_attention_reference (o within TOL, lse within LSE_TOL)
+    at the design ``fwd_design`` picks and, where that is sm90, at the
+    baseline too, each forward launched twice and equal bit for bit;
     flash_bwd_dq and flash_bwd_dkv against flash_bwd_dq_reference and
     flash_bwd_dkv_reference (dq, dk, dv each within max|diff| / max|ref|
     <= TOL), dk = dv = 0 exactly past every length, and a second launch
-    of each backward kernel equal to the first, bit for bit."""
+    of each backward kernel equal to the first, bit for bit.  Timed cases
+    time the forward at each of its designs."""
     g = torch.Generator(device="cuda").manual_seed(0)
     rows, ok = [], True
+    diff = lambda a, b: float((a.double() - b.double()).abs().max())
+    rel = lambda a, b: diff(a, b) / max(float(b.double().abs().max()),
+                                        1e-30)
     for name, bh, sq, sk, d, dt, causal, lens_max, timed in CASES:
         q, k, v, do, lens = case_inputs(torch, g, bh, sq, sk, d, dt,
                                         lens_max)
         masked = lens is not None
         scale = d ** -0.5
-        o, lse = kernels.flash_fwd(q, k, v, lens, causal, scale)
         o_ref, lse_ref = ops_attn.flash_attention_reference(
             q, k, v, causal, scale, lens)
+        chosen = kernels.fwd_design(q.dtype, d, (q.stride(), k.stride(),
+                                                 v.stride()),
+                                    (q.data_ptr(), k.data_ptr(),
+                                     v.data_ptr()))
+        base = dict(case=name, dtype=dt, bh=bh, sq=sq, sk=sk, d=d,
+                    causal=causal, lens=masked)
+        fwd_rows, outs = [], {}
+        for design in dict.fromkeys((chosen, "base")):
+            o, lse = kernels.flash_fwd._run(design, q, k, v, lens, causal,
+                                            scale)
+            again = kernels.flash_fwd._run(design, q, k, v, lens, causal,
+                                           scale)
+            torch.cuda.synchronize()
+            outs[design] = (o, lse)
+            row = dict(base, kernel="flash_fwd", design=design,
+                       abs_err=diff(o, o_ref), err_lse=diff(lse, lse_ref),
+                       deterministic=bool(torch.equal(o, again[0])
+                                          and torch.equal(lse, again[1])))
+            row["ok"] = (row["abs_err"] <= TOL[dt]
+                         and row["err_lse"] <= LSE_TOL[dt]
+                         and row["deterministic"]
+                         and bool(torch.isfinite(o).all()))
+            fwd_rows.append(row)
+        o, lse = outs[chosen]
         delta = ops_attn._flash_delta(o, do)
         args = (q, k, v, do, lse, delta, lens, causal, scale)
         dq = kernels.flash_bwd_dq(*args)
@@ -822,16 +929,6 @@ def phase_kernels(torch, ops_attn, kernels):
         dq_ref = ops_attn.flash_bwd_dq_reference(*args)
         dk_ref, dv_ref = ops_attn.flash_bwd_dkv_reference(*args)
         torch.cuda.synchronize()
-        diff = lambda a, b: float((a.double() - b.double()).abs().max())
-        rel = lambda a, b: diff(a, b) / max(float(b.double().abs().max()),
-                                            1e-30)
-        base = dict(case=name, dtype=dt, bh=bh, sq=sq, sk=sk, d=d,
-                    causal=causal, lens=masked)
-        fwd = dict(base, kernel="flash_fwd", abs_err=diff(o, o_ref),
-                   err_lse=diff(lse, lse_ref))
-        fwd["ok"] = (fwd["abs_err"] <= TOL[dt]
-                     and fwd["err_lse"] <= LSE_TOL[dt]
-                     and bool(torch.isfinite(o).all()))
         dq_row = dict(base, kernel="flash_bwd_dq", err=rel(dq, dq_ref),
                       abs_err=diff(dq, dq_ref), deterministic=deterministic)
         dq_row["ok"] = dq_row["err"] <= TOL[dt] and bool(
@@ -852,31 +949,45 @@ def phase_kernels(torch, ops_attn, kernels):
             dkv_row["zero_past_lens"] = zero
             dkv_row["ok"] &= zero
         if timed:
-            fwd_fn = lambda: kernels.flash_fwd(q, k, v, lens, causal, scale)
+            # ms: the kernels' device time (device_ms, a replayed CUDA
+            # graph); eager_ms: back-to-back calls from Python, the host's
+            # launch path included
             lib_fn, lib_backend = sdpa_call(q, k, v, lens, causal, scale)
-            fwd.update(
-                ms=cuda_ms(fwd_fn, 20),
+            common = dict(
                 plain_ms=cuda_ms(lambda: ops_attn.flash_attention_reference(
                     q, k, v, causal, scale, lens), 3),
-                library_ms=cuda_ms(lib_fn, 20), library_backend=lib_backend)
+                library_ms=device_ms(lib_fn, 20),
+                library_eager_ms=cuda_ms(lib_fn, 20),
+                library_backend=lib_backend)
+            for row in fwd_rows:
+                fn = (lambda design=row["design"]: kernels.flash_fwd._run(
+                    design, q, k, v, lens, causal, scale))
+                row.update(common, ms=device_ms(fn, 20),
+                           eager_ms=cuda_ms(fn, 20))
             if sq == TRAIN_SEQ:
+                # the backward's yardstick: autograd of SDPA, device time
+                # as the kernels', its eager time beside it
+                side = torch.cuda.Stream()
                 lib_fn, lib_backend = sdpa_backward_call(
-                    torch, q, k, v, do, lens, causal, scale)
-                lib_ms = cuda_ms(lib_fn, 10)
+                    torch, q, k, v, do, lens, causal, scale, side)
+                lib = dict(library_ms=device_ms(lib_fn, 10, side),
+                           library_eager_ms=cuda_ms(lib_fn, 10),
+                           library_backend=lib_backend)
                 for row, kern, ref in (
                         (dq_row, kernels.flash_bwd_dq,
                          ops_attn.flash_bwd_dq_reference),
                         (dkv_row, kernels.flash_bwd_dkv,
                          ops_attn.flash_bwd_dkv_reference)):
-                    row.update(ms=cuda_ms(lambda: kern(*args), 10),
+                    row.update(ms=device_ms(lambda: kern(*args), 10),
+                               eager_ms=cuda_ms(lambda: kern(*args), 10),
                                plain_ms=cuda_ms(lambda: ref(*args), 2),
-                               library_ms=lib_ms, library_backend=lib_backend)
-            for row in (fwd, dq_row, dkv_row):
+                               **lib)
+            for row in (*fwd_rows, dq_row, dkv_row):
                 if "ms" in row:
                     row.update(attention_bound(q, k, lens, causal,
                                                row["kernel"]))
                     row["bound_share"] = row["bound_ms"] / row["ms"]
-        for row in (fwd, dq_row, dkv_row):
+        for row in (*fwd_rows, dq_row, dkv_row):
             ok &= row["ok"]
             rows.append(row)
             log("kernel", json.dumps(row))
@@ -1240,6 +1351,7 @@ def serve_checks(torch, TransformerLM, keras, kernels, inference,
         outs, wall, ttft, itl, tpot = serve_stream(handle.generate_stream,
                                                    prompts, news)
         launches = kernels.launch_counts()
+        by_design = kernels.launch_counts_by_design()
         after = engine.stats()
         admitted = after["admitted"] - before["admitted"]
         computed = admitted - (after["prefix_hits"] - before["prefix_hits"])
@@ -1256,7 +1368,8 @@ def serve_checks(torch, TransformerLM, keras, kernels, inference,
         stats.update(
             oracle=dict(checked=checked, ties=ties, mismatched=mismatched),
             admitted=admitted, flash_fwd_launches=launches["flash_fwd"],
-            launches=launches, captures=after["captures"],
+            launches=launches, launches_by_design=by_design,
+            captures=after["captures"],
             captures_at_warmup=before["captures"], warmup_s=warm_s,
             steps=after["steps"] - before["steps"],
             fused_dispatches=(after["fused_dispatches"]
@@ -1438,11 +1551,13 @@ def phase_train(torch, TransformerLM, kernels, objectives):
         step_s.append(time.perf_counter() - t)
         losses += hist["loss"]
     counts = kernels.launch_counts()
+    by_design = kernels.launch_counts_by_design()
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     step = statistics.median(step_s)
     stats = dict(step_ms=step * 1e3, step_ms_all=[t * 1e3 for t in step_s],
                  tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / step,
                  peak_gib=peak_gib, losses=losses, launches=counts,
+                 launches_by_design=by_design,
                  launches_per_step={n: c / TRAIN_STEPS
                                     for n, c in counts.items()})
     log("train:", json.dumps(stats))
@@ -3941,6 +4056,7 @@ def phase_mixed(torch, TransformerLM, kernels, f32_losses):
         step_s.append(time.perf_counter() - t)
         losses += hist["loss"]
     counts = kernels.launch_counts_by_dtype()
+    by_design = kernels.launch_counts_by_design()
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     adam = model.trainer.state.opt_state.states[0]
     f32_state = (all(p.dtype == torch.float32 for p in model.parameters())
@@ -3951,7 +4067,7 @@ def phase_mixed(torch, TransformerLM, kernels, f32_losses):
     stats = dict(step_ms=step * 1e3, step_ms_all=[t * 1e3 for t in step_s],
                  tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / step,
                  peak_gib=peak_gib, losses=losses, f32_losses=f32_losses,
-                 launches=counts,
+                 launches=counts, launches_by_design=by_design,
                  launches_per_step={n: c / TRAIN_STEPS
                                     for n, c in counts.items()},
                  f32_master_weights_and_moments=f32_state,
@@ -4724,8 +4840,11 @@ def observe_fits(torch, TransformerLM, kernels, tmp):
                      if e.get("cat") == "kernel"}
         stats["profile_trace_files"] = len(found)
         stats["profile_kernel_names"] = len(names)
+        # the forward's kernel is flash_fwd_sm90_kernel at d = 64
         stats["profile_hand_kernels"] = {
-            k: sum(1 for n in names if f"{k}_kernel" in n) for k in KERNELS}
+            k: sum(1 for n in names
+                   if f"{k}_kernel" in n or f"{k}_sm90_kernel" in n)
+            for k in KERNELS}
         if len(found) != 1 or not all(stats["profile_hand_kernels"]
                                       .values()):
             log(f"observe: FAIL profiler trace files {found}, hand kernels "
@@ -5781,6 +5900,8 @@ def shard_store(tmp):
     invalid, rebuilds and gives the same bits; ``stat`` lists the
     entries with their tag.  Returns (checks, stats)."""
     import numpy as np
+    from analytics_zoo_tpu_torch.ops import _kernels
+    libs = len(_kernels._SIGNATURES)  # one library a source
     store = os.path.join(tmp, "store")
     shutil.rmtree(store, ignore_errors=True)
     checks, stats = {}, {}
@@ -5809,19 +5930,19 @@ def shard_store(tmp):
         return all(np.array_equal(a[k], b[k]) for k in ("y", "o", "lse"))
 
     checks["store_cold_builds_and_writes"] = (
-        cold["compiles"] == 1 and cold["store"]["write"] == 2
+        cold["compiles"] == 1 and cold["store"]["write"] == libs
         and cold["launches"]["flash_fwd"] > 0)
     checks["store_warm_runs_no_nvcc"] = (
-        warm["compiles"] == 0 and warm["store"]["hit"] == 2
+        warm["compiles"] == 0 and warm["store"]["hit"] == libs
         and warm["store"]["write"] == 0)
     checks["store_warm_same_bits"] = same(a_cold, a_warm)
     checks["store_corrupt_invalid_rebuilt_same_bits"] = (
         flipped is not None and bad["store"]["invalid"] == 1
         and bad["compile_keys"] == ["nvcc:flash_fwd.cu"]
-        and bad["store"]["hit"] == 1 and same(a_cold, a_bad))
+        and bad["store"]["hit"] == libs - 1 and same(a_cold, a_bad))
     checks["store_stat_lists_tagged_entries"] = (
-        stat.returncode == 0 and "2 entries" in stat.stdout
-        and stat.stdout.count(SHARD["tag"]) == 2)
+        stat.returncode == 0 and f"{libs} entries" in stat.stdout
+        and stat.stdout.count(SHARD["tag"]) == libs)
     stats.update(
         cold_build_s=cold["compile_s"], cold_first_answer_s=cold[
             "first_answer_s"], warm_first_answer_s=warm["first_answer_s"],
@@ -7043,14 +7164,15 @@ def sanitize_predict(handle, kernels, sanitize, closed_loop, xs):
         outs, on_s, err_on = closed_loop(handle.predict, xs,
                                          SANITIZE["threads"])
     launches = kernels.launch_counts()["flash_fwd"]
+    by_design = kernels.launch_counts_by_design()
     mem.append(dict(host_memory(), replies_bytes=sum(
         o.nbytes for o in outs if o is not None)))
     good = not err_on and all(
         o is not None and o.shape == x.shape + (FULL["vocab_size"],)
         and np.isfinite(o).all() and not torch.from_numpy(o).is_pinned()
         for o, x in zip(outs, xs))
-    return (len(xs) / off_s, len(xs) / on_s, rep, launches, good,
-            err_off + err_on, mem)
+    return (len(xs) / off_s, len(xs) / on_s, rep, launches, by_design,
+            good, err_off + err_on, mem)
 
 
 def phase_sanitize(torch, TransformerLM, kernels, inference):
@@ -7062,6 +7184,7 @@ def phase_sanitize(torch, TransformerLM, kernels, inference):
     raises ``RecompileDetected`` naming ``signature_build``, an injected
     ``.item()`` raises, and the sync mode and the listener are gone
     after."""
+    import collections
     import gc
     import numpy as np
     from analytics_zoo_tpu_torch.observability import profile
@@ -7087,14 +7210,15 @@ def phase_sanitize(torch, TransformerLM, kernels, inference):
             supported_concurrent_num=S["threads"],
             max_batch_size=S["max_batch"], coalescing=True,
             replicas=["cuda:0", "cuda:0"])}
-    launches = {}
+    launches, by_design = {}, collections.Counter()
     try:
         for name, h in handles.items():
             h.load_keras_net(model)
             h.warmup((S["seq"],), np.int32)
-            off, on, rep, n, good, errors, mem = sanitize_predict(
+            off, on, rep, n, designs, good, errors, mem = sanitize_predict(
                 h, kernels, sanitize, closed_loop, xs)
             launches[f"predict_{name}"] = n
+            by_design.update(designs)
             stats[f"predict_{name}"] = dict(
                 requests_per_s_unsanitized=off, requests_per_s=on,
                 compiles=rep.by_kind, flash_fwd_launches=n, errors=errors,
@@ -7127,6 +7251,7 @@ def phase_sanitize(torch, TransformerLM, kernels, inference):
                           "slots": engine.stats()["slots_active"]}) as rep:
             outs, tps_on = decode_window()
         flash = kernels.launch_counts()["flash_fwd"]
+        by_design.update(kernels.launch_counts_by_design())
         after = engine.stats()
         admitted = after["admitted"] - before["admitted"]
         launches["decode"] = flash
@@ -7175,6 +7300,7 @@ def phase_sanitize(torch, TransformerLM, kernels, inference):
     checks["sync_mode_restored"] = stats["sync_mode"]["after"] == mode0
     checks["listener_gone"] = profile.compile_listeners() == ()
     stats["launches"] = {"flash_fwd": sum(launches.values())}
+    stats["launches_by_design"] = dict(by_design)
     stats["launches_by_window"] = launches
     stats["checks"] = checks
     stats["card"] = smi_card()
@@ -7230,13 +7356,16 @@ def main() -> int:
         log(f"build: FAIL {e}")
         return 1
     log("build: sass", json.dumps(sass))
-    # the kernels' design: tensor-core MMA and cp.async in every
-    # instantiation, no atomics, and ldmatrix in the forward (its Q.K^T
-    # operands at both dtypes, P.V's V at bf16)
+    # the kernels' design: no atomics anywhere; the sm90 forward on wgmma
+    # and TMA; the mma.sync kernels on tensor-core MMA and cp.async, the
+    # baseline forward with ldmatrix (its Q.K^T operands at both dtypes,
+    # P.V's V at bf16)
     bad = [fn for fn, c in (sass or {}).items() if "_kernel<" in fn and (
-        not c["HMMA"] or not c["LDGSTS"] or c["ATOM"] or c["RED"]
-        or ("fwd" in fn and not c["LDSM"]))]
-    missing = [k for k in KERNELS
+        c["ATOM"] or c["RED"] or (
+            (not c["HGMMA"] or not c["UTMALDG"]) if "sm90" in fn else (
+                not c["HMMA"] or not c["LDGSTS"]
+                or ("fwd" in fn and not c["LDSM"]))))]
+    missing = [k for k in (*KERNELS, "flash_fwd_sm90")
                if sass is not None and not any(f"{k}_kernel<" in fn
                                                for fn in sass)]
     if bad or missing:
@@ -7294,8 +7423,11 @@ def main() -> int:
     results = {}
     for name, run in phases:
         t = time.perf_counter()
+        totals = dict(kernels.flash_fwd.total_by_design)
         try:
             ok, results[name] = run()
+            if name in SM90_PHASES:
+                ok &= all_sm90(kernels, name, totals)
         except Exception as e:  # a phase's crash fails that phase only
             import traceback
             traceback.print_exc()
@@ -7352,31 +7484,42 @@ def main() -> int:
     path_launches["sanitize"] = (results.get("sanitize") or {}).get(
         "launches") or {}
 
-    def timed_row(name, case, dtype, sq=None):
+    def timed_row(name, case, dtype, sq=None, design="sm90"):
         row = next((r for r in results.get("kernels") or []
                     if r["kernel"] == name and r["case"] == case
                     and r["dtype"] == dtype and r.get("ms") is not None
-                    and sq in (None, r["sq"])), None)
+                    and sq in (None, r["sq"])
+                    and r.get("design", design) == design), None)
         if row is None:
             return {}
         return dict(max_abs_err=row["abs_err"], ms=row["ms"],
+                    eager_ms=row["eager_ms"],
                     plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
                     bound_by=row["bound_by"],
                     bound_f32_cuda_ms=row["bound_f32_cuda_ms"],
                     library_ms=row["library_ms"],
+                    library_eager_ms=row["library_eager_ms"],
                     library_backend=row["library_backend"],
                     shape=[row["bh"], row["sq"], row["d"]], dtype=dtype)
 
-    def row_at(name, case, bh):
+    def row_at(name, case, bh, design="sm90"):
         row = next((r for r in results.get("kernels") or []
                     if r["kernel"] == name and r["case"] == case
-                    and r["bh"] == bh and r.get("ms") is not None), None)
+                    and r["bh"] == bh and r.get("ms") is not None
+                    and r.get("design", design) == design), None)
         return {} if row is None else dict(
             max_abs_err=row["abs_err"], ms=row["ms"],
+            eager_ms=row["eager_ms"],
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"],
+            library_eager_ms=row["library_eager_ms"],
             library_backend=row["library_backend"],
             shape=[row["bh"], row["sq"], row["d"]])
+
+    # the forward's launches by design in each checked phase's own run
+    # (read where its launches are, after its own reset)
+    designs = {p: (results.get(p) or {}).get("launches_by_design") or {}
+               for p in SM90_PHASES}
 
     entries = []
     for name, (source, replaces) in KERNELS.items():
@@ -7430,7 +7573,37 @@ def main() -> int:
             entry["fleet_predict"] = [
                 r for r in (row_at(name, "fleet predict", bh)
                             for bh in (12, 24)) if r]
+            entry["design"] = "sm90"
+            entry["launches"] = designs["mixed"].get("flash_fwd[bf16,sm90]",
+                                                     0)
+            entry["launches_by_design"] = designs
         entries.append(entry)
+        if name == "flash_fwd":
+            # the baseline design, timed at the same shapes in this run;
+            # the main path's d = 64 launches run none of it
+            base = {"name": "flash_fwd_base", "route": "cuda",
+                    "source": FWD_SOURCES["base"], "replaces": replaces,
+                    "design": "base",
+                    "launches": designs["mixed"].get("flash_fwd[bf16,base]",
+                                                     0),
+                    "launches_by_path": {
+                        p: sum(n for k, n in designs[p].items()
+                               if k.endswith(",base]"))
+                        for p in SM90_PHASES}}
+            base.update(timed_row(name, "mixed", "bfloat16",
+                                  design="base"))
+            base["f32"] = timed_row(name, "train", "float32", design="base")
+            base["bf16_batch8"] = timed_row(name, "train", "bfloat16",
+                                            design="base")
+            base["serve"] = [timed_row(name, "serve admit", "float32", s,
+                                       design="base")
+                             for s in SERVE["buckets"]]
+            base["shard_predict"] = timed_row(name, "shard predict",
+                                              "float32", design="base")
+            base["fleet_predict"] = [
+                r for r in (row_at(name, "fleet predict", bh, "base")
+                            for bh in (12, 24)) if r]
+            entries.append(base)
     log(json.dumps({"kernels": entries}))
     if failed:
         log(f"chip_smoke: FAILED phases {failed}")

@@ -66,8 +66,8 @@ CONV = re.compile(r"conv|fprop|dgrad|wgrad", re.IGNORECASE)
 
 
 def kind(name: str) -> str:
-    for k in FLASH:
-        if f"{k}_kernel" in name:
+    for k in FLASH:  # the forward's kernel is flash_fwd_sm90_kernel at d 64
+        if f"{k}_kernel" in name or f"{k}_sm90_kernel" in name:
             return k
     if CONV.search(name):
         return "conv"

@@ -9,7 +9,9 @@ tests use the same).  The CUDA kernel itself is held against the plain
 version only where a card is present, in ``tests/test_torch_cuda.py``.
 """
 
+import collections
 import importlib
+import inspect
 import shutil
 import subprocess
 
@@ -259,6 +261,7 @@ def test_kernel_module_import_builds_nothing(monkeypatch):
     assert out.shape == q.shape
     assert mod.launch_counts() == {"flash_fwd": 0, "flash_bwd_dq": 0,
                                    "flash_bwd_dkv": 0}
+    assert not any(mod.launch_counts_by_design().values())
     assert mod.LIBRARY._fns is None
     with pytest.raises(RuntimeError, match="nvcc not found"):
         mod._nvcc()
@@ -290,8 +293,9 @@ def test_flash_supports_predicate(causal, sq, sk, runs):
     assert _kernels.MAX_HEAD_DIM == 256
 
 
-@pytest.mark.parametrize("edited", ["flash_fwd.cu", "flash_bwd.cu",
-                                    "flash_mma.cuh", "new_header.cuh"])
+@pytest.mark.parametrize("edited", ["flash_fwd.cu", "flash_fwd_sm90.cu",
+                                    "flash_bwd.cu", "flash_mma.cuh",
+                                    "new_header.cuh"])
 def test_build_dir_hashes_every_source_and_header(tmp_path, monkeypatch,
                                                   edited):
     """The build directory changes with any csrc/*.cu or *.cuh file, so an
@@ -310,3 +314,111 @@ def test_build_dir_hashes_every_source_and_header(tmp_path, monkeypatch,
     else:
         path.write_bytes(old)
     assert _kernels._build_dir() == before
+
+
+def _sm90_takes(dtype, d):
+    """TMA and wgmma take rows of 16-byte multiples up to d = 128."""
+    item = 4 if dtype == torch.float32 else 2
+    return d <= 128 and (d * item) % 16 == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [16, 20, 37, 64, 72, 128, 256])
+@pytest.mark.parametrize("layout", ["contiguous", "base_off_by_one",
+                                    "padded_rows"])
+def test_fwd_design_rule(dtype, d, layout):
+    """The forward's design is a plain function of dtype, head dim,
+    strides and base alignment: ``sm90`` where TMA and wgmma take the call
+    (16-byte-multiple contiguous rows, 16-byte-aligned bases, d <= 128),
+    the ``base`` kernel otherwise -- a base one element off, or rows
+    padded past d, go to the baseline at every d."""
+    item = 4 if dtype == torch.float32 else 2
+    s = 40
+    strides = [(s * d, d, 1)] * 3
+    ptrs = [0, 4096, 1 << 20]
+    if layout == "base_off_by_one":
+        ptrs[1] += item
+    elif layout == "padded_rows":
+        strides[2] = (s * (d + 1), d + 1, 1)
+    want = "sm90" if layout == "contiguous" and _sm90_takes(dtype, d) \
+        else "base"
+    assert _kernels.fwd_design(dtype, d, strides, ptrs) == want
+    assert want in _kernels.FWD_DESIGNS
+
+
+def test_fwd_design_takes_every_main_path_launch():
+    """Every flash forward of the main path is d = 64 on contiguous torch
+    allocations: the sm90 design at both dtypes, a base one row further on
+    too (64 elements are 16-byte multiples)."""
+    for dtype in (torch.float32, torch.bfloat16):
+        q = torch.zeros((12, 640, 64), dtype=dtype)
+        ptr = q.data_ptr() - q.data_ptr() % 16
+        strides = [q.stride()] * 3
+        assert _kernels.fwd_design(dtype, 64, strides, [ptr] * 3) == "sm90"
+        row = 64 * q.element_size()
+        assert _kernels.fwd_design(dtype, 64, strides,
+                                   [ptr + row] * 3) == "sm90"
+
+
+def test_signatures_name_the_sm90_forward():
+    """The sm90 forward is a source of its own with its own C symbol,
+    taking what the baseline takes (q, k, v, lens, o, lse and the common
+    tail); the baseline keeps its symbol, and the backward sources are
+    unchanged."""
+    sig = _kernels._SIGNATURES
+    assert set(sig) == {"flash_fwd.cu", "flash_fwd_sm90.cu", "flash_bwd.cu"}
+    assert sig["flash_fwd_sm90.cu"] == {
+        "flash_fwd_sm90": [_kernels._VOID] * 6 + _kernels._TAIL}
+    assert sig["flash_fwd.cu"] == {
+        "flash_fwd": [_kernels._VOID] * 6 + _kernels._TAIL}
+    assert set(sig["flash_bwd.cu"]) == {"flash_bwd_dq", "flash_bwd_dkv"}
+    for name in sig:
+        assert (_kernels._CSRC / name).exists()
+
+
+def test_launch_counts_by_design_sum_to_the_launches():
+    """A forward launch counts once in ``launches`` and once under its
+    dtype and design; a reset clears both."""
+    _kernels.reset_launch_counts()
+    try:
+        for dtype, design in ((torch.bfloat16, "sm90"),
+                              (torch.bfloat16, "sm90"),
+                              (torch.float32, "base")):
+            _kernels.flash_fwd._count(torch.zeros(1, dtype=dtype), design)
+        by_design = _kernels.launch_counts_by_design()
+        assert by_design == {"flash_fwd[f32,sm90]": 0,
+                             "flash_fwd[f32,base]": 1,
+                             "flash_fwd[bf16,sm90]": 2,
+                             "flash_fwd[bf16,base]": 0}
+        assert _kernels.launch_counts()["flash_fwd"] == sum(
+            by_design.values())
+        assert _kernels.launch_counts_by_dtype()["flash_fwd[bf16]"] == 2
+    finally:
+        _kernels.reset_launch_counts()
+    assert not any(_kernels.launch_counts_by_design().values())
+
+
+def test_launch_totals_by_design_outlive_a_reset():
+    """``total_by_design`` counts the forward's launches by design since
+    import: a reset clears the other counts and leaves it, so a run that
+    resets on its own is read from before it and after it."""
+    saved = collections.Counter(_kernels.flash_fwd.total_by_design)
+    try:
+        _kernels.flash_fwd._count(torch.zeros(1, dtype=torch.bfloat16),
+                                  "sm90")
+        _kernels.reset_launch_counts()
+        _kernels.flash_fwd._count(torch.zeros(1), "base")
+        _kernels.flash_fwd._count(torch.zeros(1), "sm90")
+        assert _kernels.launch_counts()["flash_fwd"] == 2
+        grown = _kernels.flash_fwd.total_by_design - saved
+        assert grown == collections.Counter(sm90=2, base=1)
+    finally:
+        _kernels.reset_launch_counts()
+        _kernels.flash_fwd.total_by_design = saved
+
+
+def test_forward_call_takes_no_design():
+    """The forward's design is chosen by shape, never asked for: the
+    public call takes the attention arguments only."""
+    params = inspect.signature(_kernels.flash_fwd.__call__).parameters
+    assert list(params) == ["q", "k", "v", "lens", "causal", "scale"]

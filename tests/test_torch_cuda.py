@@ -91,29 +91,114 @@ def cuda():
     return torch.device("cuda")
 
 
+def design_key(dtype, design):
+    return (f"flash_fwd[{'f32' if dtype == torch.float32 else 'bf16'},"
+            f"{design}]")
+
+
+def forward_checked(q, k, v, lens, causal, scale, design=None):
+    """One flash_fwd launch held to its plain version: o within 1e-4
+    (f32) or 2e-2 (bf16), lse within LSE_TOL.  Returns (o, lse, the
+    design that ran, read from the counts by design)."""
+    before = _kernels.launch_counts_by_design()
+    launches = _kernels.flash_fwd.launches
+    o, lse = _kernels.flash_fwd._run(design, q, k, v, lens, causal, scale)
+    o_ref, lse_ref = tattn.flash_attention_reference(q, k, v, causal, scale,
+                                                     lens)
+    torch.cuda.synchronize()
+    after = _kernels.launch_counts_by_design()
+    ran = [key for key in after if after[key] == before[key] + 1]
+    assert len(ran) == 1 and _kernels.flash_fwd.launches == launches + 1
+    tol = 1e-4 if q.dtype == torch.float32 else 2e-2
+    close(o.float().cpu(), o_ref.float().cpu(), rtol=0, atol=tol)
+    close(lse.cpu(), lse_ref.cpu(), rtol=0, atol=LSE_TOL[q.dtype])
+    return o, lse, ran[0]
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("design", ["sm90", "base"])
 @pytest.mark.parametrize("dtype,causal,sq,sk,masked", [
     (torch.float32, True, 512, 512, False),
     (torch.float32, False, 200, 777, True),
     (torch.bfloat16, True, 37, 37, False),
 ])
-def test_cuda_kernel_matches_plain(cuda, dtype, causal, sq, sk, masked):
-    """The CUDA kernel against its plain version on the card: o within
-    1e-4 (f32) or 2e-2 (bf16), lse within 1e-5 (f32) or 1e-4 (bf16)."""
+def test_cuda_kernel_matches_plain(cuda, dtype, causal, sq, sk, masked,
+                                   design):
+    """The CUDA kernel, at each design of the forward, against its plain
+    version on the card: o within 1e-4 (f32) or 2e-2 (bf16), lse within
+    1e-5 (f32) or 1e-4 (bf16); the counts by design show which ran."""
     g = torch.Generator(device=cuda).manual_seed(0)
     q, k, v = (torch.randn((8, s, 64), generator=g, device=cuda).to(dtype)
                for s in (sq, sk, sk))
     lens = (torch.randint(1, sk + 1, (8,), generator=g, device=cuda).float()
             if masked else None)
-    before = _kernels.flash_fwd.launches
-    o, lse = _kernels.flash_fwd(q, k, v, lens, causal, 0.125)
-    o_ref, lse_ref = tattn.flash_attention_reference(q, k, v, causal, 0.125,
-                                                     lens)
+    _, _, ran = forward_checked(q, k, v, lens, causal, 0.125, design)
+    assert ran == design_key(dtype, design)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,causal,sq,sk,lens_at", [
+    # lengths no multiple of the 64- and 128-row tiles
+    (torch.float32, True, 200, 200, None),
+    (torch.bfloat16, False, 130, 333, None),
+    (torch.bfloat16, True, 255, 255, None),
+    # lengths that cut a key tile, and whole tiles past them
+    (torch.bfloat16, False, 256, 300, (1, 63, 64, 65, 127, 129, 200, 300)),
+    (torch.float32, False, 96, 257, (2, 31, 32, 33, 64, 97, 128, 257)),
+    # cross causal: sk != sq
+    (torch.float32, True, 63, 129, None),
+    (torch.bfloat16, True, 100, 700, (700, 650, 600, 500, 400, 300, 200,
+                                      100)),
+    (torch.float32, True, 1, 300, None),
+])
+def test_cuda_forward_sm90_at_tma_edges(cuda, dtype, causal, sq, sk,
+                                        lens_at):
+    """The sm90 forward where TMA's zero fill replaces the edge masking:
+    ragged query and key lengths, lengths cutting a tile, cross causal;
+    within its tolerances and chosen by the design rule (d = 64)."""
+    g = torch.Generator(device=cuda).manual_seed(sq + sk)
+    q, k, v = (torch.randn((8, s, 64), generator=g, device=cuda).to(dtype)
+               for s in (sq, sk, sk))
+    lens = (None if lens_at is None else
+            torch.tensor(lens_at, dtype=torch.float32, device=cuda))
+    _, _, ran = forward_checked(q, k, v, lens, causal, 0.125)
+    assert ran == design_key(dtype, "sm90")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_forward_design_follows_the_base_pointer(cuda, dtype):
+    """Inputs that start one row into a buffer keep 16-byte-aligned bases
+    at d = 64 and run sm90; one element in, they run the baseline; both
+    within the tolerances."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    bh, s, d = 8, 130, 64
+    flat = [torch.randn(bh * s * d + d, generator=g, device=cuda).to(dtype)
+            for _ in range(3)]
+    for offset, design in ((d, "sm90"), (1, "base")):
+        q, k, v = (t[offset:offset + bh * s * d].view(bh, s, d)
+                   for t in flat)
+        _, _, ran = forward_checked(q, k, v, None, True, d ** -0.5)
+        assert ran == design_key(dtype, design)
+    with pytest.raises(ValueError, match="does not take"):
+        _kernels.flash_fwd._run("sm90", q, k, v, None, True, d ** -0.5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("design", ["sm90", "base"])
+def test_cuda_forward_launches_agree_bit_for_bit(cuda, dtype, design):
+    """Two launches of the forward on the same inputs give the same o and
+    lse bit for bit (no split over keys, no atomics), at a training-like
+    shape with lengths."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    q, k, v = (torch.randn((24, 1024, 64), generator=g,
+                           device=cuda).to(dtype) for _ in range(3))
+    lens = torch.randint(1, 1025, (24,), generator=g, device=cuda).float()
+    first = _kernels.flash_fwd._run(design, q, k, v, lens, True, 0.125)
+    second = _kernels.flash_fwd._run(design, q, k, v, lens, True, 0.125)
     torch.cuda.synchronize()
-    assert _kernels.flash_fwd.launches == before + 1
-    tol = 1e-4 if dtype == torch.float32 else 2e-2
-    close(o.float().cpu(), o_ref.float().cpu(), rtol=0, atol=tol)
-    close(lse.cpu(), lse_ref.cpu(), rtol=0, atol=LSE_TOL[dtype])
+    assert all(map(torch.equal, first, second))
 
 
 #: the forward's lse, which both backward kernels replay p from
@@ -195,15 +280,17 @@ def test_cuda_backward_kernels_match_plain(cuda, dtype, causal, sq, sk,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("design", ["sm90", "base"])
 @pytest.mark.parametrize("d", [64, 128])
-def test_cuda_kernels_sum_long_walks_without_bias(cuda, d):
+def test_cuda_kernels_sum_long_walks_without_bias(cuda, d, design):
     """At 2,048 causal keys whose keys and values share a large mean (as
-    deep layers' do), the kernels' sums over the walk stay unbiased: o
-    within 5e-6 of exact attention's largest entry, dq, dk and dv within
-    5e-5 of theirs, and dk's sum over keys (exactly 0) within 5e-4 of
-    dk's largest entry.  The tensor core cuts every sum it writes back
-    towards zero; summed into c over the whole walk, those cuts put o
-    ~3e-5 off and dk's key sum ~5e-3 off on these inputs."""
+    deep layers' do), the kernels' sums over the walk stay unbiased, with
+    the forward at each design: o within 5e-6 of exact attention's
+    largest entry, dq, dk and dv within 5e-5 of theirs, and dk's sum over
+    keys (exactly 0) within 5e-4 of dk's largest entry.  The tensor core
+    cuts every sum it writes back towards zero; summed into c over the
+    whole walk, those cuts put o ~3e-5 off and dk's key sum ~5e-3 off on
+    these inputs."""
     g = torch.Generator(device=cuda).manual_seed(0)
     s, scale = 2048, d ** -0.5
 
@@ -212,7 +299,11 @@ def test_cuda_kernels_sum_long_walks_without_bias(cuda, d):
                 + mean * torch.randn((1, 1, d), generator=g, device=cuda))
 
     q, k, v, do = draw(0.2), draw(1.0), draw(1.0), draw(0.0)
-    o, lse = _kernels.flash_fwd(q, k, v, None, True, scale)
+    before = _kernels.launch_counts_by_design()["flash_fwd[f32," + design
+                                                + "]"]
+    o, lse = _kernels.flash_fwd._run(design, q, k, v, None, True, scale)
+    assert _kernels.launch_counts_by_design()[
+        "flash_fwd[f32," + design + "]"] == before + 1
     delta = tattn._flash_delta(o, do)
     args = (q, k, v, do, lse, delta, None, True, scale)
     got = (_kernels.flash_bwd_dq(*args), *_kernels.flash_bwd_dkv(*args))
@@ -540,10 +631,10 @@ def test_cuda_coalesced_predict_matches_solo(cuda, f32_convs):
 
 def overwrite_behind_a_sleep(model, new):
     """Copy ``new``'s weights into ``model`` on the default stream behind
-    a device sleep of about a second: work that does not wait for the
+    a device sleep of about two seconds: work that does not wait for the
     default stream reads the old weights."""
     torch.cuda.synchronize()
-    torch.cuda._sleep(1 << 31)
+    torch.cuda._sleep(1 << 32)
     with torch.no_grad():
         for p, q in zip(model.parameters(), new.parameters()):
             p.copy_(q)
@@ -568,6 +659,9 @@ def test_cuda_engine_waits_for_weights_written_before_it(cuda, f32_convs):
         padded[0, :len(p)] = p
         refs.append(new.generate(padded, 6, prompt_lengths=[len(p)])[
             0, len(p):len(p) + 6])
+    # an engine made and closed first: a process's first engine pays
+    # one-time set-up that, run behind the sleep, could outlast it
+    DecodeEngine(model, capacity=2, prompt_buckets=(16,)).close()
     overwrite_behind_a_sleep(model, new)
     engine = DecodeEngine(model, capacity=2, prompt_buckets=(16,))
     try:
@@ -858,6 +952,125 @@ def test_cuda_moe_decode_graph_step_equals_eager(cuda, f32_convs):
         assert engine.stats()["captures"] == 3
     finally:
         engine.close()
+
+
+@pytest.mark.cuda
+def test_cuda_moe_capture_after_an_engine_captured_on_its_dispatcher(
+        cuda, f32_convs):
+    """The order that failed a MoE engine's first capture: an engine made
+    behind the caller's writes and served at once (its plans captured on
+    its dispatcher thread, as in engine_waits), closed and left to the
+    cyclic collector with its graphs, then a MoE engine's warmup, with
+    the collector set to run at nearly every allocation.  A collection
+    inside a capture could destroy the old graphs there, which
+    invalidates the capture; none runs during one, and the MoE engine's
+    streams equal generate()'s."""
+    import gc
+    cfg = dict(vocab_size=64, seq_len=48, n_layers=2, d_model=64, n_heads=2)
+    model, new = sharp_lm(cfg, "cuda"), sharp_lm(cfg, "cuda", seed=1)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, 64, int(n)) for n in (5, 9)]
+    overwrite_behind_a_sleep(model, new)
+    old = DecodeEngine(model, capacity=2, prompt_buckets=(16,))
+    try:
+        old.generate(prompts, [6, 6], timeout=60)
+        assert old.stats()["captures"] == 3
+    finally:
+        old.close()
+    del old  # unreachable now, but held by its reference cycles
+    during = []
+
+    def watch(phase, info):
+        if phase == "start":
+            during.append(torch.cuda.is_current_stream_capturing())
+
+    thresholds = gc.get_threshold()
+    gc.callbacks.append(watch)
+    gc.set_threshold(1, 1, 1)
+    moe = moe_lm("cuda")
+    try:
+        engine = DecodeEngine(moe, capacity=3, prompt_buckets=(16,))
+        try:
+            engine.warmup()
+            assert engine.stats()["captures"] == 3
+            prompts = [rng.integers(0, 64, int(n)) for n in (3, 16, 7)]
+            outs = engine.generate(prompts, [9, 4, 12], timeout=60)
+        finally:
+            engine.close()
+    finally:
+        gc.callbacks.remove(watch)
+        gc.set_threshold(*thresholds)
+    assert during and not any(during)
+    for p, m, out in zip(prompts, [9, 4, 12], outs):
+        np.testing.assert_array_equal(out, moe.generate(p[None], m)[
+            0, len(p):])
+
+
+@pytest.mark.cuda
+def test_cuda_engines_capturing_at_once_keep_the_collector_off(cuda,
+                                                              f32_convs):
+    """Two MoE engines, never warmed, start serving at the same moment on
+    two threads, so both dispatchers capture their plans at once, with a
+    closed engine's graphs left to the cyclic collector and the collector
+    set to run at nearly every allocation.  Captures take turns with the
+    collector off, so the capture that ends first cannot turn it back on
+    under the other: no collection starts on a capturing thread, each
+    engine captures its three plans, and each gives generate()'s streams;
+    the collector is on again after."""
+    import gc
+    import threading
+    cfg = dict(vocab_size=64, seq_len=48, n_layers=2, d_model=64, n_heads=2)
+    old = DecodeEngine(sharp_lm(cfg, "cuda"), capacity=2,
+                       prompt_buckets=(16,))
+    try:
+        old.warmup()
+    finally:
+        old.close()
+    del old  # unreachable now, but held by its reference cycles
+    moes = [moe_lm("cuda") for _ in range(2)]
+    engines = [DecodeEngine(m, capacity=3, prompt_buckets=(16,))
+               for m in moes]
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, 64, int(n)) for n in (3, 16, 7)]
+    news = [9, 4, 12]
+    start = threading.Barrier(len(engines))
+    outs, errors, during = {}, [], []
+
+    def serve(i):
+        try:
+            start.wait(timeout=60)
+            outs[i] = engines[i].generate(prompts, news, timeout=120)
+        except Exception as e:  # the assertion below names it
+            errors.append(e)
+
+    def watch(phase, info):
+        if phase == "start":
+            during.append(torch.cuda.is_current_stream_capturing())
+
+    thresholds = gc.get_threshold()
+    gc.callbacks.append(watch)
+    gc.set_threshold(1, 1, 1)
+    try:
+        threads = [threading.Thread(target=serve, args=(i,))
+                   for i in range(len(engines))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        captures = [e.stats()["captures"] for e in engines]
+    finally:
+        gc.callbacks.remove(watch)
+        gc.set_threshold(*thresholds)
+        for e in engines:
+            e.close()
+    assert not errors, errors
+    assert captures == [3, 3]
+    assert during and not any(during)
+    assert gc.isenabled()
+    for i, moe in enumerate(moes):
+        for p, m, out in zip(prompts, news, outs[i]):
+            np.testing.assert_array_equal(out, moe.generate(p[None], m)[
+                0, len(p):])
 
 
 @pytest.mark.cuda
@@ -1421,16 +1634,17 @@ def test_cuda_bare_fn_gathers_its_whole_tree_a_module_a_layer(cuda):
 @pytest.mark.cuda
 def test_cuda_kernel_lib_store_hit_in_a_subprocess(cuda, tmp_path):
     """Two processes from fresh copies of the package share one store:
-    the first runs nvcc and writes both kernel libraries, the second runs
-    no nvcc (no compile in its profile), loads them from the store and
-    gives the first one's flash_fwd and predict bits."""
+    the first runs nvcc and writes every kernel library (one a source),
+    the second runs no nvcc (no compile in its profile), loads them from
+    the store and gives the first one's flash_fwd and predict bits."""
     from chip_smoke import store_worker
     store = str(tmp_path / "store")
+    libs = len(_kernels._SIGNATURES)
     cold, a, _ = store_worker(str(tmp_path), "cold", store)
     warm, b, _ = store_worker(str(tmp_path), "warm", store)
-    assert cold["compiles"] == 1 and cold["store"]["write"] == 2
+    assert cold["compiles"] == 1 and cold["store"]["write"] == libs
     assert warm["compiles"] == 0 and warm["compile_keys"] == []
-    assert warm["store"]["hit"] == 2 and warm["store"]["write"] == 0
+    assert warm["store"]["hit"] == libs and warm["store"]["write"] == 0
     for key in ("y", "o", "lse"):
         np.testing.assert_array_equal(a[key], b[key])
 
@@ -1482,7 +1696,7 @@ def test_cuda_two_worker_fleet_generates_the_registry_tokens(cuda,
         after = {rk: r.ping(rk)["launches"]["flash_fwd"] for rk in (0, 1)}
         # sequential requests rotate over the idle workers: two each
         assert all(after[rk] - before[rk] == 2 * 2 for rk in (0, 1))
-        assert len(fleet_drop_builds(pkg)) == 2
+        assert len(fleet_drop_builds(pkg)) == len(_kernels._SIGNATURES)
         r.supervisor.kill(1)
         deadline = time.monotonic() + 300
         while time.monotonic() < deadline and not (
@@ -1491,7 +1705,7 @@ def test_cuda_two_worker_fleet_generates_the_registry_tokens(cuda,
             time.sleep(0.05)
         (replay,) = r.replays[1]
         assert replay["kernel_builds"] == 0 and replay["store_misses"] == 0
-        assert replay["store_hits"] == 2
+        assert replay["store_hits"] == len(_kernels._SIGNATURES)
         assert r.ping(1)["incarnation"] == 1
         for p, s, want in zip(prompts, samplings, ref):
             np.testing.assert_array_equal(

@@ -278,7 +278,8 @@ def stub_build(tmp_path, monkeypatch):
             shutil.rmtree(tmp_path / "build", ignore_errors=True)
         del calls[:], loads[:]
         fns = _kernels.KernelLibrary().build()
-        assert set(fns) == {"flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"}
+        assert set(fns) == {"flash_fwd", "flash_fwd_sm90", "flash_bwd_dq",
+                            "flash_bwd_dkv"}
         return list(calls), sorted(loads)
 
     return build
