@@ -22,12 +22,15 @@ outputs with ``torch.empty``, launches on the current CUDA stream, raises
 when the launch returns a CUDA error, and counts its launches, in all
 and by dtype (``launch_counts_by_dtype``: ``flash_fwd[bf16]``).
 
-The flash forward has two designs, chosen by shape (:func:`fwd_design`):
-``sm90`` (``csrc/flash_fwd_sm90.cu``: TMA and ``wgmma``) for every call
-whose rows and bases TMA takes and whose head dim is at most 128, and
-``base`` (``csrc/flash_fwd.cu``: ``mma.sync``) for the rest.  Its
-launches are also counted by design (``launch_counts_by_design``:
-``flash_fwd[bf16,sm90]``); ``launches`` sums both.
+Every kernel has two designs, chosen by shape: ``sm90`` (TMA and
+``wgmma``: ``csrc/flash_fwd_sm90.cu`` for the forward, where
+:func:`fwd_design` gives it every call whose rows and bases TMA takes and
+whose head dim is at most 128; ``csrc/flash_bwd_sm90.cu`` for the two
+backward kernels, where :func:`bwd_design` gives it the same calls at
+bf16) and ``base`` (``mma.sync``: ``csrc/flash_fwd.cu``,
+``csrc/flash_bwd.cu``) for the rest.  Launches are also counted by
+design (``launch_counts_by_design``: ``flash_fwd[bf16,sm90]``,
+``flash_bwd_dq[bf16,sm90]``); ``launches`` sums both.
 """
 
 from __future__ import annotations
@@ -66,6 +69,9 @@ _SIGNATURES = {
     # q, k, v, do, lse, delta, lens, dk, dv | ...
     "flash_bwd.cu": {"flash_bwd_dq": [_VOID] * 8 + _TAIL,
                      "flash_bwd_dkv": [_VOID] * 9 + _TAIL},
+    # as flash_bwd.cu's, bf16 only
+    "flash_bwd_sm90.cu": {"flash_bwd_dq_sm90": [_VOID] * 8 + _TAIL,
+                          "flash_bwd_dkv_sm90": [_VOID] * 9 + _TAIL},
 }
 
 
@@ -225,8 +231,9 @@ def build() -> None:
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _DTYPE_NAMES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 MAX_HEAD_DIM = 256
-#: the flash forward's designs: TMA and wgmma, and the mma.sync baseline
+#: each kernel's designs: TMA and wgmma, and the mma.sync baseline
 FWD_DESIGNS = ("sm90", "base")
+BWD_DESIGNS = FWD_DESIGNS
 SM90_MAX_HEAD_DIM = 128
 
 
@@ -241,6 +248,27 @@ def fwd_design(dtype, d: int, strides, ptrs) -> str:
             and all(p % 16 == 0 for p in ptrs)):
         return "sm90"
     return "base"
+
+
+def bwd_design(dtype, d: int, strides, ptrs) -> str:
+    """The backward kernels' design for a call: ``"sm90"`` at bf16 where
+    TMA and wgmma take it, as :func:`fwd_design` (``strides`` and
+    ``ptrs`` of q, k, v and do); ``"base"`` otherwise, every f32 call
+    included.  lse and delta need nothing: the sm90 kernels load their
+    rows with plain loads."""
+    if dtype == torch.bfloat16:
+        return fwd_design(dtype, d, strides, ptrs)
+    return "base"
+
+
+def _chosen(name, forced, chosen, d, dtype):
+    """The design a call runs: ``chosen`` (the rule's) unless ``forced``;
+    ``"base"`` takes any shape, ``"sm90"`` only what the rule gives it."""
+    design = chosen if forced is None else forced
+    if design not in FWD_DESIGNS or (design == "sm90" and chosen != "sm90"):
+        raise ValueError(f"{name}: design {design!r} does not take this "
+                         f"call (head_dim {d}, {dtype}); {chosen!r} does")
+    return design
 
 
 def _check_attention_args(name, q, k, v, lens, causal, rows=()):
@@ -307,23 +335,26 @@ def _ptr(t):
 
 class _Wrapper:
     """``launches`` counts the kernel launches made through a wrapper;
-    ``by_dtype`` splits them by the inputs' dtype, ``by_design`` (the
-    forward's) by dtype and design.  ``total_by_design`` counts the
-    forward's launches by design since import: no reset clears it, so a
-    caller can read it before and after a run that resets the others."""
+    ``by_dtype`` splits them by the inputs' dtype, ``by_design`` by dtype
+    and design (``"bf16,sm90"``).  ``total_by_design`` counts the
+    launches by design since import, ``total_by_dtype_design`` by dtype
+    and design: no reset clears them, so a caller can read them before
+    and after a run that resets the others."""
 
     def __init__(self):
         self.launches = 0
         self.by_dtype = collections.Counter()
         self.by_design = collections.Counter()
         self.total_by_design = collections.Counter()
+        self.total_by_dtype_design = collections.Counter()
 
-    def _count(self, q, design=None):
+    def _count(self, q, design):
+        key = f"{_DTYPE_NAMES[q.dtype]},{design}"
         self.launches += 1
         self.by_dtype[_DTYPE_NAMES[q.dtype]] += 1
-        if design is not None:
-            self.by_design[f"{_DTYPE_NAMES[q.dtype]},{design}"] += 1
-            self.total_by_design[design] += 1
+        self.by_design[key] += 1
+        self.total_by_design[design] += 1
+        self.total_by_dtype_design[key] += 1
 
 
 class FlashFwd(_Wrapper):
@@ -344,15 +375,9 @@ class FlashFwd(_Wrapper):
         raises on a shape that design does not take."""
         bh, sq, sk, d = _check_attention_args("flash_fwd", q, k, v, lens,
                                               causal)
-        chosen = fwd_design(q.dtype, d, (q.stride(), k.stride(),
-                                         v.stride()),
-                            (q.data_ptr(), k.data_ptr(), v.data_ptr()))
-        design = chosen if design is None else design
-        if design not in FWD_DESIGNS or (design == "sm90"
-                                         and chosen != "sm90"):
-            raise ValueError(f"flash_fwd: design {design!r} does not take "
-                             f"this call (head_dim {d}, {q.dtype}); "
-                             f"{chosen!r} does")
+        design = _chosen("flash_fwd", design, fwd_design(
+            q.dtype, d, (q.stride(), k.stride(), v.stride()),
+            (q.data_ptr(), k.data_ptr(), v.data_ptr())), d, q.dtype)
         o = torch.empty_like(q)
         lse = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
         symbol = "flash_fwd_sm90" if design == "sm90" else "flash_fwd"
@@ -364,47 +389,57 @@ class FlashFwd(_Wrapper):
         return o, lse
 
 
-class FlashBwdDq(_Wrapper):
-    """Wrapper of ``flash_bwd_dq`` (csrc/flash_bwd.cu)."""
+class _FlashBwd(_Wrapper):
+    """A backward kernel's wrapper: ``<name>_sm90``
+    (csrc/flash_bwd_sm90.cu) or ``<name>`` (csrc/flash_bwd.cu), as
+    :func:`bwd_design` chooses; ``outputs`` are the tensors it writes,
+    each shaped as q (``"q"``) or k (``"k"``)."""
+
+    name = ""
+    outputs = ()
 
     def __call__(self, q, k, v, do, lse, delta, lens, causal: bool,
                  scale: float):
-        """q/do (bh, sq, d), k/v (bh, sk, d) CUDA tensors of one dtype;
-        lse and delta (bh, sq) f32; ``lens`` as for ``flash_fwd``.
-        Returns dq (bh, sq, d) at the input dtype."""
+        return self._run(None, q, k, v, do, lse, delta, lens, causal, scale)
+
+    def _run(self, design, q, k, v, do, lse, delta, lens, causal, scale):
+        """The call at a forced ``design`` (None: :func:`bwd_design`'s),
+        as :meth:`FlashFwd._run`."""
         bh, sq, sk, d = _check_attention_args(
-            "flash_bwd_dq", q, k, v, lens, causal, rows=_bwd_rows(
+            self.name, q, k, v, lens, causal, rows=_bwd_rows(
                 q, do, lse, delta))
-        fn = LIBRARY.build()["flash_bwd_dq"]
-        dq = torch.empty_like(q)
-        _launch("flash_bwd_dq", fn, q, q.data_ptr(), k.data_ptr(),
-                v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-                delta.data_ptr(), _ptr(lens), dq.data_ptr(), bh, sq, sk, d,
-                float(scale), int(bool(causal)), _DTYPES[q.dtype])
-        self._count(q)
-        return dq
-
-
-class FlashBwdDkv(_Wrapper):
-    """Wrapper of ``flash_bwd_dkv`` (csrc/flash_bwd.cu)."""
-
-    def __call__(self, q, k, v, do, lse, delta, lens, causal: bool,
-                 scale: float):
-        """As :class:`FlashBwdDq`; returns (dk, dv), each (bh, sk, d) at
-        the input dtype, with every row written (zeros past ``lens``)."""
-        bh, sq, sk, d = _check_attention_args(
-            "flash_bwd_dkv", q, k, v, lens, causal, rows=_bwd_rows(
-                q, do, lse, delta))
-        fn = LIBRARY.build()["flash_bwd_dkv"]
-        dk = torch.empty_like(k)
-        dv = torch.empty_like(v)
-        _launch("flash_bwd_dkv", fn, q, q.data_ptr(), k.data_ptr(),
-                v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-                delta.data_ptr(), _ptr(lens), dk.data_ptr(), dv.data_ptr(),
+        tensors = (q, k, v, do)
+        design = _chosen(self.name, design, bwd_design(
+            q.dtype, d, [t.stride() for t in tensors],
+            [t.data_ptr() for t in tensors]), d, q.dtype)
+        outs = [torch.empty_like(q if o == "q" else k) for o in self.outputs]
+        symbol = self.name + ("_sm90" if design == "sm90" else "")
+        _launch(symbol, LIBRARY.build()[symbol], q, q.data_ptr(),
+                k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                delta.data_ptr(), _ptr(lens), *(o.data_ptr() for o in outs),
                 bh, sq, sk, d, float(scale), int(bool(causal)),
                 _DTYPES[q.dtype])
-        self._count(q)
-        return dk, dv
+        self._count(q, design)
+        return outs[0] if len(outs) == 1 else tuple(outs)
+
+
+class FlashBwdDq(_FlashBwd):
+    """Wrapper of ``flash_bwd_dq_sm90`` or ``flash_bwd_dq``.  A call
+    takes q/do (bh, sq, d), k/v (bh, sk, d) CUDA tensors of one dtype,
+    lse and delta (bh, sq) f32, ``lens`` as for ``flash_fwd``, causal and
+    scale, and returns dq (bh, sq, d) at the input dtype."""
+
+    name = "flash_bwd_dq"
+    outputs = ("q",)
+
+
+class FlashBwdDkv(_FlashBwd):
+    """Wrapper of ``flash_bwd_dkv_sm90`` or ``flash_bwd_dkv``: as
+    :class:`FlashBwdDq`; returns (dk, dv), each (bh, sk, d) at the input
+    dtype, with every row written (zeros past ``lens``)."""
+
+    name = "flash_bwd_dkv"
+    outputs = ("k", "k")
 
 
 flash_fwd = FlashFwd()
@@ -435,7 +470,8 @@ def launch_counts_by_dtype() -> dict:
 
 
 def launch_counts_by_design() -> dict:
-    """``{"flash_fwd[bf16,sm90]": n, ...}``: the forward at both dtypes
+    """``{"flash_fwd[bf16,sm90]": n, ...}``: every kernel at both dtypes
     and designs."""
-    return {f"flash_fwd[{dt},{design}]": flash_fwd.by_design[f"{dt},{design}"]
+    return {f"{name}[{dt},{design}]": kernel.by_design[f"{dt},{design}"]
+            for name, kernel in KERNELS.items()
             for dt in _DTYPE_NAMES.values() for design in FWD_DESIGNS}

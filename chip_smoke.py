@@ -9,15 +9,16 @@ Phases (any failure makes the exit code non-zero):
 1. build: compile every CUDA kernel of the port from ``ops/csrc``, and
    count the tensor-core MMA, ``wgmma``, ``cp.async``, TMA, ``ldmatrix``
    and atomic instructions of each kernel instantiation (none may have
-   atomics; the sm90 forward must have ``wgmma`` and TMA loads, every
-   other kernel ``mma.sync`` and ``cp.async``, the baseline forward
-   ``ldmatrix``);
-2. kernels: hold each kernel (the flash forward at both of its designs,
-   the sm90 one on TMA and ``wgmma`` and the ``mma.sync`` baseline, and
-   the backward's dq and dk/dv) against its plain PyTorch version on the
-   card, at the paths' shapes and at edge cases, every kernel launched
-   twice and equal bit for bit, and time the kernels (their device time,
-   replayed from a CUDA graph, and back-to-back calls from Python), the
+   atomics; the sm90 kernels must have ``wgmma`` and TMA loads, the sm90
+   backward no ``mma.sync``, every other kernel ``mma.sync`` and
+   ``cp.async``, the baseline forward ``ldmatrix``);
+2. kernels: hold each kernel (the flash forward and the backward's dq
+   and dk/dv, each at both of its designs where the sm90 one takes the
+   case: TMA and ``wgmma``, and the ``mma.sync`` baseline) against its
+   plain PyTorch version on the card, at the paths' shapes and at edge
+   cases, every kernel launched twice and equal bit for bit, and time
+   the kernels (their device time, replayed from a CUDA graph, the median
+   and range of three replays, and back-to-back calls from Python), the
    plain version and one PyTorch library call that computes the same
    function, timed the same two ways (a yardstick only; the port never
    calls it);
@@ -352,7 +353,9 @@ Every flash forward launch of the train, mixed, serve and sanitize
 phases (all at head dim 64) must run the sm90 design: the forward's
 running counts by design (``total_by_design``, which no reset clears),
 read before and after the phase, warm-ups and checks included, fail the
-phase if one went to the baseline.  The kernels line's launch counts by
+phase if one went to the baseline.  So must every bf16 backward launch
+of the mixed and moe phases (``total_by_dtype_design``; their f32
+launches run the baseline, as every f32 backward does).  The kernels line's launch counts by
 design are each phase's own run's, read after its own reset where its
 ``launches`` are.
 
@@ -364,9 +367,9 @@ The card's line, then ``resnet:``, ``detect:``, ``recommend:``,
 ``parallel:``, ``control:``, ``observe:``, ``shard:``, ``fleet:``,
 ``stream:``, ``interop:`` and ``sanitize:`` summary lines (each
 with the card's name and power limit) come near the end; the line
-before the last is a JSON object with each kernel's numbers (the flash
-forward's two designs as two entries, ``flash_fwd`` and
-``flash_fwd_base``); the last line is ``{"ok": true, "device":
+before the last is a JSON object with each kernel's numbers (each
+kernel's two designs as two entries, ``flash_fwd`` and
+``flash_fwd_base`` etc.); the last line is ``{"ok": true, "device":
 {...}}``.  ResNet-50, the registry, SSD, the recommenders, the text
 classifiers and the layer set reach
 none of the port's CUDA kernels (BatchNorm's closed form, NMS, the
@@ -573,9 +576,9 @@ SUMMARIES = {
 KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "flash_fwd": ("analytics_zoo_tpu_torch/ops/csrc/flash_fwd_sm90.cu",
                   "analytics_zoo_tpu/ops/attention.py:149"),
-    "flash_bwd_dq": ("analytics_zoo_tpu_torch/ops/csrc/flash_bwd.cu",
+    "flash_bwd_dq": ("analytics_zoo_tpu_torch/ops/csrc/flash_bwd_sm90.cu",
                      "analytics_zoo_tpu/ops/attention.py:214"),
-    "flash_bwd_dkv": ("analytics_zoo_tpu_torch/ops/csrc/flash_bwd.cu",
+    "flash_bwd_dkv": ("analytics_zoo_tpu_torch/ops/csrc/flash_bwd_sm90.cu",
                       "analytics_zoo_tpu/ops/attention.py:265"),
 }
 #: the flash forward's designs (``_kernels.fwd_design``): the sm90 one runs
@@ -583,8 +586,18 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
 #: does not take
 FWD_SOURCES = {"sm90": KERNELS["flash_fwd"][0],
                "base": "analytics_zoo_tpu_torch/ops/csrc/flash_fwd.cu"}
+#: the backward kernels' designs (``_kernels.bwd_design``): the sm90 one
+#: runs every bf16 main-path launch, the baseline every f32 one and every
+#: shape TMA or wgmma does not take
+BWD_SOURCES = {"sm90": KERNELS["flash_bwd_dq"][0],
+               "base": "analytics_zoo_tpu_torch/ops/csrc/flash_bwd.cu"}
+SOURCES = {"flash_fwd": FWD_SOURCES, "flash_bwd_dq": BWD_SOURCES,
+           "flash_bwd_dkv": BWD_SOURCES}
+BWD_KERNELS = ("flash_bwd_dq", "flash_bwd_dkv")
 #: the phases whose every flash_fwd launch (all d = 64) must be sm90's
 SM90_PHASES = ("train", "mixed", "serve", "sanitize")
+#: the phases whose every bf16 backward launch (all d = 64) must be sm90's
+BWD_SM90_PHASES = ("mixed", "moe")
 #: FLOP per valid (query, key) pair and head-dim element, per kernel:
 #: 2 per product, and 2, 3 or 4 products
 PRODUCTS = {"flash_fwd": 2, "flash_bwd_dq": 3, "flash_bwd_dkv": 4}
@@ -610,6 +623,25 @@ def all_sm90(kernels, name, before):
     return True
 
 
+def bwd_bf16_all_sm90(kernels, name, before):
+    """Whether every bf16 backward launch of a phase ran the sm90 design,
+    and at least one did, for each backward kernel: its
+    ``total_by_dtype_design`` against ``before`` ({kernel: counts at the
+    phase's start})."""
+    ok = True
+    for kernel in BWD_KERNELS:
+        totals = kernels.KERNELS[kernel].total_by_dtype_design
+        seen = {d: totals[f"bf16,{d}"] - before[kernel].get(f"bf16,{d}", 0)
+                for d in kernels.BWD_DESIGNS}
+        log(f"{name}: {kernel} bf16 launches by design over the whole "
+            f"phase {json.dumps(seen)}")
+        if seen["base"] or not seen["sm90"]:
+            log(f"{name}: FAIL {seen['base']} bf16 {kernel} launches went "
+                f"to the baseline, {seen['sm90']} to sm90")
+            ok = False
+    return ok
+
+
 def cuda_ms(fn, reps):
     import torch
     fn()
@@ -625,13 +657,21 @@ def cuda_ms(fn, reps):
 
 
 def device_ms(fn, reps, stream=None):
-    """The device time of one call of ``fn``: ``reps`` calls captured into
-    a CUDA graph (on ``stream``, else torch's capture stream), its replay
-    timed by CUDA events.  Unlike :func:`cuda_ms` it holds no host time:
-    a call whose launches take the host longer than the card takes to run
-    them reads the card's time, not the host's.  (A ``torch.profiler``
-    session would read the same and leave its tracer in the process,
-    slowing every later phase.)"""
+    """The device time of one call of ``fn``: the median of
+    :func:`device_times`."""
+    import statistics
+    return statistics.median(device_times(fn, reps, stream))
+
+
+def device_times(fn, reps, stream=None, replays=3):
+    """The device time of one call of ``fn`` in each of ``replays``
+    replays: ``reps`` calls captured into a CUDA graph (on ``stream``,
+    else torch's capture stream), each replay timed by CUDA events.
+    Unlike :func:`cuda_ms` it holds no host time: a call whose launches
+    take the host longer than the card takes to run them reads the card's
+    time, not the host's.  (A ``torch.profiler`` session would read the
+    same and leave its tracer in the process, slowing every later
+    phase.)"""
     import torch
     fn()
     side = stream or torch.cuda.Stream()
@@ -646,13 +686,25 @@ def device_ms(fn, reps, stream=None):
             fn()
     graph.replay()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    times = []
+    for _ in range(replays):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return times
+
+
+def timed_ms(fn, reps, stream=None):
+    """``ms`` (the median of three device-time replays, as
+    :func:`device_times`), ``ms_min`` and ``ms_max`` of one call."""
+    import statistics
+    times = device_times(fn, reps, stream)
+    return dict(ms=statistics.median(times), ms_min=min(times),
+                ms_max=max(times))
 
 
 def attention_bound(q, k, lens, causal, kernel="flash_fwd"):
@@ -807,6 +859,10 @@ CASES = [
     ("sq 2", 8, 2, 512, 64, "float32", True, 512, False),
     ("sq 2", 8, 2, 512, 64, "bfloat16", True, None, False),
     ("d256 lens", 8, 129, 300, 256, "float32", False, 300, False),
+    # the sm90 backward's TMA edges at the head dims it takes beyond 64
+    # and 128: 32 (a half-empty swizzle atom) and 96 (1.5 atoms)
+    ("d32", 8, 200, 333, 32, "bfloat16", False, 333, False),
+    ("d96 cross causal", 8, 129, 300, 96, "bfloat16", True, 300, False),
 ]
 
 
@@ -858,7 +914,7 @@ def sass_counts(kernels):
                               text=True, timeout=300, check=True).stdout
         for line in text.splitlines():
             if "Function :" in line:
-                m = re.search(r"(flash_(?:fwd|fwd_sm90|bwd_dq|bwd_dkv)"
+                m = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv)(?:_sm90)?"
                               r"_kernel)I(f|13__nv_bfloat16)Li(\d+)E"
                               r"(?:Li(\d+)E)?", line)
                 fn = (f"{m[1]}<{'f32' if m[2] == 'f' else 'bf16'},{m[3]}"
@@ -878,11 +934,13 @@ def phase_kernels(torch, ops_attn, kernels):
     against flash_attention_reference (o within TOL, lse within LSE_TOL)
     at the design ``fwd_design`` picks and, where that is sm90, at the
     baseline too, each forward launched twice and equal bit for bit;
-    flash_bwd_dq and flash_bwd_dkv against flash_bwd_dq_reference and
-    flash_bwd_dkv_reference (dq, dk, dv each within max|diff| / max|ref|
-    <= TOL), dk = dv = 0 exactly past every length, and a second launch
-    of each backward kernel equal to the first, bit for bit.  Timed cases
-    time the forward at each of its designs."""
+    flash_bwd_dq and flash_bwd_dkv the same way at the design
+    ``bwd_design`` picks and the baseline, against flash_bwd_dq_reference
+    and flash_bwd_dkv_reference (dq, dk, dv each within max|diff| /
+    max|ref| <= TOL), dk = dv = 0 exactly past every length, and a second
+    launch of each backward kernel equal to the first, bit for bit.
+    Timed cases time every kernel at each of its designs (the backward at
+    the training sequence, beside SDPA's backward)."""
     g = torch.Generator(device="cuda").manual_seed(0)
     rows, ok = [], True
     diff = lambda a, b: float((a.double() - b.double()).abs().max())
@@ -921,37 +979,47 @@ def phase_kernels(torch, ops_attn, kernels):
         o, lse = outs[chosen]
         delta = ops_attn._flash_delta(o, do)
         args = (q, k, v, do, lse, delta, lens, causal, scale)
-        dq = kernels.flash_bwd_dq(*args)
-        dk, dv = kernels.flash_bwd_dkv(*args)
-        deterministic = (torch.equal(dq, kernels.flash_bwd_dq(*args))
-                         and all(map(torch.equal, (dk, dv),
-                                     kernels.flash_bwd_dkv(*args))))
-        dq_ref = ops_attn.flash_bwd_dq_reference(*args)
-        dk_ref, dv_ref = ops_attn.flash_bwd_dkv_reference(*args)
-        torch.cuda.synchronize()
-        dq_row = dict(base, kernel="flash_bwd_dq", err=rel(dq, dq_ref),
-                      abs_err=diff(dq, dq_ref), deterministic=deterministic)
-        dq_row["ok"] = dq_row["err"] <= TOL[dt] and bool(
-            torch.isfinite(dq).all()) and deterministic
-        dkv_row = dict(base, kernel="flash_bwd_dkv", err=max(
-            rel(dk, dk_ref), rel(dv, dv_ref)), err_dk=rel(dk, dk_ref),
-            err_dv=rel(dv, dv_ref),
-            abs_err=max(diff(dk, dk_ref), diff(dv, dv_ref)),
-            deterministic=deterministic)
-        dkv_row["ok"] = dkv_row["err"] <= TOL[dt] and bool(
-            torch.isfinite(dk).all() and torch.isfinite(dv).all()
-        ) and deterministic
-        if masked:
-            past = (torch.arange(sk, device="cuda")[None, :]
-                    >= lens[:, None])[..., None]
-            zero = bool((dk.masked_select(past) == 0).all()
-                        and (dv.masked_select(past) == 0).all())
-            dkv_row["zero_past_lens"] = zero
-            dkv_row["ok"] &= zero
+        refs = {"flash_bwd_dq": (ops_attn.flash_bwd_dq_reference(*args),),
+                "flash_bwd_dkv": ops_attn.flash_bwd_dkv_reference(*args)}
+        bwd_chosen = kernels.bwd_design(
+            q.dtype, d, [t.stride() for t in (q, k, v, do)],
+            [t.data_ptr() for t in (q, k, v, do)])
+        bwd_rows = []
+        for design in dict.fromkeys((bwd_chosen, "base")):
+            got = {"flash_bwd_dq": (kernels.flash_bwd_dq._run(design, *args),),
+                   "flash_bwd_dkv": kernels.flash_bwd_dkv._run(design, *args)}
+            again = {"flash_bwd_dq": (kernels.flash_bwd_dq._run(design,
+                                                                *args),),
+                     "flash_bwd_dkv": kernels.flash_bwd_dkv._run(design,
+                                                                 *args)}
+            torch.cuda.synchronize()
+            deterministic = all(map(torch.equal, (*got["flash_bwd_dq"],
+                                                  *got["flash_bwd_dkv"]),
+                                    (*again["flash_bwd_dq"],
+                                     *again["flash_bwd_dkv"])))
+            for kern in BWD_KERNELS:
+                errs = [rel(a, b) for a, b in zip(got[kern], refs[kern])]
+                row = dict(base, kernel=kern, design=design, err=max(errs),
+                           abs_err=max(diff(a, b) for a, b in zip(
+                               got[kern], refs[kern])),
+                           deterministic=deterministic)
+                if kern == "flash_bwd_dkv":
+                    row.update(err_dk=errs[0], err_dv=errs[1])
+                row["ok"] = (row["err"] <= TOL[dt] and deterministic and all(
+                    bool(torch.isfinite(a).all()) for a in got[kern]))
+                if masked and kern == "flash_bwd_dkv":
+                    past = (torch.arange(sk, device="cuda")[None, :]
+                            >= lens[:, None])[..., None]
+                    row["zero_past_lens"] = all(
+                        bool((a.masked_select(past) == 0).all())
+                        for a in got[kern])
+                    row["ok"] &= row["zero_past_lens"]
+                bwd_rows.append(row)
         if timed:
-            # ms: the kernels' device time (device_ms, a replayed CUDA
-            # graph); eager_ms: back-to-back calls from Python, the host's
-            # launch path included
+            # ms: the kernels' device time (timed_ms, a replayed CUDA
+            # graph: the median and range of three replays); eager_ms:
+            # back-to-back calls from Python, the host's launch path
+            # included
             lib_fn, lib_backend = sdpa_call(q, k, v, lens, causal, scale)
             common = dict(
                 plain_ms=cuda_ms(lambda: ops_attn.flash_attention_reference(
@@ -962,7 +1030,7 @@ def phase_kernels(torch, ops_attn, kernels):
             for row in fwd_rows:
                 fn = (lambda design=row["design"]: kernels.flash_fwd._run(
                     design, q, k, v, lens, causal, scale))
-                row.update(common, ms=device_ms(fn, 20),
+                row.update(common, **timed_ms(fn, 20),
                            eager_ms=cuda_ms(fn, 20))
             if sq == TRAIN_SEQ:
                 # the backward's yardstick: autograd of SDPA, device time
@@ -973,21 +1041,22 @@ def phase_kernels(torch, ops_attn, kernels):
                 lib = dict(library_ms=device_ms(lib_fn, 10, side),
                            library_eager_ms=cuda_ms(lib_fn, 10),
                            library_backend=lib_backend)
-                for row, kern, ref in (
-                        (dq_row, kernels.flash_bwd_dq,
-                         ops_attn.flash_bwd_dq_reference),
-                        (dkv_row, kernels.flash_bwd_dkv,
-                         ops_attn.flash_bwd_dkv_reference)):
-                    row.update(ms=device_ms(lambda: kern(*args), 10),
-                               eager_ms=cuda_ms(lambda: kern(*args), 10),
-                               plain_ms=cuda_ms(lambda: ref(*args), 2),
-                               **lib)
-            for row in (*fwd_rows, dq_row, dkv_row):
+                plain = {kern: cuda_ms(lambda ref=ref: ref(*args), 2)
+                         for kern, ref in (
+                             ("flash_bwd_dq", ops_attn.flash_bwd_dq_reference),
+                             ("flash_bwd_dkv",
+                              ops_attn.flash_bwd_dkv_reference))}
+                for row in bwd_rows:
+                    fn = (lambda kern=kernels.KERNELS[row["kernel"]],
+                          design=row["design"]: kern._run(design, *args))
+                    row.update(**timed_ms(fn, 10), eager_ms=cuda_ms(fn, 10),
+                               plain_ms=plain[row["kernel"]], **lib)
+            for row in (*fwd_rows, *bwd_rows):
                 if "ms" in row:
                     row.update(attention_bound(q, k, lens, causal,
                                                row["kernel"]))
                     row["bound_share"] = row["bound_ms"] / row["ms"]
-        for row in (*fwd_rows, dq_row, dkv_row):
+        for row in (*fwd_rows, *bwd_rows):
             ok &= row["ok"]
             rows.append(row)
             log("kernel", json.dumps(row))
@@ -2879,11 +2948,12 @@ def phase_moe(torch, TransformerLM, kernels, inference, objectives):
             step_s.append(time.perf_counter() - t)
             aux.append(sum(float(m.aux_loss) for m in moe_layers(model)))
         return (losses, aux, step_s, kernels.launch_counts_by_dtype(),
+                kernels.launch_counts_by_design(),
                 torch.cuda.max_memory_allocated() / 2 ** 30)
 
     model = TransformerLM(**cfg, device="cuda", seed=0)
     stats["parameters"] = sum(p.numel() for p in model.parameters())
-    losses, aux, step_s, counts, peak = train(model)
+    losses, aux, step_s, counts, _, peak = train(model)
     step = statistics.median(step_s)
     per_step = {k: v / TRAIN_STEPS for k, v in counts.items() if v}
     stats.update(step_ms=step * 1e3, step_ms_all=[t * 1e3 for t in step_s],
@@ -2951,14 +3021,15 @@ def phase_moe(torch, TransformerLM, kernels, inference, objectives):
     torch.cuda.empty_cache()
 
     bf = TransformerLM(**cfg, device="cuda", seed=0)
-    bf_losses, _, bf_s, bf_counts, bf_peak = train(
+    bf_losses, _, bf_s, bf_counts, bf_designs, bf_peak = train(
         bf, compute_dtype=torch.bfloat16, accum_steps=MIXED_ACCUM)
     del bf
     torch.cuda.empty_cache()
     stats.update(bf16_step_ms=statistics.median(bf_s) * 1e3,
                  bf16_step_ms_all=[t * 1e3 for t in bf_s],
                  bf16_peak_gib=bf_peak,
-                 bf16_losses=bf_losses, bf16_launches=bf_counts)
+                 bf16_losses=bf_losses, bf16_launches=bf_counts,
+                 bf16_launches_by_design=bf_designs)
     checks["bf16"] = (
         all(math.isfinite(v) for v in bf_losses)
         and np.allclose(bf_losses, losses, **MIXED_LOSS_TOL)
@@ -7356,16 +7427,17 @@ def main() -> int:
         log(f"build: FAIL {e}")
         return 1
     log("build: sass", json.dumps(sass))
-    # the kernels' design: no atomics anywhere; the sm90 forward on wgmma
-    # and TMA; the mma.sync kernels on tensor-core MMA and cp.async, the
-    # baseline forward with ldmatrix (its Q.K^T operands at both dtypes,
-    # P.V's V at bf16)
+    # the kernels' design: no atomics anywhere; the sm90 kernels on wgmma
+    # and TMA, the sm90 backward without mma.sync; the mma.sync kernels on
+    # tensor-core MMA and cp.async, the baseline forward with ldmatrix
+    # (its Q.K^T operands at both dtypes, P.V's V at bf16)
     bad = [fn for fn, c in (sass or {}).items() if "_kernel<" in fn and (
         c["ATOM"] or c["RED"] or (
-            (not c["HGMMA"] or not c["UTMALDG"]) if "sm90" in fn else (
+            (not c["HGMMA"] or not c["UTMALDG"]
+             or ("bwd" in fn and c["HMMA"])) if "sm90" in fn else (
                 not c["HMMA"] or not c["LDGSTS"]
                 or ("fwd" in fn and not c["LDSM"]))))]
-    missing = [k for k in (*KERNELS, "flash_fwd_sm90")
+    missing = [k for k in (*KERNELS, *(f"{k}_sm90" for k in KERNELS))
                if sass is not None and not any(f"{k}_kernel<" in fn
                                                for fn in sass)]
     if bad or missing:
@@ -7424,10 +7496,14 @@ def main() -> int:
     for name, run in phases:
         t = time.perf_counter()
         totals = dict(kernels.flash_fwd.total_by_design)
+        bwd_totals = {k: dict(kernels.KERNELS[k].total_by_dtype_design)
+                      for k in BWD_KERNELS}
         try:
             ok, results[name] = run()
             if name in SM90_PHASES:
                 ok &= all_sm90(kernels, name, totals)
+            if name in BWD_SM90_PHASES:
+                ok &= bwd_bf16_all_sm90(kernels, name, bwd_totals)
         except Exception as e:  # a phase's crash fails that phase only
             import traceback
             traceback.print_exc()
@@ -7488,15 +7564,17 @@ def main() -> int:
         row = next((r for r in results.get("kernels") or []
                     if r["kernel"] == name and r["case"] == case
                     and r["dtype"] == dtype and r.get("ms") is not None
-                    and sq in (None, r["sq"])
-                    and r.get("design", design) == design), None)
+                    and sq in (None, r["sq"]) and r["design"] == design),
+                   None)
         if row is None:
             return {}
         return dict(max_abs_err=row["abs_err"], ms=row["ms"],
+                    ms_min=row["ms_min"], ms_max=row["ms_max"],
                     eager_ms=row["eager_ms"],
                     plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
                     bound_by=row["bound_by"],
                     bound_f32_cuda_ms=row["bound_f32_cuda_ms"],
+                    bound_share=row["bound_share"],
                     library_ms=row["library_ms"],
                     library_eager_ms=row["library_eager_ms"],
                     library_backend=row["library_backend"],
@@ -7506,26 +7584,34 @@ def main() -> int:
         row = next((r for r in results.get("kernels") or []
                     if r["kernel"] == name and r["case"] == case
                     and r["bh"] == bh and r.get("ms") is not None
-                    and r.get("design", design) == design), None)
+                    and r["design"] == design), None)
         return {} if row is None else dict(
-            max_abs_err=row["abs_err"], ms=row["ms"],
-            eager_ms=row["eager_ms"],
+            max_abs_err=row["abs_err"], ms=row["ms"], ms_min=row["ms_min"],
+            ms_max=row["ms_max"], eager_ms=row["eager_ms"],
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"],
             library_eager_ms=row["library_eager_ms"],
             library_backend=row["library_backend"],
             shape=[row["bh"], row["sq"], row["d"]])
 
-    # the forward's launches by design in each checked phase's own run
+    # every kernel's launches by design in each checked phase's own run
     # (read where its launches are, after its own reset)
     designs = {p: (results.get(p) or {}).get("launches_by_design") or {}
                for p in SM90_PHASES}
+    designs["moe_bf16"] = moe.get("bf16_launches_by_design") or {}
+
+    def of(name, counts):
+        return {k: n for k, n in counts.items() if k.startswith(name + "[")}
 
     entries = []
     for name, (source, replaces) in KERNELS.items():
+        # the f32 main path runs the sm90 forward and the baseline backward
+        f32_design = "sm90" if name == "flash_fwd" else "base"
         entry = {"name": name, "route": "cuda", "source": source,
-                 "replaces": replaces,
-                 "launches": path_launches["mixed"].get(f"{name}[bf16]", 0),
+                 "replaces": replaces, "design": "sm90",
+                 "launches": designs["mixed"].get(f"{name}[bf16,sm90]", 0),
+                 "launches_by_design": {p: of(name, c)
+                                        for p, c in designs.items()},
                  "launches_by_path": {
                      "generate": path_launches["path"].get(name, 0),
                      "serve": path_launches["serve"].get(name, 0),
@@ -7562,48 +7648,35 @@ def main() -> int:
                      "interop": path_launches["interop"].get(name, 0),
                      "sanitize": path_launches["sanitize"].get(name, 0)}}
         entry.update(timed_row(name, "mixed", "bfloat16"))
-        entry["f32"] = timed_row(name, "train", "float32")
+        entry["f32"] = timed_row(name, "train", "float32", design=f32_design)
         entry["bf16_batch8"] = timed_row(name, "train", "bfloat16")
+        # the baseline design, timed at the same shapes in this run; the
+        # main path's bf16 launches run none of it
+        base = {"name": f"{name}_base", "route": "cuda",
+                "source": SOURCES[name]["base"], "replaces": replaces,
+                "design": "base",
+                "launches": designs["mixed"].get(f"{name}[bf16,base]", 0),
+                "launches_by_path": {
+                    p: sum(n for k, n in of(name, c).items()
+                           if k.endswith(",base]"))
+                    for p, c in designs.items()}}
+        base.update(timed_row(name, "mixed", "bfloat16", design="base"))
+        base["f32"] = timed_row(name, "train", "float32", design="base")
+        base["bf16_batch8"] = timed_row(name, "train", "bfloat16",
+                                        design="base")
         if name == "flash_fwd":  # the serve phase's prefill shapes
-            entry["serve"] = [timed_row(name, "serve admit", "float32", s)
+            for e, design in ((entry, "sm90"), (base, "base")):
+                e["serve"] = [timed_row(name, "serve admit", "float32", s,
+                                        design=design)
                               for s in SERVE["buckets"]]
-            # the shard phase's and the fleet's predicts at 640 positions
-            entry["shard_predict"] = timed_row(name, "shard predict",
-                                               "float32")
-            entry["fleet_predict"] = [
-                r for r in (row_at(name, "fleet predict", bh)
-                            for bh in (12, 24)) if r]
-            entry["design"] = "sm90"
-            entry["launches"] = designs["mixed"].get("flash_fwd[bf16,sm90]",
-                                                     0)
-            entry["launches_by_design"] = designs
-        entries.append(entry)
-        if name == "flash_fwd":
-            # the baseline design, timed at the same shapes in this run;
-            # the main path's d = 64 launches run none of it
-            base = {"name": "flash_fwd_base", "route": "cuda",
-                    "source": FWD_SOURCES["base"], "replaces": replaces,
-                    "design": "base",
-                    "launches": designs["mixed"].get("flash_fwd[bf16,base]",
-                                                     0),
-                    "launches_by_path": {
-                        p: sum(n for k, n in designs[p].items()
-                               if k.endswith(",base]"))
-                        for p in SM90_PHASES}}
-            base.update(timed_row(name, "mixed", "bfloat16",
-                                  design="base"))
-            base["f32"] = timed_row(name, "train", "float32", design="base")
-            base["bf16_batch8"] = timed_row(name, "train", "bfloat16",
-                                            design="base")
-            base["serve"] = [timed_row(name, "serve admit", "float32", s,
-                                       design="base")
-                             for s in SERVE["buckets"]]
-            base["shard_predict"] = timed_row(name, "shard predict",
-                                              "float32", design="base")
-            base["fleet_predict"] = [
-                r for r in (row_at(name, "fleet predict", bh, "base")
-                            for bh in (12, 24)) if r]
-            entries.append(base)
+                # the shard phase's and the fleet's predicts at 640
+                # positions
+                e["shard_predict"] = timed_row(name, "shard predict",
+                                               "float32", design=design)
+                e["fleet_predict"] = [
+                    r for r in (row_at(name, "fleet predict", bh, design)
+                                for bh in (12, 24)) if r]
+        entries += [entry, base]
     log(json.dumps({"kernels": entries}))
     if failed:
         log(f"chip_smoke: FAILED phases {failed}")

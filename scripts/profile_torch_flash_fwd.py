@@ -73,18 +73,22 @@ print(json.dumps(ms))
 """
 
 
-def ablate():
-    root = os.path.join(REPO, "build", "flash_ablate")
+def ablate(source=SOURCE, sources=None, time_one=TIME_ONE,
+           root=os.path.join(REPO, "build", "flash_ablate")):
+    """Build a copy of the package under ``root`` for each of
+    ``sources(text of source)``'s variants (default
+    :func:`ablation_sources`), all at once, then run ``time_one`` (a
+    script printing one JSON line) in each, twice in turns."""
     shutil.rmtree(root, ignore_errors=True)
-    src = open(os.path.join(REPO, SOURCE)).read()
+    src = open(os.path.join(REPO, source)).read()
     builds = {}
-    for name, text in ablation_sources(src).items():
+    for name, text in (sources or ablation_sources)(src).items():
         d = os.path.join(root, name)
         shutil.copytree(os.path.join(REPO, "analytics_zoo_tpu_torch"),
                         os.path.join(d, "analytics_zoo_tpu_torch"),
                         ignore=shutil.ignore_patterns("__pycache__"))
         shutil.copy(os.path.join(REPO, "chip_smoke.py"), d)
-        with open(os.path.join(d, SOURCE), "w") as f:
+        with open(os.path.join(d, source), "w") as f:
             f.write(text)
         builds[name] = subprocess.Popen(
             [sys.executable, "-c", "from analytics_zoo_tpu_torch.ops import "
@@ -94,7 +98,7 @@ def ablate():
             raise RuntimeError(f"ablation {name} did not build")
     for turn in range(2):
         for name in builds:
-            out = subprocess.run([sys.executable, "-c", TIME_ONE],
+            out = subprocess.run([sys.executable, "-c", time_one],
                                  cwd=os.path.join(root, name),
                                  capture_output=True, text=True,
                                  timeout=300, check=True).stdout

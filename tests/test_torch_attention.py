@@ -294,7 +294,8 @@ def test_flash_supports_predicate(causal, sq, sk, runs):
 
 
 @pytest.mark.parametrize("edited", ["flash_fwd.cu", "flash_fwd_sm90.cu",
-                                    "flash_bwd.cu", "flash_mma.cuh",
+                                    "flash_bwd.cu", "flash_bwd_sm90.cu",
+                                    "flash_mma.cuh", "sm90.cuh",
                                     "new_header.cuh"])
 def test_build_dir_hashes_every_source_and_header(tmp_path, monkeypatch,
                                                   edited):
@@ -363,36 +364,50 @@ def test_fwd_design_takes_every_main_path_launch():
 def test_signatures_name_the_sm90_forward():
     """The sm90 forward is a source of its own with its own C symbol,
     taking what the baseline takes (q, k, v, lens, o, lse and the common
-    tail); the baseline keeps its symbol, and the backward sources are
-    unchanged."""
+    tail); the baseline keeps its symbol.  So does the sm90 backward:
+    ``flash_bwd_sm90.cu``'s two symbols take what ``flash_bwd.cu``'s
+    take."""
     sig = _kernels._SIGNATURES
-    assert set(sig) == {"flash_fwd.cu", "flash_fwd_sm90.cu", "flash_bwd.cu"}
+    assert set(sig) == {"flash_fwd.cu", "flash_fwd_sm90.cu", "flash_bwd.cu",
+                        "flash_bwd_sm90.cu"}
     assert sig["flash_fwd_sm90.cu"] == {
         "flash_fwd_sm90": [_kernels._VOID] * 6 + _kernels._TAIL}
     assert sig["flash_fwd.cu"] == {
         "flash_fwd": [_kernels._VOID] * 6 + _kernels._TAIL}
     assert set(sig["flash_bwd.cu"]) == {"flash_bwd_dq", "flash_bwd_dkv"}
+    assert sig["flash_bwd_sm90.cu"] == {
+        f"{name}_sm90": args for name, args in sig["flash_bwd.cu"].items()}
     for name in sig:
         assert (_kernels._CSRC / name).exists()
 
 
 def test_launch_counts_by_design_sum_to_the_launches():
-    """A forward launch counts once in ``launches`` and once under its
-    dtype and design; a reset clears both."""
+    """A launch of any kernel counts once in ``launches`` and once under
+    its dtype and design; a reset clears both."""
     _kernels.reset_launch_counts()
     try:
         for dtype, design in ((torch.bfloat16, "sm90"),
                               (torch.bfloat16, "sm90"),
                               (torch.float32, "base")):
             _kernels.flash_fwd._count(torch.zeros(1, dtype=dtype), design)
+        _kernels.flash_bwd_dq._count(torch.zeros(1, dtype=torch.bfloat16),
+                                     "sm90")
+        for design in ("sm90", "base", "base"):
+            _kernels.flash_bwd_dkv._count(torch.zeros(1), design)
         by_design = _kernels.launch_counts_by_design()
-        assert by_design == {"flash_fwd[f32,sm90]": 0,
-                             "flash_fwd[f32,base]": 1,
-                             "flash_fwd[bf16,sm90]": 2,
-                             "flash_fwd[bf16,base]": 0}
-        assert _kernels.launch_counts()["flash_fwd"] == sum(
-            by_design.values())
+        zeros = {f"{name}[{dt},{design}]": 0
+                 for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+                 for dt in ("f32", "bf16") for design in ("sm90", "base")}
+        assert by_design == dict(zeros, **{"flash_fwd[f32,base]": 1,
+                                           "flash_fwd[bf16,sm90]": 2,
+                                           "flash_bwd_dq[bf16,sm90]": 1,
+                                           "flash_bwd_dkv[f32,sm90]": 1,
+                                           "flash_bwd_dkv[f32,base]": 2})
+        for name, n in _kernels.launch_counts().items():
+            assert n == sum(c for key, c in by_design.items()
+                            if key.startswith(name + "["))
         assert _kernels.launch_counts_by_dtype()["flash_fwd[bf16]"] == 2
+        assert _kernels.launch_counts_by_dtype()["flash_bwd_dkv[f32]"] == 3
     finally:
         _kernels.reset_launch_counts()
     assert not any(_kernels.launch_counts_by_design().values())
@@ -415,6 +430,117 @@ def test_launch_totals_by_design_outlive_a_reset():
     finally:
         _kernels.reset_launch_counts()
         _kernels.flash_fwd.total_by_design = saved
+
+
+def _bwd_sm90_takes(dtype, d):
+    """The sm90 backward takes what the sm90 forward takes, at bf16."""
+    return dtype == torch.bfloat16 and _sm90_takes(dtype, d)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [8, 16, 20, 32, 37, 64, 72, 96, 128, 136, 256])
+@pytest.mark.parametrize("layout", ["contiguous", "base_off_by_one",
+                                    "padded_rows", "do_padded_rows"])
+def test_bwd_design_rule(dtype, d, layout):
+    """The backward's design is a plain function of dtype, head dim,
+    strides and base alignment of q, k, v and do: ``sm90`` at bf16 where
+    TMA and wgmma take the call (16-byte-multiple contiguous rows,
+    16-byte-aligned bases, d <= 128), the ``base`` kernels otherwise --
+    every f32 call, a base one element off, or rows padded past d in any
+    of the four tensors."""
+    item = 4 if dtype == torch.float32 else 2
+    s = 40
+    strides = [(s * d, d, 1)] * 4
+    ptrs = [0, 4096, 1 << 20, 3 << 20]
+    if layout == "base_off_by_one":
+        ptrs[2] += item
+    elif layout == "padded_rows":
+        strides[0] = (s * (d + 8), d + 8, 1)
+    elif layout == "do_padded_rows":
+        strides[3] = (s * (d + 1), d + 1, 1)
+    want = "sm90" if layout == "contiguous" and _bwd_sm90_takes(dtype, d) \
+        else "base"
+    assert _kernels.bwd_design(dtype, d, strides, ptrs) == want
+    assert want in _kernels.BWD_DESIGNS
+
+
+@pytest.mark.parametrize("layout", ["bshd", "bhsd"])
+@pytest.mark.parametrize("lengths", [None, [96, 40]])
+def test_bwd_design_takes_every_mixed_launch(monkeypatch, layout, lengths):
+    """The mixed-precision path's backward (bf16, d = 64) reaches the
+    kernels with q, k, v and do as ``FlashAttentionFunction`` folds them,
+    contiguous on fresh allocations: ``bwd_design`` gives it sm90, and at
+    f32 the baseline."""
+    seen = []
+    plain = tattn.flash_attention_bwd_reference
+
+    def keep(q, k, v, o, lse, do, *rest):
+        seen.append((q, k, v, do))
+        return plain(q, k, v, o, lse, do, *rest)
+
+    monkeypatch.setattr(tattn, "flash_attention_bwd_reference", keep)
+    for dtype in (torch.bfloat16, torch.float32):
+        g = torch.Generator().manual_seed(0)
+        shape = (2, 96, 12, 64) if layout == "bshd" else (2, 12, 96, 64)
+        q, k, v = (torch.randn(shape, generator=g).to(dtype)
+                   .requires_grad_() for _ in range(3))
+        lens = None if lengths is None else torch.tensor(lengths)
+        out = tattn.flash_attention(q, k, v, causal=True, layout=layout,
+                                    kv_lengths=lens)
+        out.float().square().sum().backward()
+        fq, fk, fv, fdo = seen.pop()
+        assert fq.shape == (24, 96, 64) and fdo.dtype == dtype
+        tensors = (fq, fk, fv, fdo)
+        ptrs = [t_.data_ptr() - t_.data_ptr() % 16 for t_ in tensors]
+        got = _kernels.bwd_design(dtype, 64, [t_.stride() for t_ in tensors],
+                                  ptrs)
+        assert got == ("sm90" if dtype == torch.bfloat16 else "base")
+        assert all(t_.is_contiguous() for t_ in tensors)
+
+
+@pytest.mark.parametrize("name", ["flash_fwd", "flash_bwd_dq",
+                                  "flash_bwd_dkv"])
+def test_forced_sm90_refuses_what_the_rule_does_not_give_it(name):
+    """A forced ``sm90`` design raises where the design rule chose the
+    baseline (an f32 backward, d = 256): no call is quietly moved to the
+    other design; ``base`` takes every shape."""
+    with pytest.raises(ValueError, match="does not take"):
+        _kernels._chosen(name, "sm90", "base", 256, torch.float32)
+    assert _kernels._chosen(name, "base", "sm90", 64,
+                            torch.bfloat16) == "base"
+    assert _kernels._chosen(name, None, "sm90", 64, torch.bfloat16) == "sm90"
+    with pytest.raises(ValueError, match="does not take"):
+        _kernels._chosen(name, "sm100", "sm90", 64, torch.bfloat16)
+
+
+def test_backward_launch_totals_by_dtype_and_design_outlive_a_reset():
+    """``total_by_dtype_design`` counts a backward kernel's launches by
+    dtype and design since import, as ``total_by_design`` does by design:
+    a reset leaves both, so a phase is read from before and after it."""
+    kern = _kernels.flash_bwd_dkv
+    saved = (collections.Counter(kern.total_by_design),
+             collections.Counter(kern.total_by_dtype_design))
+    try:
+        kern._count(torch.zeros(1, dtype=torch.bfloat16), "sm90")
+        _kernels.reset_launch_counts()
+        kern._count(torch.zeros(1), "base")
+        assert kern.launches == 1
+        assert kern.total_by_dtype_design - saved[1] == collections.Counter(
+            {"bf16,sm90": 1, "f32,base": 1})
+        assert kern.total_by_design - saved[0] == collections.Counter(
+            sm90=1, base=1)
+    finally:
+        _kernels.reset_launch_counts()
+        kern.total_by_design, kern.total_by_dtype_design = saved
+
+
+def test_backward_calls_take_no_design():
+    """The backward kernels' design is chosen by shape, never asked for:
+    the public calls take the backward's arguments only."""
+    for kern in (_kernels.flash_bwd_dq, _kernels.flash_bwd_dkv):
+        params = inspect.signature(kern.__call__).parameters
+        assert list(params) == ["q", "k", "v", "do", "lse", "delta", "lens",
+                                "causal", "scale"]
 
 
 def test_forward_call_takes_no_design():

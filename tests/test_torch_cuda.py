@@ -247,36 +247,102 @@ def test_cuda_prefill_launches_the_forward_once_a_layer(cuda):
     assert (out == cpu.generate(prompt, 1)).all()
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype,causal,sq,sk,masked", [
-    (torch.float32, True, 512, 512, False),
-    (torch.float32, False, 200, 777, True),
-    (torch.float32, True, 192, 512, False),
-    (torch.bfloat16, True, 37, 37, False),
-])
-def test_cuda_backward_kernels_match_plain(cuda, dtype, causal, sq, sk,
-                                          masked):
-    """Each backward kernel against its plain version on the card: dq, dk
-    and dv within max|diff| / max|ref| <= 1e-4 (f32) or 2e-2 (bf16)."""
-    g = torch.Generator(device=cuda).manual_seed(0)
-    q, do = (torch.randn((8, sq, 64), generator=g, device=cuda).to(dtype)
+def backward_inputs(dtype, bh, sq, sk, d, causal, lens_max, seed=0):
+    """Seeded q, k, v, do (and lens up to ``lens_max``, or None) on the
+    card, the forward's lse and o, and the backward's arguments."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, do = (torch.randn((bh, sq, d), generator=g, device="cuda").to(dtype)
              for _ in range(2))
-    k, v = (torch.randn((8, sk, 64), generator=g, device=cuda).to(dtype)
+    k, v = (torch.randn((bh, sk, d), generator=g, device="cuda").to(dtype)
             for _ in range(2))
-    lens = (torch.randint(1, sk + 1, (8,), generator=g, device=cuda).float()
-            if masked else None)
-    o, lse = _kernels.flash_fwd(q, k, v, lens, causal, 0.125)
+    lens = (None if lens_max is None else torch.randint(
+        1, lens_max + 1, (bh,), generator=g, device="cuda").float())
+    scale = d ** -0.5
+    o, lse = _kernels.flash_fwd(q, k, v, lens, causal, scale)
     delta = tattn._flash_delta(o, do)
-    args = (q, k, v, do, lse, delta, lens, causal, 0.125)
-    got = (_kernels.flash_bwd_dq(*args), *_kernels.flash_bwd_dkv(*args))
+    return (q, k, v, do, lse, delta, lens, causal, scale)
+
+
+def backward_checked(args, design=None):
+    """Both backward kernels at ``design`` (None: ``bwd_design``'s) held
+    to their plain versions: dq, dk and dv within max|diff| / max|ref| <=
+    1e-4 (f32) or 2e-2 (bf16), a second launch bit-equal to the first,
+    dk = dv = 0 exactly past every length.  Returns the design that ran,
+    read from the counts by design."""
+    q, k, lens = args[0], args[1], args[6]
+    before = _kernels.launch_counts_by_design()
+    got = (_kernels.flash_bwd_dq._run(design, *args),
+           *_kernels.flash_bwd_dkv._run(design, *args))
+    again = (_kernels.flash_bwd_dq._run(design, *args),
+             *_kernels.flash_bwd_dkv._run(design, *args))
     ref = (tattn.flash_bwd_dq_reference(*args),
            *tattn.flash_bwd_dkv_reference(*args))
     torch.cuda.synchronize()
-    tol = 1e-4 if dtype == torch.float32 else 2e-2
-    for a, r in zip(got, ref):
+    after = _kernels.launch_counts_by_design()
+    ran = {key.split("[")[1] for key in after if after[key] != before[key]}
+    assert len(ran) == 1
+    tol = 1e-4 if q.dtype == torch.float32 else 2e-2
+    for a, b, r in zip(got, again, ref):
+        assert torch.equal(a, b)
         err = float((a.double() - r.double()).abs().max()
                     / r.double().abs().max())
         assert err <= tol
+    if lens is not None:
+        past = (torch.arange(k.shape[1], device=k.device)[None, :]
+                >= lens[:, None])[..., None]
+        for a in got[1:]:
+            assert bool((a.masked_select(past) == 0).all())
+    return ran.pop().rstrip("]").split(",")[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,causal,sq,sk,d,lens_max,design", [
+    (torch.float32, True, 512, 512, 64, None, None),
+    (torch.float32, False, 200, 777, 64, 777, None),
+    (torch.float32, True, 192, 512, 64, None, None),
+    (torch.bfloat16, True, 37, 37, 64, None, None),
+    # bf16 at the sm90 design's TMA edges, at both designs: lengths no
+    # multiple of 64, sk > sq causal, lens, d 32, 64, 96 and 128
+    *[(torch.bfloat16, causal, sq, sk, d, lens_max, design)
+      for causal, sq, sk, d, lens_max in (
+          (True, 65, 127, 64, 127),
+          (False, 200, 333, 32, 333),
+          (True, 129, 300, 96, None),
+          (True, 63, 129, 128, 129),
+          (False, 256, 300, 64, 300),
+          (True, 1, 300, 64, None),
+          (True, 1000, 1000, 64, 1000))
+      for design in ("sm90", "base")],
+])
+def test_cuda_backward_kernels_match_plain(cuda, dtype, causal, sq, sk, d,
+                                          lens_max, design):
+    """Each backward kernel against its plain version on the card, at the
+    design the rule picks (None) or a forced one: dq, dk and dv within
+    max|diff| / max|ref| <= 1e-4 (f32) or 2e-2 (bf16), a second launch
+    of each equal bit for bit, dk = dv = 0 past every length; the rule
+    runs sm90 at bf16 and the baseline at f32."""
+    args = backward_inputs(dtype, 8, sq, sk, d, causal, lens_max)
+    ran = backward_checked(args, design)
+    want = design or ("sm90" if dtype == torch.bfloat16 else "base")
+    assert ran == want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 64),
+                                     (torch.bfloat16, 256),
+                                     (torch.bfloat16, 20)])
+def test_cuda_forced_sm90_backward_refuses_what_it_does_not_take(cuda,
+                                                                 dtype, d):
+    """A forced sm90 backward on an f32 call, at d = 256 or on rows of no
+    16-byte multiple raises before any launch; the rule runs those on the
+    baseline."""
+    args = backward_inputs(dtype, 4, 65, 65, d, True, None)
+    launches = dict(_kernels.launch_counts())
+    for kern in (_kernels.flash_bwd_dq, _kernels.flash_bwd_dkv):
+        with pytest.raises(ValueError, match="does not take"):
+            kern._run("sm90", *args)
+    assert _kernels.launch_counts() == launches
+    assert backward_checked(args) == "base"
 
 
 @pytest.mark.cuda
@@ -321,6 +387,45 @@ def test_cuda_kernels_sum_long_walks_without_bias(cuda, d, design):
         assert err(a, b) <= 5e-5
     dk = got[1].double()
     assert float(dk.sum(1).abs().max() / dk.abs().max()) <= 5e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+def test_cuda_bf16_backward_long_walk_no_worse_than_base(cuda, d):
+    """The long-walk inputs above at bf16: the sm90 backward's dq, dk and
+    dv error against exact attention (f64 autograd on the same bf16
+    inputs) and dk's sum over keys (exactly 0) are at most 1.25x the
+    baseline design's on the same inputs, each walk summed in its
+    accumulators across 2,048 causal keys."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    s, scale = 2048, d ** -0.5
+
+    def draw(mean):
+        return (torch.randn((4, s, d), generator=g, device=cuda) * 0.3
+                + mean * torch.randn((1, 1, d), generator=g, device=cuda)
+                ).to(torch.bfloat16)
+
+    q, k, v, do = draw(0.2), draw(1.0), draw(1.0), draw(0.0)
+    o, lse = _kernels.flash_fwd(q, k, v, None, True, scale)
+    delta = tattn._flash_delta(o, do)
+    args = (q, k, v, do, lse, delta, None, True, scale)
+    q64, k64, v64 = (t.double().requires_grad_(True) for t in (q, k, v))
+    sc = torch.einsum("bqd,bkd->bqk", q64, k64) * scale
+    causal = torch.ones((s, s), dtype=torch.bool, device=cuda).tril()
+    o64 = torch.softmax(sc.masked_fill(~causal, -float("inf")), -1) @ v64
+    ref = torch.autograd.grad(o64, (q64, k64, v64), do.double())
+
+    def errors(design):
+        got = (_kernels.flash_bwd_dq._run(design, *args),
+               *_kernels.flash_bwd_dkv._run(design, *args))
+        errs = [float((a.double() - b).abs().max() / b.abs().max())
+                for a, b in zip(got, ref)]
+        dk = got[1].double()
+        return errs + [float(dk.sum(1).abs().max() / dk.abs().max())]
+
+    sm90, base = errors("sm90"), errors("base")
+    for a, b in zip(sm90, base):
+        assert a <= 1.25 * b
 
 
 @pytest.mark.cuda

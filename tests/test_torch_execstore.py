@@ -279,7 +279,8 @@ def stub_build(tmp_path, monkeypatch):
         del calls[:], loads[:]
         fns = _kernels.KernelLibrary().build()
         assert set(fns) == {"flash_fwd", "flash_fwd_sm90", "flash_bwd_dq",
-                            "flash_bwd_dkv"}
+                            "flash_bwd_dkv", "flash_bwd_dq_sm90",
+                            "flash_bwd_dkv_sm90"}
         return list(calls), sorted(loads)
 
     return build
