@@ -26,8 +26,8 @@ Every kernel has two designs, chosen by shape: ``sm90`` (TMA and
 ``wgmma``: ``csrc/flash_fwd_sm90.cu`` for the forward, where
 :func:`fwd_design` gives it every call whose rows and bases TMA takes and
 whose head dim is at most 128; ``csrc/flash_bwd_sm90.cu`` for the two
-backward kernels, where :func:`bwd_design` gives it the same calls at
-bf16) and ``base`` (``mma.sync``: ``csrc/flash_fwd.cu``,
+backward kernels, where :func:`bwd_design` gives it the same calls, at
+f32 up to head dim 64) and ``base`` (``mma.sync``: ``csrc/flash_fwd.cu``,
 ``csrc/flash_bwd.cu``) for the rest.  Launches are also counted by
 design (``launch_counts_by_design``: ``flash_fwd[bf16,sm90]``,
 ``flash_bwd_dq[bf16,sm90]``); ``launches`` sums both.
@@ -69,7 +69,7 @@ _SIGNATURES = {
     # q, k, v, do, lse, delta, lens, dk, dv | ...
     "flash_bwd.cu": {"flash_bwd_dq": [_VOID] * 8 + _TAIL,
                      "flash_bwd_dkv": [_VOID] * 9 + _TAIL},
-    # as flash_bwd.cu's, bf16 only
+    # as flash_bwd.cu's; f32 up to head dim 64, bf16 up to 128
     "flash_bwd_sm90.cu": {"flash_bwd_dq_sm90": [_VOID] * 8 + _TAIL,
                           "flash_bwd_dkv_sm90": [_VOID] * 9 + _TAIL},
 }
@@ -235,6 +235,8 @@ MAX_HEAD_DIM = 256
 FWD_DESIGNS = ("sm90", "base")
 BWD_DESIGNS = FWD_DESIGNS
 SM90_MAX_HEAD_DIM = 128
+#: the widest head the f32 sm90 backward takes
+SM90_F32_BWD_MAX_HEAD_DIM = 64
 
 
 def fwd_design(dtype, d: int, strides, ptrs) -> str:
@@ -251,14 +253,16 @@ def fwd_design(dtype, d: int, strides, ptrs) -> str:
 
 
 def bwd_design(dtype, d: int, strides, ptrs) -> str:
-    """The backward kernels' design for a call: ``"sm90"`` at bf16 where
-    TMA and wgmma take it, as :func:`fwd_design` (``strides`` and
-    ``ptrs`` of q, k, v and do); ``"base"`` otherwise, every f32 call
-    included.  lse and delta need nothing: the sm90 kernels load their
-    rows with plain loads."""
-    if dtype == torch.bfloat16:
-        return fwd_design(dtype, d, strides, ptrs)
-    return "base"
+    """The backward kernels' design for a call: ``"sm90"`` where TMA and
+    wgmma take it, as :func:`fwd_design` (``strides`` and ``ptrs`` of q,
+    k, v and do), with the head dim at most 64 at f32
+    (:data:`SM90_F32_BWD_MAX_HEAD_DIM`: past it a stage of f32 tiles and
+    their TF32 lo parts and transposes does not fit in shared memory);
+    ``"base"`` otherwise.  lse and delta need nothing: the sm90 kernels
+    load their rows with plain loads."""
+    if dtype == torch.float32 and d > SM90_F32_BWD_MAX_HEAD_DIM:
+        return "base"
+    return fwd_design(dtype, d, strides, ptrs)
 
 
 def _chosen(name, forced, chosen, d, dtype):

@@ -1,5 +1,6 @@
-// Flash-attention backward for Hopper (sm_90a), f32 and bf16 inputs: two
-// kernels, as on the TPU, so that dq needs no atomics and is deterministic.
+// Flash-attention backward for Hopper (sm_90a), f32 and bf16 inputs, on
+// mma.sync: two kernels, as on the TPU, so that dq needs no atomics and is
+// deterministic.
 //
 // Replaces the Pallas TPU kernels `_flash_bwd_dq_kernel` and
 // `_flash_bwd_dkv_kernel` (analytics_zoo_tpu/ops/attention.py, launched by
@@ -61,9 +62,10 @@
 //   spills.  p uses exp2 with log2(e) folded into the scale and lse; the
 //   masks are evaluated only on tiles that cross a causal, length or
 //   sequence edge.
-// - Not wgmma yet: TF32 wgmma needs both operands K-major in shared
-//   memory, which would take transposed copies of Q and dO for the dK and
-//   dV products (TMA does not transpose).  mma.sync is the baseline.
+// - The baseline: flash_bwd_sm90.cu runs both kernels on TMA and wgmma
+//   for every call that design takes (bf16 to d = 128, f32 to d = 64, its
+//   producer writing the transposed TF32 tiles TMA cannot), this file the
+//   rest.
 
 #include <math.h>
 

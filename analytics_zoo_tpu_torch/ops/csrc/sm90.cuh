@@ -1,9 +1,11 @@
 // Hopper (sm_90a) building blocks shared by the flash kernels that run on
 // TMA and wgmma (flash_fwd_sm90.cu, flash_bwd_sm90.cu): shared-memory
 // barriers, TMA loads and the tensor maps they read, 128-byte swizzled
-// operand descriptors, the bf16 wgmma forms both use, and the host's
-// tensor-map encoder, taken from the driver through
-// cudaGetDriverEntryPoint (the libraries are not linked against libcuda).
+// operand descriptors, the bf16 and TF32 wgmma forms both use, the f32
+// tiles' converters (TF32 hi and lo parts, the transposes TF32 wgmma
+// needs), and the host's tensor-map encoder, taken from the driver
+// through cudaGetDriverEntryPoint (the libraries are not linked against
+// libcuda).
 
 #pragma once
 
@@ -11,6 +13,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "flash_mma.cuh"
 
 namespace sm90 {
 
@@ -160,11 +164,186 @@ __device__ __forceinline__ void wgmma_rs_bf16_n64(float (&d)[32], const uint32_t
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
+// wgmma.mma_async m64nNk8 (tf32), f32 accumulators, as the bf16 forms; TF32
+// reads its shared-memory operands K-major only.
+__device__ __forceinline__ void wgmma_ss_tf32_n32(float (&d)[16], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_ss_tf32_n64(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs_tf32_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs_tf32_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
 __device__ __forceinline__ void store2(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
 }
 __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// ---- f32 tiles: TF32 hi and lo parts ---------------------------------------
+
+// the warpgroup's 128 threads
+__device__ __forceinline__ void warpgroup_sync(int id) {
+  asm volatile("bar.sync %0, 128;" ::"r"(id) : "memory");
+}
+
+// f32: the threads of the producer warpgroup that convert tiles
+constexpr int CONVERTERS = 96;
+
+// Chunk i of the transpose of a raw tile at `v` (BK rows as K-major
+// 128-byte swizzled atoms of 32 of its DP columns, atom a at a * BK * 128)
+// into TF32 hi parts at `hi_t` and lo parts at `lo_t`: atoms of 32 rows of
+// `v`, DP rows each, each group of 8 rows of `v` in the order 0 2 4 6 1 3
+// 5 7 (convert_tile says why).
+template <int DP, int BK>
+__device__ __forceinline__ void transpose_chunk(unsigned char* hi_t,
+                                                unsigned char* lo_t,
+                                                const unsigned char* v,
+                                                int i) {
+  // a 16-byte chunk cg of head-dim row r in key atom ka holds keys
+  // 32 ka + 8 (cg / 2) + (cg & 1) + {0, 2, 4, 6}
+  const int r = i % DP, cg = (i / DP) % 8, ka = i / (DP * 8);
+  const int key0 = 32 * ka + 8 * (cg >> 1) + (cg & 1);
+  const unsigned char* col = v + (r >> 5) * BK * 128 + (r & 3) * 4;
+  float x[4];
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    const int key = key0 + 2 * u;
+    x[u] = *reinterpret_cast<const float*>(
+        col + key * 128 + ((((r & 31) >> 2) ^ (key & 7)) << 4));
+  }
+  uint4 hi, lo;
+  flash::split(x[0], hi.x, lo.x);
+  flash::split(x[1], hi.y, lo.y);
+  flash::split(x[2], hi.z, lo.z);
+  flash::split(x[3], hi.w, lo.w);
+  const int at = ka * DP * 128 + r * 128 + ((cg ^ (r & 7)) << 4);
+  *reinterpret_cast<uint4*>(hi_t + at) = hi;
+  *reinterpret_cast<uint4*>(lo_t + at) = lo;
+}
+
+// The whole transpose (transpose_chunk's) by thread ct of CONVERTERS.
+template <int DP, int BK>
+__device__ __forceinline__ void transpose_tile(unsigned char* hi_t,
+                                               unsigned char* lo_t,
+                                               const unsigned char* v,
+                                               int ct) {
+  for (int i = ct; i < DP * BK / 4; i += CONVERTERS)
+    transpose_chunk<DP, BK>(hi_t, lo_t, v, i);
+}
+
+// f32: turn the raw K and V tiles TMA landed at `raw` (K, then V T_BYTES
+// after, each as K-major 128-byte swizzled atoms of 32 head-dim columns)
+// into a stage at `st`: K's TF32 hi parts (as K lies) and lo parts, and V
+// transposed, hi and lo (atoms of 32 keys, DP head-dim rows each), each
+// group of 8 keys in the order 0 2 4 6 1 3 5 7: P's A fragment holds
+// columns t and t + 4 where S's accumulator holds 2t and 2t + 1, so P
+// goes to the tensor core without moving between lanes.  Thread ct of
+// CONVERTERS.
+template <int DP, int BK>
+__device__ __forceinline__ void convert_tile(unsigned char* st,
+                                             const unsigned char* raw,
+                                             int ct) {
+  constexpr int T_BYTES = BK * DP * 4;
+  for (int i = ct; i < T_BYTES / 16; i += CONVERTERS) {
+    const uint4 x = reinterpret_cast<const uint4*>(raw)[i];
+    uint4 hi, lo;
+    flash::split(__uint_as_float(x.x), hi.x, lo.x);
+    flash::split(__uint_as_float(x.y), hi.y, lo.y);
+    flash::split(__uint_as_float(x.z), hi.z, lo.z);
+    flash::split(__uint_as_float(x.w), hi.w, lo.w);
+    reinterpret_cast<uint4*>(st)[i] = hi;
+    reinterpret_cast<uint4*>(st + T_BYTES)[i] = lo;
+  }
+  transpose_tile<DP, BK>(st + 2 * T_BYTES, st + 3 * T_BYTES, raw + T_BYTES,
+                         ct);
 }
 
 // ---- host side --------------------------------------------------------------

@@ -353,11 +353,13 @@ Every flash forward launch of the train, mixed, serve and sanitize
 phases (all at head dim 64) must run the sm90 design: the forward's
 running counts by design (``total_by_design``, which no reset clears),
 read before and after the phase, warm-ups and checks included, fail the
-phase if one went to the baseline.  So must every bf16 backward launch
-of the mixed and moe phases (``total_by_dtype_design``; their f32
-launches run the baseline, as every f32 backward does).  The kernels line's launch counts by
-design are each phase's own run's, read after its own reset where its
-``launches`` are.
+phase if one went to the baseline.  So must every backward launch at
+the dtypes ``BWD_SM90_PHASES`` names for a phase, all at head dim 64
+(``total_by_dtype_design``): bf16 in the mixed and moe phases, f32 in
+the train, graph, moe, resume, parallel, observe and stream phases (the
+resume workers' runs report theirs by design).  The kernels line's
+launch counts by design are each phase's own run's, read after its own
+reset where its ``launches`` are.
 
 ``python3 chip_smoke.py --phases train,resume`` runs only the named
 phases (after the build), for a short call.
@@ -587,7 +589,7 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
 FWD_SOURCES = {"sm90": KERNELS["flash_fwd"][0],
                "base": "analytics_zoo_tpu_torch/ops/csrc/flash_fwd.cu"}
 #: the backward kernels' designs (``_kernels.bwd_design``): the sm90 one
-#: runs every bf16 main-path launch, the baseline every f32 one and every
+#: runs every main-path launch (d = 64, f32 and bf16), the baseline every
 #: shape TMA or wgmma does not take
 BWD_SOURCES = {"sm90": KERNELS["flash_bwd_dq"][0],
                "base": "analytics_zoo_tpu_torch/ops/csrc/flash_bwd.cu"}
@@ -596,8 +598,12 @@ SOURCES = {"flash_fwd": FWD_SOURCES, "flash_bwd_dq": BWD_SOURCES,
 BWD_KERNELS = ("flash_bwd_dq", "flash_bwd_dkv")
 #: the phases whose every flash_fwd launch (all d = 64) must be sm90's
 SM90_PHASES = ("train", "mixed", "serve", "sanitize")
-#: the phases whose every bf16 backward launch (all d = 64) must be sm90's
-BWD_SM90_PHASES = ("mixed", "moe")
+#: the phases whose every backward launch at these dtypes (all d = 64) must
+#: be sm90's
+BWD_SM90_PHASES = {"train": ("f32",), "graph": ("f32",),
+                   "mixed": ("bf16",), "moe": ("f32", "bf16"),
+                   "resume": ("f32",), "parallel": ("f32",),
+                   "observe": ("f32",), "stream": ("f32",)}
 #: FLOP per valid (query, key) pair and head-dim element, per kernel:
 #: 2 per product, and 2, 3 or 4 products
 PRODUCTS = {"flash_fwd": 2, "flash_bwd_dq": 3, "flash_bwd_dkv": 4}
@@ -623,22 +629,23 @@ def all_sm90(kernels, name, before):
     return True
 
 
-def bwd_bf16_all_sm90(kernels, name, before):
-    """Whether every bf16 backward launch of a phase ran the sm90 design,
-    and at least one did, for each backward kernel: its
-    ``total_by_dtype_design`` against ``before`` ({kernel: counts at the
-    phase's start})."""
+def bwd_all_sm90(kernels, name, before, dtypes):
+    """Whether every backward launch of a phase at each of ``dtypes``
+    ("f32", "bf16") ran the sm90 design, and at least one did, for each
+    backward kernel: its ``total_by_dtype_design`` against ``before``
+    ({kernel: counts at the phase's start})."""
     ok = True
     for kernel in BWD_KERNELS:
         totals = kernels.KERNELS[kernel].total_by_dtype_design
-        seen = {d: totals[f"bf16,{d}"] - before[kernel].get(f"bf16,{d}", 0)
-                for d in kernels.BWD_DESIGNS}
-        log(f"{name}: {kernel} bf16 launches by design over the whole "
-            f"phase {json.dumps(seen)}")
-        if seen["base"] or not seen["sm90"]:
-            log(f"{name}: FAIL {seen['base']} bf16 {kernel} launches went "
-                f"to the baseline, {seen['sm90']} to sm90")
-            ok = False
+        for dt in dtypes:
+            seen = {d: totals[f"{dt},{d}"] - before[kernel].get(
+                f"{dt},{d}", 0) for d in kernels.BWD_DESIGNS}
+            log(f"{name}: {kernel} {dt} launches by design over the whole "
+                f"phase {json.dumps(seen)}")
+            if seen["base"] or not seen["sm90"]:
+                log(f"{name}: FAIL {seen['base']} {dt} {kernel} launches "
+                    f"went to the baseline, {seen['sm90']} to sm90")
+                ok = False
     return ok
 
 
@@ -1822,6 +1829,7 @@ def phase_graph(torch, keras, kernels):
         after = kernels.launch_counts()
         per_step.append({n: after[n] - before[n] for n in after})
     counts = kernels.launch_counts()
+    by_design = kernels.launch_counts_by_design()
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     flash = model.predict(x[:b], batch_size=b)
     try:
@@ -1833,7 +1841,8 @@ def phase_graph(torch, keras, kernels):
             layer.implementation = "flash"
     err = float(np.abs(flash - plain).max())
     stats = dict(step_ms_all=[t * 1e3 for t in step_s], losses=losses,
-                 launches=counts, launches_per_step=per_step,
+                 launches=counts, launches_by_design=by_design,
+                 launches_per_step=per_step,
                  peak_gib=peak_gib, predict_vs_blockwise_max_abs_err=err,
                  shape=list(flash.shape))
     log("graph:", json.dumps(stats))
@@ -2953,13 +2962,13 @@ def phase_moe(torch, TransformerLM, kernels, inference, objectives):
 
     model = TransformerLM(**cfg, device="cuda", seed=0)
     stats["parameters"] = sum(p.numel() for p in model.parameters())
-    losses, aux, step_s, counts, _, peak = train(model)
+    losses, aux, step_s, counts, designs, peak = train(model)
     step = statistics.median(step_s)
     per_step = {k: v / TRAIN_STEPS for k, v in counts.items() if v}
     stats.update(step_ms=step * 1e3, step_ms_all=[t * 1e3 for t in step_s],
                  tokens_per_s=B * TRAIN_SEQ / step, peak_gib=peak,
                  losses=losses, summed_aux=aux, launches=counts,
-                 launches_per_step=per_step)
+                 launches_by_design=designs, launches_per_step=per_step)
     # no "falling" here: while the router rebalances from its seeded
     # start, tokens that were dropped (passed through) reach untrained
     # experts, and the first steps' losses may rise
@@ -4248,9 +4257,10 @@ real_fault = faults.maybe_fault
 def reporting_fault(step):
     # each completed step, reported before the fault hook may kill us
     torch.cuda.synchronize()
-    print("STEP", json.dumps({"step": step,
-                              "launches": _kernels.launch_counts()}),
-          flush=True)
+    print("STEP", json.dumps({
+        "step": step, "launches": _kernels.launch_counts(),
+        "launches_by_design": _kernels.launch_counts_by_design()}),
+        flush=True)
     real_fault(step)
 
 
@@ -4308,7 +4318,9 @@ else:
     t0, stamps = fit(R["steps"])
     res.update(steps=[s for s, _ in stamps], t_fit=t0,
                t_first_step=stamps[0][1] if stamps else None,
-               launches=_kernels.launch_counts(), final_step=tr.state.step)
+               launches=_kernels.launch_counts(),
+               launches_by_design=_kernels.launch_counts_by_design(),
+               final_step=tr.state.step)
     if mode == "full":
         tr.save_weights(out, "final")
     from analytics_zoo_tpu_torch.train import metrics
@@ -4420,7 +4432,8 @@ def remat_check(torch, TransformerLM, kernels):
         key = "remat" if remat else "plain"
         out[key] = dict(step_ms=ms,
                         peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
-                        launches=kernels.launch_counts())
+                        launches=kernels.launch_counts(),
+                        launches_by_design=kernels.launch_counts_by_design())
         grads[key] = [t.detach().cpu().numpy() for t in g]
         del model, params, g
         torch.cuda.empty_cache()
@@ -4489,7 +4502,9 @@ def phase_resume(torch, TransformerLM, kernels, tmp):
                 f"expected {R['crash_step']}")
             ok = False
         stats["incarnation1"] = dict(rc=rc1, last_step=(last1 or {}).get(
-            "step"), launches=(last1 or {}).get("launches"), wall_s=wall1,
+            "step"), launches=(last1 or {}).get("launches"),
+            launches_by_design=(last1 or {}).get("launches_by_design"),
+            wall_s=wall1,
             tags=sorted(f for f in os.listdir(dirs["ckpt"])
                         if f.endswith(".commit.json")))
         if not killed or (last1 or {}).get("step") != R["crash_step"]:
@@ -4536,6 +4551,10 @@ def phase_resume(torch, TransformerLM, kernels, tmp):
         launch_runs = {"uninterrupted": runs["full_a"]["launches"],
                        "incarnation1": stats["incarnation1"]["launches"]
                        or {}, "incarnation2": res2["launches"]}
+        design_runs = {
+            "uninterrupted": runs["full_a"].get("launches_by_design") or {},
+            "incarnation1": stats["incarnation1"]["launches_by_design"]
+            or {}, "incarnation2": res2.get("launches_by_design") or {}}
         for run, counts in launch_runs.items():
             steps = (R["steps"] if run == "uninterrupted"
                      else R["crash_step"] if run == "incarnation1"
@@ -4545,7 +4564,18 @@ def phase_resume(torch, TransformerLM, kernels, tmp):
                     log(f"resume: FAIL {run}: {name} launched "
                         f"{counts.get(name, 0)} times in {steps} steps")
                     ok = False
+            # the workers train at f32, d = 64: every backward on sm90
+            for name in BWD_KERNELS:
+                by = design_runs[run]
+                if by.get(f"{name}[f32,base]", 0) or not by.get(
+                        f"{name}[f32,sm90]", 0):
+                    mine = {k: n for k, n in by.items()
+                            if k.startswith(name + "[")}
+                    log(f"resume: FAIL {run}: {name} launches by design "
+                        f"{json.dumps(mine)}")
+                    ok = False
         stats["launches"] = launch_runs
+        stats["launches_by_design"] = design_runs
         shutil.rmtree(dirs["full_a"])
         shutil.rmtree(dirs["ckpt"])
 
@@ -4591,7 +4621,7 @@ def phase_resume(torch, TransformerLM, kernels, tmp):
 def parallel_fit(torch, TransformerLM, kernels, x, y, **compile_kw):
     """The train plan from seed 0: a warm-up fit and TRAIN_STEPS
     one-step fits, each synchronised; (model, losses, step seconds,
-    launches over the timed steps, peak GiB)."""
+    launches over the timed steps, the same by design, peak GiB)."""
     cfg = dict(FULL, seq_len=TRAIN_SEQ)
     model = TransformerLM(**cfg, device="cuda", seed=0)
     model.compile({"name": "adam", "lr": TRAIN_LR}, "class_nll",
@@ -4609,6 +4639,7 @@ def parallel_fit(torch, TransformerLM, kernels, x, y, **compile_kw):
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t)
     return (model, losses, step_s, kernels.launch_counts(),
+            kernels.launch_counts_by_design(),
             torch.cuda.max_memory_allocated() / 2 ** 30)
 
 
@@ -4643,12 +4674,12 @@ def phase_parallel(torch, TransformerLM, kernels, tmp):
               and tuple(mesh.mesh_dim_names) == mesh_lib.AXES)
         x, y = periodic_tokens(TRAIN_BATCH * (TRAIN_STEPS + 1),
                                FULL["vocab_size"], TRAIN_SEQ, seed=1)
-        plain, plain_losses, plain_s, plain_counts, plain_peak = \
+        plain, plain_losses, plain_s, plain_counts, _, plain_peak = \
             parallel_fit(torch, TransformerLM, kernels, x, y)
         plain_w = {n: p.detach().cpu() for n, p in plain.named_parameters()}
         del plain
         torch.cuda.empty_cache()
-        model, losses, step_s, counts, peak = parallel_fit(
+        model, losses, step_s, counts, by_design, peak = parallel_fit(
             torch, TransformerLM, kernels, x, y, mesh=mesh,
             strategy="fsdp_tp", tp_rules=PARALLEL_RULES)
         plan = model.trainer.state.plan
@@ -4669,7 +4700,8 @@ def phase_parallel(torch, TransformerLM, kernels, tmp):
             sharded_step_ms_all=[t * 1e3 for t in step_s],
             plain_step_ms_all=[t * 1e3 for t in plain_s],
             sharded_peak_gib=peak, plain_peak_gib=plain_peak,
-            launches=counts, plain_launches=plain_counts)
+            launches=counts, launches_by_design=by_design,
+            plain_launches=plain_counts)
         stats["step_ratio"] = (stats["sharded_step_ms"]
                                / stats["plain_step_ms"])
         ok &= stats["fit_bitwise"]
@@ -4820,6 +4852,7 @@ def observe_fits(torch, TransformerLM, kernels, tmp):
         run = dict(traced=traced, losses=hist["loss"],
                    step_ms=start.elapsed_time(end) / steps,
                    launches=kernels.launch_counts(),
+                   launches_by_design=kernels.launch_counts_by_design(),
                    weights=[p.detach().clone() for p in model.parameters()])
         if traced:
             with open(prof.timeline_path) as f:
@@ -4859,6 +4892,7 @@ def observe_fits(torch, TransformerLM, kernels, tmp):
                     for r in runs]
         stats["launches_per_step"] = per_step[1]
         stats["launches"] = on[0]["launches"]
+        stats["launches_by_design"] = on[0]["launches_by_design"]
         for r in runs:
             for name in KERNELS:
                 if r["launches"].get(name, 0) != cfg["n_layers"] * steps:
@@ -5083,7 +5117,8 @@ def phase_observe(torch, TransformerLM, keras, kernels, inference, tmp):
         profile_hand_kernels=fit.get("profile_hand_kernels"),
         decode_phase_median_ms=serve.get("decode_phase_median_ms"),
         predict_chain=serve.get("predict_chain"),
-        launches=fit.get("launches"))
+        launches=fit.get("launches"),
+        launches_by_design=fit.get("launches_by_design"))
     log("observe:", json.dumps(stats))
     return ok_fit and ok_serve, stats
 
@@ -6722,8 +6757,8 @@ def recorded(ds, store):
 def stream_fit(torch, TransformerLM, kernels, data, steps):
     """A full-width model (the train phase's: seed 0, adam) after one
     warm-up step, then one epoch of ``data`` (a Dataset); the losses,
-    the wall seconds of the epoch, the launch counts of the epoch and
-    the model."""
+    the wall seconds of the epoch, the launch counts of the epoch (and
+    the same by design) and the model."""
     cfg = dict(FULL, seq_len=TRAIN_SEQ)
     model = TransformerLM(**cfg, device="cuda", seed=0)
     model.compile({"name": "adam", "lr": TRAIN_LR}, "class_nll")
@@ -6737,7 +6772,8 @@ def stream_fit(torch, TransformerLM, kernels, data, steps):
                      shuffle=data.__class__.__name__ == "StreamingDataset")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
-    return hist["loss"], wall, kernels.launch_counts(), model
+    return (hist["loss"], wall, kernels.launch_counts(),
+            kernels.launch_counts_by_design(), model)
 
 
 def phase_stream(torch, TransformerLM, kernels):
@@ -6758,7 +6794,7 @@ def phase_stream(torch, TransformerLM, kernels):
     ds = recorded(Dataset.from_batch_iterable(
         stream_factory(x, y, chunk, pulls),
         shuffle_buffer=STREAM["shuffle_buffer"]), emitted)
-    losses, wall, counts, stream_model = stream_fit(
+    losses, wall, counts, by_design, stream_model = stream_fit(
         torch, TransformerLM, kernels, ds, steps)
     n_pulls = len(pulls)
     # the host side alone: pulling and rebatching one epoch, no device
@@ -6772,7 +6808,7 @@ def phase_stream(torch, TransformerLM, kernels):
         np.array_equal(a[0], b[0]) for a, b in zip(host, emitted))
     bx = np.concatenate([b[0] for b in emitted])
     by = np.concatenate([b[1] for b in emitted])
-    ref_losses, ref_wall, ref_counts, ref_model = stream_fit(
+    ref_losses, ref_wall, ref_counts, _, ref_model = stream_fit(
         torch, TransformerLM, kernels, Dataset.from_ndarray(bx, by), steps)
     weights_equal = all(torch.equal(a, b) for a, b in zip(
         stream_model.parameters(), ref_model.parameters()))
@@ -6790,8 +6826,8 @@ def phase_stream(torch, TransformerLM, kernels):
         memory_tokens_per_s=tokens * steps / ref_wall,
         host_pull_ms_per_batch=host_s / max(len(host), 1) * 1e3,
         host_chunk_ms=sum(pulls) / max(len(pulls), 1) * 1e3,
-        launches=counts, memory_launches=ref_counts,
-        launches_per_step={n: c / steps for n, c in counts.items()},
+        launches=counts, launches_by_design=by_design,
+        memory_launches=ref_counts, launches_per_step={n: c / steps for n, c in counts.items()},
         card=smi_card())
     log("stream:", json.dumps(stats))
     checks = {
@@ -7428,7 +7464,8 @@ def main() -> int:
         return 1
     log("build: sass", json.dumps(sass))
     # the kernels' design: no atomics anywhere; the sm90 kernels on wgmma
-    # and TMA, the sm90 backward without mma.sync; the mma.sync kernels on
+    # and TMA, the sm90 backward (its f32 instantiations among them)
+    # without mma.sync; the mma.sync kernels on
     # tensor-core MMA and cp.async, the baseline forward with ldmatrix
     # (its Q.K^T operands at both dtypes, P.V's V at bf16)
     bad = [fn for fn, c in (sass or {}).items() if "_kernel<" in fn and (
@@ -7437,9 +7474,10 @@ def main() -> int:
              or ("bwd" in fn and c["HMMA"])) if "sm90" in fn else (
                 not c["HMMA"] or not c["LDGSTS"]
                 or ("fwd" in fn and not c["LDSM"]))))]
-    missing = [k for k in (*KERNELS, *(f"{k}_sm90" for k in KERNELS))
-               if sass is not None and not any(f"{k}_kernel<" in fn
-                                               for fn in sass)]
+    missing = [k for k in (*KERNELS, *(f"{k}_sm90" for k in KERNELS),
+                           *(f"{k}_sm90_kernel<f32" for k in BWD_KERNELS))
+               if sass is not None and not any(
+                   (k if "<" in k else f"{k}_kernel<") in fn for fn in sass)]
     if bad or missing:
         log(f"build: FAIL instantiations off their design: {bad}; "
             f"kernels not found: {missing}")
@@ -7503,7 +7541,8 @@ def main() -> int:
             if name in SM90_PHASES:
                 ok &= all_sm90(kernels, name, totals)
             if name in BWD_SM90_PHASES:
-                ok &= bwd_bf16_all_sm90(kernels, name, bwd_totals)
+                ok &= bwd_all_sm90(kernels, name, bwd_totals,
+                                   BWD_SM90_PHASES[name])
         except Exception as e:  # a phase's crash fails that phase only
             import traceback
             traceback.print_exc()
@@ -7594,19 +7633,25 @@ def main() -> int:
             library_backend=row["library_backend"],
             shape=[row["bh"], row["sq"], row["d"]])
 
-    # every kernel's launches by design in each checked phase's own run
-    # (read where its launches are, after its own reset)
+    # every kernel's launches by design in each checked phase's own run,
+    # read where its launches are, after its own reset (the resume
+    # workers' runs each in its own process)
     designs = {p: (results.get(p) or {}).get("launches_by_design") or {}
-               for p in SM90_PHASES}
+               for p in (*SM90_PHASES, "graph", "moe", "parallel",
+                         "observe", "stream")}
     designs["moe_bf16"] = moe.get("bf16_launches_by_design") or {}
+    resume_designs = resume.get("launches_by_design") or {}
+    designs["resume"] = resume_designs.get("incarnation2") or {}
+    designs["resume_uninterrupted"] = resume_designs.get(
+        "uninterrupted") or {}
+    designs["resume_remat"] = ((resume.get("remat") or {}).get(
+        "remat") or {}).get("launches_by_design") or {}
 
     def of(name, counts):
         return {k: n for k, n in counts.items() if k.startswith(name + "[")}
 
     entries = []
     for name, (source, replaces) in KERNELS.items():
-        # the f32 main path runs the sm90 forward and the baseline backward
-        f32_design = "sm90" if name == "flash_fwd" else "base"
         entry = {"name": name, "route": "cuda", "source": source,
                  "replaces": replaces, "design": "sm90",
                  "launches": designs["mixed"].get(f"{name}[bf16,sm90]", 0),
@@ -7648,7 +7693,8 @@ def main() -> int:
                      "interop": path_launches["interop"].get(name, 0),
                      "sanitize": path_launches["sanitize"].get(name, 0)}}
         entry.update(timed_row(name, "mixed", "bfloat16"))
-        entry["f32"] = timed_row(name, "train", "float32", design=f32_design)
+        # the f32 main path runs every kernel at sm90
+        entry["f32"] = timed_row(name, "train", "float32")
         entry["bf16_batch8"] = timed_row(name, "train", "bfloat16")
         # the baseline design, timed at the same shapes in this run; the
         # main path's bf16 launches run none of it

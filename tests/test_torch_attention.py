@@ -433,8 +433,9 @@ def test_launch_totals_by_design_outlive_a_reset():
 
 
 def _bwd_sm90_takes(dtype, d):
-    """The sm90 backward takes what the sm90 forward takes, at bf16."""
-    return dtype == torch.bfloat16 and _sm90_takes(dtype, d)
+    """The sm90 backward takes what the sm90 forward takes, up to d = 64
+    at f32 (16-byte rows: a multiple of 4 there, of 8 at bf16)."""
+    return _sm90_takes(dtype, d) and (dtype == torch.bfloat16 or d <= 64)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -443,11 +444,11 @@ def _bwd_sm90_takes(dtype, d):
                                     "padded_rows", "do_padded_rows"])
 def test_bwd_design_rule(dtype, d, layout):
     """The backward's design is a plain function of dtype, head dim,
-    strides and base alignment of q, k, v and do: ``sm90`` at bf16 where
-    TMA and wgmma take the call (16-byte-multiple contiguous rows,
-    16-byte-aligned bases, d <= 128), the ``base`` kernels otherwise --
-    every f32 call, a base one element off, or rows padded past d in any
-    of the four tensors."""
+    strides and base alignment of q, k, v and do: ``sm90`` where TMA and
+    wgmma take the call (16-byte-multiple contiguous rows, 16-byte-aligned
+    bases, d <= 128 at bf16 and d <= 64 at f32), the ``base`` kernels
+    otherwise -- an f32 head past 64, a base one element off, or rows
+    padded past d in any of the four tensors."""
     item = 4 if dtype == torch.float32 else 2
     s = 40
     strides = [(s * d, d, 1)] * 4
@@ -467,10 +468,10 @@ def test_bwd_design_rule(dtype, d, layout):
 @pytest.mark.parametrize("layout", ["bshd", "bhsd"])
 @pytest.mark.parametrize("lengths", [None, [96, 40]])
 def test_bwd_design_takes_every_mixed_launch(monkeypatch, layout, lengths):
-    """The mixed-precision path's backward (bf16, d = 64) reaches the
+    """The training paths' backward (bf16 and f32, d = 64) reaches the
     kernels with q, k, v and do as ``FlashAttentionFunction`` folds them,
-    contiguous on fresh allocations: ``bwd_design`` gives it sm90, and at
-    f32 the baseline."""
+    contiguous on fresh allocations: ``bwd_design`` gives it sm90 at both
+    dtypes."""
     seen = []
     plain = tattn.flash_attention_bwd_reference
 
@@ -494,7 +495,7 @@ def test_bwd_design_takes_every_mixed_launch(monkeypatch, layout, lengths):
         ptrs = [t_.data_ptr() - t_.data_ptr() % 16 for t_ in tensors]
         got = _kernels.bwd_design(dtype, 64, [t_.stride() for t_ in tensors],
                                   ptrs)
-        assert got == ("sm90" if dtype == torch.bfloat16 else "base")
+        assert got == "sm90"
         assert all(t_.is_contiguous() for t_ in tensors)
 
 
@@ -502,8 +503,8 @@ def test_bwd_design_takes_every_mixed_launch(monkeypatch, layout, lengths):
                                   "flash_bwd_dkv"])
 def test_forced_sm90_refuses_what_the_rule_does_not_give_it(name):
     """A forced ``sm90`` design raises where the design rule chose the
-    baseline (an f32 backward, d = 256): no call is quietly moved to the
-    other design; ``base`` takes every shape."""
+    baseline (d = 256, which no sm90 kernel takes): no call is quietly
+    moved to the other design; ``base`` takes every shape."""
     with pytest.raises(ValueError, match="does not take"):
         _kernels._chosen(name, "sm90", "base", 256, torch.float32)
     assert _kernels._chosen(name, "base", "sm90", 64,

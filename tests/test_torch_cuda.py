@@ -295,20 +295,33 @@ def backward_checked(args, design=None):
     return ran.pop().rstrip("]").split(",")[1]
 
 
+def rule_design(dtype, d):
+    """The backward's design for contiguous, aligned tensors: sm90 on rows
+    of 16-byte multiples up to d = 128 at bf16 and d = 64 at f32."""
+    item = 4 if dtype == torch.float32 else 2
+    widest = 64 if dtype == torch.float32 else 128
+    return "sm90" if d <= widest and (d * item) % 16 == 0 else "base"
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,causal,sq,sk,d,lens_max,design", [
     (torch.float32, True, 512, 512, 64, None, None),
     (torch.float32, False, 200, 777, 64, 777, None),
     (torch.float32, True, 192, 512, 64, None, None),
+    (torch.float32, True, 129, 300, 96, None, None),
     (torch.bfloat16, True, 37, 37, 64, None, None),
-    # bf16 at the sm90 design's TMA edges, at both designs: lengths no
-    # multiple of 64, sk > sq causal, lens, d 32, 64, 96 and 128
-    *[(torch.bfloat16, causal, sq, sk, d, lens_max, design)
+    # at the sm90 design's TMA edges, at both designs: lengths no multiple
+    # of the tiles, sk > sq causal, lens; d 32, 64, 96 and 128 at bf16,
+    # and at f32 (whose widest sm90 head is 64) d 32, 64, 36 (an atom and
+    # a few columns) and 20 (rows of 80 bytes)
+    *[(dtype, causal, sq, sk, d, lens_max, design)
+      for dtype, wide, widest in ((torch.bfloat16, 96, 128),
+                                  (torch.float32, 36, 20))
       for causal, sq, sk, d, lens_max in (
           (True, 65, 127, 64, 127),
           (False, 200, 333, 32, 333),
-          (True, 129, 300, 96, None),
-          (True, 63, 129, 128, 129),
+          (True, 129, 300, wide, None),
+          (True, 63, 129, widest, 129),
           (False, 256, 300, 64, 300),
           (True, 1, 300, 64, None),
           (True, 1000, 1000, 64, 1000))
@@ -320,22 +333,24 @@ def test_cuda_backward_kernels_match_plain(cuda, dtype, causal, sq, sk, d,
     design the rule picks (None) or a forced one: dq, dk and dv within
     max|diff| / max|ref| <= 1e-4 (f32) or 2e-2 (bf16), a second launch
     of each equal bit for bit, dk = dv = 0 past every length; the rule
-    runs sm90 at bf16 and the baseline at f32."""
+    runs sm90 up to d = 128 at bf16 and d = 64 at f32, the baseline past
+    them."""
     args = backward_inputs(dtype, 8, sq, sk, d, causal, lens_max)
     ran = backward_checked(args, design)
-    want = design or ("sm90" if dtype == torch.bfloat16 else "base")
+    want = design or rule_design(dtype, d)
     assert ran == want
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,d", [(torch.float32, 64),
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 6),
+                                     (torch.float32, 72),
                                      (torch.bfloat16, 256),
                                      (torch.bfloat16, 20)])
 def test_cuda_forced_sm90_backward_refuses_what_it_does_not_take(cuda,
                                                                  dtype, d):
-    """A forced sm90 backward on an f32 call, at d = 256 or on rows of no
-    16-byte multiple raises before any launch; the rule runs those on the
-    baseline."""
+    """A forced sm90 backward past its widest head (64 at f32, 128 at
+    bf16) or on rows of no 16-byte multiple (d = 6 at f32, 20 at bf16)
+    raises before any launch; the rule runs those on the baseline."""
     args = backward_inputs(dtype, 4, 65, 65, d, True, None)
     launches = dict(_kernels.launch_counts())
     for kern in (_kernels.flash_bwd_dq, _kernels.flash_bwd_dkv):
@@ -351,7 +366,8 @@ def test_cuda_forced_sm90_backward_refuses_what_it_does_not_take(cuda,
 def test_cuda_kernels_sum_long_walks_without_bias(cuda, d, design):
     """At 2,048 causal keys whose keys and values share a large mean (as
     deep layers' do), the kernels' sums over the walk stay unbiased, with
-    the forward at each design: o within 5e-6 of exact attention's
+    the forward at each design and the backward at the rule's (sm90 at
+    d = 64, the baseline at 128): o within 5e-6 of exact attention's
     largest entry, dq, dk and dv within 5e-5 of theirs, and dk's sum over
     keys (exactly 0) within 5e-4 of dk's largest entry.  The tensor core
     cuts every sum it writes back towards zero; summed into c over the
@@ -372,7 +388,13 @@ def test_cuda_kernels_sum_long_walks_without_bias(cuda, d, design):
         "flash_fwd[f32," + design + "]"] == before + 1
     delta = tattn._flash_delta(o, do)
     args = (q, k, v, do, lse, delta, None, True, scale)
+    counts = _kernels.launch_counts_by_design()
     got = (_kernels.flash_bwd_dq(*args), *_kernels.flash_bwd_dkv(*args))
+    after = _kernels.launch_counts_by_design()
+    bwd = rule_design(torch.float32, d)
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        key = f"{name}[f32,{bwd}]"
+        assert after[key] == counts[key] + 1
     q64, k64, v64 = (t.double().requires_grad_(True) for t in (q, k, v))
     sc = torch.einsum("bqd,bkd->bqk", q64, k64) * scale
     causal = torch.ones((s, s), dtype=torch.bool, device=cuda).tril()
