@@ -80,6 +80,11 @@ def ones(shape, generator, dtype=torch.float32):
     return torch.ones(tuple(shape), dtype=dtype, device=generator.device)
 
 
+#: the JAX package's public ``zero`` and ``one``
+zero = zeros
+one = ones
+
+
 def constant(value: float):
     """An initializer filling its shape with ``value``."""
     def init(shape, generator, dtype=torch.float32):
@@ -115,9 +120,9 @@ _INITS = {
     "uniform": uniform,
     "normal": normal,
     "gaussian": normal,
-    "zero": zeros,
+    "zero": zero,
     "zeros": zeros,
-    "one": ones,
+    "one": one,
     "ones": ones,
     "identity": identity,
     "orthogonal": orthogonal,

@@ -410,14 +410,16 @@ def _supervision_loop(args, run_dir: str, coordinator: str,
 def shell_main(argv: Optional[List[str]] = None) -> int:
     """An interactive session with the port imported (the reference's
     ``jupyter-with-zoo.sh``): a REPL (IPython when installed) with
-    ``zoo``, ``torch``, ``np`` and ``device`` bound, or with
-    ``--jupyter`` a Jupyter notebook in the same environment."""
+    ``zoo``, ``ctx`` (the session, ``zoo.init_nncontext``), ``torch``,
+    ``np`` and ``device`` bound, or with ``--jupyter`` a Jupyter notebook
+    in the same environment."""
     parser = argparse.ArgumentParser(
         prog="zoo-torch-shell",
         description="Interactive REPL/Jupyter with analytics_zoo_tpu_torch "
                     "imported (reference jupyter-with-zoo.sh)")
     parser.add_argument("--jupyter", action="store_true",
                         help="launch jupyter notebook instead of a REPL")
+    parser.add_argument("--app-name", default="zoo-tpu-torch-shell")
     parser.add_argument("--device", default=None,
                         help="the device bound as `device` (default: "
                              "cuda when available, else cpu)")
@@ -434,9 +436,12 @@ def shell_main(argv: Optional[List[str]] = None) -> int:
     import analytics_zoo_tpu_torch as zoo
     device = torch.device(args.device or (
         "cuda" if torch.cuda.is_available() else "cpu"))
-    ns = {"zoo": zoo, "torch": torch, "np": np, "device": device}
+    ctx = zoo.init_nncontext(args.app_name, device=device)
+    ns = {"zoo": zoo, "ctx": ctx, "torch": torch, "np": np,
+          "device": device}
     print(f"analytics-zoo-tpu-torch shell: torch {torch.__version__}, "
-          f"device {device}\nbound: zoo, torch, np, device")
+          f"device {device}, ctx up (mesh {ctx.axis_sizes()})\n"
+          "bound: zoo, ctx, torch, np, device")
     try:
         from IPython import start_ipython
         return start_ipython(argv=["--no-banner"], user_ns=ns) or 0

@@ -52,8 +52,12 @@ def shutdown_at_exit() -> None:
     can abort at exit (``terminate called without an active
     exception``), which a supervisor reads as a crash.  After an
     uncaught exception the barrier is skipped: the peers may never reach
-    it."""
+    it.  The handler holds the ``torch.distributed`` module it was
+    registered with: by exit a caller may have dropped torch's modules
+    from ``sys.modules`` (``mock.patch.dict``), and importing torch again
+    then crashes."""
     import sys
+    dist = _dist()
     failed = []
     previous = sys.excepthook
 
@@ -62,14 +66,14 @@ def shutdown_at_exit() -> None:
         previous(*exc)
 
     def shutdown():
-        if not _initialized():
+        if not dist.is_initialized():
             return
-        if not failed and process_count() > 1:
+        if not failed and dist.get_world_size() > 1:
             try:
-                _dist().barrier()
+                dist.barrier()
             except RuntimeError as e:  # a peer gone, or the timeout
                 _slog.warning("barrier_at_exit_failed", error=str(e))
-        _dist().destroy_process_group()
+        dist.destroy_process_group()
 
     sys.excepthook = excepthook
     atexit.register(shutdown)

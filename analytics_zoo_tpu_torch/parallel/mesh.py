@@ -69,18 +69,21 @@ def _device_type(device) -> str:
     return torch.device(device).type
 
 
-def _join_world(device_type: str, timeout_s: float) -> None:
+def _join_world(device, timeout_s: float) -> None:
     """The process group: the launcher's pod when its variables are
-    set, else a world of one on an in-process store."""
+    set, else a world of one on an in-process store, on ``device``'s
+    card (``cuda:0`` where it names none)."""
     import torch.distributed as dist
     if dist.is_initialized():
         return
+    device_type = _device_type(device)
     if dist_lib.maybe_initialize_distributed(device_type,
                                              timeout_s=timeout_s):
         return
     from datetime import timedelta
     if device_type == "cuda":
-        torch.cuda.set_device(0)
+        index = None if device is None else torch.device(device).index
+        torch.cuda.set_device(index or 0)
     dist.init_process_group("nccl" if device_type == "cuda" else "gloo",
                             store=dist.HashStore(), world_size=1, rank=0,
                             timeout=timedelta(seconds=timeout_s))
@@ -99,7 +102,7 @@ def create_mesh(axes: Optional[Dict[str, int]] = None, device=None,
     from torch.distributed.device_mesh import init_device_mesh
 
     device_type = _device_type(device)
-    _join_world(device_type, timeout_s)
+    _join_world(device, timeout_s)
     n = dist.get_world_size()
     axes = dict(axes or {"data": n})
     known = math.prod(v for v in axes.values() if v != -1)

@@ -19,9 +19,10 @@ Phases (any failure makes the exit code non-zero):
    cases, every kernel launched twice and equal bit for bit, and time
    the kernels (their device time, replayed from a CUDA graph, the median
    and range of three replays, and back-to-back calls from Python), the
-   plain version and one PyTorch library call that computes the same
-   function, timed the same two ways (a yardstick only; the port never
-   calls it);
+   plain version (one call after a warm one: 0.1-0.3 s a call at the
+   training shape, no yardstick) and one PyTorch library call that
+   computes the same function, timed the same two ways (a yardstick
+   only; the port never calls it);
 3. path: ``TransformerLM.generate`` at full width (12 layers, d_model 768,
    12 heads, vocab 32000; batch 8, prompt 512, 128 greedy tokens) from
    seeded random weights, with the kernel launch counts read around it,
@@ -110,11 +111,11 @@ Phases (any failure makes the exit code non-zero):
    encoder_output_dim 256; token ids and labels from seed 0, batch 128,
    adagrad 0.01) with the cnn, lstm and gru encoders, and the sentiment
    app's BiLSTM model (Embedding(20000, 64), Bidirectional(LSTM(32)),
-   Dense(2); seq 200, batch 64, adam): a warm-up fit and 10 one-step
+   Dense(2); seq 200, batch 64, adam): a warm-up fit and 4 one-step
    fits each, timed (ms a step, samples/s, kernels a step, peak GiB;
    losses finite and falling), then an f32 copy on the CPU with the same
    weights (dropout off on both): predictions within 1e-4 of the
-   largest entry, 3 steps, parameters within 1e-3 of the largest change
+   largest entry, 2 steps, parameters within 1e-3 of the largest change
    (the CPU's max pool taking the card's argmax picks, which rounding
    can decide differently at a near-tie; the picks that differ are
    counted);
@@ -154,7 +155,8 @@ Phases (any failure makes the exit code non-zero):
    configure (boxes in each image's pixels, a CPU copy at 2 images
    finding the same detections, the int8 variant's raw head within
    0.12); ``InferenceModel(quantize=True)``
-   on a saved ResNet-50 from 4 threads, ``reload`` staying int8; a torch
+   on a saved ResNet-50, 2 passes of 32 requests from 4 threads at
+   concurrency 1 and 4, ``reload`` staying int8; a torch
    CNN imported by ``load_torch_state_dict`` within 1e-5;
 17. layers: every class of the rest of the Keras layer set and of
    ``keras2`` (advanced activations, noise, the 3-D, atrous, transposed
@@ -182,8 +184,9 @@ Phases (any failure makes the exit code non-zero):
    supervisor (one card holds no two-rank pod): the train phase's model
    and plan with dropout 0.1 (adam 3e-4, seq 2048, batch 8, 6 batches an
    epoch, 8 steps) run in worker processes (``RESUME_WORKER``, written
-   under ``build/chip_smoke``): two uninterrupted runs (their final
-   weights and adam moments compared: the spread); an incarnation with
+   under ``build/chip_smoke``): an uninterrupted run (and, only where
+   the resumed state differs from it, a second, whose final weights and
+   adam moments against the first's are the spread); an incarnation with
    ``SeveralIteration(2)`` snapshots under ``ZOO_CKPT_SYNC``,
    ``ZOO_FAULT_CORRUPT_TAG=6`` and ``ZOO_FAULT_CRASH_STEP=7``, which must
    die by SIGKILL after step 7; a second under ``ZOO_RESUME=1``, which
@@ -302,7 +305,8 @@ admission that computed its prompt; requests/s, TTFT and ITL medians
 beside the single-process registry's.  (3) Predict of 1 and 2 rows at
 640 tokens on the binary wire, then the JSON wire: bit-equal to each
 other and to the single-process handle, 12 flash_fwd launches a
-dispatch, bytes and p50/p99 a request on each wire; a 4-row reply over
+dispatch, bytes and p50/p99 over 2 requests of each size on each wire;
+a 4-row reply over
 the 256 MiB frame bound comes back as the structured error with its
 ``attempted_bytes`` and the connection serves on.  (4) v2 (seed 1)
 deployed under traffic: no failed request, each reply equal to its
@@ -313,7 +317,8 @@ replies; seconds until it is routable again.  (6) The killed request
 stitched offline from the flight directory (attributed fraction at
 least 0.95; the CLI once), ``fleet_gap_ms`` on traced requests with the
 worker leg under ``worker_call``, traced closed-loop requests/s at least
-0.95 of untraced.  (7) The scrape holds both ranks and the
+0.95 of untraced (two ABBA rounds of 32 requests).  (7) The scrape
+holds both ranks and the
 ``zoo_fleet_*`` families.
 
 Then a stream phase: the train phase's model (seed 0, adam 3e-4) after
@@ -336,7 +341,7 @@ copy of the trained weights and a save/load bit for bit.  Each part's
 predict ms, rows/s and a converted-graph call's host ms beside its
 device ms.
 
-Last, a sanitize phase: the serve phase's model behind a coalescing
+Then a sanitize phase: the serve phase's model behind a coalescing
 handle on the card and one on two replicas of it, each warmed on its
 bucket ladder; 32 closed-loop predicts from 4 clients unguarded, then
 the same under ``zoolint.sanitize(max_compiles=0, invariants=...)``
@@ -349,15 +354,42 @@ an admission.  A new bucket in a guarded block raises
 ``.item()`` raises, and after both the sync mode is the entry one and
 no compile listener is left.  Rates with and without the guard.
 
-Every flash forward launch of the train, mixed, serve and sanitize
-phases (all at head dim 64) must run the sm90 design: the forward's
+Then a web phase: the port's web-service app
+(``apps/web-service-sample/web_service_torch.py``) with its registry
+serving the serve phase's full-width TransformerLM as ``lm`` (capacity
+8, max_len 640, prompt buckets 128/256/512) beside its classifier,
+behind a real ``ThreadingHTTPServer`` on 127.0.0.1: the first
+/generate builds nothing; the app's own ``self_test`` (8 concurrent
+clients, a hot swap mid-traffic with zero failed requests, JSON and
+Prometheus metrics, trace coverage); 16 greedy /generate requests of
+100-500 prompt tokens and 32 new ones, 8 at a time, equal to the same
+registry's in-process ``generate_ex`` token for token, 12 flash_fwd
+launches an admission (all sm90, none on the baseline), the first two
+equal to a CPU copy of the weights; requests/s, tokens/s, server-side
+TTFT and client latency (p50 and max of the 16) over HTTP against
+in-process.
+
+Last, an examples phase: ``examples/longcontext/
+transformer_lm_example_torch.py``, ``examples/textgeneration/
+char_lm_source_torch.py`` and ``examples/inference/
+serving_example_torch.py`` in process on the card at their CPU tests'
+arguments, each from its own session (``init_nncontext``): their
+contract lines and thresholds, and each of the three kernels launched,
+by design; then a session changes no bits: a TransformerLM, the same
+with MoE blocks and an MLP fitted on the card with no context and after
+``init_nncontext(device="cuda")`` are equal bit for bit.  The pod
+examples need several cards and run only in the CPU tests' pods.
+
+Every flash forward launch of the train, mixed, serve, sanitize, web
+and examples phases (all at head dim 64 or below) must run the sm90
+design: the forward's
 running counts by design (``total_by_design``, which no reset clears),
 read before and after the phase, warm-ups and checks included, fail the
 phase if one went to the baseline.  So must every backward launch at
 the dtypes ``BWD_SM90_PHASES`` names for a phase, all at head dim 64
-(``total_by_dtype_design``): bf16 in the mixed and moe phases, f32 in
-the train, graph, moe, resume, parallel, observe and stream phases (the
-resume workers' runs report theirs by design).  The kernels line's
+or below (``total_by_dtype_design``): bf16 in the mixed and moe phases,
+f32 in the train, graph, moe, resume, parallel, observe, stream and
+examples phases (the resume workers' runs report theirs by design).  The kernels line's
 launch counts by design are each phase's own run's, read after its own
 reset where its ``launches`` are.
 
@@ -367,7 +399,8 @@ phases (after the build), for a short call.
 The card's line, then ``resnet:``, ``detect:``, ``recommend:``,
 ``textclass:``, ``moe:``, ``image:``, ``layers:``, ``resume:``,
 ``parallel:``, ``control:``, ``observe:``, ``shard:``, ``fleet:``,
-``stream:``, ``interop:`` and ``sanitize:`` summary lines (each
+``stream:``, ``interop:``, ``sanitize:``, ``web:`` and ``examples:``
+summary lines (each
 with the card's name and power limit) come near the end; the line
 before the last is a JSON object with each kernel's numbers (each
 kernel's two designs as two entries, ``flash_fwd`` and
@@ -489,7 +522,7 @@ WND_TOL = 1e-5      # WideAndDeep's probability rows sum to 1
 # (apps/sentiment-analysis/sentiment.py:113-124) on random ids
 TEXTCLASS = dict(classes=20, token_length=200, sequence_length=500,
                  encoder_output_dim=256, words=5000, batch=128,
-                 timed_steps=10, check_steps=3,
+                 timed_steps=4, check_steps=2,
                  encoders=("cnn", "lstm", "gru"))
 TEXTCLASS_OPTIMIZER = {"name": "adagrad", "lr": 0.01}
 SENTIMENT = dict(vocab=20000, embed=64, units=32, seq=200, batch=64)
@@ -519,7 +552,7 @@ IMAGE = dict(images=64, classes=4, sides=(180, 500), seed=0, cpu_rows=8,
              int8_cpu_tol=1e-5, int8_top1_floor=0.5, layer_tol=1e-5,
              import_tol=1e-5,
              fc_batches=(1, 2, 32),
-             threads=4, per_request=4, requests=96, passes=3)
+             threads=4, per_request=4, requests=32, passes=2)
 # the parallel phase: the train plan under fsdp_tp with the per-layer
 # tensor rules (the port's TransformerLM leaf paths, the JAX package's);
 # the ring layer against the flash kernels (over the largest entry)
@@ -574,6 +607,9 @@ SUMMARIES = {
               "first_activation_kernel_builds", "warm_ms", "fanout_s",
               "predict_ms_p50", "recovery_s", "attributed_fraction",
               "traced_ratio", "card"),
+    "web": ("http", "in_process", "http_equal", "cpu_copy", "admitted",
+            "self_test", "card"),
+    "examples": ("launches_by_design", "card"),
 }
 KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "flash_fwd": ("analytics_zoo_tpu_torch/ops/csrc/flash_fwd_sm90.cu",
@@ -597,13 +633,14 @@ SOURCES = {"flash_fwd": FWD_SOURCES, "flash_bwd_dq": BWD_SOURCES,
            "flash_bwd_dkv": BWD_SOURCES}
 BWD_KERNELS = ("flash_bwd_dq", "flash_bwd_dkv")
 #: the phases whose every flash_fwd launch (all d = 64) must be sm90's
-SM90_PHASES = ("train", "mixed", "serve", "sanitize")
+SM90_PHASES = ("train", "mixed", "serve", "sanitize", "web", "examples")
 #: the phases whose every backward launch at these dtypes (all d = 64) must
 #: be sm90's
 BWD_SM90_PHASES = {"train": ("f32",), "graph": ("f32",),
                    "mixed": ("bf16",), "moe": ("f32", "bf16"),
                    "resume": ("f32",), "parallel": ("f32",),
-                   "observe": ("f32",), "stream": ("f32",)}
+                   "observe": ("f32",), "stream": ("f32",),
+                   "examples": ("f32",)}
 #: FLOP per valid (query, key) pair and head-dim element, per kernel:
 #: 2 per product, and 2, 3 or 4 products
 PRODUCTS = {"flash_fwd": 2, "flash_bwd_dq": 3, "flash_bwd_dkv": 4}
@@ -870,6 +907,11 @@ CASES = [
     # and 128: 32 (a half-empty swizzle atom) and 96 (1.5 atoms)
     ("d32", 8, 200, 333, 32, "bfloat16", False, 333, False),
     ("d96 cross causal", 8, 129, 300, 96, "bfloat16", True, 300, False),
+    # the examples phase's f32 training (forward, dq and dk/dv): the
+    # char LM's batch of 128 x 4 heads at 128 characters of d = 32, the
+    # transformer-LM example's 64 x 4 heads at 16 tokens of d = 16
+    ("examples char_lm", 512, 128, 128, 32, "float32", True, None, False),
+    ("examples lm", 256, 16, 16, 16, "float32", True, None, False),
 ]
 
 
@@ -1030,7 +1072,7 @@ def phase_kernels(torch, ops_attn, kernels):
             lib_fn, lib_backend = sdpa_call(q, k, v, lens, causal, scale)
             common = dict(
                 plain_ms=cuda_ms(lambda: ops_attn.flash_attention_reference(
-                    q, k, v, causal, scale, lens), 3),
+                    q, k, v, causal, scale, lens), 1),
                 library_ms=device_ms(lib_fn, 20),
                 library_eager_ms=cuda_ms(lib_fn, 20),
                 library_backend=lib_backend)
@@ -1048,7 +1090,7 @@ def phase_kernels(torch, ops_attn, kernels):
                 lib = dict(library_ms=device_ms(lib_fn, 10, side),
                            library_eager_ms=cuda_ms(lib_fn, 10),
                            library_backend=lib_backend)
-                plain = {kern: cuda_ms(lambda ref=ref: ref(*args), 2)
+                plain = {kern: cuda_ms(lambda ref=ref: ref(*args), 1)
                          for kern, ref in (
                              ("flash_bwd_dq", ops_attn.flash_bwd_dq_reference),
                              ("flash_bwd_dkv",
@@ -4464,17 +4506,15 @@ def phase_resume(torch, TransformerLM, kernels, tmp):
                                                "async", "flightrec")}
     try:
         runs = {}
-        for key in ("full_a", "full_b"):
-            rc, res, _, wall = run_worker(tmp, "full", dirs[key])
-            runs[key] = res
-            ok &= rc == 0 and res is not None
-            if not ok:
-                return False, stats
-        differ, spread, n = state_diff(dirs["full_a"], "final",
-                                       dirs["full_b"], "final")
-        stats["uninterrupted_runs_differ"] = len(differ)
-        stats["uninterrupted_spread"] = spread
-        shutil.rmtree(dirs["full_b"])
+        rc, res, _, wall = run_worker(tmp, "full", dirs["full_a"])
+        runs["full_a"] = res
+        ok &= rc == 0 and res is not None
+        if not ok:
+            return False, stats
+        # a second uninterrupted run, the spread the resumed state is held
+        # to, runs only where the resumed state differs from the first
+        stats["uninterrupted_runs_differ"] = None
+        stats["uninterrupted_spread"] = None
         env1 = {"ZOO_CKPT_SYNC": "1",
                 "ZOO_FAULT_CORRUPT_TAG": str(R["corrupt_tag"]),
                 "ZOO_FAULT_CRASH_STEP": str(R["crash_step"]),
@@ -4540,6 +4580,16 @@ def phase_resume(torch, TransformerLM, kernels, tmp):
                                     R["steps"])
         stats["resumed_vs_uninterrupted"] = dict(
             leaves=n, differ=len(differ), max_rel_err=err)
+        if differ:
+            rc, _, _, _ = run_worker(tmp, "full", dirs["full_b"])
+            if rc != 0:
+                log(f"resume: FAIL second uninterrupted run rc {rc}")
+                return False, stats
+            twice, spread, _ = state_diff(dirs["full_a"], "final",
+                                          dirs["full_b"], "final")
+            stats["uninterrupted_runs_differ"] = len(twice)
+            stats["uninterrupted_spread"] = spread
+            shutil.rmtree(dirs["full_b"])
         if differ and not (stats["uninterrupted_runs_differ"]
                            and err <= 2 * stats["uninterrupted_spread"]):
             log(f"resume: FAIL the resumed state differs from the "
@@ -6128,9 +6178,9 @@ def phase_shard(torch, TransformerLM, kernels, inference, tmp):
 # so that the first activation runs nvcc and fills the shared store
 FLEET = dict(workers=2, requests=16, threads=4, sampled=dict(
                  temperature=0.8, top_k=50, top_p=0.95),
-             predict_rows=(1, 2), predict_reps=4, oversize_rows=4,
+             predict_rows=(1, 2), predict_reps=2, oversize_rows=4,
              upgrade_served=16, kill_after=4, after_recovery=8,
-             traced_requests=48, traced_prompt=32, traced_new=8,
+             traced_requests=32, traced_prompt=32, traced_new=8,
              traced_rounds=2, attribution=0.95, traced_ratio=0.95,
              start_timeout=600, call_timeout=600, wait_s=600)
 FLEET_BUILDER = "analytics_zoo_tpu_torch.serving.fleet.builders:lm"
@@ -7418,6 +7468,405 @@ def phase_sanitize(torch, TransformerLM, kernels, inference):
     return all(checks.values()), stats
 
 
+# the web phase: the port's web-service app (apps/web-service-sample/
+# web_service_torch.py) serving FULL TransformerLM as "lm" at SERVE's plan
+# beside its classifier, behind a real ThreadingHTTPServer: the app's own
+# self-test, then greedy /generate requests over HTTP against the same
+# registry in process and (the first cpu_streams) a CPU copy
+WEB = dict(requests=16, concurrent=8, prompt=(100, 500), new=32,
+           cpu_streams=2, seed=25)
+WEB_APP = os.path.join("apps", "web-service-sample", "web_service_torch.py")
+
+
+def load_file(rel, name):
+    """The module at ``rel`` (from the repo's root), loaded by path."""
+    import importlib.util
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), rel)
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def web_requests(cfg):
+    """WEB["requests"] prompts of WEB["prompt"] tokens, from WEB's seed."""
+    import numpy as np
+    rng = np.random.default_rng(WEB["seed"])
+    return [rng.integers(0, cfg["vocab_size"], int(n)).tolist()
+            for n in rng.integers(WEB["prompt"][0], WEB["prompt"][1] + 1,
+                                  WEB["requests"])]
+
+
+def web_run(tracer, send, prompts):
+    """``send(i)`` for every prompt from WEB["concurrent"] threads: each
+    request's tokens and wall seconds as its client saw them (over HTTP
+    the round trip, its JSON and the handler thread included), the run's
+    wall seconds, and each request's server-side TTFT (ms) from its
+    trace: the span's phases through prefill, which a reply that is not
+    streamed cannot show its client."""
+    import threading
+    outs, walls, rids = [None] * len(prompts), [0.0] * len(prompts), \
+        [None] * len(prompts)
+    errors, nxt, lock = [], iter(range(len(prompts))), threading.Lock()
+
+    def worker():
+        while True:
+            with lock:
+                i = next(nxt, None)
+            if i is None:
+                return
+            t = time.perf_counter()
+            try:
+                outs[i], rids[i] = send(i)
+            except Exception as e:  # a failed request, counted
+                errors.append(f"{type(e).__name__}: {e}")
+            walls[i] = time.perf_counter() - t
+
+    threads = [threading.Thread(target=worker)
+               for _ in range(WEB["concurrent"])]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    wall = time.perf_counter() - t0
+    ttft = []
+    for rid in rids:
+        span = tracer.find(rid) if rid else None
+        total = 0.0
+        for p in (span or {}).get("phases", ()):
+            total += p["dur_ms"]
+            if p["name"] == "prefill":
+                ttft.append(total)
+                break
+    return outs, walls, wall, ttft, errors
+
+
+def phase_web(torch, TransformerLM, kernels):
+    """The port's web-service app at full width on the card: its
+    registry serves FULL TransformerLM as "lm" (SERVE's capacity, max_len
+    and prompt buckets) and its classifier as "default" behind a real
+    ThreadingHTTPServer on 127.0.0.1.  The first /generate builds
+    nothing (the engine warmed its graphs at deploy); the app's own
+    self_test (8 concurrent clients, a hot swap mid-traffic, zero failed
+    requests, JSON and Prometheus metrics, trace coverage) passes; then
+    WEB["requests"] greedy /generate requests of WEB["prompt"] tokens and
+    WEB["new"] new tokens each, WEB["concurrent"] at a time, equal the
+    same registry's in-process ``generate_ex`` token for token, launch
+    12 flash_fwd an admission (all sm90), and the first
+    WEB["cpu_streams"] equal a CPU copy of the weights (where two streams
+    part the pick must be a tie of the card's forward, as
+    ``compare_streams`` holds).  Requests/s, tokens/s, server-side TTFT
+    and client latency, p50 and max (of WEB["requests"]: a smoke window
+    of about a second, not a serving tail), over HTTP against
+    in-process."""
+    import contextlib
+    import io
+    import threading
+    from http.server import ThreadingHTTPServer
+    from urllib.request import Request, urlopen
+    import numpy as np
+    app = load_file(WEB_APP, "web_service_torch")
+    cfg = dict(FULL, seq_len=SERVE["max_len"])
+    decode = dict(decode_capacity=SERVE["capacity"],
+                  decode_max_len=SERVE["max_len"],
+                  decode_prompt_buckets=SERVE["buckets"])
+    checks, stats = {}, {}
+    t0 = time.perf_counter()
+    registry, obs = app.build_registry(device="cuda", lm_config=cfg,
+                                       lm_decode=decode)
+    server = ThreadingHTTPServer(("127.0.0.1", 0),
+                                 app.make_handler(registry, obs, "cuda"))
+    port = server.server_address[1]
+    serving = threading.Thread(target=server.serve_forever, daemon=True)
+    serving.start()
+    stats["deploy_s"] = time.perf_counter() - t0
+    tracer = obs["tracer"]
+
+    def post(path, payload):
+        req = Request(f"http://127.0.0.1:{port}{path}",
+                      data=json.dumps(payload).encode(),
+                      headers={"Content-Type": "application/json"})
+        with urlopen(req, timeout=300) as resp:
+            return json.loads(resp.read()), resp.headers["X-Request-Id"]
+
+    try:
+        # the first /generate: the engine's graphs were captured at
+        # deploy, so nothing is built
+        compiles = obs["profile"].snapshot()["compiles"]
+        first, _ = post("/generate", {"prompt": list(range(1, 6)),
+                                      "max_new_tokens": 4})
+        stats["first_generate_compiles"] = (
+            obs["profile"].snapshot()["compiles"] - compiles)
+        checks["first_generate_builds_nothing"] = (
+            stats["first_generate_compiles"] == 0
+            and len(first["tokens"][0]) == 4)
+
+        # the app's own self-test against the full-width LM
+        out = io.StringIO()
+        t = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(out):
+                app.self_test(port, device="cuda", lm_decode=decode)
+            self_test = "ok"
+        except AssertionError as e:
+            self_test = f"AssertionError: {e}"[:400]
+        stats["self_test_s"] = time.perf_counter() - t
+        stats["self_test"] = self_test
+        lines = out.getvalue().splitlines()
+        stats["self_test_lines"] = lines
+        checks["self_test"] = self_test == "ok" and any(
+            "0 failed, versions seen [1, 2] OK" in s for s in lines)
+        m = registry.metrics()
+        checks["swap_zero_errors"] = (
+            m["default"]["admission"]["errors"] == 0
+            and m["default"]["swap_count"] >= 1)
+
+        # greedy /generate over HTTP, then the same requests in process
+        prompts = web_requests(cfg)
+        n_new = WEB["new"]
+        engine = registry._entry("lm").active.model.decode_engine
+        admitted0 = engine.stats()["admitted"]
+        captures0 = engine.stats()["captures"]
+        compiles = obs["profile"].snapshot()["compiles"]
+        kernels.reset_launch_counts()
+
+        def over_http(i):
+            body, rid = post("/generate", {"prompt": prompts[i],
+                                           "max_new_tokens": n_new})
+            return body["tokens"][0], rid
+
+        http_outs, http_walls, http_wall, http_ttft, http_errors = \
+            web_run(tracer, over_http, prompts)
+        by_design = kernels.launch_counts_by_design()
+        flash = kernels.launch_counts()
+        admitted = engine.stats()["admitted"] - admitted0
+
+        def in_process(i):
+            toks, info = registry.generate_ex("lm", [prompts[i]], n_new)
+            return np.asarray(toks[0]).tolist(), info["request_id"]
+
+        ip_outs, ip_walls, ip_wall, ip_ttft, ip_errors = \
+            web_run(tracer, in_process, prompts)
+        stats["builds_after_warmup"] = (
+            obs["profile"].snapshot()["compiles"] - compiles)
+        same = [a == b for a, b in zip(http_outs, ip_outs)]
+        checks["http_zero_failed"] = not http_errors and not ip_errors
+        checks["http_equals_in_process"] = all(same) and all(
+            o is not None and len(o) == n_new for o in http_outs)
+        fwd_sm90 = sum(n for k, n in by_design.items()
+                       if k.startswith("flash_fwd[") and k.endswith(
+                           ",sm90]"))
+        fwd_base = sum(n for k, n in by_design.items()
+                       if k.startswith("flash_fwd[") and k.endswith(
+                           ",base]"))
+        checks["flash_fwd_12_an_admission_sm90"] = (
+            admitted == len(prompts)
+            and fwd_sm90 == cfg["n_layers"] * admitted and fwd_base == 0)
+        checks["no_build_no_capture"] = (
+            stats["builds_after_warmup"] == 0
+            and engine.stats()["captures"] == captures0)
+
+        # a CPU copy of the same weights: the app's LM rebuilt from its
+        # seed on the card, copied to the CPU
+        card = app.build_lm(cfg, device="cuda")
+        cpu = app.build_lm(cfg, device="cpu")
+        cpu.load_state_dict(card.state_dict())
+        order = sorted(range(len(prompts)), key=lambda i: len(prompts[i]))
+        picked = order[:WEB["cpu_streams"]]
+        cpu_outs = [cpu.generate(np.asarray([prompts[i]], np.int32),
+                                 n_new)[0, len(prompts[i]):].tolist()
+                    for i in picked]
+        equal, tied, differing = compare_streams(
+            torch, card, [prompts[i] for i in picked],
+            [http_outs[i] for i in picked], cpu_outs)
+        stats["cpu_copy"] = dict(streams=len(picked), equal=equal,
+                                 tied=tied, differing=differing,
+                                 prompt_lens=[len(prompts[i])
+                                              for i in picked])
+        checks["cpu_copy_equal"] = differing == 0 and equal + tied == len(
+            picked)
+        del card, cpu
+
+        tokens = len(prompts) * n_new
+
+        def rates(wall, ttft, walls, errors):
+            return dict(requests_per_s=len(prompts) / wall,
+                        tokens_per_s=tokens / wall, window_s=wall,
+                        server_ttft_ms_p50=percentile(ttft, 50),
+                        server_ttft_ms_max=max(ttft, default=None),
+                        latency_ms_p50=percentile(walls, 50) * 1e3,
+                        latency_ms_max=max(walls) * 1e3,
+                        errors=errors[:3])
+
+        stats.update(
+            requests=len(prompts), concurrent=WEB["concurrent"],
+            new_tokens=n_new,
+            prompt_tokens=[min(map(len, prompts)), max(map(len, prompts))],
+            http=rates(http_wall, http_ttft, http_walls, http_errors),
+            in_process=rates(ip_wall, ip_ttft, ip_walls, ip_errors),
+            http_equal=sum(same), admitted=admitted,
+            launches={"flash_fwd": flash["flash_fwd"]},
+            launches_by_design=by_design)
+    finally:
+        server.shutdown()
+        registry.shutdown()
+        obs["profile"].close()
+        del registry
+        import gc
+        gc.collect()
+        torch.cuda.empty_cache()
+    stats["checks"] = checks
+    stats["card"] = smi_card()
+    log("web:", json.dumps(stats))
+    for name, ok in checks.items():
+        if not ok:
+            log(f"web: FAIL {name}")
+    return all(checks.values()), stats
+
+
+# the examples phase: the first three examples on the port, in process on
+# the card at their CPU tests' arguments (tests/test_torch_examples_lm.py);
+# the pod examples need a ring of several cards and do not run here
+EXAMPLES = [
+    ("longcontext/transformer_lm_example_torch.py",
+     ["--epochs", "3", "--seq-len", "16"],
+     ("transformer lm example done", "next-token accuracy",
+      "beam-4 continuation:")),
+    ("textgeneration/char_lm_source_torch.py",
+     ["--epochs", "2", "--limit-seqs", "1024", "--max-new", "60"],
+     ("char lm on real source done",)),
+    ("inference/serving_example_torch.py", ["--quantize"],
+     ("served 8 concurrent requests",)),
+]
+
+
+#: the models whose fits hold a session to the same bits as none: a
+#: TransformerLM at the transformer-LM example's width (its attention
+#: reads the default mesh; head dim 16, as the "examples lm" case), the
+#: same with a SwitchMoE block a layer (the MoE reads it too), an MLP
+#: with dropout
+CONTEXT_KINDS = ("transformer_lm", "moe", "mlp")
+
+
+def context_fit_weights(kind, device):
+    """(weights, whether the Trainer took a mesh) after a short seeded
+    fit of one of CONTEXT_KINDS on ``device``."""
+    import numpy as np
+    from analytics_zoo_tpu_torch.core.module import name_scope
+    rng = np.random.default_rng(3)
+    if kind in ("transformer_lm", "moe"):
+        from analytics_zoo_tpu_torch.models import TransformerLM
+        moe = dict(moe_every=1, n_experts=4) if kind == "moe" else {}
+        model = TransformerLM(vocab_size=24, seq_len=16, n_layers=2,
+                              d_model=64, n_heads=4, device=device, seed=0,
+                              **moe)
+        model.compile({"name": "adam", "lr": 3e-3}, "class_nll")
+        x = rng.integers(0, 24, (32, 16)).astype(np.int32)
+        y = rng.integers(0, 24, (32, 16)).astype(np.int32)
+    else:
+        from analytics_zoo_tpu_torch.pipeline.api.keras import Sequential
+        from analytics_zoo_tpu_torch.pipeline.api.keras import layers as L
+        with name_scope("mlp"):
+            model = Sequential(device=device, seed=0)
+            model.add(L.Dense(16, activation="relu", input_shape=(8,)))
+            model.add(L.Dropout(0.2))
+            model.add(L.Dense(4, activation="softmax"))
+        model.compile({"name": "sgd", "lr": 0.1, "momentum": 0.9},
+                      "sparse_categorical_crossentropy")
+        x = rng.normal(size=(64, 8)).astype(np.float32)
+        y = rng.integers(0, 4, 64).astype(np.int32)
+    model.fit(x, y, batch_size=16, nb_epoch=2)
+    return ([p.detach().clone() for p in model.parameters()],
+            model.trainer.mesh is not None)
+
+
+def context_same_bits(torch, device):
+    """Each of CONTEXT_KINDS fitted with no context, then again after
+    ``init_nncontext(device=device)``: {kind: the weights equal bit for
+    bit and neither fit took a mesh}, and the context's device.  Leaves
+    the context made."""
+    import analytics_zoo_tpu_torch as zoo
+    zoo.reset_nncontext()
+    plain = {k: context_fit_weights(k, device) for k in CONTEXT_KINDS}
+    ctx = zoo.init_nncontext("context bits", device=device)
+    under = {k: context_fit_weights(k, device) for k in CONTEXT_KINDS}
+    same = {k: (len(plain[k][0]) == len(under[k][0])
+                and all(map(torch.equal, plain[k][0], under[k][0]))
+                and not plain[k][1] and not under[k][1])
+            for k in CONTEXT_KINDS}
+    return same, ctx.device
+
+
+def phase_examples(torch, kernels):
+    """EXAMPLES in process on the card (``main([..., "--device",
+    "cuda"])``), each from its own session: their contract lines (the
+    transformer-LM example's next-token accuracy above 0.5, eight times
+    its unigram floor; the char LM below the uniform bits/char by 1),
+    and each of the three kernels launched on their run, by design.
+    Then a session changes no bits: CONTEXT_KINDS fitted on the card with
+    no context and after ``init_nncontext(device="cuda")`` are equal bit
+    for bit, and ``device="cuda:0"`` is the session's card."""
+    import contextlib
+    import io
+    import re
+    import analytics_zoo_tpu_torch as zoo
+    log("examples: the pod examples (ring_attention_example_torch, "
+        "spmd_blocks_torch) need several cards: a ring of one card shows "
+        "nothing, so they run only in the CPU tests' 4-rank gloo pods")
+    checks, stats = {}, {}
+    had_group = torch.distributed.is_initialized()
+    kernels.reset_launch_counts()
+    try:
+        for rel, args, lines in EXAMPLES:
+            name = os.path.basename(rel)[:-3]
+            mod = load_file(os.path.join("examples", rel), name)
+            out = io.StringIO()
+            zoo.reset_nncontext()
+            t = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                mod.main([*args, "--device", "cuda"])
+            text = out.getvalue()
+            ok = all(s in text for s in lines)
+            if name == "transformer_lm_example_torch":
+                m = re.search(r"next-token accuracy: (\d+\.\d+)", text)
+                ok &= bool(m) and float(m.group(1)) > 0.5
+            if name == "char_lm_source_torch":
+                m = re.search(r"bits/char (\d+\.\d+) \(uniform (\d+\.\d+)\)",
+                              text)
+                ok &= bool(m) and float(m.group(1)) < float(m.group(2)) - 1
+            stats[name] = dict(s=time.perf_counter() - t,
+                               lines=[s for s in text.splitlines()
+                                      if "accuracy" in s or "bits/char" in s]
+                               + text.splitlines()[-2:])
+            checks[name] = ok
+        by_design = kernels.launch_counts_by_design()
+        counts = kernels.launch_counts()
+        t = time.perf_counter()
+        same, device = context_same_bits(torch, "cuda")
+        zoo.reset_nncontext()
+        explicit = zoo.init_nncontext("card 0", device="cuda:0").device
+        stats["context"] = dict(s=time.perf_counter() - t, same_bits=same,
+                                device=str(device), explicit=str(explicit))
+        for kind, ok in same.items():
+            checks[f"context_same_bits_{kind}"] = ok
+        checks["context_device"] = (
+            device == explicit == torch.device("cuda", 0))
+    finally:
+        zoo.reset_nncontext()
+        if not had_group and torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+    for name in KERNELS:
+        checks[f"{name}_launched"] = counts[name] > 0
+    stats.update(launches=counts, launches_by_design=by_design,
+                 checks=checks, card=smi_card())
+    log("examples:", json.dumps(stats))
+    for name, ok in checks.items():
+        if not ok:
+            log(f"examples: FAIL {name}")
+    return all(checks.values()), stats
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -7526,6 +7975,8 @@ def main() -> int:
                                           tmp)),
         ("sanitize", lambda: phase_sanitize(torch, TransformerLM, kernels,
                                             inference)),
+        ("web", lambda: phase_web(torch, TransformerLM, kernels)),
+        ("examples", lambda: phase_examples(torch, kernels)),
     ]
     if sys.argv[1:2] == ["--phases"]:  # e.g. --phases kernels,resume
         wanted = sys.argv[2].split(",")
@@ -7598,6 +8049,8 @@ def main() -> int:
         "launches") or {}
     path_launches["sanitize"] = (results.get("sanitize") or {}).get(
         "launches") or {}
+    for p in ("web", "examples"):
+        path_launches[p] = (results.get(p) or {}).get("launches") or {}
 
     def timed_row(name, case, dtype, sq=None, design="sm90"):
         row = next((r for r in results.get("kernels") or []
@@ -7691,7 +8144,9 @@ def main() -> int:
                          name, 0),
                      "stream": path_launches["stream"].get(name, 0),
                      "interop": path_launches["interop"].get(name, 0),
-                     "sanitize": path_launches["sanitize"].get(name, 0)}}
+                     "sanitize": path_launches["sanitize"].get(name, 0),
+                     "web": path_launches["web"].get(name, 0),
+                     "examples": path_launches["examples"].get(name, 0)}}
         entry.update(timed_row(name, "mixed", "bfloat16"))
         # the f32 main path runs every kernel at sm90
         entry["f32"] = timed_row(name, "train", "float32")

@@ -37,7 +37,9 @@ step and giving the in-memory fit's bits, an ONNX model and a GraphDef
 guard (``set_sync_debug_mode("error")``) catching an injected ``.item()``
 and ``.cpu()`` and restoring the mode, passing the explicit fetch, a
 warmed replicated predict with the bits of a blocking fetch, and a
-warmed decode engine's admissions and steps. This file
+warmed decode engine's admissions and steps; a session
+(``init_nncontext``) leaving a fit's bits as they are without one, on
+the card it names. This file
 imports no jax (nor does anything it imports), so that it runs on a
 GPU host without the JAX package: ``python -m pytest --noconftest
 tests/test_torch_cuda.py -m cuda``. Without a card every test skips
@@ -50,7 +52,8 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (nhwc_graph_def, recorded, resnet_stage1_onnx,
+from chip_smoke import (CONTEXT_KINDS, context_fit_weights,
+                        nhwc_graph_def, recorded, resnet_stage1_onnx,
                         stream_factory, unmatched_detections, write_png)
 from analytics_zoo_tpu_torch.models import (ImageClassifier, NeuralCF,
                                             ObjectDetector, TransformerLM,
@@ -2064,3 +2067,51 @@ def test_cuda_warmed_decode_engine_passes_the_guard(cuda):
         assert _kernels.launch_counts()["flash_fwd"] >= 2 * computed > 0
     finally:
         eng.close()
+
+
+@pytest.fixture
+def no_context():
+    """No session before or after the test; a process group its session
+    joined (an NCCL world of one) is left again."""
+    import analytics_zoo_tpu_torch as zoo
+    had_group = torch.distributed.is_initialized()
+    zoo.reset_nncontext()
+    yield zoo
+    zoo.reset_nncontext()
+    if not had_group and torch.distributed.is_initialized():
+        torch.distributed.destroy_process_group()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", CONTEXT_KINDS)
+def test_cuda_fit_same_bits_with_and_without_context(cuda, no_context,
+                                                     kind):
+    """A session on the card (an NCCL world of one, its mesh the
+    default) changes no bit of a fit through the kernels."""
+    plain, plain_mesh = context_fit_weights(kind, "cuda")
+    ctx = no_context.init_nncontext("bits", device="cuda")
+    assert ctx.device == torch.device("cuda", 0)
+    under, under_mesh = context_fit_weights(kind, "cuda")
+    assert not plain_mesh and not under_mesh
+    assert len(plain) == len(under)
+    for a, b in zip(plain, under):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_context_keeps_the_explicit_card(cuda, no_context):
+    """``device="cuda:<i>"`` is the card a world of one joins on, and a
+    card other than the joined group's raises."""
+    last = torch.cuda.device_count() - 1
+    had_group = torch.distributed.is_initialized()
+    if not had_group:
+        ctx = no_context.init_nncontext(device=f"cuda:{last}")
+        assert ctx.device == torch.device("cuda", last)
+        assert torch.cuda.current_device() == last
+        no_context.reset_nncontext()
+    joined = torch.cuda.current_device()
+    with pytest.raises(ValueError, match="not this rank's card"):
+        no_context.init_nncontext(device=f"cuda:{joined + 1}")
+    assert no_context.init_nncontext(
+        device=f"cuda:{joined}").device == torch.device("cuda", joined)
+    torch.cuda.set_device(0)

@@ -170,15 +170,20 @@ def _imports(path: Path):
 
 
 def test_port_imports_no_jax():
-    """No module of the port, nor chip_smoke.py or the port's profile
-    scripts, imports jax or the JAX package (matched by exact top-level
-    name, not by prefix)."""
+    """No module of the port, nor chip_smoke.py, the port's profile
+    scripts, the web-service app or the examples on the port
+    (``*_torch.py``), imports jax or the JAX package (matched by exact
+    top-level name, not by prefix)."""
     assert _forbidden("analytics_zoo_tpu.ops.attention")
     assert _forbidden("jax.numpy")
     assert not _forbidden("analytics_zoo_tpu_torch.ops")
+    users = sorted((REPO / "apps").rglob("*_torch.py"))
+    users += sorted((REPO / "examples").rglob("*_torch.py"))
+    assert len(users) == 17  # the web-service app and 16 examples
     files = sorted((REPO / "analytics_zoo_tpu_torch").rglob("*.py"))
     files += [REPO / "chip_smoke.py",
-              *sorted((REPO / "scripts").glob("profile_torch_*.py"))]
+              *sorted((REPO / "scripts").glob("profile_torch_*.py")),
+              *users]
     assert len(files) > 15
     bad = [(str(f.relative_to(REPO)), m) for f in files
            for m in _imports(f) if _forbidden(m)]
