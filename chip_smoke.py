@@ -113,9 +113,10 @@ Phases (any failure makes the exit code non-zero):
    app's BiLSTM model (Embedding(20000, 64), Bidirectional(LSTM(32)),
    Dense(2); seq 200, batch 64, adam): a warm-up fit and 4 one-step
    fits each, timed (ms a step, samples/s, kernels a step, peak GiB;
-   losses finite and falling), then an f32 copy on the CPU with the same
-   weights (dropout off on both): predictions within 1e-4 of the
-   largest entry, 2 steps, parameters within 1e-3 of the largest change
+   losses finite and falling), then the card and an f32 copy on the CPU
+   with the same weights (dropout off on both) on the batch's first 32
+   rows: predictions within 1e-4 of the largest entry, 2 steps,
+   parameters within 1e-3 of the largest change
    (the CPU's max pool taking the card's argmax picks, which rounding
    can decide differently at a near-tie; the picks that differ are
    counted);
@@ -380,16 +381,30 @@ with MoE blocks and an MLP fitted on the card with no context and after
 ``init_nncontext(device="cuda")`` are equal bit for bit.  The pod
 examples need several cards and run only in the CPU tests' pods.
 
-Every flash forward launch of the train, mixed, serve, sanitize, web
-and examples phases (all at head dim 64 or below) must run the sm90
+Then an apps phase: the long-context tutorial page
+(``docs/tutorials_torch/long-context.md``, its ```python blocks as one
+script, as the CPU tests extract it) in process on the card as a world
+of one: it fits a TransformerLM (vocab 16, seq 64, 2 layers, d_model 64,
+4 heads, f32) through the three flash kernels, evaluates it, generates
+greedy, top-k and beam-4 continuations, then evaluates and fits the
+same weights under ring attention over a ``{"data": 1, "seq": 1}``
+mesh, and its own assertions must hold; then the object-detection app
+(SSD-MobileNet-300 over two 300x300 frames, both annotated PNGs
+written) and the anomaly-detection app (the LSTM forecaster, one
+epoch), each from its own session: their contract lines, and every
+flash launch of the phase on the sm90 design.
+
+Every flash forward launch of the train, mixed, serve, sanitize, web,
+examples and apps phases (all at head dim 64 or below) must run the sm90
 design: the forward's
 running counts by design (``total_by_design``, which no reset clears),
 read before and after the phase, warm-ups and checks included, fail the
 phase if one went to the baseline.  So must every backward launch at
 the dtypes ``BWD_SM90_PHASES`` names for a phase, all at head dim 64
 or below (``total_by_dtype_design``): bf16 in the mixed and moe phases,
-f32 in the train, graph, moe, resume, parallel, observe, stream and
-examples phases (the resume workers' runs report theirs by design).  The kernels line's
+f32 in the train, graph, moe, resume, parallel, observe, stream,
+examples and apps phases (the resume workers' runs report theirs by
+design).  The kernels line's
 launch counts by design are each phase's own run's, read after its own
 reset where its ``launches`` are.
 
@@ -399,8 +414,8 @@ phases (after the build), for a short call.
 The card's line, then ``resnet:``, ``detect:``, ``recommend:``,
 ``textclass:``, ``moe:``, ``image:``, ``layers:``, ``resume:``,
 ``parallel:``, ``control:``, ``observe:``, ``shard:``, ``fleet:``,
-``stream:``, ``interop:``, ``sanitize:``, ``web:`` and ``examples:``
-summary lines (each
+``stream:``, ``interop:``, ``sanitize:``, ``web:``, ``examples:`` and
+``apps:`` summary lines (each
 with the card's name and power limit) come near the end; the line
 before the last is a JSON object with each kernel's numbers (each
 kernel's two designs as two entries, ``flash_fwd`` and
@@ -522,7 +537,7 @@ WND_TOL = 1e-5      # WideAndDeep's probability rows sum to 1
 # (apps/sentiment-analysis/sentiment.py:113-124) on random ids
 TEXTCLASS = dict(classes=20, token_length=200, sequence_length=500,
                  encoder_output_dim=256, words=5000, batch=128,
-                 timed_steps=4, check_steps=2,
+                 timed_steps=4, check_steps=2, check_rows=32,
                  encoders=("cnn", "lstm", "gru"))
 TEXTCLASS_OPTIMIZER = {"name": "adagrad", "lr": 0.01}
 SENTIMENT = dict(vocab=20000, embed=64, units=32, seq=200, batch=64)
@@ -610,6 +625,7 @@ SUMMARIES = {
     "web": ("http", "in_process", "http_equal", "cpu_copy", "admitted",
             "self_test", "card"),
     "examples": ("launches_by_design", "card"),
+    "apps": ("seconds", "launches_by_design", "card"),
 }
 KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "flash_fwd": ("analytics_zoo_tpu_torch/ops/csrc/flash_fwd_sm90.cu",
@@ -632,15 +648,16 @@ BWD_SOURCES = {"sm90": KERNELS["flash_bwd_dq"][0],
 SOURCES = {"flash_fwd": FWD_SOURCES, "flash_bwd_dq": BWD_SOURCES,
            "flash_bwd_dkv": BWD_SOURCES}
 BWD_KERNELS = ("flash_bwd_dq", "flash_bwd_dkv")
-#: the phases whose every flash_fwd launch (all d = 64) must be sm90's
-SM90_PHASES = ("train", "mixed", "serve", "sanitize", "web", "examples")
-#: the phases whose every backward launch at these dtypes (all d = 64) must
+#: the phases whose every flash_fwd launch (all d <= 64) must be sm90's
+SM90_PHASES = ("train", "mixed", "serve", "sanitize", "web", "examples",
+               "apps")
+#: the phases whose every backward launch at these dtypes (all d <= 64) must
 #: be sm90's
 BWD_SM90_PHASES = {"train": ("f32",), "graph": ("f32",),
                    "mixed": ("bf16",), "moe": ("f32", "bf16"),
                    "resume": ("f32",), "parallel": ("f32",),
                    "observe": ("f32",), "stream": ("f32",),
-                   "examples": ("f32",)}
+                   "examples": ("f32",), "apps": ("f32",)}
 #: FLOP per valid (query, key) pair and head-dim element, per kernel:
 #: 2 per product, and 2, 3 or 4 products
 PRODUCTS = {"flash_fwd": 2, "flash_bwd_dq": 3, "flash_bwd_dkv": 4}
@@ -660,7 +677,7 @@ def all_sm90(kernels, name, before):
     log(f"{name}: flash_fwd launches by design over the whole phase "
         f"{json.dumps(seen)}")
     if seen["base"] or not seen["sm90"]:
-        log(f"{name}: FAIL {seen['base']} d = 64 flash_fwd launches went "
+        log(f"{name}: FAIL {seen['base']} d <= 64 flash_fwd launches went "
             f"to the baseline, {seen['sm90']} to sm90")
         return False
     return True
@@ -912,6 +929,11 @@ CASES = [
     # transformer-LM example's 64 x 4 heads at 16 tokens of d = 16
     ("examples char_lm", 512, 128, 128, 32, "float32", True, None, False),
     ("examples lm", 256, 16, 16, 16, "float32", True, None, False),
+    # the apps phase's long-context page: its fit and evaluate (64 x 4
+    # heads at 64 tokens of d = 16) and its generate prefills (4 prompts
+    # of 8 tokens, 4 heads)
+    ("apps long-context", 256, 64, 64, 16, "float32", True, None, False),
+    ("apps prefill", 16, 8, 8, 16, "float32", True, None, False),
 ]
 
 
@@ -2171,11 +2193,14 @@ def phase_registry(torch, models, kernels):
 
 def device_launches(torch, fn):
     """Kernels the card runs for ``fn()`` (torch.profiler's CUDA events,
-    copies and fills left out)."""
+    copies and fills left out).  Only the CUDA activity is traced: the
+    kernels counted are the same with the CPU's ops traced beside them,
+    and the trace of a recurrent step (~24,000 launches) takes less than
+    half the time to gather and aggregate (5-6 s against 11-14 on the
+    H100)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     return sum(e.count for e in prof.key_averages()
@@ -2557,8 +2582,9 @@ def text_vs_cpu(torch, models, build, weights, state, x, y, optimizer):
     WordEmbedding table), dropout off on both (their random streams
     differ): predict on ``x`` (the largest difference over the CPU's
     largest entry), then TEXTCLASS["check_steps"] epochs of one step on
-    (x, y): the losses of both, and the largest parameter difference
-    over the largest change the CPU's steps made.  A GlobalMaxPooling1D
+    (x, y) (the timed batch's first TEXTCLASS["check_rows"] rows): the
+    losses of both, and the largest parameter difference over the
+    largest change the CPU's steps made.  A GlobalMaxPooling1D
     sends each window's gradient to its argmax, and where two positions
     tie within rounding the devices can pick differently, moving a whole
     window's term; so the CPU copy's pools take the card's picks (the
@@ -2639,8 +2665,9 @@ def phase_textclass(torch, models, keras, kernels):
                 torch, model, bx, by, T["timed_steps"])
             del model
             torch.cuda.empty_cache()
-            check = text_vs_cpu(torch, models, build, weights, state, bx,
-                                by, optimizer)
+            rows = T["check_rows"]
+            check = text_vs_cpu(torch, models, build, weights, state,
+                                bx[:rows], by[:rows], optimizer)
             step = statistics.median(step_s)
             stats[name] = dict(
                 step_ms=step * 1e3, step_ms_all=[t * 1e3 for t in step_s],
@@ -7867,6 +7894,108 @@ def phase_examples(torch, kernels):
     return all(checks.values()), stats
 
 
+# the apps phase: the long-context tutorial page (its fit, evaluate and
+# every generate prefill on the flash kernels, at head dim 16, f32) and two
+# apps, in process on the card at their CPU tests' arguments
+# (tests/test_torch_tutorials.py, tests/test_torch_apps_*.py), each from
+# its own session, with their contract lines (tests/test_examples.py,
+# tests/test_tutorials.py)
+APPS_PAGE = os.path.join("docs", "tutorials_torch", "long-context.md")
+APPS = [
+    (os.path.join("apps", "object-detection", "object_detection_torch.py"),
+     ["--frames", "2"], ("object detection done: 2 frames annotated",)),
+    (os.path.join("apps", "anomaly-detection", "anomaly_detection_torch.py"),
+     ["--epochs", "1"], ("synthetic fallback", "true anomalies hit=")),
+]
+APPS_PAGE_LINES = ("continuation matches the true cycle",
+                   "sequence-parallel attention")
+
+
+def page_script(rel):
+    """Every ```python block of the page at ``rel`` (from the repo's
+    root), in order, as one script (tests/test_tutorials.py's
+    extraction)."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), rel)
+    with open(path) as f:
+        blocks = re.findall(r"^```python$(.*?)^```$", f.read(),
+                            re.M | re.S)
+    return "\n\n".join(b.strip("\n") for b in blocks)
+
+
+def run_program(kernels, run):
+    """``run()`` in a session of its own, its output captured: (the
+    text, seconds, flash launches by kernel and by design)."""
+    import contextlib
+    import io
+    import analytics_zoo_tpu_torch as zoo
+    out = io.StringIO()
+    zoo.reset_nncontext()
+    kernels.reset_launch_counts()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        run()
+    return (out.getvalue(), time.perf_counter() - t,
+            kernels.launch_counts(), kernels.launch_counts_by_design())
+
+
+def phase_apps(torch, kernels, tmp):
+    """The long-context page's script in process on the card (a world of
+    one; its own assertions raise), then APPS (``main([..., "--device",
+    "cuda"])``): each program's contract lines, both annotated PNGs
+    written, and each of the three kernels launched by the page."""
+    import analytics_zoo_tpu_torch as zoo
+    checks, stats = {}, {}
+    had_group = torch.distributed.is_initialized()
+    t0 = time.perf_counter()
+    argv = sys.argv
+    try:
+        script = compile(page_script(APPS_PAGE), APPS_PAGE, "exec")
+        sys.argv = [APPS_PAGE, "--device", "cuda"]
+        try:
+            text, s, counts, by_design = run_program(
+                kernels, lambda: exec(script, {"__name__": "__main__"}))
+        finally:
+            sys.argv = argv
+        checks["long_context"] = all(l in text for l in APPS_PAGE_LINES)
+        stats["long_context"] = dict(
+            s=s, launches=counts, launches_by_design=by_design,
+            lines=[l for l in text.splitlines() if "accuracy" in l
+                   or "matches" in l or "mesh" in l])
+        launches, designs = dict(counts), dict(by_design)
+        for rel, args, lines in APPS:
+            name = os.path.basename(rel)[:-3]
+            mod = load_file(rel, name)
+            if name == "object_detection_torch":
+                out_dir = os.path.join(tmp, "apps_detection")
+                args = [*args, "--out-dir", out_dir]
+            text, s, counts, by_design = run_program(
+                kernels, lambda: mod.main([*args, "--device", "cuda"]))
+            ok = all(l in text for l in lines)
+            if name == "object_detection_torch":
+                pngs = sorted(os.listdir(out_dir))
+                ok &= pngs == ["frame0.png", "frame1.png"]
+            checks[name] = ok
+            stats[name] = dict(s=s, launches=counts,
+                               lines=text.splitlines()[-2:])
+            for k, n in counts.items():
+                launches[k] = launches.get(k, 0) + n
+            for k, n in by_design.items():
+                designs[k] = designs.get(k, 0) + n
+    finally:
+        zoo.reset_nncontext()
+        if not had_group and torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+    for name in KERNELS:
+        checks[f"{name}_launched"] = launches.get(name, 0) > 0
+    stats.update(seconds=time.perf_counter() - t0, launches=launches,
+                 launches_by_design=designs, checks=checks, card=smi_card())
+    log("apps:", json.dumps(stats))
+    for name, ok in checks.items():
+        if not ok:
+            log(f"apps: FAIL {name}")
+    return all(checks.values()), stats
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -7977,6 +8106,7 @@ def main() -> int:
                                             inference)),
         ("web", lambda: phase_web(torch, TransformerLM, kernels)),
         ("examples", lambda: phase_examples(torch, kernels)),
+        ("apps", lambda: phase_apps(torch, kernels, tmp)),
     ]
     if sys.argv[1:2] == ["--phases"]:  # e.g. --phases kernels,resume
         wanted = sys.argv[2].split(",")
@@ -8049,7 +8179,7 @@ def main() -> int:
         "launches") or {}
     path_launches["sanitize"] = (results.get("sanitize") or {}).get(
         "launches") or {}
-    for p in ("web", "examples"):
+    for p in ("web", "examples", "apps"):
         path_launches[p] = (results.get(p) or {}).get("launches") or {}
 
     def timed_row(name, case, dtype, sq=None, design="sm90"):
@@ -8146,7 +8276,8 @@ def main() -> int:
                      "interop": path_launches["interop"].get(name, 0),
                      "sanitize": path_launches["sanitize"].get(name, 0),
                      "web": path_launches["web"].get(name, 0),
-                     "examples": path_launches["examples"].get(name, 0)}}
+                     "examples": path_launches["examples"].get(name, 0),
+                     "apps": path_launches["apps"].get(name, 0)}}
         entry.update(timed_row(name, "mixed", "bfloat16"))
         # the f32 main path runs every kernel at sm90
         entry["f32"] = timed_row(name, "train", "float32")

@@ -39,7 +39,9 @@ and ``.cpu()`` and restoring the mode, passing the explicit fetch, a
 warmed replicated predict with the bits of a blocking fetch, and a
 warmed decode engine's admissions and steps; a session
 (``init_nncontext``) leaving a fit's bits as they are without one, on
-the card it names. This file
+the card it names; the long-context tutorial page training, generating
+and ring-sharding its TransformerLM with every flash launch on the sm90
+kernels. This file
 imports no jax (nor does anything it imports), so that it runs on a
 GPU host without the JAX package: ``python -m pytest --noconftest
 tests/test_torch_cuda.py -m cuda``. Without a card every test skips
@@ -52,9 +54,10 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (CONTEXT_KINDS, context_fit_weights,
-                        nhwc_graph_def, recorded, resnet_stage1_onnx,
-                        stream_factory, unmatched_detections, write_png)
+from chip_smoke import (APPS_PAGE, APPS_PAGE_LINES, CONTEXT_KINDS,
+                        context_fit_weights, nhwc_graph_def, page_script,
+                        recorded, resnet_stage1_onnx, stream_factory,
+                        unmatched_detections, write_png)
 from analytics_zoo_tpu_torch.models import (ImageClassifier, NeuralCF,
                                             ObjectDetector, TransformerLM,
                                             decode_output, from_jax_params,
@@ -2115,3 +2118,22 @@ def test_cuda_context_keeps_the_explicit_card(cuda, no_context):
     assert no_context.init_nncontext(
         device=f"cuda:{joined}").device == torch.device("cuda", joined)
     torch.cuda.set_device(0)
+
+
+@pytest.mark.cuda
+def test_cuda_long_context_tutorial_on_the_sm90_kernels(cuda, no_context,
+                                                        monkeypatch, capsys):
+    """The long-context page's script on the card (a world of one): its
+    own assertions hold, and every flash launch of its fit, evaluate and
+    generate prefills (f32, head dim 16) runs the sm90 design, none the
+    baseline."""
+    monkeypatch.setattr("sys.argv", [APPS_PAGE, "--device", "cuda"])
+    _kernels.reset_launch_counts()
+    exec(compile(page_script(APPS_PAGE), APPS_PAGE, "exec"),
+         {"__name__": "__main__"})
+    out = capsys.readouterr().out
+    assert all(line in out for line in APPS_PAGE_LINES), out
+    counts = _kernels.launch_counts_by_design()
+    assert [k for k, n in counts.items() if n and k.endswith(",base]")] == []
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        assert counts[f"{name}[f32,sm90]"] > 0, counts

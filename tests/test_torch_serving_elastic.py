@@ -677,6 +677,11 @@ def test_hedge_loser_keeps_slot_owned_until_fetch_returns():
     coal = im._coalescer
     x = np.ones((1, 4), np.float32)
     _seed_window(im, x)
+    # a hedge the seeding fired (at p50) whose loser was still fetching
+    # when its caller returned is retired by a later dispatch: retire
+    # every one first, so the one loser observed below is this predict's
+    assert _wait_until(lambda: (im.predict(x) is not None
+                                and not coal._pending_losers))
     release = threading.Event()
     observed = {}
     orig = coal._fetch_slot

@@ -161,8 +161,8 @@ def _forbidden(module: str) -> bool:
     return top in ("jax", "jaxlib", "analytics_zoo_tpu")
 
 
-def _imports(path: Path):
-    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+def _imports(source: str, name: str):
+    for node in ast.walk(ast.parse(source, name)):
         if isinstance(node, ast.Import):
             yield from (a.name for a in node.names)
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
@@ -171,22 +171,30 @@ def _imports(path: Path):
 
 def test_port_imports_no_jax():
     """No module of the port, nor chip_smoke.py, the port's profile
-    scripts, the web-service app or the examples on the port
-    (``*_torch.py``), imports jax or the JAX package (matched by exact
-    top-level name, not by prefix)."""
+    scripts, the apps and the examples on the port (``*_torch.py``) or
+    the scripts of the port's tutorial pages (``docs/tutorials_torch``),
+    imports jax or the JAX package (matched by exact top-level name, not
+    by prefix)."""
+    from chip_smoke import page_script
     assert _forbidden("analytics_zoo_tpu.ops.attention")
     assert _forbidden("jax.numpy")
     assert not _forbidden("analytics_zoo_tpu_torch.ops")
     users = sorted((REPO / "apps").rglob("*_torch.py"))
     users += sorted((REPO / "examples").rglob("*_torch.py"))
-    assert len(users) == 17  # the web-service app and 16 examples
+    # the web-service app, the 12 other apps and the 16 examples
+    assert len(users) == 29
     files = sorted((REPO / "analytics_zoo_tpu_torch").rglob("*.py"))
     files += [REPO / "chip_smoke.py",
               *sorted((REPO / "scripts").glob("profile_torch_*.py")),
               *users]
     assert len(files) > 15
-    bad = [(str(f.relative_to(REPO)), m) for f in files
-           for m in _imports(f) if _forbidden(m)]
+    sources = [(str(f.relative_to(REPO)), f.read_text()) for f in files]
+    pages = sorted((REPO / "docs" / "tutorials_torch").glob("*.md"))
+    assert len(pages) == 3
+    sources += [(str(p.relative_to(REPO)),
+                 page_script(str(p.relative_to(REPO)))) for p in pages]
+    bad = [(name, m) for name, source in sources
+           for m in _imports(source, name) if _forbidden(m)]
     assert bad == []
 
 

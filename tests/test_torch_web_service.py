@@ -312,11 +312,18 @@ def test_torch_predict_matches_jax_classifier(mod, jax_app):
     """/predict on the port's classifier carrying the JAX app's
     classifier's weights (``models/jax_params``) within 1e-6 of the JAX
     net's own predict."""
+    from analytics_zoo_tpu.core.module import name_scope as j_name_scope
+    from analytics_zoo_tpu_torch.core.module import name_scope
     from analytics_zoo_tpu_torch.models import from_jax_params
     from analytics_zoo_tpu_torch.serving import ModelRegistry
-    jnet = jax_app.build_net(hidden=24, seed=5)
+    # both built in one name scope, so the layers' names match whatever
+    # models this process built before (the JAX tree is keyed and sorted
+    # by name: "dense_10" before "dense_9")
+    with j_name_scope("web"):
+        jnet = jax_app.build_net(hidden=24, seed=5)
     jnet.trainer.ensure_initialized()
-    tnet = mod.build_net(hidden=24, seed=0, device="cpu")
+    with name_scope("web"):
+        tnet = mod.build_net(hidden=24, seed=0, device="cpu")
     from_jax_params(tnet, jnet.get_weights())
     x = np.random.default_rng(0).normal(
         size=(13, mod.N_FEATURES)).astype(np.float32)
